@@ -13,9 +13,12 @@ sign_flip/rotating through the port's engine, round_backend="auto"):
   ``ROUNDS`` rounds);
 * a ``torch.profiler`` trace of ``ROUNDS`` rounds run as the engine runs
   them: device busy time, idle share, device kernels per round, and the
-  device time of the round kernel's five CUDA kernels.
+  device time of the round kernel's five CUDA kernels;
+* a ``torch.profiler`` trace of ``ROUNDS`` failure-free rounds through
+  ``linreg_round_kernel`` (theta <- theta - eta aggregate): the same
+  shares, and the device time of each of its CUDA kernels by name.
 
-Prints one JSON line per config.  Needs a CUDA card.
+Prints two JSON lines per config.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -33,6 +36,56 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 ROUNDS = 10
 ROUND_KERNELS = ("means_kernel", "trim_kernel", "init_kernel",
                  "step_head_kernel", "step_kernel")
+LINREG_KERNELS = ("residual_kernel", "grad_kernel") + ROUND_KERNELS
+
+
+def device_events(prof):
+    """(name, device ms) of every CUDA event in a profile."""
+    import torch
+    return [(ev.name, ev.time_range.elapsed_us() / 1e3)
+            for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profile_linreg_path(cname, cfg, dev, smi):
+    """Profile ROUNDS failure-free rounds through the linreg kernel."""
+    import torch
+    from repro_torch.sim import engine
+    from repro_torch.sim.scenarios import Scenario
+    sc = Scenario(name=f"linreg-{cname}/gmom/none/static", attack="none",
+                  schedule="static", **dict(cfg, rounds=ROUNDS))
+    step, ds = engine.failure_free_step(sc, device=dev)
+    theta = torch.zeros((sc.dim,), dtype=torch.float32, device=dev)
+
+    def rounds(theta, n):
+        for _ in range(n):
+            theta = step(theta)
+        return theta
+
+    theta = rounds(theta, 2)                                   # warm-up
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        rounds(theta, ROUNDS)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    busy_ms = sum(ms for _, ms in events)
+    by_kernel = {k: sum(ms for n, ms in events if k in n) / ROUNDS
+                 for k in LINREG_KERNELS}
+    print(json.dumps({
+        "path": "linreg_round_kernel", "config": cname, "dim": sc.dim,
+        "num_workers": sc.num_workers, "num_batches": sc.num_batches,
+        "rounds": ROUNDS, "card": smi,
+        "profiled_wall_ms_per_round": wall_ms / ROUNDS,
+        "device_busy_ms_per_round": busy_ms / ROUNDS,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "device_kernels_per_round": len(events) / ROUNDS,
+        "device_ms_per_round_by_kernel": by_kernel}), flush=True)
+    del step, ds
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -123,6 +176,7 @@ def main() -> int:
             flush=True)
         del run, state, batches, params, stacked, reported
         torch.cuda.empty_cache()
+        profile_linreg_path(cname, cfg, dev, smi)
     return 0
 
 

@@ -2,11 +2,12 @@
 
 Each kernel is one ``.cu`` file with a plain ``extern "C"`` interface,
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library and
-loaded with ``ctypes`` (no PyTorch headers, no ninja).  Libraries are
-built at first use into ``build/kernels/`` at the repository root, named
-by a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one is reused.  A missing ``nvcc`` or a failed build raises;
-there is no fallback.
+loaded with ``ctypes`` (no PyTorch headers, no ninja).  The sources of a
+directory share its ``.cuh`` headers.  Libraries are built at first use
+into ``build/kernels/`` at the repository root, named by a hash of the
+source, the headers beside it and the flags, so an edited source or
+header rebuilds and an unchanged one is reused.  A missing ``nvcc`` or a
+failed build raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
@@ -43,9 +45,11 @@ def find_nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(source: Path) -> Path:
@@ -69,6 +73,13 @@ def build(source: Path) -> Path:
             os.remove(tmp)
     BUILD_LOGS[str(out)] = res.stderr + res.stdout
     return out
+
+
+def build_all(sources) -> list[Path]:
+    """Build several sources at once, one ``nvcc`` process each."""
+    sources = list(sources)
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        return list(pool.map(build, sources))
 
 
 def load(source: Path) -> ctypes.CDLL:

@@ -1,5 +1,6 @@
 """GMoM server round: stacked gradients -> batch means -> Remark-2 trim ->
-Weiszfeld geometric median, as one CUDA kernel pipeline on Hopper.
+Weiszfeld geometric median, as one CUDA kernel pipeline on Hopper; and the
+whole linreg round, raw worker batches in, in one such pipeline.
 
 Port of ``repro.kernels.geomed.round`` ``round_aggregate_kernel`` (the
 Pallas TPU kernel) and its jnp twin ``round_aggregate_ref``:
@@ -14,7 +15,17 @@ Pallas TPU kernel) and its jnp twin ``round_aggregate_ref``:
   ``_weiszfeld_resident``).  The CPU tests hold it against JAX, and the
   chip check holds the kernel against it on the card.
 
-Both return ``(y, iters)``: the (d,) aggregate and the number of Weiszfeld
+and of ``linreg_round_kernel`` (one failure-free round of Algorithm 2 from
+X (m, n, d), y (m, n) and theta (d,): residual, per-worker gradients
+(1/n) X_j^T (X_j theta - y_j), then the same means/trim/Weiszfeld tail)
+with its twins ``linreg_round_ref`` (replays the reference's d-tile loop
+and partial-sum chaining) and ``linreg_round_fused`` (flat):
+
+* ``linreg_round_kernel`` launches ``csrc/linreg_round.cu`` on CUDA
+  tensors (or raises) and runs ``linreg_round_ref`` on CPU tensors; it
+  counts its launches in ``linreg_round_kernel.launches``.
+
+All return ``(y, iters)``: the (d,) aggregate and the number of Weiszfeld
 iterations executed (early exit when the squared move is <= tol^2, capped
 at ``max_iters``), a 0-d int tensor on the input's device.  The kernel
 sums in other orders than the plain version (per-column member sums,
@@ -35,13 +46,17 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from repro_torch.core.geometric_median import f32_threshold
 from repro_torch.core.grouping import (Grouping, assignment_matrix,
                                        batch_members_csr)
+from repro_torch.kernels.geomed._common import (THREADS, as_f32, num_blocks,
+                                                stream)
 
 # The kernel keeps a column's k batch means in registers; the largest
 # register file it is compiled for is 64 (``gmom_round_max_batches``).
 MAX_BATCHES = 64
-THREADS = 256
-MAX_BLOCKS = 1024
 SOURCE = Path(__file__).resolve().parent / "csrc" / "round_aggregate.cu"
+LINREG_SOURCE = SOURCE.parent / "linreg_round.cu"
+# the linreg kernel splits the sample axis until its gradient grid has
+# about this many blocks (a wave of 256-thread blocks on an H100)
+LINREG_TARGET_BLOCKS = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -106,13 +121,34 @@ def _weiszfeld_resident(z, w, *, max_iters, tol, eps):
     return y, it
 
 
-def _means(stacked_grads, grouping: Grouping):
-    k = grouping.num_batches
-    dev = stacked_grads.device
-    s = torch.as_tensor(assignment_matrix(grouping), device=dev)
+def _membership(grouping: Grouping, device):
+    """(S (k, m) 0/1 membership matrix, batch sizes (k, 1)), float32."""
+    s = torch.as_tensor(assignment_matrix(grouping), device=device)
     bsz = torch.tensor(grouping.batch_sizes, dtype=torch.float32,
-                       device=dev).reshape(k, 1)
+                       device=device).reshape(grouping.num_batches, 1)
+    return s, bsz
+
+
+def _means(stacked_grads, grouping: Grouping):
+    s, bsz = _membership(grouping, stacked_grads.device)
     return (s @ stacked_grads.to(torch.float32)) / bsz
+
+
+def _trim_weiszfeld(z, d: int, *, trim_multiplier, max_iters, tol, eps):
+    """The round's tail on the (k, d_pad) means -> ((d,), iterations)."""
+    w = _trim_weights_resident(z, trim_multiplier=trim_multiplier,
+                               k=z.shape[0])
+    y, it = _weiszfeld_resident(z, w, max_iters=max_iters, tol=tol, eps=eps)
+    return y[0, :d], torch.tensor(it, dtype=torch.int32, device=z.device)
+
+
+def _pad_axis(x, tile: int, axis: int):
+    pad = (-x.shape[axis]) % tile
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[axis] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=axis)
 
 
 def round_aggregate_ref(stacked_grads, grouping: Grouping, *,
@@ -121,10 +157,49 @@ def round_aggregate_ref(stacked_grads, grouping: Grouping, *,
                         eps: float = 1e-12):
     """Plain PyTorch GMoM round: (m, d) -> ((d,) aggregate, iterations)."""
     z = _means(stacked_grads, grouping)
-    w = _trim_weights_resident(z, trim_multiplier=trim_multiplier,
-                               k=grouping.num_batches)
-    y, it = _weiszfeld_resident(z, w, max_iters=max_iters, tol=tol, eps=eps)
-    return y[0], torch.tensor(it, dtype=torch.int32, device=z.device)
+    return _trim_weiszfeld(z, z.shape[1], trim_multiplier=trim_multiplier,
+                           max_iters=max_iters, tol=tol, eps=eps)
+
+
+def linreg_round_ref(features, targets, theta, grouping: Grouping, *,
+                     trim_multiplier: float | None = 3.0,
+                     max_iters: int = 64, tol: float = 1e-8,
+                     eps: float = 1e-12, tile_d: int = 256):
+    """Plain PyTorch linreg round that replays the reference kernel's
+    d-tile loop: the residual accumulates tile by tile onto -y, then each
+    tile's gradients feed its means; the means are zero-padded to whole
+    tiles, as in the reference.  -> ((d,) aggregate, iterations)."""
+    _, n, d = features.shape
+    x = _pad_axis(features.to(torch.float32), tile_d, 2)
+    n_tiles = x.shape[2] // tile_d
+    theta_p = _pad_axis(theta.to(torch.float32), tile_d, 0)
+    s, bsz = _membership(grouping, x.device)
+    inv_n = 1.0 / n
+    tiles = [slice(i * tile_d, (i + 1) * tile_d) for i in range(n_tiles)]
+    r = -targets.to(torch.float32)
+    for t in tiles:
+        r = r + x[:, :, t] @ theta_p[t]
+    z = torch.cat([(s @ (torch.bmm(r[:, None, :], x[:, :, t])[:, 0, :]
+                         * inv_n)) / bsz for t in tiles], dim=1)
+    return _trim_weiszfeld(z, d, trim_multiplier=trim_multiplier,
+                           max_iters=max_iters, tol=tol, eps=eps)
+
+
+def linreg_round_fused(features, targets, theta, grouping: Grouping, *,
+                       trim_multiplier: float | None = 3.0,
+                       max_iters: int = 64, tol: float = 1e-8,
+                       eps: float = 1e-12):
+    """Plain PyTorch linreg round without the tile structure: residual,
+    per-worker gradients by one batched product, membership-matmul means,
+    the tail.  -> ((d,) aggregate, iterations)."""
+    _, n, d = features.shape
+    x = features.to(torch.float32)
+    s, bsz = _membership(grouping, x.device)
+    r = x @ theta.to(torch.float32) - targets.to(torch.float32)   # (m, n)
+    g = torch.bmm(r[:, None, :], x)[:, 0, :] * (1.0 / n)         # (m, d)
+    z = (s @ g) / bsz
+    return _trim_weiszfeld(z, d, trim_multiplier=trim_multiplier,
+                           max_iters=max_iters, tol=tol, eps=eps)
 
 
 # ---------------------------------------------------------------------------
@@ -156,10 +231,6 @@ def _grouping_tensors(grouping: Grouping, device: torch.device):
     bsz = np.asarray(grouping.batch_sizes, np.float32)
     return tuple(torch.as_tensor(a, device=device)
                  for a in (offsets, members, bsz))
-
-
-def _num_blocks(d: int) -> int:
-    return max(1, min(-(-d // THREADS), MAX_BLOCKS))
 
 
 def round_aggregate_kernel(stacked_grads, grouping: Grouping, *,
@@ -194,7 +265,7 @@ def round_aggregate_kernel(stacked_grads, grouping: Grouping, *,
         raise ValueError("max_iters must be >= 0")
     lib = _library()
     offsets, members, bsz = _grouping_tensors(grouping, g.device)
-    nb = _num_blocks(d)
+    nb = num_blocks(d)
     f32 = dict(dtype=torch.float32, device=g.device)
     z = torch.empty((k, d), **f32)
     y = torch.empty((d,), **f32)
@@ -209,7 +280,7 @@ def round_aggregate_kernel(stacked_grads, grouping: Grouping, *,
         int(max_iters), f32_threshold(tol * tol), float(eps),
         f32_threshold(eps * eps), z.data_ptr(), part.data_ptr(),
         dpart.data_ptr(), state.data_ptr(), flags.data_ptr(), y.data_ptr(),
-        nb, torch.cuda.current_stream(g.device).cuda_stream)
+        nb, stream(g))
     if rc != 0:
         raise RuntimeError(
             f"round_aggregate kernel launch failed: CUDA error {rc} "
@@ -219,6 +290,103 @@ def round_aggregate_kernel(stacked_grads, grouping: Grouping, *,
 
 
 round_aggregate_kernel.launches = 0
+
+
+@functools.cache
+def _linreg_library() -> ctypes.CDLL:
+    from repro_torch.kernels import _build
+    lib = _build.load(LINREG_SOURCE)
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.gmom_linreg_round.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ctypes.c_longlong, i32,
+        f32, i32, f32, f32, f32, f32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        ptr, i32, ptr]
+    lib.gmom_linreg_round.restype = ctypes.c_int
+    lib.gmom_linreg_max_batches.argtypes = []
+    lib.gmom_linreg_max_batches.restype = ctypes.c_int
+    lib.gmom_linreg_error_string.argtypes = [ctypes.c_int]
+    lib.gmom_linreg_error_string.restype = ctypes.c_char_p
+    if lib.gmom_linreg_max_batches() != MAX_BATCHES:
+        raise RuntimeError("linreg_round.cu and round.py disagree on the "
+                           "largest number of batches")
+    return lib
+
+
+def linreg_split(m: int, n: int, d: int) -> int:
+    """How many chunks the kernel cuts the sample axis into: enough that
+    its (d-tile, worker, chunk) gradient grid fills the card."""
+    base = -(-d // THREADS) * m
+    want = min(n, 65535, max(1, -(-LINREG_TARGET_BLOCKS // base)))
+    chunk = -(-n // want)
+    return -(-n // chunk)
+
+
+def linreg_round_kernel(features, targets, theta, grouping: Grouping, *,
+                        trim_multiplier: float | None = 3.0,
+                        max_iters: int = 64, tol: float = 1e-8,
+                        eps: float = 1e-12, tile_d: int = 256):
+    """One failure-free round of Algorithm 2 on the linreg testbed:
+    (X (m, n, d), y (m, n), theta (d,)) -> ((d,) aggregate, iterations).
+
+    Inputs are cast to contiguous float32.  Launches the CUDA kernel for
+    CUDA tensors; CPU tensors run ``linreg_round_ref`` (``tile_d`` is the
+    reference's tile and matters only there).  Enqueues at most
+    ``max_iters`` Weiszfeld iterations without synchronising."""
+    x, t, th = as_f32(features), as_f32(targets), as_f32(theta)
+    if x.ndim != 3 or t.shape != x.shape[:2] or th.shape != x.shape[2:]:
+        raise ValueError(
+            f"linreg_round_kernel takes X (m, n, d), y (m, n), theta (d,); "
+            f"got {tuple(x.shape)}, {tuple(t.shape)}, {tuple(th.shape)}")
+    m, n, d = x.shape
+    k = grouping.num_batches
+    if m != grouping.num_workers:
+        raise ValueError(f"{m} worker batches for a grouping of "
+                         f"{grouping.num_workers} workers")
+    if {x.device.type, t.device.type, th.device.type} == {"cpu"}:
+        return linreg_round_ref(x, t, th, grouping,
+                                trim_multiplier=trim_multiplier,
+                                max_iters=max_iters, tol=tol, eps=eps,
+                                tile_d=tile_d)
+    if x.device.type != "cuda" or t.device != x.device \
+            or th.device != x.device:
+        raise ValueError(f"linreg_round_kernel: unsupported devices "
+                         f"{x.device}, {t.device}, {th.device}")
+    if not 1 <= k <= MAX_BATCHES:
+        raise ValueError(f"linreg_round_kernel takes 1 <= k <= "
+                         f"{MAX_BATCHES} batches, got {k}")
+    if max_iters < 0:
+        raise ValueError("max_iters must be >= 0")
+    lib = _linreg_library()
+    offsets, members, bsz = _grouping_tensors(grouping, x.device)
+    n_split = linreg_split(m, n, d)
+    nb = num_blocks(d)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    r = torch.empty((m, n), **f32)
+    p = torch.empty((n_split, m, d), **f32)
+    z = torch.empty((k, d), **f32)
+    y = torch.empty((d,), **f32)
+    part = torch.empty((nb, k), **f32)
+    dpart = torch.empty((nb,), **f32)
+    state = torch.empty((2 * k + 1,), **f32)
+    flags = torch.zeros((2,), dtype=torch.int32, device=x.device)
+    use_trim = trim_multiplier is not None
+    rc = lib.gmom_linreg_round(
+        x.data_ptr(), t.data_ptr(), th.data_ptr(), offsets.data_ptr(),
+        members.data_ptr(), bsz.data_ptr(), m, n, k, d, int(use_trim),
+        float(trim_multiplier if use_trim else 0.0), int(max_iters),
+        f32_threshold(tol * tol), float(eps), f32_threshold(eps * eps),
+        f32_threshold(1.0 / n), n_split, r.data_ptr(), p.data_ptr(),
+        z.data_ptr(), part.data_ptr(), dpart.data_ptr(), state.data_ptr(),
+        flags.data_ptr(), y.data_ptr(), nb, stream(x))
+    if rc != 0:
+        raise RuntimeError(
+            f"linreg_round kernel launch failed: CUDA error {rc} "
+            f"({lib.gmom_linreg_error_string(rc).decode()})")
+    linreg_round_kernel.launches += 1
+    return y, flags[1]
+
+
+linreg_round_kernel.launches = 0
 
 
 def round_aggregate_pytree(stacked_grads, grouping: Grouping, *,

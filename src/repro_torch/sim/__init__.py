@@ -9,6 +9,7 @@ runs on the CUDA card; pass ``device="cpu"`` for the CPU.
 from repro_torch.sim.engine import (  # noqa: F401
     build_schedule,
     replay_scenario,
+    run_failure_free,
     run_scenario,
 )
 from repro_torch.sim.scenarios import (  # noqa: F401

@@ -11,7 +11,11 @@ full ``TrainState`` at every chunk boundary, and resumes from the latest
 checkpoint in ``ckpt_dir`` — including one the JAX package wrote, since
 the on-disk layout is shared.
 
-Both are entry points: ``device=None`` means the CUDA card (raising when
+``run_failure_free`` runs a scenario's failure-free rounds from the raw
+worker batches, each round one call of the whole-round linreg kernel
+(``failure_free_step``); it has no JAX twin in the engine.
+
+All are entry points: ``device=None`` means the CUDA card (raising when
 there is none), ``device="cpu"`` runs on the CPU.  With
 ``round_backend="auto"``, gmom rounds on the card go through the CUDA
 round kernel.
@@ -26,6 +30,7 @@ from repro_torch import random as prng
 from repro_torch.core import (RobustConfig, byzantine, init_train_state,
                               make_run_rounds, restore_train_state,
                               save_train_state)
+from repro_torch.core.grouping import make_grouping
 from repro_torch.core.train_state import advance
 from repro_torch.data import regression
 from repro_torch.sim.scenarios import Scenario, get_scenario
@@ -36,6 +41,25 @@ def build_schedule(sc: Scenario) -> byzantine.AttackSchedule:
         sc.schedule, num_workers=sc.num_workers,
         num_byzantine=sc.num_byzantine, attack=sc.attack,
         attack_kwargs=sc.attack_kwargs, **dict(sc.schedule_kwargs))
+
+
+def _robust_config(sc: Scenario, round_backend: str) -> RobustConfig:
+    return RobustConfig(num_workers=sc.num_workers,
+                        num_byzantine=sc.num_byzantine,
+                        num_batches=sc.num_batches,
+                        aggregator=sc.aggregator, attack=sc.attack,
+                        attack_kwargs=sc.attack_kwargs,
+                        round_backend=round_backend,
+                        compression=sc.compression,
+                        arrival=sc.arrival,
+                        staleness_bound=sc.staleness_bound,
+                        arrival_kwargs=sc.arrival_kwargs)
+
+
+def _generate(sc: Scenario, key, device) -> regression.RegressionDataset:
+    return regression.generate(
+        key, dim=sc.dim, total_samples=sc.total_samples,
+        num_workers=sc.num_workers, noise_std=sc.noise_std, device=device)
 
 
 def _build_run(sc: Scenario, *, round_backend: str = "auto", device=None,
@@ -49,19 +73,8 @@ def _build_run(sc: Scenario, *, round_backend: str = "auto", device=None,
             "runs the linreg substrate")
     device = _device.enter(device)
     key = prng.PRNGKey(sc.seed, device=device)
-    ds = dataset if dataset is not None else regression.generate(
-        key, dim=sc.dim, total_samples=sc.total_samples,
-        num_workers=sc.num_workers, noise_std=sc.noise_std, device=device)
-    rc = RobustConfig(num_workers=sc.num_workers,
-                      num_byzantine=sc.num_byzantine,
-                      num_batches=sc.num_batches,
-                      aggregator=sc.aggregator, attack=sc.attack,
-                      attack_kwargs=sc.attack_kwargs,
-                      round_backend=round_backend,
-                      compression=sc.compression,
-                      arrival=sc.arrival,
-                      staleness_bound=sc.staleness_bound,
-                      arrival_kwargs=sc.arrival_kwargs)
+    ds = dataset if dataset is not None else _generate(sc, key, device)
+    rc = _robust_config(sc, round_backend)
     opt = optim.sgd(sc.step_size)
     theta_star = ds.theta_star.to(device)
 
@@ -114,6 +127,60 @@ def run_scenario(sc: Scenario | str, *, rounds: int | None = None,
         sc, round_backend=round_backend, device=device, dataset=dataset)
     state, _ = advance(run, state, batches, num_rounds=rounds)
     return _trace(sc, rc, rounds, state.history)
+
+
+def failure_free_step(sc: Scenario, *, device=None,
+                      dataset: regression.RegressionDataset | None = None,
+                      plain: bool = False):
+    """The failure-free round of Algorithm 2 on raw worker batches, the
+    whole round in one kernel: theta -> theta - step_size *
+    ``linreg_round_kernel``(X, y, theta), with the scenario's grouping and
+    its RobustConfig's trim multiplier, ``max_iters`` and ``tol``
+    (``plain=True``: the plain ``linreg_round_fused``).  No attack runs.
+
+    -> (step, dataset): ``step`` maps theta (d,) to the next theta."""
+    from repro_torch.kernels.geomed import round as round_kernels
+    device = _device.enter(device)
+    ds = dataset if dataset is not None else _generate(
+        sc, prng.PRNGKey(sc.seed, device=device), device)
+    rc = _robust_config(sc, "auto")
+    grouping = make_grouping(sc.num_workers, rc.resolved_num_batches(),
+                             scheme=rc.grouping_scheme)
+    kw = dict(trim_multiplier=rc.trim_multiplier,
+              max_iters=rc.gmom_max_iters, tol=rc.gmom_tol)
+    fn = (round_kernels.linreg_round_fused if plain
+          else round_kernels.linreg_round_kernel)
+    x, t = ds.features.to(device), ds.targets.to(device)
+
+    def step(theta):
+        agg, _ = fn(x, t, theta, grouping, **kw)
+        return theta - sc.step_size * agg
+
+    return step, ds
+
+
+def run_failure_free(sc: Scenario | str, *, rounds: int | None = None,
+                     device=None,
+                     dataset: regression.RegressionDataset | None = None,
+                     plain: bool = False) -> dict:
+    """``rounds`` failure-free rounds through ``failure_free_step`` from
+    theta = 0 -> {"est_error": per round, "final_est_error"}, the keys the
+    engine's trace has for them.  The errors are read back once, after the
+    last round."""
+    if isinstance(sc, str):
+        sc = get_scenario(sc)
+    rounds = sc.rounds if rounds is None else rounds
+    device = _device.enter(device)
+    step, ds = failure_free_step(sc, device=device, dataset=dataset,
+                                 plain=plain)
+    theta_star = ds.theta_star.to(device)
+    theta = torch.zeros((sc.dim,), dtype=torch.float32, device=device)
+    errs = []
+    for _ in range(rounds):
+        theta = step(theta)
+        errs.append(torch.linalg.norm(theta - theta_star))
+    errs = torch.stack(errs).tolist()
+    return {"est_error": errs, "final_est_error": errs[-1]}
 
 
 def replay_scenario(sc: Scenario | str, ckpt_dir: str, *,

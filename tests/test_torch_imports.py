@@ -37,8 +37,12 @@ def _imported_roots(tree):
 
 def test_port_has_modules():
     names = {os.path.relpath(f, REPO) for f in _files()}
-    assert os.path.join("src", "repro_torch", "kernels", "geomed",
-                        "round.py") in names
+    for module in ("round.py", "geomed.py", "ops.py", "ref.py"):
+        assert os.path.join("src", "repro_torch", "kernels", "geomed",
+                            module) in names
+    csrc = os.path.join(PORT, "kernels", "geomed", "csrc")
+    for source in ("round_aggregate.cu", "linreg_round.cu", "geomed.cu"):
+        assert os.path.exists(os.path.join(csrc, source))
     assert len(names) > 20
 
 
