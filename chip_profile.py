@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where a main-path round's time goes on the card.
+"""Where the time of the port's paths goes on the card.
 
     python3 chip_profile.py
 
@@ -18,7 +18,12 @@ sign_flip/rotating through the port's engine, round_backend="auto"):
   ``linreg_round_kernel`` (theta <- theta - eta aggregate): the same
   shares, and the device time of each of its CUDA kernels by name.
 
-Prints two JSON lines per config.  Needs a CUDA card.
+Prints two JSON lines per config.  Then, for the LM serve path of
+``chip_smoke.py`` (H2O-Danube3-4B at full width, bf16), a trace of one
+prefill step at B = 1, T = 8192 and one of ``DECODE_STEPS`` decode steps
+at 4 requests: device busy time, idle share, device kernels, and device
+time by kernel family (the flash kernel, matmuls, the rest) with the
+heaviest kernels by name.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 ROUNDS = 10
+DECODE_STEPS = 8
 ROUND_KERNELS = ("means_kernel", "trim_kernel", "init_kernel",
                  "step_head_kernel", "step_kernel")
 LINREG_KERNELS = ("residual_kernel", "grad_kernel") + ROUND_KERNELS
@@ -85,6 +91,88 @@ def profile_linreg_path(cname, cfg, dev, smi):
         "device_kernels_per_round": len(events) / ROUNDS,
         "device_ms_per_round_by_kernel": by_kernel}), flush=True)
     del step, ds
+    torch.cuda.empty_cache()
+
+
+def _trace(fn, dev):
+    """(wall ms, device events) of one profiled call of ``fn``."""
+    import torch
+    torch.cuda.synchronize(dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return wall_ms, device_events(prof)
+
+
+def _shares(wall_ms, events, per):
+    """Busy/idle and device ms by kernel family, per ``per`` units."""
+    busy = sum(ms for _, ms in events)
+    family = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    by_name: dict[str, float] = {}
+    for name, ms in events:
+        if "flash_attention" in name:
+            family["flash_attention"] += ms
+        elif any(k in name.lower() for k in ("gemm", "nvjet", "cutlass",
+                                              "sm90_xmma", "matmul")):
+            family["matmul"] += ms
+        else:
+            family["other"] += ms
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall_ms / per, "device_busy_ms": busy / per,
+            "device_idle_share": 1.0 - busy / wall_ms,
+            "device_kernels": len(events) / per,
+            "device_ms_by_family": {k: v / per for k, v in family.items()},
+            "heaviest_device_ms": {k: v / per for k, v in top}}
+
+
+def profile_serve_path(dev, smi):
+    """Profile the prefill step and decode steps of the serve path."""
+    import torch
+    from chip_smoke import PREFILL_T, SERVE_ARCH
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    cfg = get_config(SERVE_ARCH)
+    params = model.init(0, cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_T), generator=gen,
+                           device=dev)
+    prefill = steps.make_prefill_step(cfg)
+    prefill(params, {"tokens": tokens[:, :256]})                # warm-up
+    wall, events = _trace(lambda: prefill(params, {"tokens": tokens}), dev)
+    print(json.dumps({"path": "serve_prefill", "arch": cfg.name,
+                      "dtype": "bfloat16", "batch": 1, "seq_len": PREFILL_T,
+                      "card": smi, **_shares(wall, events, 1)}), flush=True)
+
+    B, P = 4, 16
+    step = steps.make_serve_step(cfg)
+    state = model.init_decode_state(cfg, B, P + DECODE_STEPS, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                            device=dev)
+
+    def pos(t):
+        return torch.full((B,), t, dtype=torch.int64, device=dev)
+
+    for t in range(P):                                  # prompt, warm-up
+        logits, state = step(params, state, prompts[:, t:t + 1], pos(t))
+
+    def decode():
+        nonlocal logits, state
+        for i in range(DECODE_STEPS):
+            tok = torch.argmax(logits, dim=-1)
+            logits, state = step(params, state, tok, pos(P + i))
+
+    wall, events = _trace(decode, dev)
+    print(json.dumps({"path": "serve_decode", "arch": cfg.name,
+                      "dtype": "bfloat16", "batch": B, "steps": DECODE_STEPS,
+                      "card": smi, "per": "decode step",
+                      **_shares(wall, events, DECODE_STEPS)}), flush=True)
+    del params, state
     torch.cuda.empty_cache()
 
 
@@ -177,6 +265,7 @@ def main() -> int:
         del run, state, batches, params, stacked, reported
         torch.cuda.empty_cache()
         profile_linreg_path(cname, cfg, dev, smi)
+    profile_serve_path(dev, smi)
     return 0
 
 

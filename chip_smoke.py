@@ -7,8 +7,9 @@ Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, replays the golden
 traces through the round kernel, drives the paper's Algorithm 2 at full
 width through the port's engine and through the full linreg round kernel,
-runs the Weiszfeld loop over the step kernels at full width, and times
-every kernel.  Every phase prints JSON lines; the last line is
+runs the Weiszfeld loop over the step kernels at full width, serves
+H2O-Danube3-4B at full width through the flash-attention kernel, and
+times every kernel.  Every phase prints JSON lines; the last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every check
 passed.  Exits non-zero without it on any failure, when CUDA is
 unavailable, or when the ``src/repro_torch`` package is missing.
@@ -30,6 +31,20 @@ Phases:
                  (one linreg launch per round); both below paper_floor.
                  The Weiszfeld loop over sqdist/reweight at (k, d) = (11,
                  8192) and (11, 25 557 032) against core.geometric_median
+                 Flash attention vs its plain version over a grid
+                 (tests/test_kernels.py's cases, H2O and Minitron widths up
+                 to T = 8192, ragged and non-causal ragged), f32 2e-5,
+                 bf16 3e-2 and within half a bf16 ulp of the f32 plain
+                 version, bitwise repeats; a planted fault (no window)
+                 must fail the bf16 check against f32
+  4b serve path  H2O-Danube3-4B at full width (24 layers, 3840, 32 x 8
+                 heads of 120, 10240, 32 000): the prefill step at B = 1,
+                 T = 8192 in bf16 and f32, kernel path vs plain path (24
+                 launches per prefill; the bf16 prefill is the main path's
+                 run), and the kernel path without the window as a
+                 planted fault; launch/serve.py at --scale gpu (4
+                 requests, 16-token prompts, 32 new tokens); in f32 the
+                 prefill step's last-position logits vs the decode loop's
   5 timings      kernel, plain and library times (medians of 20 after
                  warm-up), iterations, launches per call, bounds
 """
@@ -76,6 +91,55 @@ GEOMED_MAIN = (11, 25_557_032)
 # (HBM bytes/s, float32 non-tensor-core FLOP/s) by part, NVIDIA data sheets
 PEAKS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12),
          "SXM": (3.35e12, 67e12)}
+# dense bf16 tensor-core FLOP/s by part (data sheets, without sparsity):
+# the bound of attention, a matmul-bearing function
+PEAK_BF16 = {"PCIe": 756e12, "NVL": 835e12, "SXM": 989e12}
+
+# flash attention (B, Tq, Tk, H, KV, hd, causal, window): the grid of
+# tests/test_kernels.py; a ragged T at H2O's head width; non-causal ragged
+# Tk; H2O-Danube3-4B's heads (32/8 of 120, window 4096) around and past
+# the window; Minitron-4B's (24/8 of 128, causal)
+ATTN_GRID = [(2, 64, 64, 4, 2, 32, True, None),
+             (1, 128, 128, 8, 8, 64, True, None),
+             (2, 100, 100, 4, 1, 32, True, None),
+             (1, 256, 256, 4, 2, 64, True, 64),
+             (2, 64, 64, 4, 4, 32, False, None),
+             (1, 96, 96, 6, 2, 16, True, 32),
+             (2, 333, 333, 8, 2, 120, True, 100),
+             (1, 20, 20, 2, 1, 16, False, None),
+             (1, 70, 150, 4, 1, 256, False, 50),
+             (1, 1000, 1000, 32, 8, 120, True, 4096),
+             (1, 4097, 4097, 32, 8, 120, True, 4096),
+             (1, 8192, 8192, 32, 8, 120, True, 4096),
+             (1, 8192, 8192, 24, 8, 128, True, None)]
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# bf16 against the plain version in f32 on the same inputs: the kernel's
+# bf16 output is its f32 arithmetic rounded once, so it lies within half a
+# bf16 ulp (<= 2**-8 |y|) of that plus the f32 tolerance.  Unlike 3e-2,
+# this bound stays tight past the window at T = 8192, where the outputs'
+# RMS is about sqrt(e / 4096) = 0.026 for random inputs
+BF16_HALF_ULP = 2.0 ** -8
+# the timed shapes: H2O's prefill at T = 8192 (the serve path's), Minitron's
+# at 8192, and one H2O call at prefill_32k's sequence length
+ATTN_MAIN = (1, 8192, 8192, 32, 8, 120, True, 4096)
+ATTN_TIMED = [ATTN_MAIN, (1, 8192, 8192, 24, 8, 128, True, None),
+              (1, 32768, 32768, 32, 8, 120, True, 4096)]
+# the serve path: H2O-Danube3-4B at full width; prefill_32k (B=32,
+# T=32 768) cut to B=1, T=8192 for the whole model
+SERVE_ARCH = "h2o-danube-3-4b"
+PREFILL_T = 8192
+PREFILL_CUTS = ["prefill_32k's B=32, T=32768 cut to B=1, T=8192 for the "
+                "whole model (the chip check's time)",
+                "one flash_attention call timed at T=32768 (phase 5)"]
+# kernel path vs plain path after 24 layers, against max|h|: f32 holds the
+# algorithm (1e-3).  In bf16 the plain path rounds scores and probabilities
+# to bf16 where the kernel keeps f32, and the difference rides the residual
+# stream through 24 layers: the first full-width run on an H100 measured
+# 0.1875 at max|h| 5.625 (3.3e-2, six bf16 ulps at |h| in [4, 8)); the
+# bound, 5e-2 (nine such ulps), leaves room for that and fails a kernel
+# that is wrong: the kernel path without the window moved h by 0.244 of
+# max|h| in either type (the planted fault, asserted in serve_path)
+PREFILL_RTOL = {"float32": 1e-3, "bfloat16": 5e-2}
 
 # The main path at full width (gmom under sign_flip/rotating): the paper's
 # configs/linreg_paper.py (d=100, N=50 000, m=50, q=4) with k=10, and the
@@ -464,6 +528,295 @@ def new_kernel_timings(dev, hbm, flops, smi):
     return out
 
 
+def attn_inputs(case, dtype, dev, seed=0):
+    import torch
+    B, Tq, Tk, H, KV, hd = case[:6]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((B, Tq, H, hd), (B, Tk, KV, hd),
+                               (B, Tk, KV, hd)))
+
+
+def live_pairs(Tq, Tk, causal, window):
+    """(q, k) pairs that the masks leave live, with default positions."""
+    total = 0
+    for q in range(Tq):
+        hi = min(q, Tk - 1) if causal else Tk - 1
+        lo = max(0, q - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def attention_parity(dev, grid=ATTN_GRID):
+    """The flash kernel (``ops.attention`` on CUDA tensors) vs
+    ``flash_attention_ref`` -> {(case, dtype): max_abs_err}.  In bf16 also
+    vs the plain version in f32 on the same inputs (``BF16_HALF_ULP``);
+    at ATTN_MAIN a planted fault (the kernel without the window) shows
+    what each bf16 check sees."""
+    import torch
+    from repro_torch.kernels.attention import ops, ref
+    errs = {}
+    for case in grid:
+        causal, window = case[6], case[7]
+        for dname in ("float32", "bfloat16"):
+            q, k, v = attn_inputs(case, getattr(torch, dname), dev,
+                                  seed=case[1] + case[5])
+            a = ops.attention(q, k, v, causal=causal, sliding_window=window)
+            b = ops.attention(q, k, v, causal=causal, sliding_window=window)
+            want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                           sliding_window=window)
+            torch.cuda.synchronize(dev)
+            diff = (a.float() - want.float()).abs()
+            tol = ATTN_TOL[dname]
+            ok = bool((diff <= tol + tol * want.float().abs()).all())
+            err = float(diff.max())
+            bitwise = bool(torch.equal(a, b))
+            tag = f"attention {case} {dname}"
+            check(ok, f"parity {tag}: max_abs_err {err}")
+            check(bitwise, f"determinism {tag}")
+            check(a.dtype == q.dtype and a.shape == q.shape,
+                  f"{tag}: output {a.dtype} {tuple(a.shape)}")
+            errs[(case, dname)] = err
+            line = {"phase": "parity_attention", "case": list(case),
+                    "dtype": dname, "max_abs_err": err,
+                    "max_abs_y": float(want.float().abs().max()),
+                    "tol": tol, "ok": ok, "bitwise_repeat": bitwise}
+            if dname == "bfloat16":
+                want32 = ref.flash_attention_ref(
+                    q.float(), k.float(), v.float(), causal=causal,
+                    sliding_window=window)
+                ok32, err32 = within_half_ulp(a, want32)
+                check(ok32, f"parity {tag} vs f32: max_abs_err {err32}")
+                line.update(max_abs_err_vs_f32=err32, ok_vs_f32=ok32)
+                if case == ATTN_MAIN:
+                    line["planted_fault"] = planted_attention_fault(
+                        q, k, v, want, want32)
+                del want32
+            emit(line)
+            del q, k, v, a, b, want, diff
+            torch.cuda.empty_cache()
+    return errs
+
+
+def within_half_ulp(got, want32):
+    """bf16 ``got`` vs the f32 plain version: (ok, max_abs_err)."""
+    diff = (got.float() - want32).abs()
+    ok = bool((diff <= BF16_HALF_ULP * want32.abs()
+               + 2 * ATTN_TOL["float32"]).all())
+    return ok, float(diff.max())
+
+
+def planted_attention_fault(q, k, v, want, want32):
+    """The kernel with the window dropped, against both bf16 checks: the
+    strict one must fail it."""
+    from repro_torch.kernels.attention import ops
+    bad = ops.attention(q, k, v, causal=True, sliding_window=None)
+    diff = (bad.float() - want.float()).abs()
+    tol = ATTN_TOL["bfloat16"]
+    loose_ok = bool((diff <= tol + tol * want.float().abs()).all())
+    strict_ok, strict_err = within_half_ulp(bad, want32)
+    check(not strict_ok, "planted attention fault (no window) passed the "
+                         "bf16 check against f32")
+    return {"fault": "no window", "max_abs_err": float(diff.max()),
+            "passes_3e-2": loose_ok, "max_abs_err_vs_f32": strict_err,
+            "passes_vs_f32": strict_ok}
+
+
+def _prefill_ms(step, params, batch, dev):
+    import torch
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    h = step(params, batch)
+    torch.cuda.synchronize(dev)
+    return h, (time.perf_counter() - t0) * 1e3
+
+
+def serve_path(dev):
+    """The serve path at full width -> the flash kernel's launches in the
+    main path's run (the bf16 prefill).  (a) the prefill step at B = 1, T =
+    PREFILL_T in bf16, then in f32: kernel path vs plain path, 24 launches
+    per prefill, and a planted fault (the kernel path without the window)
+    against the same bound; (b) launch/serve.py at --scale gpu; (c) in
+    f32, the prefill step's last-position logits on the served prompts vs
+    the logits the decode loop reaches after the same prompt."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import flash
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import model
+    base = get_config(SERVE_ARCH)
+    L = base.num_layers
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(0, base.vocab_size, (1, PREFILL_T),
+                           generator=gen, device=dev)
+    prompts = torch.randint(0, base.vocab_size, (4, 16), generator=gen,
+                            device=dev)
+    main_launches = None
+    for dname in ("bfloat16", "float32"):
+        cfg = base.with_(dtype=getattr(torch, dname),
+                         param_dtype=getattr(torch, dname))
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params = model.init(0, cfg, device=dev)
+        torch.cuda.synchronize(dev)
+        init_s = time.perf_counter() - t0
+        kernel_step = steps.make_prefill_step(cfg)
+        plain_step = steps.make_prefill_step(cfg, plain=True)
+        _prefill_ms(kernel_step, params, {"tokens": tokens[:, :256]}, dev)
+        flash.flash_attention.launches = 0
+        h, ms_kernel = _prefill_ms(kernel_step, params, {"tokens": tokens},
+                                   dev)
+        n_prefill = flash.flash_attention.launches
+        if dname == "bfloat16":
+            main_launches = n_prefill
+        h_plain, ms_plain = _prefill_ms(plain_step, params,
+                                        {"tokens": tokens}, dev)
+        plain_launches = flash.flash_attention.launches - n_prefill
+        scale = float(h_plain.float().abs().max())
+        err = float((h.float() - h_plain.float()).abs().max())
+        ok = err <= PREFILL_RTOL[dname] * scale
+        # planted fault: the same params through the kernel path with the
+        # window dropped (a wrong mask), against the plain path's h
+        h_bad = steps.make_prefill_step(cfg.with_(sliding_window=None))(
+            params, {"tokens": tokens})
+        fault_err = float((h_bad.float() - h_plain.float()).abs().max())
+        fault_fails = fault_err > PREFILL_RTOL[dname] * scale
+        del h_bad
+        check(fault_fails, f"prefill {dname}: a planted fault (no window) "
+                           f"passed, rel_err {fault_err / scale}")
+        finite = bool(torch.isfinite(h).all())
+        check(ok, f"prefill {dname}: kernel vs plain max_abs_err {err} "
+                  f"(max|h| {scale}, rtol {PREFILL_RTOL[dname]})")
+        check(finite and h.shape == (1, PREFILL_T, cfg.d_model),
+              f"prefill {dname}: output {tuple(h.shape)}, finite {finite}")
+        check(n_prefill == L and plain_launches == 0,
+              f"prefill {dname}: {n_prefill} kernel launches (want {L}), "
+              f"plain path {plain_launches}")
+        emit({"phase": "serve_prefill", "arch": cfg.name, "dtype": dname,
+              "batch": 1, "seq_len": PREFILL_T, "num_layers": L,
+              "reduced": PREFILL_CUTS,
+              "init_s": init_s, "kernel_launches": n_prefill,
+              "ms_per_prefill": {"kernel": ms_kernel, "plain": ms_plain},
+              "max_abs_err": err, "max_abs_h": scale,
+              "rel_err": err / scale, "rtol": PREFILL_RTOL[dname], "ok": ok,
+              "planted_fault": {"fault": "no window",
+                                "rel_err": fault_err / scale,
+                                "fails_rtol": fault_fails},
+              "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+        del h, h_plain
+        if dname == "float32":
+            # (c) the same function through the kernel and the cache path
+            flash.flash_attention.launches = 0
+            hp = kernel_step(params, {"tokens": prompts})
+            n_check = flash.flash_attention.launches
+            check(n_check == L, f"prefill of the served prompts: {n_check} "
+                                f"kernel launches (want {L})")
+            want = model._unembed_fn(params, cfg)(hp[:, -1:])
+            _, got, _ = serve.generate(params, cfg, prompts, 1)
+            lscale = float(want.abs().max())
+            lerr = float((got - want).abs().max())
+            lok = lerr <= 1e-3 * lscale
+            check(lok, f"prefill vs decode logits (f32): max_abs_err {lerr} "
+                       f"(max|logits| {lscale})")
+            emit({"phase": "serve_prefill_vs_decode", "dtype": dname,
+                  "prompts": list(prompts.shape), "kernel_launches": n_check,
+                  "max_abs_err": lerr, "max_abs_logits": lscale,
+                  "rtol": 1e-3, "ok": lok})
+            del hp, want, got
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        if dname == "bfloat16":
+            # (b) the serve CLI as a user runs it, on its own params
+            out, stats = serve.main(["--scale", "gpu", "--arch", SERVE_ARCH])
+            good = (tuple(out.shape) == (4, 32) and int(out.min()) >= 0
+                    and int(out.max()) < base.vocab_size)
+            check(good, f"serve --scale gpu: tokens {tuple(out.shape)}")
+            emit({"phase": "serve_gpu", "arch": SERVE_ARCH, "requests": 4,
+                  "prompt_len": 16, "new_tokens": 32,
+                  "tokens_per_s": stats["tokens_per_s"],
+                  "prefill_s": stats["prefill_s"],
+                  "decode_s": stats["decode_s"], "ok": good,
+                  "first_tokens": out[0, :8].tolist()})
+            del out
+            torch.cuda.empty_cache()
+    return main_launches
+
+
+def attention_timings(dev, hbm, smi):
+    """Kernel, plain and library ms of flash attention at ATTN_TIMED (bf16)
+    -> {case: timing dict}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import flash, ops, ref
+    from repro_torch.models.attention import attention_core_blocked
+    tc = PEAK_BF16[next((p for p in ("PCIe", "NVL")
+                         if p in torch.cuda.get_device_name(0)), "SXM")]
+    out = {}
+    for case in ATTN_TIMED:
+        B, Tq, Tk, H, KV, hd, causal, window = case
+        q, k, v = attn_inputs(case, torch.bfloat16, dev, seed=11)
+        before = flash.flash_attention.launches
+        ops.attention(q, k, v, causal=causal, sliding_window=window)
+        per_call = flash.flash_attention.launches - before
+        check(per_call == 1, f"attention {case}: {per_call} launches/call")
+        kernel_ms = timed(lambda: ops.attention(
+            q, k, v, causal=causal, sliding_window=window))
+        # the plain version; at T = 32 768 its (B, KV, G, T, T) scores
+        # would take 137 GB, so there the blocked core (the plain path
+        # above 2048 positions) is timed
+        if Tq <= 8192:
+            plain_name = "flash_attention_ref"
+            plain_ms = timed(lambda: ref.flash_attention_ref(
+                q, k, v, causal=causal, sliding_window=window))
+        else:
+            plain_name = "attention_core_blocked"
+            plain_ms = timed(lambda: attention_core_blocked(
+                q, k, v, causal=causal, sliding_window=window))
+        torch.cuda.empty_cache()
+        # one library call on the same inputs in its (B, H, T, hd) layout:
+        # causal GQA through is_causal; the window through an explicit
+        # mask, with kv repeated to H heads beforehand so that the
+        # memory-efficient backend takes it (GQA with a mask would fall
+        # back to the math backend, whose scores do not fit at 32 768)
+        qt = q.transpose(1, 2).contiguous()
+        if window is None:
+            kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+            library_ms = timed(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True))
+        else:
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+            kt, vt = (x.transpose(1, 2).repeat_interleave(H // KV, dim=1)
+                      .contiguous() for x in (k, v))
+            pos = torch.arange(Tq, device=dev)
+            live = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - window)
+            bias = torch.zeros((Tq, Tk), dtype=q.dtype, device=dev)
+            bias.masked_fill_(~live, float("-inf"))
+            del live
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                library_ms = timed(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=bias))
+            del bias
+        pairs = live_pairs(Tq, Tk, causal, window)
+        ops_ = pairs * 4 * H * hd
+        nbytes = 2 * (2 * B * Tq * H * hd + 2 * B * Tk * KV * hd)
+        bound_ms, bound_by = bound(nbytes, ops_, hbm, tc)
+        out[case] = dict(kernel_ms=kernel_ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+        emit({"phase": "timing", "kernel": "flash_attention",
+              "case": list(case), "dtype": "bfloat16",
+              "launches_per_call": per_call, "kernel_ms": kernel_ms,
+              "plain_ms": plain_ms, "plain": plain_name,
+              "library_ms": library_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "live_pairs": pairs,
+              "kernel_tflops": ops_ / kernel_ms / 1e9, "card": smi})
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -471,6 +824,7 @@ def main() -> int:
         return 1
     from repro_torch.core.grouping import assignment_matrix, make_grouping
     from repro_torch.kernels import _build
+    from repro_torch.kernels.attention import flash
     from repro_torch.kernels.geomed import geomed
     from repro_torch.kernels.geomed import round as rk
     from repro_torch.core.train_state import advance
@@ -494,10 +848,11 @@ def main() -> int:
     # -- 1 build ----------------------------------------------------------
     t0 = time.perf_counter()
     lib_paths = _build.build_all([rk.SOURCE, rk.LINREG_SOURCE,
-                                  geomed.SOURCE])
+                                  geomed.SOURCE, flash.SOURCE])
     rk._library()
     rk._linreg_library()
     geomed._library()
+    flash._library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": {os.path.relpath(path, HERE): ptxas_summary(
               _build.BUILD_LOGS.get(str(path), "")) for path in lib_paths}})
@@ -549,6 +904,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     linreg_err = linreg_parity(dev)
     geomed_err = geomed_parity(dev)
+    attn_err = attention_parity(dev)
 
     # -- 3 goldens on the card --------------------------------------------
     rk.round_aggregate_kernel.launches = 0
@@ -610,6 +966,7 @@ def main() -> int:
               "ms_per_round": ms_round})
     linreg_launches = linreg_path(dev)
     sqdist_launches, reweight_launches = geomed_path(dev)
+    attn_launches = serve_path(dev)
 
     # -- 5 timings --------------------------------------------------------
     timing = {}
@@ -641,23 +998,29 @@ def main() -> int:
         del g
         torch.cuda.empty_cache()
     timing.update(new_kernel_timings(dev, hbm, flops, smi))
+    timing.update(attention_timings(dev, hbm, smi))
 
     # -- 6 the kernel line --------------------------------------------------
-    csrc = "src/repro_torch/kernels/geomed/csrc/"
-    rows = (("round_aggregate", "round_aggregate.cu",
+    csrc = "src/repro_torch/kernels/"
+    rows = (("round_aggregate", "geomed/csrc/round_aggregate.cu",
              "src/repro/kernels/geomed/round.py:268", main_launches,
              parity[MAIN_SHAPE], timing[MAIN_SHAPE], MAIN_SHAPE),
-            ("linreg_round", "linreg_round.cu",
+            ("linreg_round", "geomed/csrc/linreg_round.cu",
              "src/repro/kernels/geomed/round.py:428", linreg_launches,
              linreg_err[LINREG_MAIN],
              timing[("linreg_round", LINREG_MAIN)], LINREG_MAIN),
-            ("sqdist", "geomed.cu", "src/repro/kernels/geomed/geomed.py:75",
+            ("sqdist", "geomed/csrc/geomed.cu",
+             "src/repro/kernels/geomed/geomed.py:75",
              sqdist_launches, geomed_err[("sqdist", GEOMED_MAIN)],
              timing[("sqdist", GEOMED_MAIN)], GEOMED_MAIN),
-            ("reweight", "geomed.cu",
+            ("reweight", "geomed/csrc/geomed.cu",
              "src/repro/kernels/geomed/geomed.py:96", reweight_launches,
              geomed_err[("reweight", GEOMED_MAIN)],
-             timing[("reweight", GEOMED_MAIN)], GEOMED_MAIN))
+             timing[("reweight", GEOMED_MAIN)], GEOMED_MAIN),
+            ("flash_attention", "attention/csrc/flash_attention.cu",
+             "src/repro/kernels/attention/flash.py:124", attn_launches,
+             attn_err[(ATTN_MAIN, "bfloat16")], timing[ATTN_MAIN],
+             ATTN_MAIN))
     print(smi, flush=True)
     emit({"kernels": [{
         "name": kname, "route": "cuda", "source": csrc + source,

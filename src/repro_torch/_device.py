@@ -4,7 +4,8 @@ An entry point takes ``device=None``, which means the CUDA card.  Without
 a card it raises instead of quietly running on the CPU; the caller asks
 for the CPU explicitly with ``device="cpu"`` (the CPU tests do).
 
-The reference computes in float32 everywhere, so TF32 matmuls are refused.
+The reference computes in float32 everywhere, so TF32 matmuls are refused,
+and bf16 matmuls reduce in float32.
 """
 
 from __future__ import annotations
@@ -24,11 +25,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def enter(device=None) -> torch.device:
-    """Entry-point preamble: full-f32 matmuls, then the resolved device."""
+def set_precision() -> None:
+    """Full-f32 matmuls, and bf16 matmuls that reduce in float32 (cuBLAS may
+    otherwise split the reduction in bf16); set when an entry point or a
+    step runs, never at import."""
     torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
             "torch.backends.cuda.matmul.allow_tf32 is True; the reference is "
             "float32 throughout and TF32 matmuls would drift from it")
+
+
+def enter(device=None) -> torch.device:
+    """Entry-point preamble: ``set_precision``, then the resolved device."""
+    set_precision()
     return resolve_device(device)

@@ -390,3 +390,155 @@ def test_geomed_wrappers_reject_mismatched_shapes(cuda):
         geomed.reweight(z, w[:2])
     with pytest.raises(ValueError, match="same device"):
         geomed.sqdist(z, y.cpu())
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the dense LM's serve path
+
+# (B, Tq, Tk, H, KV, hd, causal, window): tests/test_kernels.py's grid, an
+# H2O-width head (hd 120, GQA 4), a ragged Tq < Tk and a non-causal ragged
+# Tk (keys past Tk are masked in the kernel)
+ATTN_CASES = [(2, 64, 64, 4, 2, 32, True, None),
+              (1, 128, 128, 8, 8, 64, True, None),
+              (2, 100, 100, 4, 1, 32, True, None),
+              (1, 256, 256, 4, 2, 64, True, 64),
+              (2, 64, 64, 4, 4, 32, False, None),
+              (1, 96, 96, 6, 2, 16, True, 32),
+              (1, 333, 333, 8, 2, 120, True, 100),
+              (2, 77, 200, 4, 2, 128, True, None),
+              (1, 20, 20, 2, 1, 16, False, None),
+              (1, 70, 150, 4, 1, 256, False, 50)]
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def _qkv(case, dtype, device, seed=0):
+    B, Tq, Tk, H, KV, hd = case[:6]
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.as_tensor(          # noqa: E731
+        rng.normal(size=s).astype(np.float32), device=device).to(dtype)
+    return mk(B, Tq, H, hd), mk(B, Tk, KV, hd), mk(B, Tk, KV, hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_flash_kernel_matches_plain_and_is_deterministic(cuda, case, dtype):
+    from repro_torch.kernels.attention import flash, ops, ref
+    causal, window = case[6], case[7]
+    q, k, v = _qkv(case, dtype, cuda)
+    before = flash.flash_attention.launches
+    a = ops.attention(q, k, v, causal=causal, sliding_window=window)
+    b = ops.attention(q, k, v, causal=causal, sliding_window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                   sliding_window=window)
+    assert flash.flash_attention.launches == before + 2
+    assert a.dtype == dtype and a.shape == q.shape
+    assert torch.equal(a, b)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(a.float(), want.float(), atol=tol, rtol=tol)
+    # the kernel's bf16 output is its f32 arithmetic on the bf16 inputs,
+    # rounded once: within half a bf16 ulp (<= 2**-8 |y|) of the plain
+    # version in f32 on the same inputs, plus the f32 tolerance
+    want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                     causal=causal, sliding_window=window)
+    assert bool(((a.float() - want32).abs()
+                 <= 2.0 ** -8 * want32.abs() + 2 * ATTN_TOL[torch.float32])
+                .all())
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.attention import flash, ops
+    q, k, v = _qkv((1, 16, 16, 4, 2, 32), torch.float32, cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="multiple of KV"):
+        ops.attention(q[:, :, :3], k, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.attention(*_qkv((1, 8, 8, 2, 1, 272), torch.float32, cuda))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="sliding_window"):
+        flash.flash_attention(q, k, v, sliding_window=0)
+    with pytest.raises(RuntimeError, match="forward only"):
+        ops.attention(q.requires_grad_(), k, v)
+
+
+@pytest.mark.cuda
+def test_flash_failed_launch_raises(cuda, monkeypatch):
+    from repro_torch.kernels.attention import flash, ops
+    lib = flash._library()
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def flash_attention_forward(*args):
+            return 9                     # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(flash, "_library", lambda: Refusing())
+    before = flash.flash_attention.launches
+    with pytest.raises(RuntimeError, match="flash_attention kernel launch"):
+        ops.attention(*_qkv((1, 16, 16, 4, 2, 32), torch.float32, cuda))
+    assert flash.flash_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_flash_failed_build_raises(cuda, tmp_path, monkeypatch):
+    from repro_torch.kernels.attention import flash
+    monkeypatch.setattr(flash, "SOURCE",
+                        _broken_source(tmp_path, monkeypatch))
+    flash._library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            flash.flash_attention(*_qkv((1, 16, 16, 4, 2, 32),
+                                        torch.float32, cuda))
+    finally:
+        flash._library.cache_clear()
+
+
+def _reduced_lm(device):
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    cfg = get_config("h2o-danube-3-4b").reduced()
+    return cfg, model.init(0, cfg, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [80, 2100])
+def test_prefill_goes_through_the_kernel_once_per_layer(cuda, T):
+    from repro_torch.kernels.attention import flash
+    from repro_torch.launch import steps
+    cfg, params = _reduced_lm(cuda)
+    tokens = torch.as_tensor(
+        np.random.default_rng(T).integers(0, cfg.vocab_size, (2, T)),
+        device=cuda)
+    flash.flash_attention.launches = 0
+    h = steps.make_prefill_step(cfg)(params, {"tokens": tokens})
+    assert flash.flash_attention.launches == cfg.num_layers
+    h_plain = steps.make_prefill_step(cfg, plain=True)(params,
+                                                       {"tokens": tokens})
+    assert flash.flash_attention.launches == cfg.num_layers
+    scale = float(h_plain.abs().max())
+    assert float((h - h_plain).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_serve_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.launch import serve
+    cfg, params = _reduced_lm(cuda)
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        return tree.cpu()
+
+    cpu_params = to_cpu(params)
+    prompts = torch.as_tensor(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 80)))
+    tok, logits, _ = serve.generate(params, cfg, prompts.to(cuda), 8)
+    tok_cpu, logits_cpu, _ = serve.generate(cpu_params, cfg, prompts, 8)
+    assert tok.shape == (2, 8)
+    torch.testing.assert_close(logits.cpu(), logits_cpu, atol=1e-4,
+                               rtol=1e-4)

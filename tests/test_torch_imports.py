@@ -40,10 +40,23 @@ def test_port_has_modules():
     for module in ("round.py", "geomed.py", "ops.py", "ref.py"):
         assert os.path.join("src", "repro_torch", "kernels", "geomed",
                             module) in names
+    for module in ("flash.py", "ops.py", "ref.py"):
+        assert os.path.join("src", "repro_torch", "kernels", "attention",
+                            module) in names
+    for module in ("configs/base.py", "configs/shapes.py",
+                   "configs/h2o_danube3_4b.py", "configs/minitron_4b.py",
+                   "configs/qwen3_14b.py", "configs/qwen2_72b.py",
+                   "models/layers.py", "models/attention.py",
+                   "models/blocks.py", "models/model.py",
+                   "launch/steps.py", "launch/serve.py"):
+        assert os.path.join("src", "repro_torch", *module.split("/")) \
+            in names
     csrc = os.path.join(PORT, "kernels", "geomed", "csrc")
     for source in ("round_aggregate.cu", "linreg_round.cu", "geomed.cu"):
         assert os.path.exists(os.path.join(csrc, source))
-    assert len(names) > 20
+    assert os.path.exists(os.path.join(PORT, "kernels", "attention", "csrc",
+                                       "flash_attention.cu"))
+    assert len(names) > 40
 
 
 @pytest.mark.parametrize("path", _files(),
