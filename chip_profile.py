@@ -23,7 +23,9 @@ Prints two JSON lines per config.  Then, for the LM serve path of
 prefill step at B = 1, T = 8192 and one of ``DECODE_STEPS`` decode steps
 at 4 requests: device busy time, idle share, device kernels, and device
 time by kernel family (the flash kernel, matmuls, the rest) with the
-heaviest kernels by name.  Needs a CUDA card.
+heaviest kernels by name, and the flash kernel's launches by route (the
+bf16 prefill's must all be on the tensor-core route).  Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -135,6 +137,7 @@ def profile_serve_path(dev, smi):
     import torch
     from chip_smoke import PREFILL_T, SERVE_ARCH
     from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import flash
     from repro_torch.launch import steps
     from repro_torch.models import model
     cfg = get_config(SERVE_ARCH)
@@ -144,10 +147,15 @@ def profile_serve_path(dev, smi):
                            device=dev)
     prefill = steps.make_prefill_step(cfg)
     prefill(params, {"tokens": tokens[:, :256]})                # warm-up
+    flash.reset_launches()
     wall, events = _trace(lambda: prefill(params, {"tokens": tokens}), dev)
+    routes = dict(flash.flash_attention.route_launches)
     print(json.dumps({"path": "serve_prefill", "arch": cfg.name,
                       "dtype": "bfloat16", "batch": 1, "seq_len": PREFILL_T,
-                      "card": smi, **_shares(wall, events, 1)}), flush=True)
+                      "card": smi, "launches_by_route": routes,
+                      **_shares(wall, events, 1)}), flush=True)
+    if routes != {"tensor_core": cfg.num_layers, "cuda_core": 0}:
+        raise RuntimeError(f"bf16 prefill: flash launches by route {routes}")
 
     B, P = 4, 16
     step = steps.make_serve_step(cfg)

@@ -33,20 +33,27 @@ Phases:
                  8192) and (11, 25 557 032) against core.geometric_median
                  Flash attention vs its plain version over a grid
                  (tests/test_kernels.py's cases, H2O and Minitron widths up
-                 to T = 8192, ragged and non-causal ragged), f32 2e-5,
-                 bf16 3e-2 and within half a bf16 ulp of the f32 plain
-                 version, bitwise repeats; a planted fault (no window)
-                 must fail the bf16 check against f32
+                 to T = 8192, ragged and non-causal ragged): f32 through
+                 the CUDA-core route at 2e-5; bf16 through the tensor-core
+                 route (route counts asserted) at 3e-2 and within the
+                 restated bound of the f32 plain version (BF16_BOUND);
+                 bitwise repeats; a planted fault (no window) must fail
+                 the bf16 check against f32
   4b serve path  H2O-Danube3-4B at full width (24 layers, 3840, 32 x 8
                  heads of 120, 10240, 32 000): the prefill step at B = 1,
                  T = 8192 in bf16 and f32, kernel path vs plain path (24
-                 launches per prefill; the bf16 prefill is the main path's
-                 run), and the kernel path without the window as a
+                 launches per prefill, all on the tensor-core route in
+                 bf16 and on the CUDA-core route in f32; the bf16 prefill
+                 is the main path's run), and the kernel path without the
+                 window as a
                  planted fault; launch/serve.py at --scale gpu (4
                  requests, 16-token prompts, 32 new tokens); in f32 the
                  prefill step's last-position logits vs the decode loop's
   5 timings      kernel, plain and library times (medians of 20 after
-                 warm-up), iterations, launches per call, bounds
+                 warm-up), iterations, launches per call, bounds; flash
+                 attention also through its CUDA-core kernel on the same
+                 bf16 inputs (the kernel it replaced), and the library's
+                 backend pinned with sdpa_kernel
 """
 
 from __future__ import annotations
@@ -113,12 +120,16 @@ ATTN_GRID = [(2, 64, 64, 4, 2, 32, True, None),
              (1, 8192, 8192, 32, 8, 120, True, 4096),
              (1, 8192, 8192, 24, 8, 128, True, None)]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
-# bf16 against the plain version in f32 on the same inputs: the kernel's
-# bf16 output is its f32 arithmetic rounded once, so it lies within half a
-# bf16 ulp (<= 2**-8 |y|) of that plus the f32 tolerance.  Unlike 3e-2,
-# this bound stays tight past the window at T = 8192, where the outputs'
-# RMS is about sqrt(e / 4096) = 0.026 for random inputs
-BF16_HALF_ULP = 2.0 ** -8
+# bf16 against the plain version in f32 on the same inputs, elementwise:
+#   |d| <= 2**-8 |y| + 2**-8 (P|V|) + 2 ATTN_TOL["float32"]
+# 2**-8 |y| is the output's rounding; the tensor-core route rounds P to
+# bf16 before P V (as the plain bf16 path does), a relative error of at
+# most 2**-9 a term, so its sum moves by at most 2**-9 P|V| (2**-8 leaves
+# room for l being summed from the unrounded p); P|V| is the plain version
+# in f32 with |v| in place of v; then the f32 tolerance.  Unlike 3e-2, the
+# bound stays tight past the window at T = 8192, where the outputs' RMS is
+# about sqrt(e / 4096) = 0.026 for random inputs (P|V| is about 0.8 there)
+BF16_BOUND = 2.0 ** -8
 # the timed shapes: H2O's prefill at T = 8192 (the serve path's), Minitron's
 # at 8192, and one H2O call at prefill_32k's sequence length
 ATTN_MAIN = (1, 8192, 8192, 32, 8, 120, True, 4096)
@@ -169,6 +180,18 @@ def peaks(name: str):
         if part in name:
             return PEAKS[part]
     return PEAKS["SXM"]
+
+
+def spills(summary: dict) -> dict:
+    """{kernel: (spill store bytes, spill load bytes)} of a ptxas
+    summary's tensor-core attention kernels."""
+    out = {}
+    for fn, text in summary.items():
+        if "wgmma" in fn:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          text)
+            out[fn] = (int(m.group(1)), int(m.group(2))) if m else None
+    return out
 
 
 def ptxas_summary(log: str) -> dict:
@@ -549,20 +572,26 @@ def live_pairs(Tq, Tk, causal, window):
 
 def attention_parity(dev, grid=ATTN_GRID):
     """The flash kernel (``ops.attention`` on CUDA tensors) vs
-    ``flash_attention_ref`` -> {(case, dtype): max_abs_err}.  In bf16 also
-    vs the plain version in f32 on the same inputs (``BF16_HALF_ULP``);
-    at ATTN_MAIN a planted fault (the kernel without the window) shows
-    what each bf16 check sees."""
+    ``flash_attention_ref`` -> {(case, dtype): max_abs_err}.  f32 goes
+    through the CUDA-core route, bf16 through the tensor-core route (the
+    route counts are asserted); in bf16 also vs the plain version in f32
+    on the same inputs (``BF16_BOUND``) and, as a diagnostic, vs the
+    route's plain twin; at ATTN_MAIN a planted fault (the kernel without
+    the window) shows what each bf16 check sees."""
     import torch
-    from repro_torch.kernels.attention import ops, ref
+    from repro_torch.kernels.attention import flash, ops, ref
     errs = {}
     for case in grid:
         causal, window = case[6], case[7]
         for dname in ("float32", "bfloat16"):
             q, k, v = attn_inputs(case, getattr(torch, dname), dev,
                                   seed=case[1] + case[5])
+            route = flash.route(q.dtype, case[5])
+            before = dict(flash.flash_attention.route_launches)
             a = ops.attention(q, k, v, causal=causal, sliding_window=window)
             b = ops.attention(q, k, v, causal=causal, sliding_window=window)
+            moved = {r: n - before[r] for r, n in
+                     flash.flash_attention.route_launches.items()}
             want = ref.flash_attention_ref(q, k, v, causal=causal,
                                            sliding_window=window)
             torch.cuda.synchronize(dev)
@@ -576,37 +605,61 @@ def attention_parity(dev, grid=ATTN_GRID):
             check(bitwise, f"determinism {tag}")
             check(a.dtype == q.dtype and a.shape == q.shape,
                   f"{tag}: output {a.dtype} {tuple(a.shape)}")
+            want_route = "tensor_core" if dname == "bfloat16" else \
+                "cuda_core"
+            check(route == want_route and moved == {
+                r: 2 * (r == want_route) for r in moved},
+                f"{tag}: launches by route {moved}, want 2 on {want_route}")
             errs[(case, dname)] = err
             line = {"phase": "parity_attention", "case": list(case),
-                    "dtype": dname, "max_abs_err": err,
+                    "dtype": dname, "route": route, "max_abs_err": err,
                     "max_abs_y": float(want.float().abs().max()),
                     "tol": tol, "ok": ok, "bitwise_repeat": bitwise}
             if dname == "bfloat16":
-                want32 = ref.flash_attention_ref(
-                    q.float(), k.float(), v.float(), causal=causal,
-                    sliding_window=window)
-                ok32, err32 = within_half_ulp(a, want32)
-                check(ok32, f"parity {tag} vs f32: max_abs_err {err32}")
-                line.update(max_abs_err_vs_f32=err32, ok_vs_f32=ok32)
+                want32, allowed = restated_bound(q, k, v, causal, window)
+                ok32, err32, ratio = within_bound(a, want32, allowed)
+                check(ok32, f"parity {tag} vs f32: max_abs_err {err32}, "
+                            f"max |d| / bound {ratio}")
+                twin = ref.flash_attention_tiled_ref(
+                    q, k, v, causal=causal, sliding_window=window)
+                line.update(max_abs_err_vs_f32=err32, ok_vs_f32=ok32,
+                            max_ratio_to_bound=ratio,
+                            max_abs_err_vs_twin=float(
+                                (a.float() - twin.float()).abs().max()))
+                del twin
                 if case == ATTN_MAIN:
                     line["planted_fault"] = planted_attention_fault(
-                        q, k, v, want, want32)
-                del want32
+                        q, k, v, want, want32, allowed)
+                del want32, allowed
             emit(line)
             del q, k, v, a, b, want, diff
             torch.cuda.empty_cache()
     return errs
 
 
-def within_half_ulp(got, want32):
-    """bf16 ``got`` vs the f32 plain version: (ok, max_abs_err)."""
+def restated_bound(q, k, v, causal, window):
+    """(y32, allowed): the plain version in f32 on bf16 q, k, v, and the
+    elementwise bound 2**-8 |y32| + 2**-8 (P|V|) + 2 ATTN_TOL["float32"]
+    (``BF16_BOUND``)."""
+    from repro_torch.kernels.attention import ref
+    q, k, v = q.float(), k.float(), v.float()
+    want32 = ref.flash_attention_ref(q, k, v, causal=causal,
+                                     sliding_window=window)
+    pv = ref.flash_attention_ref(q, k, v.abs(), causal=causal,
+                                 sliding_window=window)
+    allowed = BF16_BOUND * (want32.abs() + pv) + 2 * ATTN_TOL["float32"]
+    return want32, allowed
+
+
+def within_bound(got, want32, allowed):
+    """bf16 ``got`` vs the f32 plain version: (ok, max_abs_err, max of
+    |d| / bound)."""
     diff = (got.float() - want32).abs()
-    ok = bool((diff <= BF16_HALF_ULP * want32.abs()
-               + 2 * ATTN_TOL["float32"]).all())
-    return ok, float(diff.max())
+    return (bool((diff <= allowed).all()), float(diff.max()),
+            float((diff / allowed).max()))
 
 
-def planted_attention_fault(q, k, v, want, want32):
+def planted_attention_fault(q, k, v, want, want32, allowed):
     """The kernel with the window dropped, against both bf16 checks: the
     strict one must fail it."""
     from repro_torch.kernels.attention import ops
@@ -614,7 +667,7 @@ def planted_attention_fault(q, k, v, want, want32):
     diff = (bad.float() - want.float()).abs()
     tol = ATTN_TOL["bfloat16"]
     loose_ok = bool((diff <= tol + tol * want.float().abs()).all())
-    strict_ok, strict_err = within_half_ulp(bad, want32)
+    strict_ok, strict_err, _ = within_bound(bad, want32, allowed)
     check(not strict_ok, "planted attention fault (no window) passed the "
                          "bf16 check against f32")
     return {"fault": "no window", "max_abs_err": float(diff.max()),
@@ -632,13 +685,16 @@ def _prefill_ms(step, params, batch, dev):
 
 
 def serve_path(dev):
-    """The serve path at full width -> the flash kernel's launches in the
-    main path's run (the bf16 prefill).  (a) the prefill step at B = 1, T =
+    """The serve path at full width -> the flash kernel's launches by
+    route in each prefill: {"bfloat16": {...}, "float32": {...}} (the bf16
+    prefill is the main path's run).  (a) the prefill step at B = 1, T =
     PREFILL_T in bf16, then in f32: kernel path vs plain path, 24 launches
-    per prefill, and a planted fault (the kernel path without the window)
-    against the same bound; (b) launch/serve.py at --scale gpu; (c) in
-    f32, the prefill step's last-position logits on the served prompts vs
-    the logits the decode loop reaches after the same prompt."""
+    per prefill (all on the tensor-core route in bf16, on the CUDA-core
+    route in f32), and a planted fault (the kernel path without the
+    window) against the same bound; (b) launch/serve.py at --scale gpu;
+    (c) in f32, the prefill step's last-position logits on the served
+    prompts vs the logits the decode loop reaches after the same
+    prompt."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.attention import flash
@@ -651,7 +707,7 @@ def serve_path(dev):
                            generator=gen, device=dev)
     prompts = torch.randint(0, base.vocab_size, (4, 16), generator=gen,
                             device=dev)
-    main_launches = None
+    by_route = {}
     for dname in ("bfloat16", "float32"):
         cfg = base.with_(dtype=getattr(torch, dname),
                          param_dtype=getattr(torch, dname))
@@ -663,12 +719,11 @@ def serve_path(dev):
         kernel_step = steps.make_prefill_step(cfg)
         plain_step = steps.make_prefill_step(cfg, plain=True)
         _prefill_ms(kernel_step, params, {"tokens": tokens[:, :256]}, dev)
-        flash.flash_attention.launches = 0
+        flash.reset_launches()
         h, ms_kernel = _prefill_ms(kernel_step, params, {"tokens": tokens},
                                    dev)
         n_prefill = flash.flash_attention.launches
-        if dname == "bfloat16":
-            main_launches = n_prefill
+        routes = by_route[dname] = dict(flash.flash_attention.route_launches)
         h_plain, ms_plain = _prefill_ms(plain_step, params,
                                         {"tokens": tokens}, dev)
         plain_launches = flash.flash_attention.launches - n_prefill
@@ -692,10 +747,15 @@ def serve_path(dev):
         check(n_prefill == L and plain_launches == 0,
               f"prefill {dname}: {n_prefill} kernel launches (want {L}), "
               f"plain path {plain_launches}")
+        want_route = "tensor_core" if dname == "bfloat16" else "cuda_core"
+        check(routes == {r: L * (r == want_route) for r in routes},
+              f"prefill {dname}: launches by route {routes}, want {L} on "
+              f"{want_route}")
         emit({"phase": "serve_prefill", "arch": cfg.name, "dtype": dname,
               "batch": 1, "seq_len": PREFILL_T, "num_layers": L,
               "reduced": PREFILL_CUTS,
               "init_s": init_s, "kernel_launches": n_prefill,
+              "launches_by_route": routes,
               "ms_per_prefill": {"kernel": ms_kernel, "plain": ms_plain},
               "max_abs_err": err, "max_abs_h": scale,
               "rel_err": err / scale, "rtol": PREFILL_RTOL[dname], "ok": ok,
@@ -706,7 +766,7 @@ def serve_path(dev):
         del h, h_plain
         if dname == "float32":
             # (c) the same function through the kernel and the cache path
-            flash.flash_attention.launches = 0
+            flash.reset_launches()
             hp = kernel_step(params, {"tokens": prompts})
             n_check = flash.flash_attention.launches
             check(n_check == L, f"prefill of the served prompts: {n_check} "
@@ -740,14 +800,36 @@ def serve_path(dev):
                   "first_tokens": out[0, :8].tolist()})
             del out
             torch.cuda.empty_cache()
-    return main_launches
+    return by_route
+
+
+def cuda_core_call(q, k, v, causal, window):
+    """One launch of the CUDA-core kernel on bf16 inputs through the
+    library's C entry (route 0), bypassing ``flash.route``: the kernel the
+    tensor-core route replaced, timed beside it.  Counts nothing."""
+    import torch
+    from repro_torch.kernels.attention import flash
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    rc = flash._library().flash_attention_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        flash._DTYPES[q.dtype], B, Tq, Tk, H, KV, hd, int(causal),
+        int(window or 0), hd ** -0.5, flash.ROUTES["cuda_core"],
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA-core flash kernel: CUDA error {rc}")
+    return out
 
 
 def attention_timings(dev, hbm, smi):
     """Kernel, plain and library ms of flash attention at ATTN_TIMED (bf16)
-    -> {case: timing dict}."""
+    -> {case: timing dict}.  The kernel is the tensor-core route; the
+    CUDA-core kernel is timed beside it on the same inputs.  The library
+    call's backend is pinned with ``sdpa_kernel`` and named."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.attention import flash, ops, ref
     from repro_torch.models.attention import attention_core_blocked
     tc = PEAK_BF16[next((p for p in ("PCIe", "NVL")
@@ -756,12 +838,16 @@ def attention_timings(dev, hbm, smi):
     for case in ATTN_TIMED:
         B, Tq, Tk, H, KV, hd, causal, window = case
         q, k, v = attn_inputs(case, torch.bfloat16, dev, seed=11)
-        before = flash.flash_attention.launches
+        before = flash.flash_attention.route_launches["tensor_core"]
         ops.attention(q, k, v, causal=causal, sliding_window=window)
-        per_call = flash.flash_attention.launches - before
-        check(per_call == 1, f"attention {case}: {per_call} launches/call")
+        per_call = flash.flash_attention.route_launches["tensor_core"] \
+            - before
+        check(per_call == 1, f"attention {case}: {per_call} tensor-core "
+                             "launches/call")
         kernel_ms = timed(lambda: ops.attention(
             q, k, v, causal=causal, sliding_window=window))
+        cuda_core_ms = timed(lambda: cuda_core_call(q, k, v, causal,
+                                                    window))
         # the plain version; at T = 32 768 its (B, KV, G, T, T) scores
         # would take 137 GB, so there the blocked core (the plain path
         # above 2048 positions) is timed
@@ -774,18 +860,41 @@ def attention_timings(dev, hbm, smi):
             plain_ms = timed(lambda: attention_core_blocked(
                 q, k, v, causal=causal, sliding_window=window))
         torch.cuda.empty_cache()
-        # one library call on the same inputs in its (B, H, T, hd) layout:
-        # causal GQA through is_causal; the window through an explicit
-        # mask, with kv repeated to H heads beforehand so that the
-        # memory-efficient backend takes it (GQA with a mask would fall
-        # back to the math backend, whose scores do not fit at 32 768)
+        # one library call on the same inputs in its (B, H, T, hd) layout,
+        # its backend pinned: causal GQA through is_causal on the flash
+        # backend (kv repeated to H heads if that backend refuses GQA); the
+        # window through an explicit mask on the memory-efficient backend,
+        # kv repeated to H heads (GQA with a mask would go to the math
+        # backend, whose scores do not fit at 32 768)
         qt = q.transpose(1, 2).contiguous()
         if window is None:
             kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
-            library_ms = timed(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True))
+            library_name = "flash (enable_gqa)"
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+                try:
+                    F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, enable_gqa=True)
+                except RuntimeError:
+                    library_name = "flash (kv repeated to H heads)"
+                    kt, vt = (x.repeat_interleave(H // KV, dim=1)
+                              for x in (kt, vt))
+                gqa = library_name == "flash (enable_gqa)"
+                library_ms = timed(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=gqa))
+            # which backend an unpinned call takes: it beside cuDNN's
+            others = {"unpinned": timed(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=gqa))}
+            try:
+                with sdpa_kernel([SDPBackend.CUDNN_ATTENTION]):
+                    others["cudnn"] = timed(
+                        lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=causal, enable_gqa=gqa))
+            except RuntimeError:
+                others["cudnn"] = None
         else:
-            from torch.nn.attention import SDPBackend, sdpa_kernel
+            others = {}
+            library_name = "efficient (dense window mask, kv repeated)"
             kt, vt = (x.transpose(1, 2).repeat_interleave(H // KV, dim=1)
                       .contiguous() for x in (k, v))
             pos = torch.arange(Tq, device=dev)
@@ -807,11 +916,15 @@ def attention_timings(dev, hbm, smi):
                          bound_by=bound_by)
         emit({"phase": "timing", "kernel": "flash_attention",
               "case": list(case), "dtype": "bfloat16",
-              "launches_per_call": per_call, "kernel_ms": kernel_ms,
+              "route": "tensor_core", "launches_per_call": per_call,
+              "kernel_ms": kernel_ms, "cuda_core_kernel_ms": cuda_core_ms,
               "plain_ms": plain_ms, "plain": plain_name,
-              "library_ms": library_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by, "live_pairs": pairs,
-              "kernel_tflops": ops_ / kernel_ms / 1e9, "card": smi})
+              "library_ms": library_ms, "library": library_name,
+              "library_other_backends_ms": others,
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "live_pairs": pairs,
+              "kernel_tflops": ops_ / kernel_ms / 1e9,
+              "cuda_core_tflops": ops_ / cuda_core_ms / 1e9, "card": smi})
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return out
@@ -853,9 +966,17 @@ def main() -> int:
     rk._linreg_library()
     geomed._library()
     flash._library()
+    ptxas = {os.path.relpath(path, HERE): ptxas_summary(
+        _build.BUILD_LOGS.get(str(path), "")) for path in lib_paths}
+    tc_spills = spills(ptxas[os.path.relpath(lib_paths[-1], HERE)])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": {os.path.relpath(path, HERE): ptxas_summary(
-              _build.BUILD_LOGS.get(str(path), "")) for path in lib_paths}})
+          "ptxas": ptxas, "tensor_core_attention_spills": {
+              fn: list(sp) if sp else None for fn, sp in tc_spills.items()}})
+    # the tensor-core attention kernels (one per padded width) keep their
+    # accumulators in registers: no spill anywhere in them
+    check(len(tc_spills) == 3 and all(sp == (0, 0)
+                                      for sp in tc_spills.values()),
+          f"tensor-core attention kernels spill: {tc_spills}")
 
     gen = torch.Generator(device=dev)
 
@@ -966,7 +1087,7 @@ def main() -> int:
               "ms_per_round": ms_round})
     linreg_launches = linreg_path(dev)
     sqdist_launches, reweight_launches = geomed_path(dev)
-    attn_launches = serve_path(dev)
+    attn_routes = serve_path(dev)
 
     # -- 5 timings --------------------------------------------------------
     timing = {}
@@ -1017,18 +1138,25 @@ def main() -> int:
              "src/repro/kernels/geomed/geomed.py:96", reweight_launches,
              geomed_err[("reweight", GEOMED_MAIN)],
              timing[("reweight", GEOMED_MAIN)], GEOMED_MAIN),
-            ("flash_attention", "attention/csrc/flash_attention.cu",
-             "src/repro/kernels/attention/flash.py:124", attn_launches,
+            ("flash_attention", "attention/csrc/flash_attention_tc.cuh",
+             "src/repro/kernels/attention/flash.py:124",
+             attn_routes["bfloat16"]["tensor_core"],
              attn_err[(ATTN_MAIN, "bfloat16")], timing[ATTN_MAIN],
              ATTN_MAIN))
     print(smi, flush=True)
-    emit({"kernels": [{
+    line = [{
         "name": kname, "route": "cuda", "source": csrc + source,
         "replaces": replaces, "launches": launches, "max_abs_err": err,
         "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"], "shape": list(shape)}
-        for kname, source, replaces, launches, err, t, shape in rows]})
+        for kname, source, replaces, launches, err, t, shape in rows]
+    # flash attention's row is its tensor-core route at ATTN_MAIN (bf16);
+    # the f32 prefill's launches went to the CUDA-core route
+    line[-1].update(kernel_route="tensor_core", launches_by_route={
+        "tensor_core": attn_routes["bfloat16"]["tensor_core"],
+        "cuda_core": attn_routes["float32"]["cuda_core"]})
+    emit({"kernels": line})
 
     if FAILURES:
         for f in FAILURES:

@@ -1,4 +1,5 @@
-// Flash attention (forward) for Hopper, sm_90a.
+// Flash attention (forward) for Hopper, sm_90a: the entry point and the
+// CUDA-core route.
 //
 // Replaces the Pallas TPU kernel `flash_attention` / `_flash_kernel` of
 // src/repro/kernels/attention/flash.py: causal and sliding-window GQA
@@ -7,16 +8,21 @@
 // no padding); the output has q's layout and type.  Query head h reads kv
 // head h / (H / KV).
 //
+// Two routes, chosen by the caller (`flash.route` in Python) and passed in
+// as `route`; there is no fallback from one to the other:
+// * 1, tensor cores: bf16 with hd % 8 == 0 and hd <= 256, the wgmma kernel
+//   fed by TMA of flash_attention_tc.cuh;
+// * 0, CUDA cores: float32, and bf16 of any other width, the kernel below.
+//
 // What bounds it on this card: the function is 4 * H * hd FLOP per live
 // (q, k) pair against reading q, k, v and writing o once, far above the
 // H100's 295 operations per byte, so it is bound by operations (989 TFLOP/s
-// dense bf16 in the tensor cores, H100 SXM data sheet).  This first version
-// computes on the CUDA cores in float32 FMAs (67 TFLOP/s at most, same
-// sheet), so it sits well above that bound; its design is simple and right
-// first: the tensor-core version (wgmma fed by TMA, warp-specialised) is
-// ROADMAP Queue 4 work.
+// dense bf16 in the tensor cores, H100 SXM data sheet).  The CUDA-core
+// kernel computes in float32 FMAs (67 TFLOP/s at most, same sheet), so it
+// sits well above that bound; it stays for float32 because the reference
+// computes in f32 throughout and TF32 would cut the f32 check's precision.
 //
-// The design:
+// The CUDA-core kernel's design:
 // * one block of 256 threads per (64-row query tile, head, batch); the
 //   block walks the kv tiles of 64 keys in order, so every output row is
 //   owned by one block and summed in one fixed order (no atomics; two runs
@@ -41,6 +47,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_attention_tc.cuh"
 
 namespace {
 
@@ -248,14 +256,23 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16.  window <= 0: no sliding window.  The
-// caller checks shapes (hd in [1, 256], H a multiple of KV, Tq, Tk >= 1,
-// contiguous tensors); the launch's error code is returned.
+// dtype: 0 float32, 1 bfloat16.  window <= 0: no sliding window.  route: 0
+// the CUDA-core kernel, 1 the tensor-core kernel (bf16, hd % 8 == 0, hd <=
+// 256, else cudaErrorInvalidValue).  The caller checks shapes (hd in [1,
+// 256], H a multiple of KV, Tq, Tk >= 1, contiguous tensors, 16-byte
+// aligned for route 1); the launch's error code is returned.
 int flash_attention_forward(const void* q, const void* k, const void* v,
                             void* o, int dtype, int B, int Tq, int Tk, int H,
                             int KV, int hd, int causal, int window,
-                            float scale, void* stream) {
+                            float scale, int route, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (dtype != 1 || hd % 8 != 0 || hd < 8 || hd > 256)
+      return (int)cudaErrorInvalidValue;
+    return flash_tc::forward(q, k, v, o, B, Tq, Tk, H, KV, hd, causal,
+                             window, scale, s);
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)dispatch<float>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal,
                                 window, scale, s);
@@ -266,6 +283,8 @@ int flash_attention_forward(const void* q, const void* k, const void* v,
 }
 
 const char* flash_attention_error_string(int err) {
+  if (err >= flash_tc::TMAP_ERROR)
+    return "cuTensorMapEncodeTiled failed (CUresult = code - 1000)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -397,7 +397,9 @@ def test_geomed_wrappers_reject_mismatched_shapes(cuda):
 
 # (B, Tq, Tk, H, KV, hd, causal, window): tests/test_kernels.py's grid, an
 # H2O-width head (hd 120, GQA 4), a ragged Tq < Tk and a non-causal ragged
-# Tk (keys past Tk are masked in the kernel)
+# Tk (keys past Tk are masked in the kernel); hd 16 and 256 over several
+# kv tiles (zero padding to 64 and BK = 64), Tq not a multiple of 128; and
+# hd 20, which bf16 takes to the CUDA-core route (hd % 8 != 0)
 ATTN_CASES = [(2, 64, 64, 4, 2, 32, True, None),
               (1, 128, 128, 8, 8, 64, True, None),
               (2, 100, 100, 4, 1, 32, True, None),
@@ -407,8 +409,29 @@ ATTN_CASES = [(2, 64, 64, 4, 2, 32, True, None),
               (1, 333, 333, 8, 2, 120, True, 100),
               (2, 77, 200, 4, 2, 128, True, None),
               (1, 20, 20, 2, 1, 16, False, None),
-              (1, 70, 150, 4, 1, 256, False, 50)]
+              (1, 70, 150, 4, 1, 256, False, 50),
+              (1, 300, 300, 4, 4, 16, True, None),
+              (2, 300, 300, 2, 1, 256, True, 130),
+              (1, 150, 150, 4, 2, 20, True, 64)]
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def _restated_bound(q, k, v, causal, window):
+    """(y32, allowed): the plain version in f32 on bf16 q, k, v, and the
+    bound of the bf16 kernels against it, elementwise
+        |d| <= 2**-8 |y32| + 2**-8 (P|V|) + 2 ATTN_TOL[f32]:
+    the output's rounding; the rounding of P to bf16 before P V (relative
+    error <= 2**-9 a term, doubled for l being summed from the unrounded
+    p), with P|V| the plain version in f32 with |v| in place of v; the f32
+    tolerance."""
+    from repro_torch.kernels.attention import ref
+    q, k, v = q.float(), k.float(), v.float()
+    want32 = ref.flash_attention_ref(q, k, v, causal=causal,
+                                     sliding_window=window)
+    pv = ref.flash_attention_ref(q, k, v.abs(), causal=causal,
+                                 sliding_window=window)
+    return want32, (2.0 ** -8 * (want32.abs() + pv)
+                    + 2 * ATTN_TOL[torch.float32])
 
 
 def _qkv(case, dtype, device, seed=0):
@@ -426,24 +449,25 @@ def test_flash_kernel_matches_plain_and_is_deterministic(cuda, case, dtype):
     from repro_torch.kernels.attention import flash, ops, ref
     causal, window = case[6], case[7]
     q, k, v = _qkv(case, dtype, cuda)
+    route = flash.route(dtype, case[5])
+    assert route == ("tensor_core" if dtype == torch.bfloat16
+                     and case[5] % 8 == 0 else "cuda_core")
     before = flash.flash_attention.launches
+    by_route = dict(flash.flash_attention.route_launches)
     a = ops.attention(q, k, v, causal=causal, sliding_window=window)
     b = ops.attention(q, k, v, causal=causal, sliding_window=window)
     want = ref.flash_attention_ref(q, k, v, causal=causal,
                                    sliding_window=window)
     assert flash.flash_attention.launches == before + 2
+    assert flash.flash_attention.route_launches == {
+        r: n + 2 * (r == route) for r, n in by_route.items()}
     assert a.dtype == dtype and a.shape == q.shape
     assert torch.equal(a, b)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(a.float(), want.float(), atol=tol, rtol=tol)
-    # the kernel's bf16 output is its f32 arithmetic on the bf16 inputs,
-    # rounded once: within half a bf16 ulp (<= 2**-8 |y|) of the plain
-    # version in f32 on the same inputs, plus the f32 tolerance
-    want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
-                                     causal=causal, sliding_window=window)
-    assert bool(((a.float() - want32).abs()
-                 <= 2.0 ** -8 * want32.abs() + 2 * ATTN_TOL[torch.float32])
-                .all())
+    if dtype == torch.bfloat16:
+        want32, allowed = _restated_bound(q, k, v, causal, window)
+        assert bool(((a.float() - want32).abs() <= allowed).all())
 
 
 @pytest.mark.cuda
@@ -465,7 +489,55 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
 
 
 @pytest.mark.cuda
-def test_flash_failed_launch_raises(cuda, monkeypatch):
+def test_flash_tensor_core_route_fails_the_no_window_fault(cuda):
+    """The restated bound against f32 must fail the kernel run without
+    its window, on a shape where the window is live."""
+    from repro_torch.kernels.attention import ops
+    case = (1, 512, 512, 8, 2, 120, True, 128)
+    q, k, v = _qkv(case, torch.bfloat16, cuda)
+    want32, allowed = _restated_bound(q, k, v, True, 128)
+    good = ops.attention(q, k, v, causal=True, sliding_window=128)
+    bad = ops.attention(q, k, v, causal=True, sliding_window=None)
+    assert bool(((good.float() - want32).abs() <= allowed).all())
+    assert not bool(((bad.float() - want32).abs() <= allowed).all())
+
+
+@pytest.mark.cuda
+def test_flash_tensor_core_route_reads_views_at_any_offset(cuda):
+    """TMA wants 16-byte aligned bases: a contiguous view that starts 2
+    bytes into its storage is copied, not refused or misread."""
+    from repro_torch.kernels.attention import flash, ops
+    case = (1, 200, 200, 4, 2, 64, True, None)
+    q, k, v = _qkv(case, torch.bfloat16, cuda)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    q_odd = buf[1:].view(q.shape)
+    q_odd.copy_(q)
+    assert q_odd.data_ptr() % 16 != 0 and q_odd.is_contiguous()
+    before = flash.flash_attention.route_launches["tensor_core"]
+    assert torch.equal(ops.attention(q_odd, k, v), ops.attention(q, k, v))
+    assert flash.flash_attention.route_launches["tensor_core"] == before + 2
+
+
+@pytest.mark.cuda
+def test_flash_routes_refuse_each_others_inputs(cuda):
+    """The C entry takes the route it is given and refuses inputs that
+    route does not take: f32 or hd % 8 != 0 on the tensor-core route."""
+    from repro_torch.kernels.attention import flash
+    lib = flash._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for dtype, hd in ((torch.float32, 64), (torch.bfloat16, 20)):
+        q, k, v = _qkv((1, 16, 16, 2, 1, hd), dtype, cuda)
+        out = torch.empty_like(q)
+        rc = lib.flash_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            flash._DTYPES[dtype], 1, 16, 16, 2, 1, hd, 1, 0, hd ** -0.5,
+            flash.ROUTES["tensor_core"], stream)
+        assert rc == 1                   # cudaErrorInvalidValue
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_failed_launch_raises(cuda, monkeypatch, dtype):
     from repro_torch.kernels.attention import flash, ops
     lib = flash._library()
 
@@ -479,9 +551,11 @@ def test_flash_failed_launch_raises(cuda, monkeypatch):
 
     monkeypatch.setattr(flash, "_library", lambda: Refusing())
     before = flash.flash_attention.launches
+    by_route = dict(flash.flash_attention.route_launches)
     with pytest.raises(RuntimeError, match="flash_attention kernel launch"):
-        ops.attention(*_qkv((1, 16, 16, 4, 2, 32), torch.float32, cuda))
+        ops.attention(*_qkv((1, 16, 16, 4, 2, 32), dtype, cuda))
     assert flash.flash_attention.launches == before
+    assert flash.flash_attention.route_launches == by_route
 
 
 @pytest.mark.cuda
@@ -514,14 +588,42 @@ def test_prefill_goes_through_the_kernel_once_per_layer(cuda, T):
     tokens = torch.as_tensor(
         np.random.default_rng(T).integers(0, cfg.vocab_size, (2, T)),
         device=cuda)
-    flash.flash_attention.launches = 0
+    flash.reset_launches()
     h = steps.make_prefill_step(cfg)(params, {"tokens": tokens})
     assert flash.flash_attention.launches == cfg.num_layers
+    assert flash.flash_attention.route_launches["cuda_core"] == \
+        cfg.num_layers                   # f32
     h_plain = steps.make_prefill_step(cfg, plain=True)(params,
                                                        {"tokens": tokens})
     assert flash.flash_attention.launches == cfg.num_layers
     scale = float(h_plain.abs().max())
     assert float((h - h_plain).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [80, 2100])
+def test_bf16_prefill_goes_through_the_tensor_cores(cuda, T):
+    """The reduced model in bf16 (hd 64): every layer's attention on the
+    tensor-core route, within chip_smoke.py's bf16 prefill bound (5e-2 of
+    max|h|) of the plain path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import flash
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    cfg = get_config("h2o-danube-3-4b").reduced().with_(
+        dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    params = model.init(0, cfg, device=cuda)
+    tokens = torch.as_tensor(
+        np.random.default_rng(T).integers(0, cfg.vocab_size, (2, T)),
+        device=cuda)
+    flash.reset_launches()
+    h = steps.make_prefill_step(cfg)(params, {"tokens": tokens})
+    assert flash.flash_attention.route_launches == {
+        "tensor_core": cfg.num_layers, "cuda_core": 0}
+    h_plain = steps.make_prefill_step(cfg, plain=True)(params,
+                                                       {"tokens": tokens})
+    scale = float(h_plain.float().abs().max())
+    assert float((h.float() - h_plain.float()).abs().max()) <= 5e-2 * scale
 
 
 @pytest.mark.cuda
