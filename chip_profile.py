@@ -13,7 +13,8 @@ sign_flip/rotating through the port's engine, round_backend="auto"):
   ``ROUNDS`` rounds);
 * a ``torch.profiler`` trace of ``ROUNDS`` rounds run as the engine runs
   them: device busy time, idle share, device kernels per round, and the
-  device time of the round kernel's five CUDA kernels;
+  device time and launches of the round kernel (one persistent CUDA
+  kernel);
 * a ``torch.profiler`` trace of ``ROUNDS`` failure-free rounds through
   ``linreg_round_kernel`` (theta <- theta - eta aggregate): the same
   shares, and the device time of each of its CUDA kernels by name.
@@ -42,9 +43,11 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 ROUNDS = 10
 DECODE_STEPS = 8
-ROUND_KERNELS = ("means_kernel", "trim_kernel", "init_kernel",
-                 "step_head_kernel", "step_kernel")
-LINREG_KERNELS = ("residual_kernel", "grad_kernel") + ROUND_KERNELS
+# the round kernel is one persistent CUDA kernel; the linreg round adds its
+# one-pass front, or the two-pass route's residual and gradient kernels
+ROUND_KERNELS = ("gmom_round_kernel",)
+LINREG_KERNELS = ("linreg_onepass_kernel", "residual_kernel",
+                  "grad_kernel") + ROUND_KERNELS
 
 
 def device_events(prof):
@@ -55,14 +58,40 @@ def device_events(prof):
             if ev.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def weiszfeld_iters(sc, ds, dev, rounds):
+    """The Weiszfeld iterations of each of ``rounds`` failure-free rounds
+    from theta = 0 (the kernel's own count, read back after the rounds)."""
+    import torch
+    from repro_torch.kernels.geomed import round as rk
+    from repro_torch.sim import engine
+    counts, kernel = [], rk.linreg_round_kernel
+
+    def counted(*args, **kw):
+        y, it = kernel(*args, **kw)
+        counts.append(it)
+        return y, it
+
+    rk.linreg_round_kernel = counted
+    try:
+        step, _ = engine.failure_free_step(sc, device=dev, dataset=ds)
+    finally:
+        rk.linreg_round_kernel = kernel
+    theta = torch.zeros((sc.dim,), dtype=torch.float32, device=dev)
+    for _ in range(rounds):
+        theta = step(theta)
+    return [int(it) for it in counts]
+
+
 def profile_linreg_path(cname, cfg, dev, smi):
-    """Profile ROUNDS failure-free rounds through the linreg kernel."""
+    """Profile ROUNDS failure-free rounds through the linreg kernel, and
+    count the Weiszfeld iterations of each of the config's rounds."""
     import torch
     from repro_torch.sim import engine
     from repro_torch.sim.scenarios import Scenario
     sc = Scenario(name=f"linreg-{cname}/gmom/none/static", attack="none",
                   schedule="static", **dict(cfg, rounds=ROUNDS))
     step, ds = engine.failure_free_step(sc, device=dev)
+    iters = weiszfeld_iters(sc, ds, dev, cfg["rounds"])
     theta = torch.zeros((sc.dim,), dtype=torch.float32, device=dev)
 
     def rounds(theta, n):
@@ -91,7 +120,11 @@ def profile_linreg_path(cname, cfg, dev, smi):
         "device_busy_ms_per_round": busy_ms / ROUNDS,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_kernels_per_round": len(events) / ROUNDS,
-        "device_ms_per_round_by_kernel": by_kernel}), flush=True)
+        "device_ms_per_round_by_kernel": by_kernel,
+        "weiszfeld_iters_per_round": iters,
+        "rounds_at_max_iters": sum(
+            it >= engine._robust_config(sc, "auto").gmom_max_iters
+            for it in iters)}), flush=True)
     del step, ds
     torch.cuda.empty_cache()
 

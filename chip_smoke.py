@@ -17,9 +17,12 @@ unavailable, or when the ``src/repro_torch`` package is missing.
 Phases:
   0 device       nvidia-smi name and power limit, torch and CUDA versions
   1 build        nvcc build of every kernel source, one process each, all
-                 at once (seconds, ptxas summary per library)
+                 at once (seconds, ptxas summary per library); no spill in
+                 any instance of the GMoM libraries or of the tensor-core
+                 attention kernel
   2 parity       every kernel vs its plain version (round kernel and
-                 linreg round in each of MODES), rtol 1e-4 / atol 1e-5
+                 linreg round in each of MODES, the linreg round on both
+                 routes and at their boundary), rtol 1e-4 / atol 1e-5
                  against max|y|; two kernel runs must be bitwise equal
   3 goldens      the nine float goldens and the interrupted-resume replay
                  on the card with round_backend="auto" (gmom -> kernel)
@@ -28,7 +31,8 @@ Phases:
                  path vs plain paths, one round-kernel launch per round);
                  failure-free rounds theta <- theta - eta linreg_round(X,
                  y, theta) held against the engine's failure-free run
-                 (one linreg launch per round); both below paper_floor.
+                 (one linreg launch per round, all on the one-pass route);
+                 both below paper_floor.
                  The Weiszfeld loop over sqdist/reweight at (k, d) = (11,
                  8192) and (11, 25 557 032) against core.geometric_median
                  Flash attention vs its plain version over a grid
@@ -50,10 +54,15 @@ Phases:
                  requests, 16-token prompts, 32 new tokens); in f32 the
                  prefill step's last-position logits vs the decode loop's
   5 timings      kernel, plain and library times (medians of 20 after
-                 warm-up), iterations, launches per call, bounds; flash
-                 attention also through its CUDA-core kernel on the same
-                 bf16 inputs (the kernel it replaced), and the library's
-                 backend pinned with sdpa_kernel
+                 warm-up), iterations, launches per call, bounds; device
+                 kernels per call counted by torch.profiler, a session per
+                 call (the round kernel must be 1, the linreg round at
+                 most 2) with their
+                 device time and the wrapper's host time; the linreg round
+                 also through its two-pass route on the same inputs;
+                 flash attention also through its CUDA-core kernel on the
+                 same bf16 inputs (the kernel it replaced), and the
+                 library's backend pinned with sdpa_kernel
 """
 
 from __future__ import annotations
@@ -85,10 +94,16 @@ MODES = (("fixed32", dict(tol=0.0, max_iters=32)),
 REPEATS = 20
 # (m, n, d, k) of the full linreg round: the reference tests' geometry;
 # the paper's config (N/m = 1000 samples per worker, d=100) with k=10 and
-# the uneven k=11; the wide main-path width (X is 1.64 GB)
+# the uneven k=11; the wide main-path width (X is 1.64 GB); the two-pass
+# route (d % 4 != 0; d past D_ONEPASS) and the one-pass route's last d;
+# k = 64
 LINREG_SHAPES = [(12, 16, 300, 6), (20, 16, 400, 10), (50, 1000, 100, 10),
-                 (50, 1000, 100, 11), (50, 1000, 8192, 11)]
+                 (50, 1000, 100, 11), (50, 1000, 8192, 11),
+                 (12, 16, 302, 6), (16, 64, 8196, 8), (16, 64, 8192, 8),
+                 (64, 20, 512, 64)]
 LINREG_MAIN = (50, 1000, 8192, 11)
+# the timed linreg shapes: the paper's d and the main path's
+LINREG_TIMED = [(50, 1000, 100, 11), LINREG_MAIN]
 # (k, d) of the Weiszfeld-step kernels: the grid of tests/test_kernels.py,
 # the wide width, and ResNet-50's parameter count (Z is 1.12 GB)
 GEOMED_SHAPES = [(2, 64), (8, 1000), (16, 4096), (64, 512), (5, 777),
@@ -182,12 +197,12 @@ def peaks(name: str):
     return PEAKS["SXM"]
 
 
-def spills(summary: dict) -> dict:
+def spills(summary: dict, match: str = "") -> dict:
     """{kernel: (spill store bytes, spill load bytes)} of a ptxas
-    summary's tensor-core attention kernels."""
+    summary's kernels whose name holds ``match``."""
     out = {}
     for fn, text in summary.items():
-        if "wgmma" in fn:
+        if match in fn:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           text)
             out[fn] = (int(m.group(1)), int(m.group(2))) if m else None
@@ -195,13 +210,15 @@ def spills(summary: dict) -> dict:
 
 
 def ptxas_summary(log: str) -> dict:
-    """{kernel<KMAX>: "registers, spill bytes"} from ``nvcc -Xptxas -v``."""
+    """{kernel<template argument>: "registers, spill bytes"} from ``nvcc
+    -Xptxas -v``."""
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?\d([a-z]+(?:_[a-z]+)*"
-                      r"_kernel)(?:ILi(\d+)E)?", line)
+                      r"_kernel)(?:ILi(\d+)E|INS_\d+([A-Z]\w*?)E)?", line)
         if m:
-            fn = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            arg = m.group(2) or m.group(3)
+            fn = m.group(1) + (f"<{arg}>" if arg else "")
         elif fn and "spill" in line:
             out[fn] = line.split(":")[-1].strip() if ":" in line \
                 else line.strip()
@@ -235,6 +252,69 @@ def timed(fn):
     return statistics.median(times)
 
 
+def device_kernel_counts(dev, round_shapes=SHAPES,
+                         linreg_shapes=LINREG_TIMED):
+    """{("round", (m, k, d)) | ("linreg", (m, n, d, k)): (device events,
+    device ms, kernel names)} of one call of each: every kernel, copy and
+    fill the call puts on the card, in a torch.profiler session of its own
+    around the call, after a warm-up call.  The session records CPU
+    activity too: a CUDA-only session around one short kernel can close
+    before the kernel's record arrives and come back empty (PERF.md,
+    Findings)."""
+    import torch
+    from repro_torch.core.grouping import make_grouping
+    from repro_torch.kernels.geomed import round as rk
+    gen = torch.Generator(device=dev)
+
+    def round_call(m, k, d):
+        gen.manual_seed(m * 7 + k)
+        g = torch.randn((m, d), generator=gen, device=dev) + 1.0
+        return lambda: rk.round_aggregate_kernel(g, make_grouping(m, k))
+
+    def linreg_call(m, n, d, k):
+        x, t, theta = linreg_inputs(m, n, d, 3, dev)
+        return lambda: rk.linreg_round_kernel(x, t, theta,
+                                              make_grouping(m, k))
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    for key, make in ([(("round", shape), round_call)
+                       for shape in round_shapes]
+                      + [(("linreg", shape), linreg_call)
+                         for shape in linreg_shapes]):
+        call = make(*key[1])
+        call()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            call()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA]
+        out[key] = (len(events),
+                    sum(ev.time_range.elapsed_us() for ev in events) / 1e3,
+                    sorted({re.sub(r"^.*?(\w+_kernel)\b.*$", r"\1", ev.name)
+                            for ev in events}))
+        del call
+        torch.cuda.empty_cache()
+    return out
+
+
+def host_ms(fn):
+    """Median host ms of REPEATS calls of ``fn`` on an idle card: what the
+    wrapper costs to enqueue (allocations, ctypes, launch), no sync
+    inside."""
+    import torch
+    times = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def bound(nbytes, ops, hbm, flops):
     """(bound_ms, bound_by): the larger of bytes / HBM rate and
     operations / float32 rate."""
@@ -262,26 +342,34 @@ def geomed_inputs(k, d, seed, dev):
 
 
 def stops_on_its_test(iterate, iters, cap, tol):
-    """The linreg kernel's device-side early exit, replayed from outside:
-    it stops after the first iteration whose squared move is <= tol^2, or
-    at the cap.  So the move of iteration ``iters - 1`` must be > tol^2,
-    and, below the cap, the move of iteration ``iters`` <= tol^2.
+    """A round kernel's device-side early exit, replayed from outside: it
+    stops after the first iteration whose squared move is <= tol^2, or at
+    the cap.  So the move of every iteration before ``iters`` must be >
+    tol^2, and, below the cap, the move of iteration ``iters`` <= tol^2.
     ``iterate(i)`` is the kernel's output at ``max_iters=i``, the loop's
     i-th iterate bit for bit.  Moves are summed in float64 and held to
     tol^2 within a relative 1e-4 (the kernel sums them in float32 in
     another order)."""
     if not 1 <= iters <= cap:
         return False
-    tol2, seen = float(tol) ** 2, {}
+    tol2 = float(tol) ** 2
+    prev = iterate(0).double()
+    for i in range(1, iters + 1 if iters < cap else iters):
+        cur = iterate(i).double()
+        move = float(((cur - prev) ** 2).sum())
+        if i < iters and not move > tol2 * (1 - 1e-4):
+            return False                  # it should have stopped at i
+        if i == iters and not move <= tol2 * (1 + 1e-4):
+            return False                  # it stopped too soon
+        prev = cur
+    return True
 
-    def move(i):
-        for j in (i, i - 1):
-            if j not in seen:
-                seen[j] = iterate(j).double()
-        return float(((seen[i] - seen[i - 1]) ** 2).sum())
 
-    stopped = iters == cap or move(iters) <= tol2 * (1 + 1e-4)
-    return stopped and (iters == 1 or move(iters - 1) > tol2 * (1 - 1e-4))
+def moved_route(before):
+    """The linreg kernel's launches by route since ``before``."""
+    from repro_torch.kernels.geomed import round as rk
+    return {r: n - before[r]
+            for r, n in rk.linreg_round_kernel.route_launches.items()}
 
 
 def linreg_parity(dev, shapes=LINREG_SHAPES, main_shape=LINREG_MAIN):
@@ -292,6 +380,7 @@ def linreg_parity(dev, shapes=LINREG_SHAPES, main_shape=LINREG_MAIN):
     from repro_torch.kernels.geomed import round as rk
     worst = {}
     for m, n, d, k in shapes:
+        route = rk.linreg_route(d)
         x, t, theta = linreg_inputs(m, n, d, m * 7 + k, dev)
         cases = [("contiguous", 3.0)]
         if (m, n, d, k) == main_shape:
@@ -303,8 +392,10 @@ def linreg_parity(dev, shapes=LINREG_SHAPES, main_shape=LINREG_MAIN):
             for label, kw in MODES:
                 kw = dict(kw, trim_multiplier=trim)
                 cap, tol = kw.get("max_iters", 64), kw.get("tol", 1e-8)
+                before = dict(rk.linreg_round_kernel.route_launches)
                 y1, it1 = rk.linreg_round_kernel(x, t, theta, grouping, **kw)
                 y2, it2 = rk.linreg_round_kernel(x, t, theta, grouping, **kw)
+                moved = moved_route(before)
                 yp, itp = rk.linreg_round_fused(x, t, theta, grouping, **kw)
                 torch.cuda.synchronize(dev)
                 err, ok, scale = compare(y1, yp)
@@ -323,13 +414,17 @@ def linreg_parity(dev, shapes=LINREG_SHAPES, main_shape=LINREG_MAIN):
                                         else 1 <= int(itp) <= cap)
                 worst[(m, n, d, k)] = max(worst[(m, n, d, k)], err)
                 tag = f"linreg {(m, n, d, k)} {scheme} trim={trim} {label}"
+                check(moved == {r: 2 * (r == route) for r in rk.ROUTES},
+                      f"{tag}: launches by route {moved}, want 2 on "
+                      f"{route}")
                 check(ok, f"parity {tag}: max_abs_err {err} "
                           f"(max|y| {scale})")
                 check(bitwise, f"determinism {tag}")
                 check(iters_ok, f"iterations {tag}: kernel {int(it1)} "
                                 f"plain {int(itp)} (cap {cap})")
                 emit({"phase": "parity_linreg", "shape": [m, n, d, k],
-                      "scheme": scheme, "trim": trim, "mode": label,
+                      "route": route, "scheme": scheme, "trim": trim,
+                      "mode": label,
                       "max_abs_err": err, "max_abs_y": scale, "ok": ok,
                       "bitwise_repeat": bitwise, "iters_kernel": int(it1),
                       "iters_plain": int(itp), "stop_ok": stop_ok,
@@ -376,14 +471,14 @@ def linreg_path(dev, configs=None):
     """The slice's path at full width: failure-free Algorithm 2 through
     ``linreg_round_kernel`` (``engine.run_failure_free``), held against
     the engine's failure-free run (per-worker grads + the round kernel).
-    -> linreg kernel launches."""
+    -> (linreg kernel launches, launches by route)."""
     import torch
     from repro_torch import random as prng
     from repro_torch.data import regression
     from repro_torch.kernels.geomed import round as rk
     from repro_torch.sim import engine, goldens
     from repro_torch.sim.scenarios import Scenario
-    total = 0
+    total, by_route = 0, dict.fromkeys(rk.ROUTES, 0)
     for cname, cfg in (configs or FULL_WIDTH).items():
         sc = Scenario(name=f"linreg-{cname}/gmom/none/static", attack="none",
                       schedule="static", **cfg)
@@ -401,11 +496,14 @@ def linreg_path(dev, configs=None):
                                             plain=plain)
             return trace, (time.perf_counter() - t0) * 1e3 / sc.rounds
 
-        rk.linreg_round_kernel.launches = 0
+        rk.reset_linreg_launches()
         kern, ms_kernel = drive(plain=False)
         n_launch = rk.linreg_round_kernel.launches
+        routes = dict(rk.linreg_round_kernel.route_launches)
         plain, ms_plain = drive(plain=True)
         total += n_launch
+        for r, v in routes.items():
+            by_route[r] += v
         want = {key: engine_trace[key] for key in kern}
         vs_engine = goldens.compare_traces(kern, want)
         vs_plain = goldens.compare_traces(kern, plain)
@@ -421,6 +519,9 @@ def linreg_path(dev, configs=None):
                      f"{sc.paper_floor}")
         check(n_launch == sc.rounds, f"linreg {cname}: {n_launch} kernel "
                                      f"launches for {sc.rounds} rounds")
+        check(routes == {r: sc.rounds * (r == "one_pass") for r in routes},
+              f"linreg {cname}: launches by route {routes}, want "
+              f"{sc.rounds} on one_pass")
         emit({"phase": "linreg_path", "config": cname, "dim": sc.dim,
               "total_samples": sc.total_samples,
               "num_workers": sc.num_workers,
@@ -429,13 +530,14 @@ def linreg_path(dev, configs=None):
               "final_est_error": kern["final_est_error"],
               "engine_final_est_error": engine_trace["final_est_error"],
               "paper_floor": sc.paper_floor, "kernel_launches": n_launch,
+              "launches_by_route": routes,
               "kernel_vs_engine_ok": not vs_engine,
               "kernel_vs_plain_ok": not vs_plain,
               "ms_per_round": {"linreg_round_kernel": ms_kernel,
                                "linreg_round_fused": ms_plain}})
         del ds
         torch.cuda.empty_cache()
-    return total
+    return total, by_route
 
 
 def geomed_path(dev, shapes=GEOMED_PATH):
@@ -477,15 +579,16 @@ def geomed_path(dev, shapes=GEOMED_PATH):
     return launches
 
 
-def new_kernel_timings(dev, hbm, flops, smi):
+def new_kernel_timings(dev, hbm, flops, smi, counts):
     """Kernel, plain and library ms of the linreg round and the step
-    kernels at their main shapes -> {name: timing dict}."""
+    kernels at their main shapes -> {name: timing dict}.  ``counts``: the
+    linreg round's device kernels per call (``device_kernel_counts``)."""
     import torch
     from repro_torch.core.grouping import make_grouping
     from repro_torch.kernels.geomed import geomed, ref
     from repro_torch.kernels.geomed import round as rk
     out = {}
-    for m, n, d, k in ((50, 1000, 100, 11), LINREG_MAIN):
+    for m, n, d, k in LINREG_TIMED:
         x, t, theta = linreg_inputs(m, n, d, 3, dev)
         grouping = make_grouping(m, k)
         th3 = theta.reshape(1, d, 1).expand(m, d, 1)
@@ -495,8 +598,21 @@ def new_kernel_timings(dev, hbm, flops, smi):
         rk.linreg_round_kernel(x, t, theta, grouping)
         per_call = rk.linreg_round_kernel.launches - before
         check(per_call == 1, f"linreg_round: {per_call} launches per call")
+        n_dev, dev_ms, names = counts.get(("linreg", (m, n, d, k)),
+                                          (None, None, None))
+        check(n_dev is not None and 1 <= n_dev <= 2,
+              f"linreg_round {(m, n, d, k)}: {n_dev} device kernels per "
+              f"call {names}")
         kernel_ms = timed(lambda: rk.linreg_round_kernel(x, t, theta,
                                                          grouping))
+        wrapper_ms = host_ms(lambda: rk.linreg_round_kernel(x, t, theta,
+                                                            grouping))
+        # the two-pass front on the same inputs: the design the one-pass
+        # route replaced at this d
+        two_pass = dict(trim_multiplier=3.0, max_iters=64, tol=1e-8,
+                        eps=1e-12)
+        two_pass_ms = timed(lambda: rk._linreg_launch(
+            x, t, theta, grouping, "two_pass", **two_pass))
         plain_ms = timed(lambda: rk.linreg_round_fused(x, t, theta,
                                                        grouping))
         library_ms = timed(lambda: torch.bmm(
@@ -504,17 +620,21 @@ def new_kernel_timings(dev, hbm, flops, smi):
         # the function reads X, y and theta once and writes y; the
         # two-pass design reads X twice and writes and reads the gradient
         # partials P (n_split, m, d), reported beside the bound
-        n_split = rk.linreg_split(m, n, d)
+        n_split = rk.onepass_split(m, n, rk._sm_count(dev))
+        two_split = rk.linreg_split(m, n, d)
         nbytes = 4 * (m * n * d + m * n + 2 * d)
-        two_pass_bytes = nbytes + 4 * (m * n * d + 2 * n_split * m * d)
+        two_pass_bytes = nbytes + 4 * (m * n * d + 2 * two_split * m * d)
         ops = 4 * m * n * d + m * d + (iters + 1) * 6 * k * d
         bound_ms, bound_by = bound(nbytes, ops, hbm, flops)
         out[("linreg_round", (m, n, d, k))] = dict(
             kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=bound_ms, bound_by=bound_by)
         emit({"phase": "timing", "kernel": "linreg_round",
-              "shape": [m, n, d, k], "iters": iters,
-              "launches_per_call": per_call, "n_split": n_split,
+              "shape": [m, n, d, k], "route": rk.linreg_route(d),
+              "iters": iters, "launches_per_call": per_call,
+              "n_split": n_split, "device_kernels_per_call": n_dev,
+              "device_kernel_names": names, "device_ms": dev_ms,
+              "wrapper_host_ms": wrapper_ms, "two_pass_route_ms": two_pass_ms,
               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
               "library_ms_gradient_stage_only": library_ms,
               "bound_ms": bound_ms, "bound_by": bound_by,
@@ -968,15 +1088,26 @@ def main() -> int:
     flash._library()
     ptxas = {os.path.relpath(path, HERE): ptxas_summary(
         _build.BUILD_LOGS.get(str(path), "")) for path in lib_paths}
-    tc_spills = spills(ptxas[os.path.relpath(lib_paths[-1], HERE)])
+    tc_spills = spills(ptxas[os.path.relpath(lib_paths[-1], HERE)], "wgmma")
+    gmom_spills = {fn: sp for path in lib_paths[:3]
+                   for fn, sp in spills(
+                       ptxas[os.path.relpath(path, HERE)]).items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": ptxas, "tensor_core_attention_spills": {
-              fn: list(sp) if sp else None for fn, sp in tc_spills.items()}})
+              fn: list(sp) if sp else None for fn, sp in tc_spills.items()},
+          "gmom_spills": {fn: list(sp) if sp else None
+                          for fn, sp in gmom_spills.items()}})
     # the tensor-core attention kernels (one per padded width) keep their
     # accumulators in registers: no spill anywhere in them
     check(len(tc_spills) == 3 and all(sp == (0, 0)
                                       for sp in tc_spills.values()),
           f"tensor-core attention kernels spill: {tc_spills}")
+    # nor does any kernel of the GMoM libraries (the round kernel at every
+    # k up to 64 is one instance per library)
+    check(len(gmom_spills) >= 9 and "gmom_round_kernel<StackedRows>"
+          in gmom_spills and all(sp == (0, 0)
+                                 for sp in gmom_spills.values()),
+          f"GMoM kernels spill: {gmom_spills}")
 
     gen = torch.Generator(device=dev)
 
@@ -997,18 +1128,25 @@ def main() -> int:
             grouping = make_grouping(m, k, scheme=scheme)
             for label, kw in MODES:
                 kw = dict(kw, trim_multiplier=trim)
-                cap = kw.get("max_iters", 64)
+                cap, tol = kw.get("max_iters", 64), kw.get("tol", 1e-8)
                 y1, it1 = rk.round_aggregate_kernel(g, grouping, **kw)
                 y2, it2 = rk.round_aggregate_kernel(g, grouping, **kw)
                 yp, itp = rk.round_aggregate_ref(g, grouping, **kw)
                 torch.cuda.synchronize()
                 err, ok, scale = compare(y1, yp)
                 bitwise = bool(torch.equal(y1, y2)) and int(it1) == int(it2)
-                # both stop on their own test (an exact float32 fixed point
-                # may come an iteration or a few apart, the sums run in
-                # other orders), or both run to the cap
-                iters_ok = (int(it1) == int(itp) if label == "few"
-                            else (int(it1) < cap) == (int(itp) < cap))
+                # the kernel stops on its own test, replayed from its
+                # iterates; and both versions stop on it (an exact float32
+                # fixed point may come an iteration or a few apart, the
+                # sums run in other orders), or both run to the cap; exact
+                # counts where neither can stop early
+                stop_ok = stops_on_its_test(
+                    lambda i: rk.round_aggregate_kernel(
+                        g, grouping, **dict(kw, max_iters=i))[0],
+                    int(it1), cap, tol)
+                iters_ok = stop_ok and (
+                    int(it1) == int(itp) if label == "few"
+                    else (int(it1) < cap) == (int(itp) < cap))
                 worst = max(worst, err)
                 tag = f"{(m, k, d)} {scheme} trim={trim} {label}"
                 check(ok, f"parity {tag}: max_abs_err {err} (max|y| {scale})")
@@ -1019,7 +1157,8 @@ def main() -> int:
                       "scheme": scheme, "trim": trim, "mode": label,
                       "max_abs_err": err, "max_abs_y": scale, "ok": ok,
                       "bitwise_repeat": bitwise, "iters_kernel": int(it1),
-                      "iters_plain": int(itp), "iters_ok": iters_ok})
+                      "iters_plain": int(itp), "stop_ok": stop_ok,
+                      "iters_ok": iters_ok})
         parity[(m, k, d)] = worst
         del g
         torch.cuda.empty_cache()
@@ -1085,11 +1224,12 @@ def main() -> int:
               "kernel_vs_reference_ok": not vs_ref,
               "kernel_vs_plain_ok": not vs_plain,
               "ms_per_round": ms_round})
-    linreg_launches = linreg_path(dev)
+    linreg_launches, linreg_routes = linreg_path(dev)
     sqdist_launches, reweight_launches = geomed_path(dev)
     attn_routes = serve_path(dev)
 
     # -- 5 timings --------------------------------------------------------
+    counts = device_kernel_counts(dev)
     timing = {}
     for m, k, d in SHAPES:
         g = stacked(m, d, seed=m * 7 + k)
@@ -1099,7 +1239,12 @@ def main() -> int:
                            device=dev).reshape(k, 1)
         _, it = rk.round_aggregate_kernel(g, grouping)
         iters = int(it)
+        n_dev, dev_ms, names = counts.get(("round", (m, k, d)),
+                                          (None, None, None))
+        check(n_dev == 1, f"round kernel {(m, k, d)}: {n_dev} device "
+                          f"kernels per call {names}")
         kernel_ms = timed(lambda: rk.round_aggregate_kernel(g, grouping))
+        wrapper_ms = host_ms(lambda: rk.round_aggregate_kernel(g, grouping))
         plain_ms = timed(lambda: rk.round_aggregate_ref(g, grouping))
         library_ms = timed(lambda: torch.matmul(s, g) / bsz)
         io_bytes = 4 * (m * d + d)
@@ -1111,6 +1256,8 @@ def main() -> int:
                                  library_ms=library_ms, bound_ms=bound_ms,
                                  bound_by=bound_by)
         emit({"phase": "timing", "shape": [m, k, d], "iters": iters,
+              "device_kernels_per_call": n_dev, "device_kernel_names": names,
+              "device_ms": dev_ms, "wrapper_host_ms": wrapper_ms,
               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
               "library_ms_means_only": library_ms, "bound_ms": bound_ms,
               "bound_by": bound_by,
@@ -1118,7 +1265,7 @@ def main() -> int:
               "card": smi})
         del g
         torch.cuda.empty_cache()
-    timing.update(new_kernel_timings(dev, hbm, flops, smi))
+    timing.update(new_kernel_timings(dev, hbm, flops, smi, counts))
     timing.update(attention_timings(dev, hbm, smi))
 
     # -- 6 the kernel line --------------------------------------------------
@@ -1151,6 +1298,8 @@ def main() -> int:
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"], "shape": list(shape)}
         for kname, source, replaces, launches, err, t, shape in rows]
+    # the linreg round's row is its one-pass route at LINREG_MAIN
+    line[1].update(kernel_route="one_pass", launches_by_route=linreg_routes)
     # flash attention's row is its tensor-core route at ATTN_MAIN (bf16);
     # the f32 prefill's launches went to the CUDA-core route
     line[-1].update(kernel_route="tensor_core", launches_by_route={

@@ -1,9 +1,10 @@
 // Fixed-order reductions shared by the port's GMoM kernels (sm_90a).
 //
 // Cross-block sums never use float atomics: each block writes its partial
-// sums to a (n_blocks, k) buffer and a one-block kernel reduces them in a
-// fixed order, so every result is bitwise identical run to run (the
-// reference's determinism rule, ROADMAP "Determinism").
+// sums to a (n_blocks, k) buffer, and the buffer is reduced in one fixed
+// order (by a one-block kernel, or by every block of a persistent grid
+// after a grid barrier), so every result is bitwise identical run to run
+// (the reference's determinism rule, ROADMAP "Determinism").
 
 #pragma once
 
@@ -61,16 +62,22 @@ __device__ __forceinline__ float block_sum_scalar(float v) {
   return s;  // valid in thread 0
 }
 
-// One-block reduction of a (n_blocks, k) partial buffer into out[0:k]
-// (shared or global memory).  Warp w sums columns l = w, w + 32, ...; lane
-// i sums rows i, i + 32, ... in order, then a butterfly.  Fixed order.
+// One block's reduction of a (n_blocks, k) partial buffer in global memory
+// into out[0:k] (shared or global memory).  Warp w sums columns l = w, w +
+// nw, ...; lane i sums rows i, i + 32, ... in order, then a butterfly.
+// Fixed order, whatever the block size.  `ld` is the buffer's row stride
+// (default k).  The loads bypass L1 (ld.global.cg) so that a persistent
+// grid reads what other blocks wrote before a grid barrier, not a stale
+// line.
 __device__ void reduce_partials(const float* part, int n_blocks, int k,
-                                float* out) {
+                                float* out, int ld = 0) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
+  if (ld == 0) ld = k;
   for (int l = warp; l < k; l += nw) {
     float s = 0.f;
-    for (int b = lane; b < n_blocks; b += 32) s += part[(size_t)b * k + l];
+    for (int b = lane; b < n_blocks; b += 32)
+      s += __ldcg(part + (size_t)b * ld + l);
     s = warp_sum(s);
     if (lane == 0) out[l] = s;
   }

@@ -1,300 +1,496 @@
-// The GMoM round's stages on Hopper (sm_90a), shared by the round kernels:
-// per-worker gradient rows -> batch means Z (k, d) -> Remark-2 norm trim ->
-// weighted-mean init -> early-exit Weiszfeld -> aggregate y (d,).
+// The GMoM round's stages on Hopper (sm_90a) as one persistent cooperative
+// kernel, shared by the round kernels: per-worker gradient rows -> batch
+// means Z (k, d) -> Remark-2 norm trim -> weighted-mean init -> early-exit
+// Weiszfeld -> aggregate y (d,).
 //
 // The TPU design keeps the whole (k, d) mean block resident in VMEM; at
 // the paper's m=50, k=11, d=1e4 that is 440 KB, more than one SM's 227 KB
-// of shared memory, so here Z lives in global memory (and in the 50 MB L2
-// when it fits).
+// of shared memory.  Here the columns are cut into tiles of kTile, one
+// column per thread, and tile t belongs to block t % n_blocks for every
+// stage, so no block ever reads another block's columns of Z or y: the
+// only data that crosses blocks are the per-block partial sums.
 //
-// Bound: memory.  The tail reads Z once for the init and once per
-// Weiszfeld iteration (about 4 k d (iters + 1) bytes) and reads and writes
-// y per iteration; the arithmetic is a few flops per byte.  Design against
-// that bound:
-//   * one thread owns a column j (grid-stride over d) and keeps the k
-//     values of its column in registers, so each pass reads Z once and
-//     fuses everything that is per column: the update of iteration t, its
-//     squared move, and the squared distances that iteration t+1 needs;
-//   * cross-block sums go through per-block partials reduced in a fixed
-//     order (gmom_common.cuh): bitwise identical run to run;
-//   * the early exit stays on the device: the host enqueues max_iters
-//     iterations without syncing; a device flag `done` (squared move <=
-//     tol^2) makes every later launch return at once, and the executed
-//     iteration count is written to device memory.
+// Bound: memory at large d, latency below.  The tail reads Z once for the
+// init and once per Weiszfeld iteration (about 4 k d (iters + 1) bytes)
+// and reads and writes y per iteration; the arithmetic is a few flops per
+// byte.  Design:
+//   * one cooperative launch per round; the stages are separated by grid
+//     barriers (cooperative_groups), so the host enqueues one kernel and
+//     no empty iterations: the loop ends on the device when the squared
+//     move is <= tol^2 or at max_iters;
+//   * after each barrier EVERY block reduces the (n_blocks, k + 1)
+//     partials itself (column k the squared move), in the fixed order of
+//     reduce_partials, so every block holds bitwise the same trim weights,
+//     coefficients and squared move and takes the same stop decision
+//     without a flag: one grid barrier per Weiszfeld iteration; partial
+//     buffers alternate between two halves so a block that runs ahead
+//     never overwrites what a slower one reads.  A grid of one block
+//     (d <= kTile) keeps its sums and its y on chip and needs no barrier;
+//   * the (k, kTile) slab of Z of a tile sits in shared memory: a block
+//     that owns one tile keeps it there from the means to the last
+//     iteration (Z never touches device memory); a block that owns more
+//     streams its tiles through a 3-stage cp.async ring (two tiles in
+//     flight while it works on a third).  Threads keep only per-batch
+//     accumulators (a warp owns batches l = w, w + 8, ...; 8 registers at
+//     k = 64), never the k values of a column;
+//   * a block's partial sum of a batch's squares: a block that owns one
+//     tile squares its column in each thread, sums each warp's 32 columns
+//     by the butterfly, then its warps in order (the order of a thread per
+//     column: on chip_smoke.py's (50, 11, 100) input it reaches an exact
+//     float32 fixed point, where the row order below settles into a 1-ulp
+//     cycle and runs to max_iters); one that owns more gives each batch
+//     to a warp whose lanes accumulate across the tiles, then the
+//     butterfly;
+//   * every product that is added is an explicit __fmaf_rn, every other
+//     product, quotient and root an explicit _rn intrinsic, so the bits
+//     follow from the source (round.round_aggregate_blocked replays them);
+//   * no float atomics: bitwise identical run to run.
 
 #pragma once
 
-#include <type_traits>
+#include <cooperative_groups.h>
+#include <stdint.h>
 
 #include "gmom_common.cuh"
 
 namespace {
 
-// layout of the small float state buffer
-//   w[0:k]      trim weights
-//   coef[k:2k]  Weiszfeld coefficients inv_l / denom of the current step
-//   wsum[2k]    max(sum w, eps)
-// layout of the int flags buffer: done[0], iters[1]
+namespace cg = cooperative_groups;
 
-// Worker j's gradient value at column c, read from a stacked (m, d) block.
+constexpr int kTile = kThreads;         // columns of a tile, one per thread
+constexpr int kMaxBatches = 64;
+constexpr int kRowsPerWarp = kMaxBatches / kWarps;  // batches a warp owns
+constexpr int kSlabStages = 3;    // ring of Z tiles: two in flight
+constexpr int kMemberBatch = 16;  // gradient loads a thread has in flight
+// blocks an SM must hold: 128 registers a thread.  Three (80 registers)
+// or four (64) spill 52-76 bytes (ptxas, sm_90a), so two it is
+constexpr int kMinBlocks = 2;
+
+// dynamic shared memory of the round kernel at k batches
+__host__ __device__ constexpr size_t slab_bytes(int k) {
+  return (size_t)kSlabStages * k * kTile * sizeof(float);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// What one round needs besides the gradient rows.
+//   offsets (k+1), members (m), bsz (k): the grouping as CSR member lists;
+//   z (k, dz): device copy of Z for blocks that own more than one tile
+//   (dz = d rounded up to whole tiles); part (2, n_blocks, k + 1): the
+//   per-block partial sums in two halves, column k the squared move;
+//   y (d); iters (1).
+struct RoundArgs {
+  const int* offsets;
+  const int* members;
+  const float* bsz;
+  int k;
+  long long d, dz;
+  int use_trim;
+  float trim_multiplier;
+  int max_iters;
+  float tol2, eps, eps2;
+  float* z;
+  float* part;
+  float* y;
+  int* iters;
+};
+
+// Worker j's gradient at column c, read from a stacked (m, d) block:
+// v[u] = g[members[u], c] for the kMemberBatch members of a batch of loads
+// (u < count), all issued before any is used.
 struct StackedRows {
   const float* g;
   long long d;
-  __device__ __forceinline__ float operator()(int j, long long c) const {
-    return g[(size_t)j * d + c];
+  __device__ __forceinline__ void gather(const int (&mem)[kMemberBatch],
+                                         int count, long long c,
+                                         float (&v)[kMemberBatch]) const {
+#pragma unroll
+    for (int u = 0; u < kMemberBatch; ++u)
+      v[u] = u < count ? g[(size_t)mem[u] * d + c] : 0.f;
   }
 };
 
-// --- stage 1: batch means (+ squared-norm partials for the trim) --------
-// One thread owns column j and walks the CSR member lists of every batch.
-template <int KMAX, class Rows>
-__global__ void __launch_bounds__(kThreads)
-means_kernel(Rows rows, const int* __restrict__ offsets,
-             const int* __restrict__ members, const float* __restrict__ bsz,
-             int k, long long d, float* __restrict__ z,
-             float* __restrict__ part, int want_norms) {
-  float acc[KMAX];
+// Copy the (k, kTile) slab of the tile starting at c0 to Z in device
+// memory (16 B a store).
+__device__ __forceinline__ void store_tile(const float* src,
+                                           const RoundArgs& a, long long c0) {
+  constexpr int kChunks = kTile / 4;
+  for (int i = threadIdx.x; i < a.k * kChunks; i += kThreads) {
+    const int l = i / kChunks, c4 = i % kChunks;
+    *reinterpret_cast<float4*>(a.z + (size_t)l * a.dz + c0 + 4 * c4) =
+        *reinterpret_cast<const float4*>(src + l * kTile + 4 * c4);
+  }
+}
+
+// Stage the (k, kTile) slab of Z whose first column is c0 (cp.async, 16 B
+// a copy; a tile never runs past dz).
+__device__ __forceinline__ void load_tile(float* dst, const RoundArgs& a,
+                                          long long c0) {
+  constexpr int kChunks = kTile / 4;
+  for (int i = threadIdx.x; i < a.k * kChunks; i += kThreads) {
+    const int l = i / kChunks, c4 = i % kChunks;
+    cp_async16(dst + l * kTile + 4 * c4, a.z + (size_t)l * a.dz + c0 + 4 * c4);
+  }
+}
+
+// acc[r] += sum over the tile's live columns c = lane, lane + 32, ... of
+// (zs[l][c] - ys[c])^2 for the batches l = warp + r * kWarps (kCentered)
+// or of zs[l][c]^2.
+template <bool kCentered>
+__device__ __forceinline__ void accumulate_rows(float (&acc)[kRowsPerWarp],
+                                                const float* zs,
+                                                const float* ys, int k,
+                                                int len) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int l = 0; l < KMAX; ++l) acc[l] = 0.f;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < d;
-       j += stride) {
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int l = warp + r * kWarps;
+    if (l < k) {
+      const float* row = zs + l * kTile;
 #pragma unroll
-    for (int l = 0; l < KMAX; ++l) {
-      if (l < k) {
-        float s = 0.f;
-        for (int i = offsets[l]; i < offsets[l + 1]; ++i)
-          s += rows(members[i], j);
-        const float zl = s / bsz[l];
-        z[(size_t)l * d + j] = zl;
-        acc[l] += zl * zl;
+      for (int q = 0; q < kTile / 32; ++q) {
+        const int c = lane + 32 * q;
+        if (c < len) {
+          const float e = kCentered ? row[c] - ys[c] : row[c];
+          acc[r] = __fmaf_rn(e, e, acc[r]);
+        }
       }
     }
   }
-  if (want_norms) block_store_partials<KMAX>(acc, k, part);
 }
 
-// --- stage 2 (one block): Remark-2 trim weights ---------------------------
-// norms = sqrt(sum_j z^2); median by O(k^2) rank-select with ties broken by
-// index (even k: mean of the two middle order statistics);
-// w = norms <= c * median + 1e-12, all-ones if that keeps nothing.
-__global__ void trim_kernel(const float* __restrict__ part, int n_blocks,
-                            int k, int use_trim, float trim_multiplier,
-                            float eps, float* __restrict__ state) {
-  __shared__ float sq[64];
-  if (use_trim) reduce_partials(part, n_blocks, k, sq);
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  float* w = state;
-  if (use_trim) {
-    float nrm[64];
-    for (int l = 0; l < k; ++l) nrm[l] = sqrtf(sq[l]);
-    float lo = 0.f, hi = 0.f;
-    for (int i = 0; i < k; ++i) {
-      int rank = 0;
-      for (int j = 0; j < k; ++j)
-        rank += (nrm[j] < nrm[i]) || (nrm[j] == nrm[i] && j < i);
-      if (rank == (k - 1) / 2) lo = nrm[i];
-      if (rank == k / 2) hi = nrm[i];
-    }
-    const float med = (k & 1) ? hi : 0.5f * (lo + hi);
-    const float tau = trim_multiplier * med + 1e-12f;
-    float kept = 0.f;
-    for (int l = 0; l < k; ++l) {
-      w[l] = (nrm[l] <= tau) ? 1.f : 0.f;
-      kept += w[l];
-    }
-    if (!(kept > 0.f))
-      for (int l = 0; l < k; ++l) w[l] = 1.f;
-  } else {
-    for (int l = 0; l < k; ++l) w[l] = 1.f;
+// dst[l] = the sum over the tile's columns of (zs[l][c] - ys[c])^2
+// (kCentered) or zs[l][c]^2, for a block that owns this one tile: thread
+// c squares its column, the butterfly sums each warp's 32 columns, then
+// the warps are added in order.  Dead columns hold 0 in zs and ys.
+template <bool kCentered>
+__device__ __forceinline__ void resident_partials(const float* zs,
+                                                  const float* ys, int k,
+                                                  float (*wsum)[kMaxBatches],
+                                                  float* dst) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float yc = kCentered ? ys[tid] : 0.f;
+  for (int l = 0; l < k; ++l) {
+    const float e = zs[l * kTile + tid] - yc;
+    const float v = warp_sum(__fmul_rn(e, e));
+    if (lane == 0) wsum[warp][l] = v;
   }
-  float wsum = 0.f;
-  for (int l = 0; l < k; ++l) wsum += w[l];
-  state[2 * k] = nan_max(wsum, eps);
-}
-
-// --- stage 3: weighted-mean init + squared distances for iteration 1 -----
-template <int KMAX>
-__global__ void __launch_bounds__(kThreads)
-init_kernel(const float* __restrict__ z, int k, long long d,
-            const float* __restrict__ state, float* __restrict__ y,
-            float* __restrict__ part) {
-  __shared__ float s_w[KMAX];
-  __shared__ float s_wsum;
-  if (threadIdx.x < k) s_w[threadIdx.x] = state[threadIdx.x];
-  if (threadIdx.x == 0) s_wsum = state[2 * k];
   __syncthreads();
-  float acc[KMAX];
-#pragma unroll
-  for (int l = 0; l < KMAX; ++l) acc[l] = 0.f;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < d;
-       j += stride) {
-    float zl[KMAX];
+  if (tid < k) {
     float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += wsum[w][tid];
+    dst[tid] = s;
+  }
+}
+
+// Tile i of this block starts at column (blockIdx.x + i n_blocks) kTile.
+__device__ __forceinline__ long long tile_start(int i) {
+  return ((long long)blockIdx.x + (long long)i * gridDim.x) * kTile;
+}
+
+// Where a block puts its partials of a stage: straight into tot when the
+// grid is one block (the bits reduce_partials gives for one row, v + 0 =
+// v), else row blockIdx.x of buf (n_blocks, k + 1).
+__device__ __forceinline__ float* partial_row(float* buf, float* tot,
+                                              int k) {
+  return gridDim.x == 1 ? tot : buf + (size_t)blockIdx.x * (k + 1);
+}
+
+// Bring the grid's sums of this stage into tot in every block: tot[l]
+// (l < k) the batch sums, tot[k] the squared move (kMove).  A block that
+// streams its tiles adds its batch partials from acc here; a resident one
+// has written them already (resident_partials).  Then, for more than one
+// block, a grid barrier and reduce_partials over buf.
+template <bool kMove>
+__device__ __forceinline__ void publish(const float (&acc)[kRowsPerWarp],
+                                        bool resident, float move, int k,
+                                        float* buf, float* tot,
+                                        cg::grid_group& grid) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool one = gridDim.x == 1;
+  float* dst = partial_row(buf, tot, k);
+  if (!resident) {
 #pragma unroll
-    for (int l = 0; l < KMAX; ++l) {
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int l = warp + r * kWarps;
       if (l < k) {
-        zl[l] = z[(size_t)l * d + j];
-        s += s_w[l] * zl[l];
-      }
-    }
-    const float y0 = s / s_wsum;
-    y[j] = y0;
-#pragma unroll
-    for (int l = 0; l < KMAX; ++l) {
-      if (l < k) {
-        const float e = zl[l] - y0;
-        acc[l] += e * e;
+        const float v = warp_sum(acc[r]);
+        if (lane == 0) dst[l] = v;
       }
     }
   }
-  block_store_partials<KMAX>(acc, k, part);
+  if (kMove) {
+    const float ds = block_sum_scalar(move);
+    if (threadIdx.x == 0) dst[k] = ds;
+  }
+  if (one) {
+    __syncthreads();
+    return;
+  }
+  grid.sync();
+  reduce_partials(buf, gridDim.x, kMove ? k + 1 : k, tot, k + 1);
+  __syncthreads();
 }
 
-// --- stage 4a (one block): close the previous iteration, then the step's
-// coefficients.  has_prev: reduce the previous squared move, count the
-// iteration, set `done` when it is <= tol^2.  want_coef: dist_l =
-// sqrt(sq_l + eps^2), inv = w / dist, coef = inv / max(sum inv, eps).
-__global__ void step_head_kernel(const float* __restrict__ part,
-                                 const float* __restrict__ dpart,
-                                 int n_blocks, int k, int has_prev,
-                                 int want_coef, float tol2, float eps,
-                                 float eps2, float* __restrict__ state,
-                                 int* __restrict__ flags) {
-  __shared__ float sq[64];
-  __shared__ int skip, stop;
-  // read `done` once, before thread 0 may set it below: a uniform branch
-  if (threadIdx.x == 0) skip = flags[0];
+// One pass over the block's tiles of Z: y_new = (sum_l coef_l z_l) / div
+// per column, its squared move (kHasPrev: into dacc), and the per-batch
+// squared distances to y_new (a resident block: into dst; the others:
+// into acc).  A resident block keeps its column's y in y_keep; the others
+// read it back from device memory.
+template <bool kHasPrev>
+__device__ void z_pass(const RoundArgs& a, float* slab, bool resident,
+                       int my_tiles, const float* coef, float div, float* ys,
+                       float& y_keep, float (&acc)[kRowsPerWarp],
+                       float& dacc, float (*wsum)[kMaxBatches], float* dst) {
+  const int tid = threadIdx.x, k = a.k;
+  const size_t stage = (size_t)k * kTile;
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) acc[r] = 0.f;
+  dacc = 0.f;
+  if (!resident) {  // tiles 0 and 1 in flight (a group may be empty)
+    for (int i = 0; i < kSlabStages - 1; ++i) {
+      if (i < my_tiles) load_tile(slab + i * stage, a, tile_start(i));
+      cp_async_commit();
+    }
+  }
+  for (int i = 0; i < my_tiles; ++i) {
+    const long long c0 = tile_start(i), c = c0 + tid;
+    const bool live = c < a.d;
+    float* zs = slab;
+    float prev = y_keep;
+    if (!resident) {
+      if (kHasPrev && live) prev = a.y[c];  // in flight while Z arrives
+      zs = slab + (i % kSlabStages) * stage;
+      // the stage tile i + 2 goes to was last read in iteration i - 1
+      const int ahead = i + kSlabStages - 1;
+      if (ahead < my_tiles)
+        load_tile(slab + (ahead % kSlabStages) * stage, a, tile_start(ahead));
+      cp_async_commit();
+      cp_async_wait<kSlabStages - 1>();  // tile i has landed
+      __syncthreads();
+    }
+    const int len = (int)min((long long)kTile, a.d - c0);
+    float s = 0.f;
+    for (int l = 0; l < k; ++l) s = __fmaf_rn(coef[l], zs[l * kTile + tid], s);
+    const float yn = __fdiv_rn(s, div);
+    if (live) {
+      if (kHasPrev) {
+        const float mv = yn - prev;
+        dacc = __fmaf_rn(mv, mv, dacc);
+      }
+      a.y[c] = yn;
+    }
+    y_keep = yn;
+    ys[tid] = yn;
+    __syncthreads();
+    if (resident)
+      resident_partials<true>(zs, ys, k, wsum, dst);
+    else
+      accumulate_rows<true>(acc, zs, ys, k, len);
+    __syncthreads();
+  }
+}
+
+// The whole round in one cooperative launch of n_blocks x kThreads.
+template <class Rows>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+gmom_round_kernel(Rows rows, RoundArgs a) {
+  extern __shared__ __align__(16) float slab[];  // [kSlabStages][k][kTile]
+  __shared__ float s_w[kMaxBatches], s_coef[kMaxBatches];
+  __shared__ float s_tot[kMaxBatches + 1], s_bsz[kMaxBatches];
+  __shared__ int s_rank[kMaxBatches], s_off[kMaxBatches + 1];
+  __shared__ float s_y[kTile];
+  __shared__ float s_wsum[kWarps][kMaxBatches];
+  __shared__ float s_div;
+  cg::grid_group grid = cg::this_grid();
+  if (!grid.is_valid()) return;  // not a cooperative launch: no barrier
+  const int tid = threadIdx.x, k = a.k, nb = gridDim.x;
+  const long long n_tiles = (a.d + kTile - 1) / kTile;
+  const int my_tiles =
+      blockIdx.x < n_tiles ? (int)((n_tiles - 1 - blockIdx.x) / nb + 1) : 0;
+  const bool resident = my_tiles == 1;
+  // the halves of the partial buffer (no local array: a runtime index
+  // would put it on the stack)
+  auto part_half = [&](int h) { return a.part + (size_t)h * nb * (k + 1); };
+  if (tid <= k) s_off[tid] = __ldg(a.offsets + tid);
+  if (tid < k) s_bsz[tid] = __ldg(a.bsz + tid);
   __syncthreads();
-  if (skip) return;
-  if (has_prev) {
-    if (threadIdx.x < 32) {
-      float s = 0.f;
-      for (int b = threadIdx.x; b < n_blocks; b += 32) s += dpart[b];
-      s = warp_sum(s);
-      if (threadIdx.x == 0) {
-        flags[1] += 1;
-        stop = !(s > tol2);
-        if (stop) flags[0] = 1;
+  float acc[kRowsPerWarp], dacc, y_keep = 0.f;
+
+  // -- 1. batch means, and the squared-norm partials for the trim --------
+  // each batch's members summed in order, kMemberBatch loads in flight
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) acc[r] = 0.f;
+  const int m_total = s_off[k];
+  for (int i = 0; i < my_tiles; ++i) {
+    const long long c0 = tile_start(i), c = c0 + tid;
+    const bool live = c < a.d;
+    int l = 0;
+    float s = 0.f;
+    for (int i0 = 0; i0 < m_total; i0 += kMemberBatch) {
+      const int count = min(kMemberBatch, m_total - i0);
+      int mem[kMemberBatch];
+      float v[kMemberBatch];
+#pragma unroll
+      for (int u = 0; u < kMemberBatch; ++u)
+        mem[u] = u < count ? __ldg(a.members + i0 + u) : 0;
+      rows.gather(mem, live ? count : 0, c, v);
+#pragma unroll
+      for (int u = 0; u < kMemberBatch; ++u) {
+        if (u < count) {
+          s += v[u];
+          if (i0 + u + 1 == s_off[l + 1]) {  // batch l is complete
+            slab[l * kTile + tid] = live ? __fdiv_rn(s, s_bsz[l]) : 0.f;
+            s = 0.f;
+            ++l;
+          }
+        }
       }
     }
     __syncthreads();
-    if (stop) return;
-  }
-  if (!want_coef) return;
-  reduce_partials(part, n_blocks, k, sq);
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  const float* w = state;
-  float* coef = state + k;
-  float inv_sum = 0.f;
-  for (int l = 0; l < k; ++l) {
-    coef[l] = w[l] / sqrtf(sq[l] + eps2);
-    inv_sum += coef[l];
-  }
-  const float denom = nan_max(inv_sum, eps);
-  for (int l = 0; l < k; ++l) coef[l] = coef[l] / denom;
-}
-
-// --- stage 4b: one Weiszfeld update, its squared move, and the squared
-// distances for the next iteration, in one pass over Z -------------------
-template <int KMAX>
-__global__ void __launch_bounds__(kThreads)
-step_kernel(const float* __restrict__ z, int k, long long d,
-            const float* __restrict__ state, const int* __restrict__ flags,
-            float* __restrict__ y, float* __restrict__ part,
-            float* __restrict__ dpart) {
-  if (flags[0]) return;
-  __shared__ float s_c[KMAX];
-  if (threadIdx.x < k) s_c[threadIdx.x] = state[k + threadIdx.x];
-  __syncthreads();
-  float acc[KMAX];
-#pragma unroll
-  for (int l = 0; l < KMAX; ++l) acc[l] = 0.f;
-  float dacc = 0.f;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < d;
-       j += stride) {
-    float zl[KMAX];
-    float s = 0.f;
-#pragma unroll
-    for (int l = 0; l < KMAX; ++l) {
-      if (l < k) {
-        zl[l] = z[(size_t)l * d + j];
-        s += s_c[l] * zl[l];
-      }
+    if (!resident) store_tile(slab, a, c0);
+    if (a.use_trim) {
+      if (resident)
+        resident_partials<false>(slab, nullptr, k, s_wsum,
+                                 partial_row(part_half(0), s_tot, k));
+      else
+        accumulate_rows<false>(acc, slab, nullptr, k,
+                               (int)min((long long)kTile, a.d - c0));
     }
-    const float mv = s - y[j];
-    dacc += mv * mv;
-    y[j] = s;
-#pragma unroll
-    for (int l = 0; l < KMAX; ++l) {
-      if (l < k) {
-        const float e = zl[l] - s;
-        acc[l] += e * e;
-      }
+    __syncthreads();
+  }
+  if (a.use_trim)
+    publish<false>(acc, resident, 0.f, k, part_half(0), s_tot, grid);
+
+  // -- 2. Remark-2 trim weights, the same in every block ------------------
+  // norms = sqrt(sum_j z^2); median by O(k^2) rank-select with ties broken
+  // by index (even k: mean of the two middle order statistics);
+  // w = norms <= c * median + 1e-12, all-ones if that keeps nothing.
+  if (a.use_trim) {
+    if (tid < k) s_tot[tid] = __fsqrt_rn(s_tot[tid]);
+    __syncthreads();
+    if (tid < k) {
+      const float v = s_tot[tid];
+      int rank = 0;
+      for (int j = 0; j < k; ++j)
+        rank += (s_tot[j] < v) || (s_tot[j] == v && j < tid);
+      s_rank[tid] = rank;
     }
+    __syncthreads();
+    if (tid == 0) {
+      float lo = 0.f, hi = 0.f;
+      for (int j = 0; j < k; ++j) {
+        if (s_rank[j] == (k - 1) / 2) lo = s_tot[j];
+        if (s_rank[j] == k / 2) hi = s_tot[j];
+      }
+      const float med = (k & 1) ? hi : 0.5f * (lo + hi);
+      const float tau = __fadd_rn(__fmul_rn(a.trim_multiplier, med), 1e-12f);
+      float kept = 0.f;
+      for (int j = 0; j < k; ++j) {
+        s_w[j] = (s_tot[j] <= tau) ? 1.f : 0.f;
+        kept += s_w[j];
+      }
+      if (!(kept > 0.f))
+        for (int j = 0; j < k; ++j) s_w[j] = 1.f;
+    }
+  } else if (tid < k) {
+    s_w[tid] = 1.f;
   }
-  block_store_partials<KMAX>(acc, k, part);
-  const float ds = block_sum_scalar(dacc);
-  if (threadIdx.x == 0) dpart[blockIdx.x] = ds;
+  __syncthreads();
+  if (tid == 0) {
+    float wsum = 0.f;
+    for (int j = 0; j < k; ++j) wsum += s_w[j];
+    s_div = nan_max(wsum, a.eps);
+  }
+  __syncthreads();
+
+  // -- 3. weighted-mean init + squared distances for iteration 1 ----------
+  z_pass<false>(a, slab, resident, my_tiles, s_w, s_div, s_y, y_keep, acc,
+                dacc, s_wsum, partial_row(part_half(1), s_tot, k));
+  publish<false>(acc, resident, 0.f, k, part_half(1), s_tot, grid);
+
+  // -- 4. early-exit Weiszfeld: one grid barrier per iteration ------------
+  int it = 0, h = 0;
+  while (it < a.max_iters) {
+    // coefficients: dist_l = sqrt(sq_l + eps^2), inv = w / dist,
+    // coef = inv / max(sum inv, eps)
+    if (tid < k)
+      s_coef[tid] = __fdiv_rn(s_w[tid], __fsqrt_rn(s_tot[tid] + a.eps2));
+    __syncthreads();
+    if (tid == 0) {
+      float inv_sum = 0.f;
+      for (int j = 0; j < k; ++j) inv_sum += s_coef[j];
+      s_div = nan_max(inv_sum, a.eps);
+    }
+    __syncthreads();
+    if (tid < k) s_coef[tid] = __fdiv_rn(s_coef[tid], s_div);
+    __syncthreads();
+    z_pass<true>(a, slab, resident, my_tiles, s_coef, 1.f, s_y, y_keep, acc,
+                 dacc, s_wsum, partial_row(part_half(h), s_tot, k));
+    publish<true>(acc, resident, dacc, k, part_half(h), s_tot, grid);
+    h ^= 1;
+    ++it;
+    if (!(s_tot[k] > a.tol2)) break;
+  }
+  if (blockIdx.x == 0 && tid == 0) *a.iters = it;
 }
 
-#define GMOM_CHECK_LAUNCH()                        \
-  do {                                             \
-    cudaError_t err_ = cudaGetLastError();         \
-    if (err_ != cudaSuccess) return (int)err_;     \
-  } while (0)
-
-// Enqueue the batch means of a round: `rows` gives worker j's value at a
-// column; writes Z (k, d) and, when the trim is on, the norm partials.
-template <int KMAX, class Rows>
-int launch_means(Rows rows, const int* offsets, const int* members,
-                 const float* bsz, int k, long long d, int use_trim,
-                 float* z, float* part, int n_blocks, cudaStream_t st) {
-  means_kernel<KMAX, Rows><<<n_blocks, kThreads, 0, st>>>(
-      rows, offsets, members, bsz, k, d, z, part, use_trim);
-  GMOM_CHECK_LAUNCH();
-  return 0;
+// Blocks of gmom_round_kernel<Rows> one SM holds at k batches (> 0), or
+// minus a CUDA error.
+template <class Rows>
+int round_blocks_per_sm(int k) {
+  const void* fn = (const void*)gmom_round_kernel<Rows>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)slab_bytes(k));
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kThreads,
+                                                        slab_bytes(k));
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)err;
+  }
+  return n;
 }
 
-// Enqueue the tail that follows the means: trim, init, and max_iters
-// Weiszfeld iterations that stop on the device flag.
-template <int KMAX>
-int launch_tail(const float* z, int k, long long d, int use_trim,
-                float trim_multiplier, int max_iters, float tol2, float eps,
-                float eps2, float* part, float* dpart, float* state,
-                int* flags, float* y, int n_blocks, cudaStream_t st) {
-  trim_kernel<<<1, kReduceThreads, 0, st>>>(part, n_blocks, k, use_trim,
-                                            trim_multiplier, eps, state);
-  GMOM_CHECK_LAUNCH();
-  init_kernel<KMAX><<<n_blocks, kThreads, 0, st>>>(z, k, d, state, y, part);
-  GMOM_CHECK_LAUNCH();
-  for (int it = 0; it < max_iters; ++it) {
-    step_head_kernel<<<1, kReduceThreads, 0, st>>>(
-        part, dpart, n_blocks, k, it > 0, 1, tol2, eps, eps2, state, flags);
-    GMOM_CHECK_LAUNCH();
-    step_kernel<KMAX><<<n_blocks, kThreads, 0, st>>>(z, k, d, state, flags, y,
-                                                    part, dpart);
-    GMOM_CHECK_LAUNCH();
+// Enqueue the round on `st` as one cooperative launch.  A grid larger than
+// the card can hold at once is refused by the launch (an error code, never
+// a hang).
+template <class Rows>
+int launch_round(Rows rows, RoundArgs a, int n_blocks, cudaStream_t st) {
+  const long long n_tiles = (a.d + kTile - 1) / kTile;
+  if (a.k < 1 || a.k > kMaxBatches || a.d < 1 || a.dz < a.d ||
+      a.dz % kTile != 0 || n_blocks < 1 || a.max_iters < 0 ||
+      (a.z == nullptr && n_tiles > n_blocks))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = (const void*)gmom_round_kernel<Rows>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)slab_bytes(a.k));
+  if (err == cudaSuccess) {
+    void* args[] = {&rows, &a};
+    err = cudaLaunchCooperativeKernel(fn, dim3(n_blocks), dim3(kThreads),
+                                      args, slab_bytes(a.k), st);
   }
-  if (max_iters > 0) {
-    step_head_kernel<<<1, kReduceThreads, 0, st>>>(
-        part, dpart, n_blocks, k, 1, 0, tol2, eps, eps2, state, flags);
-    GMOM_CHECK_LAUNCH();
-  }
-  return 0;
-}
-
-// Call fn(std::integral_constant<int, KMAX>) with the smallest register
-// file (16, 32 or 64 batch means per column) that holds k.
-template <class Fn>
-int dispatch_kmax(int k, Fn&& fn) {
-  if (k <= 16) return fn(std::integral_constant<int, 16>{});
-  if (k <= 32) return fn(std::integral_constant<int, 32>{});
-  return fn(std::integral_constant<int, 64>{});
+  cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 }  // namespace

@@ -1,14 +1,16 @@
 """GMoM server round: stacked gradients -> batch means -> Remark-2 trim ->
-Weiszfeld geometric median, as one CUDA kernel pipeline on Hopper; and the
-whole linreg round, raw worker batches in, in one such pipeline.
+Weiszfeld geometric median, as one persistent CUDA kernel on Hopper; and
+the whole linreg round, raw worker batches in, as a front kernel and the
+same persistent kernel.
 
 Port of ``repro.kernels.geomed.round`` ``round_aggregate_kernel`` (the
 Pallas TPU kernel) and its jnp twin ``round_aggregate_ref``:
 
 * ``round_aggregate_kernel`` — the wrapper.  On a CUDA tensor it launches
-  the hand-written kernel ``csrc/round_aggregate.cu`` (or raises); on a
-  CPU tensor, and only there, it runs the plain PyTorch version.  It
-  counts its launches in ``round_aggregate_kernel.launches``.
+  the hand-written kernel ``csrc/round_aggregate.cu`` (one cooperative
+  launch, or raises); on a CPU tensor, and only there, it runs the plain
+  PyTorch version.  It counts its launches in
+  ``round_aggregate_kernel.launches``.
 * ``round_aggregate_ref`` — the plain PyTorch version, built from the same
   building blocks as the reference (``_median_small``,
   ``_trim_weights_resident``, ``_weiszfeld_init``, ``_weiszfeld_step_vals``,
@@ -22,8 +24,20 @@ with its twins ``linreg_round_ref`` (replays the reference's d-tile loop
 and partial-sum chaining) and ``linreg_round_fused`` (flat):
 
 * ``linreg_round_kernel`` launches ``csrc/linreg_round.cu`` on CUDA
-  tensors (or raises) and runs ``linreg_round_ref`` on CPU tensors; it
-  counts its launches in ``linreg_round_kernel.launches``.
+  tensors (or raises) through the route ``linreg_route(d)`` picks — the
+  one-pass front that reads X once, or the two-pass front — and runs
+  ``linreg_round_ref`` on CPU tensors; it counts its launches in
+  ``linreg_round_kernel.launches`` and by route in
+  ``linreg_round_kernel.route_launches``.
+
+The launch plan (``persistent_blocks``, ``block_tiles``, ``linreg_route``,
+``onepass_split``, ``sample_chunks``, ...) is plain Python, and
+``round_aggregate_blocked`` / ``linreg_round_blocked`` are plain PyTorch
+twins of the kernels' arithmetic on a given grid, bit for bit (the same
+float32 operations in the same order, per-block partials reduced by every
+block in one fixed order, each fused multiply-add emulated); the CPU tests
+hold them against JAX, the card tests hold the kernels to them bit for
+bit.
 
 All return ``(y, iters)``: the (d,) aggregate and the number of Weiszfeld
 iterations executed (early exit when the squared move is <= tol^2, capped
@@ -46,15 +60,26 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from repro_torch.core.geometric_median import f32_threshold
 from repro_torch.core.grouping import (Grouping, assignment_matrix,
                                        batch_members_csr)
-from repro_torch.kernels.geomed._common import (THREADS, as_f32, num_blocks,
-                                                stream)
+from repro_torch.kernels.geomed._common import THREADS, as_f32, stream
 
-# The kernel keeps a column's k batch means in registers; the largest
-# register file it is compiled for is 64 (``gmom_round_max_batches``).
+# The largest k the round kernels take (``gmom_round_max_batches``).
 MAX_BATCHES = 64
 SOURCE = Path(__file__).resolve().parent / "csrc" / "round_aggregate.cu"
 LINREG_SOURCE = SOURCE.parent / "linreg_round.cu"
-# the linreg kernel splits the sample axis until its gradient grid has
+# columns of a tile of the persistent grid, one per thread
+# (``gmom_round_tile``)
+TILE = THREADS
+# the one-pass linreg front: threads of a block, float4 chunks of a row a
+# thread owns, bytes of a ring stage; d it takes at most
+# (``gmom_linreg_onepass_max_d``)
+ONEPASS_THREADS = 512
+ONEPASS_CHUNKS = 4
+ONEPASS_STAGE_BYTES = 16384
+D_ONEPASS = 4 * ONEPASS_CHUNKS * ONEPASS_THREADS
+ROUTES = ("one_pass", "two_pass")
+# the share of whole waves the one-pass front's blocks must fill
+WAVE_FILL = 0.9
+# the two-pass route splits the sample axis until its gradient grid has
 # about this many blocks (a wave of 256-thread blocks on an H100)
 LINREG_TARGET_BLOCKS = 1024
 
@@ -203,25 +228,373 @@ def linreg_round_fused(features, targets, theta, grouping: Grouping, *,
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel
+# the launch plan of the CUDA kernels (plain Python, tested on the CPU)
+
+def persistent_blocks(d: int, blocks_per_sm: int, sms: int) -> int:
+    """Blocks of the persistent round kernel: as many as the card holds at
+    once (``blocks_per_sm`` from the occupancy calculator, times the SM
+    count), and no more than there are tiles of ``TILE`` columns."""
+    return max(1, min(blocks_per_sm * sms, -(-d // TILE)))
+
+
+def block_tiles(d: int, n_blocks: int) -> list[list[tuple[int, int]]]:
+    """The columns of each block of the persistent grid, as the [c0, c1)
+    ranges of its tiles in the order it walks them: tile t belongs to block
+    t % n_blocks in every stage of the round."""
+    out: list[list[tuple[int, int]]] = [[] for _ in range(n_blocks)]
+    for t in range(-(-d // TILE)):
+        out[t % n_blocks].append((t * TILE, min(d, (t + 1) * TILE)))
+    return out
+
+
+def linreg_route(d: int) -> str:
+    """The linreg round's route, by d alone: ``"one_pass"`` (X read once
+    through the TMA ring) needs whole 16-byte rows (d % 4 == 0, the bulk
+    copy's rule) and d <= ``D_ONEPASS`` (16 columns a thread of a
+    512-thread block); every other d takes ``"two_pass"``."""
+    return "one_pass" if d % 4 == 0 and d <= D_ONEPASS else "two_pass"
+
+
+def onepass_row_threads(d: int) -> int:
+    """Threads of the one-pass block that share one row of X: the least
+    power of two from 32 up that covers the row at 16 columns a thread."""
+    need = -(-(d // 4) // ONEPASS_CHUNKS)
+    tpr = 32
+    while tpr < need:
+        tpr *= 2
+    return tpr
+
+
+def onepass_rows_per_stage(d: int) -> int:
+    """Rows of X in one stage of the one-pass ring: a whole number of row
+    groups (``ONEPASS_THREADS // onepass_row_threads(d)``), about
+    ``ONEPASS_STAGE_BYTES``."""
+    groups = ONEPASS_THREADS // onepass_row_threads(d)
+    return max(groups, ONEPASS_STAGE_BYTES // (4 * d) // groups * groups)
+
+
+def _effective_split(n: int, want: int) -> int:
+    """Chunks of ceil(n / want) samples: no chunk left empty."""
+    chunk = -(-n // want)
+    return -(-n // chunk)
+
+
+@functools.lru_cache(maxsize=256)
+def onepass_split(m: int, n: int, sms: int) -> int:
+    """How many sample chunks the one-pass front cuts each worker into: the
+    fewest for which its m * n_split blocks (one per (chunk, worker), each
+    streaming its rows at its SM's share of the bandwidth) fill whole waves
+    of ``sms`` SMs to ``WAVE_FILL`` or better (m = 50 on 132 SMs: 5, 250
+    blocks in two waves, 95 %).  Fewer chunks keep the partials P the tail
+    sums small.  A problem too small for one wave takes one sample a
+    chunk."""
+    top = min(n, 65535)
+    for want in range(1, top + 1):
+        split = _effective_split(n, want)
+        blocks = m * split
+        waves = -(-blocks // sms)
+        if blocks >= sms and blocks >= WAVE_FILL * waves * sms:
+            return split
+    return _effective_split(n, top)
+
+
+def sample_chunks(m: int, n: int, n_split: int) -> list[tuple[int, int, int]]:
+    """The (worker, s0, s1) rows of each linreg front block, in block order
+    (chunk q, worker j): chunks of ceil(n / n_split) samples, each inside
+    one worker."""
+    chunk = -(-n // n_split)
+    return [(j, q * chunk, min(n, (q + 1) * chunk))
+            for q in range(n_split) for j in range(m)]
+
+
+def linreg_split(m: int, n: int, d: int) -> int:
+    """How many chunks the two-pass route's gradient kernel cuts the sample
+    axis into: enough that its (d-tile, worker, chunk) grid fills the
+    card."""
+    base = -(-d // THREADS) * m
+    want = min(n, 65535, max(1, -(-LINREG_TARGET_BLOCKS // base)))
+    return _effective_split(n, want)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch twins of the kernels' arithmetic, bit for bit: the same
+# float32 operations in the same order, every fused multiply-add of the
+# CUDA source (``__fmaf_rn``) as ``_fma``
+
+def _fma(a, b, c):
+    """``fmaf(a, b, c)`` of float32 tensors, rounded once: a * b is exact in
+    float64, the float64 sum s is off the exact a * b + c by e (TwoSum),
+    and e decides only where s lies on a float32 tie."""
+    p, c64 = a.double() * b.double(), c.double()
+    s = p + c64
+    bv = s - p
+    e = (p - (s - bv)) + (c64 - bv)
+    r = s.float()
+    r64 = r.double()
+    other = torch.nextafter(r, torch.where(s > r64, torch.inf, -torch.inf))
+    tie = (s != r64) & (s == (r64 + other.double()) * 0.5) & (e != 0)
+    up = torch.where(e > 0, torch.maximum(r, other), torch.minimum(r, other))
+    return torch.where(tie, up, r)
+
+
+def _sqrt(x):
+    """``__fsqrt_rn``: float32 square roots rounded once (through float64,
+    where the second rounding is harmless; the CPU's float32 ``torch.sqrt``
+    is off by one ulp on some inputs)."""
+    return torch.sqrt(x.double()).float()
+
+
+def _butterfly(v):
+    """Lane 0 after ``warp_sum``'s shfl_down butterfly (16, 8, 4, 2, 1)
+    over the last axis of 32 lanes."""
+    for o in (16, 8, 4, 2, 1):
+        v = v[..., :o] + v[..., o:2 * o]
+    return v[..., 0]
+
+
+def _sequential(terms):
+    """0 + t_0 + t_1 + ... in order (a float loop in one thread)."""
+    total = torch.zeros_like(terms[0])
+    for t in terms:
+        total = total + t
+    return total
+
+
+def _fma_chain(pairs):
+    """s = fma(a, b, s) from s = 0 over the (a, b) pairs in order."""
+    pairs = list(pairs)
+    s = torch.zeros_like(pairs[0][0] * pairs[0][1])
+    for a, b in pairs:
+        s = _fma(a, b, s)
+    return s
+
+
+def _reduce_partials(part):
+    """``reduce_partials`` over a (n_blocks, k) buffer -> (k,): lane i sums
+    rows i, i + 32, ... in order, then the butterfly.  Every block of the
+    persistent grid runs it on the same buffer."""
+    nb, k = part.shape
+    rows = -(-nb // 32) * 32
+    padded = torch.cat([part, part.new_zeros((rows - nb, k))])
+    return _butterfly(_sequential(list(padded.reshape(rows // 32, 32, k))).T)
+
+
+def _tiles(values, n_blocks: int):
+    """(..., d) -> (..., steps, n_blocks, TILE): tile t of block t %
+    n_blocks at step t // n_blocks, zero past d (a dead column adds 0)."""
+    d = values.shape[-1]
+    n_tiles = -(-d // TILE)
+    steps = -(-n_tiles // n_blocks)
+    pad = steps * n_blocks * TILE - d
+    v = torch.cat([values, values.new_zeros(values.shape[:-1] + (pad,))], -1)
+    return v.reshape(values.shape[:-1] + (steps, n_blocks, TILE))
+
+
+def _block_partials(e, n_blocks: int):
+    """Per-block partials (n_blocks, k) of sum_c e[l, c]^2.  A block that
+    owns one tile squares its column in each thread, sums each warp's 32
+    columns by the butterfly and then its warps in order; a block that
+    owns more gives batch l to one warp, whose lane i fma-accumulates
+    columns i, i + 32, ... of each tile in tile order, then the
+    butterfly."""
+    k, d = e.shape
+    t = _tiles(e, n_blocks)
+    steps = t.shape[1]
+    one = t[:, 0].reshape(k, n_blocks, TILE // 32, 32)
+    resident = _sequential(list(_butterfly(one * one).permute(2, 0, 1)))
+    lanes = t.reshape(k, steps, n_blocks, TILE // 32, 32)
+    streamed = _butterfly(_fma_chain(
+        (lanes[:, i, :, q], lanes[:, i, :, q])
+        for i in range(steps) for q in range(TILE // 32)))
+    n_tiles = -(-d // TILE)
+    owned = torch.tensor([len(range(b, n_tiles, n_blocks))
+                          for b in range(n_blocks)])
+    return torch.where(owned == 1, resident, streamed).T
+
+
+def _block_moves(mv, n_blocks: int):
+    """``block_sum_scalar`` of each block's squared moves -> (n_blocks,):
+    each thread fma-accumulates its column of every tile, then the warp
+    butterflies, then the warps in order."""
+    t = _tiles(mv, n_blocks)
+    acc = _fma_chain((row, row) for row in t)
+    return _sequential(list(
+        _butterfly(acc.reshape(n_blocks, THREADS // 32, 32)).T))
+
+
+def _means_ordered(rows, grouping: Grouping):
+    """Batch means (k, d) as the kernel sums them: each batch's members in
+    ascending order from 0, then / batch size."""
+    offsets, members = batch_members_csr(grouping)
+    bsz = torch.as_tensor(np.asarray(grouping.batch_sizes, np.float32))
+    return torch.stack([
+        _sequential([rows[int(i)] for i in members[offsets[l]:offsets[l + 1]]])
+        / bsz[l] for l in range(grouping.num_batches)])
+
+
+def _round_tail_blocked(z, *, n_blocks, trim_multiplier, max_iters, tol,
+                        eps):
+    """The persistent kernel's trim, init and Weiszfeld on the means z
+    (k, d), every cross-block sum through per-block partials reduced in
+    ``reduce_partials``' order -> ((d,), iterations)."""
+    k = z.shape[0]
+    f32 = torch.float32
+    if trim_multiplier is None:
+        w = torch.ones((k,), dtype=f32)
+    else:
+        norms = _sqrt(_reduce_partials(_block_partials(z, n_blocks)))
+        tau = (torch.tensor(trim_multiplier, dtype=f32) * _median_small(norms)
+               + torch.tensor(1e-12, dtype=f32))
+        w = (norms <= tau).to(f32)
+        w = torch.where(_sequential(list(w)) > 0, w, torch.ones_like(w))
+    wsum = torch.clamp(_sequential(list(w)), min=eps)
+    y = _fma_chain((w[l], z[l]) for l in range(k)) / wsum
+    part = _block_partials(z - y, n_blocks)
+    tol2, eps2 = f32_threshold(tol * tol), f32_threshold(eps * eps)
+    it = 0
+    while it < max_iters:
+        inv = w / _sqrt(_reduce_partials(part) + eps2)
+        coef = inv / torch.clamp(_sequential(list(inv)), min=eps)
+        y_new = _fma_chain((coef[l], z[l]) for l in range(k))
+        move = _reduce_partials(_block_moves(y_new - y, n_blocks)[:, None])[0]
+        part = _block_partials(z - y_new, n_blocks)
+        y = y_new
+        it += 1
+        if not float(move) > tol2:
+            break
+    return y, torch.tensor(it, dtype=torch.int32)
+
+
+def round_aggregate_blocked(stacked_grads, grouping: Grouping, *,
+                            n_blocks: int,
+                            trim_multiplier: float | None = 3.0,
+                            max_iters: int = 64, tol: float = 1e-8,
+                            eps: float = 1e-12):
+    """Plain PyTorch twin of the round kernel on a grid of ``n_blocks``,
+    bit for bit: member sums in order, per-block partials of the norms,
+    distances and moves, each reduced in the fixed order every block
+    uses.  CPU, float32.  -> ((d,) aggregate, iterations)."""
+    g = stacked_grads.to(torch.float32).cpu()
+    return _round_tail_blocked(_means_ordered(g, grouping),
+                               n_blocks=n_blocks,
+                               trim_multiplier=trim_multiplier,
+                               max_iters=max_iters, tol=tol, eps=eps)
+
+
+def _onepass_partials(x, t, theta, n_split: int):
+    """The one-pass front: residuals by row groups (a thread's 16 columns
+    fma-chained in order, warp butterflies, the group's warps in order),
+    each group's rows fma-accumulated in sample order, groups summed in
+    order -> P (n_split, m, d)."""
+    m, n, d = x.shape
+    tpr = onepass_row_threads(d)
+    groups = ONEPASS_THREADS // tpr
+    width = ONEPASS_CHUNKS * tpr * 4
+    # column 4 (gt + i tpr) + c lies at [i, gt, c]
+    xs = _pad_axis(x, width, 2)[..., :width].reshape(m, n, ONEPASS_CHUNKS,
+                                                     tpr, 4)
+    ts = _pad_axis(theta, width, 0)[:width].reshape(ONEPASS_CHUNKS, tpr, 4)
+    part = _fma_chain((xs[..., i, :, c], ts[i, :, c])
+                      for i in range(ONEPASS_CHUNKS) for c in range(4))
+    warps = _butterfly(part.reshape(m, n, tpr // 32, 32))
+    r = _sequential(list(warps.permute(2, 0, 1))) - t
+    out = []
+    for _, s0, s1 in sample_chunks(1, n, n_split):
+        acc = [torch.zeros((m, d)) for _ in range(groups)]
+        for s in range(s0, s1):
+            g = (s - s0) % groups
+            acc[g] = _fma(x[:, s], r[:, s, None], acc[g])
+        total = acc[0]
+        for a in acc[1:]:
+            total = total + a
+        out.append(total)
+    return torch.stack(out)
+
+
+def _twopass_partials(x, t, theta, n_split: int):
+    """residual_kernel (lane i fma-chains columns i, i + 32, ... in order,
+    then the butterfly) and grad_kernel (a column's samples of a chunk
+    fma-chained in order) -> P (n_split, m, d)."""
+    m, n, d = x.shape
+    xp, tp = _pad_axis(x, 32, 2), _pad_axis(theta, 32, 0)
+    r = _butterfly(_fma_chain(
+        (xp[..., c:c + 32], tp[c:c + 32])
+        for c in range(0, xp.shape[2], 32))) - t
+    return torch.stack([
+        _fma_chain((x[:, s], r[:, s, None]) for s in range(s0, s1))
+        for _, s0, s1 in sample_chunks(1, n, n_split)])
+
+
+def linreg_round_blocked(features, targets, theta, grouping: Grouping, *,
+                         n_blocks: int, n_split: int,
+                         route: str | None = None,
+                         trim_multiplier: float | None = 3.0,
+                         max_iters: int = 64, tol: float = 1e-8,
+                         eps: float = 1e-12):
+    """Plain PyTorch twin of the linreg kernel on a grid of ``n_blocks``
+    with ``n_split`` sample chunks, bit for bit: the front of ``route``
+    (default ``linreg_route(d)``) into chunk partials P, each worker's
+    chunks summed in order times f32(1/n), then
+    ``round_aggregate_blocked``'s tail.  CPU, float32.
+    -> ((d,), iterations)."""
+    x = features.to(torch.float32).cpu()
+    t = targets.to(torch.float32).cpu()
+    th = theta.to(torch.float32).cpu()
+    n = x.shape[1]
+    front = (_onepass_partials if (route or linreg_route(x.shape[2]))
+             == "one_pass" else _twopass_partials)
+    g = _sequential(list(front(x, t, th, n_split))) * f32_threshold(1.0 / n)
+    return _round_tail_blocked(_means_ordered(g, grouping), n_blocks=n_blocks,
+                               trim_multiplier=trim_multiplier,
+                               max_iters=max_iters, tol=tol, eps=eps)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+
+def _bind_round(lib, prefix: str, entry: str, argtypes) -> ctypes.CDLL:
+    """Declare a GMoM library's C interface and check that it was built
+    with this module's constants."""
+    fn = getattr(lib, entry)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    for name in ("max_batches", "tile", "blocks_per_sm"):
+        getattr(lib, f"{prefix}_{name}").restype = ctypes.c_int
+    getattr(lib, f"{prefix}_blocks_per_sm").argtypes = [ctypes.c_int]
+    if (getattr(lib, f"{prefix}_max_batches")() != MAX_BATCHES
+            or getattr(lib, f"{prefix}_tile")() != TILE):
+        raise RuntimeError(f"{entry}: the CUDA source and round.py disagree "
+                           "on the largest k or the tile width")
+    return lib
+
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     from repro_torch.kernels import _build
-    lib = _build.load(SOURCE)
-    ptr = ctypes.c_void_p
-    lib.gmom_round_aggregate.argtypes = [
-        ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-        ctypes.c_float, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ptr]
-    lib.gmom_round_aggregate.restype = ctypes.c_int
-    lib.gmom_round_max_batches.argtypes = []
-    lib.gmom_round_max_batches.restype = ctypes.c_int
-    lib.gmom_cuda_error_string.argtypes = [ctypes.c_int]
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib = _bind_round(_build.load(SOURCE), "gmom_round",
+                      "gmom_round_aggregate",
+                      [ptr, ptr, ptr, ptr, i32, ctypes.c_longlong, i32, f32,
+                       i32, f32, f32, f32, ptr, ptr, ptr, ptr, i32, ptr])
+    lib.gmom_cuda_error_string.argtypes = [i32]
     lib.gmom_cuda_error_string.restype = ctypes.c_char_p
-    if lib.gmom_round_max_batches() != MAX_BATCHES:
-        raise RuntimeError("round_aggregate.cu and round.py disagree on the "
-                           "largest number of batches")
+    return lib
+
+
+@functools.cache
+def _linreg_library() -> ctypes.CDLL:
+    from repro_torch.kernels import _build
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib = _bind_round(_build.load(LINREG_SOURCE), "gmom_linreg",
+                      "gmom_linreg_round",
+                      [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                       ctypes.c_longlong, i32, f32, i32, f32, f32, f32, f32,
+                       i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr])
+    lib.gmom_linreg_onepass_max_d.restype = i32
+    lib.gmom_linreg_error_string.argtypes = [i32]
+    lib.gmom_linreg_error_string.restype = ctypes.c_char_p
+    if lib.gmom_linreg_onepass_max_d() != D_ONEPASS:
+        raise RuntimeError("linreg_round.cu and round.py disagree on "
+                           "D_ONEPASS")
     return lib
 
 
@@ -233,15 +606,58 @@ def _grouping_tensors(grouping: Grouping, device: torch.device):
                  for a in (offsets, members, bsz))
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(lib, prefix: str, k: int) -> int:
+    n = getattr(lib, f"{prefix}_blocks_per_sm")(k)
+    if n <= 0:
+        raise RuntimeError(f"{prefix}: the round kernel fits no block on an "
+                           f"SM at k={k} (CUDA error {-n})")
+    return n
+
+
+def _round_scratch(lib, prefix: str, k: int, d: int, device):
+    """(n_blocks, z or None, partials (2, nb, k + 1), y, iters) of one
+    round on the persistent grid."""
+    nb = persistent_blocks(d, _blocks_per_sm(lib, prefix, k),
+                           _sm_count(device))
+    f32 = dict(dtype=torch.float32, device=device)
+    n_tiles = -(-d // TILE)
+    z = torch.empty((k, n_tiles * TILE), **f32) if n_tiles > nb else None
+    return (nb, z, torch.empty((2, nb, k + 1), **f32),
+            torch.empty((d,), **f32),
+            torch.empty((1,), dtype=torch.int32, device=device))
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _round_args(k, trim_multiplier, max_iters, tol, eps):
+    if not 1 <= k <= MAX_BATCHES:
+        raise ValueError(f"the round kernels take 1 <= k <= {MAX_BATCHES} "
+                         f"batches, got {k}")
+    if max_iters < 0:
+        raise ValueError("max_iters must be >= 0")
+    use_trim = trim_multiplier is not None
+    return (int(use_trim), float(trim_multiplier if use_trim else 0.0),
+            int(max_iters), f32_threshold(tol * tol), float(eps),
+            f32_threshold(eps * eps))
+
+
 def round_aggregate_kernel(stacked_grads, grouping: Grouping, *,
                            trim_multiplier: float | None = 3.0,
                            max_iters: int = 64, tol: float = 1e-8,
                            eps: float = 1e-12):
     """GMoM round on the card: f32 contiguous (m, d) -> ((d,), iterations).
 
-    Launches the CUDA kernel for a CUDA tensor; a CPU tensor runs
-    ``round_aggregate_ref``.  Enqueues at most ``max_iters`` Weiszfeld
-    iterations without synchronising; the early exit is a device flag."""
+    Launches the persistent CUDA kernel (one cooperative launch) for a CUDA
+    tensor; a CPU tensor runs ``round_aggregate_ref``.  The early exit is
+    taken on the device; nothing synchronises the host."""
     g = stacked_grads
     if g.device.type == "cpu":
         return round_aggregate_ref(g, grouping,
@@ -258,67 +674,68 @@ def round_aggregate_kernel(stacked_grads, grouping: Grouping, *,
     if m != grouping.num_workers:
         raise ValueError(f"{m} gradient rows for a grouping of "
                          f"{grouping.num_workers} workers")
-    if not 1 <= k <= MAX_BATCHES:
-        raise ValueError(f"round_aggregate_kernel takes 1 <= k <= "
-                         f"{MAX_BATCHES} batches, got {k}")
-    if max_iters < 0:
-        raise ValueError("max_iters must be >= 0")
+    args = _round_args(k, trim_multiplier, max_iters, tol, eps)
     lib = _library()
     offsets, members, bsz = _grouping_tensors(grouping, g.device)
-    nb = num_blocks(d)
-    f32 = dict(dtype=torch.float32, device=g.device)
-    z = torch.empty((k, d), **f32)
-    y = torch.empty((d,), **f32)
-    part = torch.empty((nb, k), **f32)
-    dpart = torch.empty((nb,), **f32)
-    state = torch.empty((2 * k + 1,), **f32)
-    flags = torch.zeros((2,), dtype=torch.int32, device=g.device)
-    use_trim = trim_multiplier is not None
+    nb, z, part, y, iters = _round_scratch(lib, "gmom_round", k, d,
+                                           g.device)
     rc = lib.gmom_round_aggregate(
         g.data_ptr(), offsets.data_ptr(), members.data_ptr(), bsz.data_ptr(),
-        k, d, int(use_trim), float(trim_multiplier if use_trim else 0.0),
-        int(max_iters), f32_threshold(tol * tol), float(eps),
-        f32_threshold(eps * eps), z.data_ptr(), part.data_ptr(),
-        dpart.data_ptr(), state.data_ptr(), flags.data_ptr(), y.data_ptr(),
-        nb, stream(g))
+        k, d, *args, _ptr(z), part.data_ptr(), iters.data_ptr(),
+        y.data_ptr(), nb, stream(g))
     if rc != 0:
         raise RuntimeError(
             f"round_aggregate kernel launch failed: CUDA error {rc} "
             f"({lib.gmom_cuda_error_string(rc).decode()})")
     round_aggregate_kernel.launches += 1
-    return y, flags[1]
+    return y, iters[0]
 
 
 round_aggregate_kernel.launches = 0
 
 
-@functools.cache
-def _linreg_library() -> ctypes.CDLL:
-    from repro_torch.kernels import _build
-    lib = _build.load(LINREG_SOURCE)
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gmom_linreg_round.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ctypes.c_longlong, i32,
-        f32, i32, f32, f32, f32, f32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        ptr, i32, ptr]
-    lib.gmom_linreg_round.restype = ctypes.c_int
-    lib.gmom_linreg_max_batches.argtypes = []
-    lib.gmom_linreg_max_batches.restype = ctypes.c_int
-    lib.gmom_linreg_error_string.argtypes = [ctypes.c_int]
-    lib.gmom_linreg_error_string.restype = ctypes.c_char_p
-    if lib.gmom_linreg_max_batches() != MAX_BATCHES:
-        raise RuntimeError("linreg_round.cu and round.py disagree on the "
-                           "largest number of batches")
-    return lib
+def _aligned(t):
+    """``t``, or a copy of it if its data does not start on 16 bytes (the
+    bulk copy's rule)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def linreg_split(m: int, n: int, d: int) -> int:
-    """How many chunks the kernel cuts the sample axis into: enough that
-    its (d-tile, worker, chunk) gradient grid fills the card."""
-    base = -(-d // THREADS) * m
-    want = min(n, 65535, max(1, -(-LINREG_TARGET_BLOCKS // base)))
-    chunk = -(-n // want)
-    return -(-n // chunk)
+def _linreg_launch(x, t, th, grouping: Grouping, route: str, *,
+                   trim_multiplier, max_iters, tol, eps):
+    """One linreg round on the card through ``route``; counts the launch
+    (and its route) -> ((d,), iterations)."""
+    m, n, d = x.shape
+    k = grouping.num_batches
+    args = _round_args(k, trim_multiplier, max_iters, tol, eps)
+    one_pass = route == "one_pass"
+    if one_pass and linreg_route(d) != "one_pass":
+        raise ValueError(f"the one-pass route takes d % 4 == 0 and d <= "
+                         f"{D_ONEPASS}, got d={d}")
+    lib = _linreg_library()
+    offsets, members, bsz = _grouping_tensors(grouping, x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    if one_pass:
+        x, th = _aligned(x), _aligned(th)
+        n_split, r = onepass_split(m, n, _sm_count(x.device)), None
+    else:
+        n_split = linreg_split(m, n, d)
+        r = torch.empty((m, n), **f32)
+    p = torch.empty((n_split, m, d), **f32)
+    nb, z, part, y, iters = _round_scratch(lib, "gmom_linreg", k, d,
+                                           x.device)
+    rc = lib.gmom_linreg_round(
+        x.data_ptr(), t.data_ptr(), th.data_ptr(), offsets.data_ptr(),
+        members.data_ptr(), bsz.data_ptr(), m, n, k, d, *args,
+        f32_threshold(1.0 / n), int(one_pass), n_split, _ptr(r),
+        p.data_ptr(), _ptr(z), part.data_ptr(), iters.data_ptr(),
+        y.data_ptr(), nb, stream(x))
+    if rc != 0:
+        raise RuntimeError(
+            f"linreg_round kernel launch failed: CUDA error {rc} "
+            f"({lib.gmom_linreg_error_string(rc).decode()})")
+    linreg_round_kernel.launches += 1
+    linreg_round_kernel.route_launches[route] += 1
+    return y, iters[0]
 
 
 def linreg_round_kernel(features, targets, theta, grouping: Grouping, *,
@@ -328,17 +745,17 @@ def linreg_round_kernel(features, targets, theta, grouping: Grouping, *,
     """One failure-free round of Algorithm 2 on the linreg testbed:
     (X (m, n, d), y (m, n), theta (d,)) -> ((d,) aggregate, iterations).
 
-    Inputs are cast to contiguous float32.  Launches the CUDA kernel for
-    CUDA tensors; CPU tensors run ``linreg_round_ref`` (``tile_d`` is the
-    reference's tile and matters only there).  Enqueues at most
-    ``max_iters`` Weiszfeld iterations without synchronising."""
+    Inputs are cast to contiguous float32.  CUDA tensors go through the
+    CUDA kernels of ``linreg_route(d)`` (counted in ``launches`` and
+    ``route_launches``); CPU tensors run ``linreg_round_ref`` (``tile_d``
+    is the reference's tile and matters only there).  The early exit is
+    taken on the device; nothing synchronises the host."""
     x, t, th = as_f32(features), as_f32(targets), as_f32(theta)
     if x.ndim != 3 or t.shape != x.shape[:2] or th.shape != x.shape[2:]:
         raise ValueError(
             f"linreg_round_kernel takes X (m, n, d), y (m, n), theta (d,); "
             f"got {tuple(x.shape)}, {tuple(t.shape)}, {tuple(th.shape)}")
     m, n, d = x.shape
-    k = grouping.num_batches
     if m != grouping.num_workers:
         raise ValueError(f"{m} worker batches for a grouping of "
                          f"{grouping.num_workers} workers")
@@ -351,42 +768,18 @@ def linreg_round_kernel(features, targets, theta, grouping: Grouping, *,
             or th.device != x.device:
         raise ValueError(f"linreg_round_kernel: unsupported devices "
                          f"{x.device}, {t.device}, {th.device}")
-    if not 1 <= k <= MAX_BATCHES:
-        raise ValueError(f"linreg_round_kernel takes 1 <= k <= "
-                         f"{MAX_BATCHES} batches, got {k}")
-    if max_iters < 0:
-        raise ValueError("max_iters must be >= 0")
-    lib = _linreg_library()
-    offsets, members, bsz = _grouping_tensors(grouping, x.device)
-    n_split = linreg_split(m, n, d)
-    nb = num_blocks(d)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    r = torch.empty((m, n), **f32)
-    p = torch.empty((n_split, m, d), **f32)
-    z = torch.empty((k, d), **f32)
-    y = torch.empty((d,), **f32)
-    part = torch.empty((nb, k), **f32)
-    dpart = torch.empty((nb,), **f32)
-    state = torch.empty((2 * k + 1,), **f32)
-    flags = torch.zeros((2,), dtype=torch.int32, device=x.device)
-    use_trim = trim_multiplier is not None
-    rc = lib.gmom_linreg_round(
-        x.data_ptr(), t.data_ptr(), th.data_ptr(), offsets.data_ptr(),
-        members.data_ptr(), bsz.data_ptr(), m, n, k, d, int(use_trim),
-        float(trim_multiplier if use_trim else 0.0), int(max_iters),
-        f32_threshold(tol * tol), float(eps), f32_threshold(eps * eps),
-        f32_threshold(1.0 / n), n_split, r.data_ptr(), p.data_ptr(),
-        z.data_ptr(), part.data_ptr(), dpart.data_ptr(), state.data_ptr(),
-        flags.data_ptr(), y.data_ptr(), nb, stream(x))
-    if rc != 0:
-        raise RuntimeError(
-            f"linreg_round kernel launch failed: CUDA error {rc} "
-            f"({lib.gmom_linreg_error_string(rc).decode()})")
-    linreg_round_kernel.launches += 1
-    return y, flags[1]
+    return _linreg_launch(x, t, th, grouping, linreg_route(d),
+                          trim_multiplier=trim_multiplier,
+                          max_iters=max_iters, tol=tol, eps=eps)
 
 
-linreg_round_kernel.launches = 0
+def reset_linreg_launches() -> None:
+    """Zero ``linreg_round_kernel.launches`` and its per-route counts."""
+    linreg_round_kernel.launches = 0
+    linreg_round_kernel.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+reset_linreg_launches()
 
 
 def round_aggregate_pytree(stacked_grads, grouping: Grouping, *,

@@ -111,7 +111,7 @@ def test_failed_launch_raises(cuda, monkeypatch):
     lib = rk._library()
     assert lib.gmom_round_aggregate(
         None, None, None, None, 0, 1, 0, 0.0, 1, 0.0, 1e-12, 0.0, None,
-        None, None, None, None, None, 1, None) != 0
+        None, None, None, 1, None) != 0
 
     class Refusing:
         def __getattr__(self, name):
@@ -153,8 +153,162 @@ def test_library_is_a_plain_c_interface(cuda):
     assert lib.gmom_round_max_batches() == rk.MAX_BATCHES
 
 
-# ---------------------------------------------------------------------------
-# the full linreg round
+# Weiszfeld stopping modes of chip_smoke.py: tol=0 still stops at an exact
+# float32 fixed point, so "fixed32" runs up to 32 iterations; "few" runs
+# exactly 3 in both versions where no batch is trimmed to a fixed point;
+# "early_exit" is the default tol=1e-8, cap 64
+MODES = {"fixed32": dict(tol=0.0, max_iters=32),
+         "few": dict(tol=0.0, max_iters=3), "early_exit": {}}
+ROUND_SHAPES = [(20, 10, 20), (50, 11, 777), (8, 4, 2048), (64, 16, 4096),
+                (40, 33, 300), (64, 64, 513), (50, 11, 8192)]
+
+
+def _round_grid(k, d, device):
+    """The persistent grid the round kernel's wrapper launches."""
+    lib = rk._library()
+    return rk.persistent_blocks(d, rk._blocks_per_sm(lib, "gmom_round", k),
+                                rk._sm_count(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("trim", [None, 1.0, 3.0])
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("mkd", ROUND_SHAPES)
+def test_kernel_matches_plain_in_every_mode(cuda, mkd, scheme, trim, mode):
+    """The persistent kernel against round_aggregate_ref: within tolerance,
+    bitwise repeatable; at max_iters=3 without a planted outlier the
+    iteration counts agree exactly."""
+    m, k, d = mkd
+    g = _stacked(m, d, m * d + 1, cuda)
+    if trim == 1.0:
+        g[0] *= 100.0
+    grouping = make_grouping(m, k, scheme=scheme)
+    kw = dict(MODES[mode], trim_multiplier=trim)
+    cap = kw.get("max_iters", 64)
+    y1, it1 = rk.round_aggregate_kernel(g, grouping, **kw)
+    y2, it2 = rk.round_aggregate_kernel(g, grouping, **kw)
+    yp, itp = rk.round_aggregate_ref(g, grouping, **kw)
+    assert torch.equal(y1, y2) and int(it1) == int(it2)
+    assert _close(y1, yp)
+    assert 1 <= int(it1) <= cap
+    if mode == "few" and trim != 1.0:
+        assert int(it1) == int(itp) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("mkd,n_blocks", [
+    ((20, 10, 20), None), ((50, 11, 777), None), ((64, 64, 513), None),
+    ((50, 11, 8192), None),            # the wrapper's grid: one tile a block
+    ((50, 11, 3000), 3),               # every block streams four tiles
+    ((50, 11, 3000), 8),               # blocks of two tiles and of one
+    ((64, 64, 3000), 2), ((40, 33, 5000), 4)])
+def test_kernel_matches_its_blocked_twin(cuda, mkd, n_blocks, mode,
+                                         monkeypatch):
+    """round_aggregate_blocked on the kernel's grid replays the kernel's
+    arithmetic bit for bit, the iteration count included, in every
+    stopping mode; a grid forced smaller than the tiles makes blocks
+    stream Z."""
+    m, k, d = mkd
+    if n_blocks is None:
+        n_blocks = _round_grid(k, d, cuda)
+    else:
+        monkeypatch.setattr(rk, "persistent_blocks", lambda *a: n_blocks)
+    g = _stacked(m, d, 4, cuda)
+    grouping = make_grouping(m, k, scheme="seeded")
+    kw = MODES[mode]
+    y, it = rk.round_aggregate_kernel(g, grouping, **kw)
+    yt, itt = rk.round_aggregate_blocked(g.cpu(), grouping,
+                                         n_blocks=n_blocks, **kw)
+    assert int(it) == int(itt)
+    assert torch.equal(y.cpu(), yt)
+
+
+@pytest.mark.cuda
+def test_one_block_reaches_a_fixed_point_at_the_papers_d(cuda):
+    """chip_smoke.py's input at (50, 11, 100): on one block the kernel
+    reaches an exact float32 fixed point well below the cap, as the plain
+    version does on the card, and the twin replays it bit for bit (a
+    block that streams its tiles sums in another order, which settles
+    into a 1-ulp cycle on this input)."""
+    gen = torch.Generator(device=cuda).manual_seed(50 * 7 + 11)
+    g = torch.randn((50, 100), generator=gen, device=cuda) + 1.0
+    grouping = make_grouping(50, 11)
+    for mode in ("fixed32", "early_exit"):
+        kw = MODES[mode]
+        cap = kw.get("max_iters", 64)
+        y, it = rk.round_aggregate_kernel(g, grouping, **kw)
+        _, itp = rk.round_aggregate_ref(g, grouping, **kw)
+        yt, itt = rk.round_aggregate_blocked(g.cpu(), grouping, n_blocks=1,
+                                             **kw)
+        assert int(it) < cap and int(itp) < cap, (mode, int(it), int(itp))
+        assert int(it) == int(itt) and torch.equal(y.cpu(), yt)
+
+
+@pytest.mark.cuda
+def test_exact_iteration_counts_at_three(cuda):
+    for m, k, d in ROUND_SHAPES:
+        g = _stacked(m, d, 9, cuda)
+        for scheme in SCHEMES:
+            grouping = make_grouping(m, k, scheme=scheme)
+            _, it = rk.round_aggregate_kernel(g, grouping, tol=0.0,
+                                              max_iters=3)
+            _, itp = rk.round_aggregate_ref(g, grouping, tol=0.0,
+                                            max_iters=3)
+            assert int(it) == int(itp) == 3, (m, k, d, scheme)
+
+
+@pytest.mark.cuda
+def test_k64_streams_z_through_the_ring(cuda):
+    """k = 64 with more tiles than the grid holds: blocks stream their
+    tiles of Z through the ring instead of keeping one resident."""
+    m, k = 64, 64
+    d = 2 * rk.TILE * _round_grid(k, 10 ** 9, cuda) + 77
+    g = _stacked(m, d, 5, cuda)
+    grouping = make_grouping(m, k, scheme="strided")
+    for kw in (dict(tol=0.0, max_iters=3), {}):
+        y1, it1 = rk.round_aggregate_kernel(g, grouping, **kw)
+        y2, it2 = rk.round_aggregate_kernel(g, grouping, **kw)
+        yp, _ = rk.round_aggregate_ref(g, grouping, **kw)
+        assert torch.equal(y1, y2) and int(it1) == int(it2)
+        assert _close(y1, yp)
+
+
+@pytest.mark.cuda
+def test_one_device_kernel_per_call(cuda):
+    """The round is one cooperative launch and nothing else (no fill
+    kernel, no copy); a linreg round is the one-pass front and the
+    persistent tail, or on the two-pass route the residual, the gradients
+    and the tail.  The session records CPU activity too: a CUDA-only
+    session can close before a short kernel's record arrives."""
+    g = _stacked(50, 8192, 6, cuda)
+    grouping = make_grouping(50, 11)
+    linreg = [(_linreg_data(16, 64, d, 7, cuda), make_grouping(16, 8))
+              for d in (8192, 8196)]
+    calls = [lambda: rk.round_aggregate_kernel(g, grouping)] + [
+        (lambda a=args, gr=gr: rk.linreg_round_kernel(*a, gr))
+        for args, gr in linreg]
+    for call in calls:                                  # build and warm up
+        call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for call in calls:
+            call()
+            torch.cuda.synchronize()
+    names = [ev.name for ev in sorted(
+        (ev for ev in prof.events()
+         if ev.device_type == torch.autograd.DeviceType.CUDA),
+        key=lambda ev: ev.time_range.start)]
+    kernels = [next((k for k in ("gmom_round_kernel", "linreg_onepass_kernel",
+                                 "residual_kernel", "grad_kernel")
+                     if k in name), name) for name in names]
+    assert kernels == ["gmom_round_kernel",
+                       "linreg_onepass_kernel", "gmom_round_kernel",
+                       "residual_kernel", "grad_kernel", "gmom_round_kernel"]
+
 
 def _linreg_data(m, n, d, seed, device, outlier=False):
     rng = np.random.default_rng(seed)
@@ -246,13 +400,125 @@ def test_linreg_goes_through_the_round_tail_of_the_gradients(cuda):
     assert _close(y, want)
 
 
+LINREG_SHAPES = [(12, 16, 300, 6), (20, 16, 400, 10), (50, 8, 100, 11),
+                 (50, 1000, 100, 10), (40, 3, 777, 33), (64, 20, 512, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("trim", [None, 1.0, 3.0])
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("mndk", LINREG_SHAPES)
+def test_linreg_kernel_matches_plain_in_every_mode(cuda, mndk, scheme, trim,
+                                                   mode):
+    m, n, d, k = mndk
+    x, t, theta = _linreg_data(m, n, d, m * d + 1, cuda, trim == 1.0)
+    grouping = make_grouping(m, k, scheme=scheme)
+    kw = dict(MODES[mode], trim_multiplier=trim)
+    route = rk.linreg_route(d)
+    before = dict(rk.linreg_round_kernel.route_launches)
+    y1, it1 = rk.linreg_round_kernel(x, t, theta, grouping, **kw)
+    y2, it2 = rk.linreg_round_kernel(x, t, theta, grouping, **kw)
+    yp, itp = rk.linreg_round_fused(x, t, theta, grouping, **kw)
+    moved = {r: v - before[r]
+             for r, v in rk.linreg_round_kernel.route_launches.items()}
+    assert moved == {r: 2 * (r == route) for r in rk.ROUTES}
+    assert torch.equal(y1, y2) and int(it1) == int(it2)
+    assert _close(y1, yp)
+    assert 1 <= int(it1) <= kw.get("max_iters", 64)
+    if mode == "few" and trim != 1.0:
+        assert int(it1) == int(itp) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8188, 8192, 8190, 8193, 8196, 4])
+def test_linreg_routes_at_their_boundary(cuda, d):
+    """d % 4 == 0 up to D_ONEPASS takes the one-pass route, every other d
+    the two-pass one; both match the plain version and the blocked twin
+    of their route."""
+    m, n, k = 8, 24, 4
+    x, t, theta = _linreg_data(m, n, d, d, cuda)
+    grouping = make_grouping(m, k, scheme="seeded")
+    route = rk.linreg_route(d)
+    assert route == ("one_pass" if d % 4 == 0 and d <= rk.D_ONEPASS
+                     else "two_pass")
+    before = dict(rk.linreg_round_kernel.route_launches)
+    kw = dict(tol=0.0, max_iters=3)
+    y, it = rk.linreg_round_kernel(x, t, theta, grouping, **kw)
+    assert rk.linreg_round_kernel.route_launches[route] == before[route] + 1
+    yp, _ = rk.linreg_round_fused(x, t, theta, grouping, **kw)
+    sms = rk._sm_count(cuda)
+    split = (rk.onepass_split(m, n, sms) if route == "one_pass"
+             else rk.linreg_split(m, n, d))
+    lib = rk._linreg_library()
+    nb = rk.persistent_blocks(d, rk._blocks_per_sm(lib, "gmom_linreg", k),
+                              sms)
+    yt, _ = rk.linreg_round_blocked(x.cpu(), t.cpu(), theta.cpu(), grouping,
+                                    route=route, n_split=split, n_blocks=nb,
+                                    **kw)
+    assert _close(y, yp) and torch.equal(y.cpu(), yt)
+    assert int(it) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["few", "early_exit"])
+@pytest.mark.parametrize("mndk", [(50, 1000, 100, 11), (12, 16, 302, 6),
+                                  (16, 64, 8192, 8), (20, 16, 400, 10)])
+def test_linreg_kernel_matches_its_blocked_twin(cuda, mndk, mode):
+    """linreg_round_blocked with the wrapper's plan replays the kernel's
+    arithmetic bit for bit on the route d takes."""
+    m, n, d, k = mndk
+    x, t, theta = _linreg_data(m, n, d, m * d, cuda)
+    grouping = make_grouping(m, k, scheme="seeded")
+    kw = MODES[mode]
+    y, it = rk.linreg_round_kernel(x, t, theta, grouping, **kw)
+    sms = rk._sm_count(cuda)
+    split = (rk.onepass_split(m, n, sms) if rk.linreg_route(d) == "one_pass"
+             else rk.linreg_split(m, n, d))
+    nb = rk.persistent_blocks(
+        d, rk._blocks_per_sm(rk._linreg_library(), "gmom_linreg", k), sms)
+    yt, itt = rk.linreg_round_blocked(x.cpu(), t.cpu(), theta.cpu(), grouping,
+                                      n_blocks=nb, n_split=split, **kw)
+    assert int(it) == int(itt)
+    assert torch.equal(y.cpu(), yt)
+
+
+@pytest.mark.cuda
+def test_linreg_both_routes_agree_on_one_input(cuda):
+    """The two-pass front, forced at a d the one-pass route takes, gives
+    the same aggregate within tolerance."""
+    x, t, theta = _linreg_data(50, 200, 1024, 8, cuda)
+    grouping = make_grouping(50, 11)
+    kw = dict(trim_multiplier=3.0, max_iters=3, tol=0.0, eps=1e-12)
+    y1, _ = rk._linreg_launch(x, t, theta, grouping, "one_pass", **kw)
+    y2, _ = rk._linreg_launch(x, t, theta, grouping, "two_pass", **kw)
+    assert _close(y1, y2)
+    with pytest.raises(ValueError, match="one-pass route"):
+        rk._linreg_launch(x[..., :1022].contiguous(), t,
+                          theta[:1022].contiguous(), grouping, "one_pass",
+                          **kw)
+
+
+@pytest.mark.cuda
+def test_linreg_takes_a_misaligned_view(cuda):
+    """X whose data does not start on 16 bytes is copied for the bulk
+    copy, not refused."""
+    x, t, theta = _linreg_data(12, 17, 300, 8, cuda)
+    grouping = make_grouping(12, 6)
+    xs = x.reshape(-1)[1:12 * 16 * 300 + 1].reshape(12, 16, 300)
+    assert xs.data_ptr() % 16 != 0
+    y, _ = rk.linreg_round_kernel(xs, t[:, :16], theta, grouping)
+    yp, _ = rk.linreg_round_fused(xs, t[:, :16], theta, grouping)
+    assert _close(y, yp)
+
+
 @pytest.mark.cuda
 def test_linreg_failed_launch_raises(cuda, monkeypatch):
     lib = rk._linreg_library()
     assert lib.gmom_linreg_round(
         None, None, None, None, None, None, 1, 1, 0, 1, 0, 0.0, 1, 0.0,
-        1e-12, 0.0, 1.0, 1, None, None, None, None, None, None, None, None,
-        1, None) != 0
+        1e-12, 0.0, 1.0, 1, 1, None, None, None, None, None, None, 1,
+        None) != 0
 
     class Refusing:
         def __getattr__(self, name):
@@ -644,3 +910,19 @@ def test_serve_on_the_card_matches_the_cpu(cuda):
     assert tok.shape == (2, 8)
     torch.testing.assert_close(logits.cpu(), logits_cpu, atol=1e-4,
                                rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_too_large_cooperative_grid_raises(cuda, monkeypatch):
+    """A grid the card cannot hold at once is refused by the launch (a
+    grid barrier in it would hang), and the wrapper raises."""
+    g = _stacked(20, 30, 3, cuda)
+    grouping = make_grouping(20, 10)
+    lib = rk._library()
+    too_many = 100 * rk._sm_count(cuda) * lib.gmom_round_blocks_per_sm(10)
+    monkeypatch.setattr(rk, "persistent_blocks", lambda *args: too_many)
+    with pytest.raises(RuntimeError, match="launch failed.*720"):
+        rk.round_aggregate_kernel(g, grouping)
+    x, t, theta = _linreg_data(12, 16, 300, 3, cuda)
+    with pytest.raises(RuntimeError, match="launch failed.*720"):
+        rk.linreg_round_kernel(x, t, theta, make_grouping(12, 6))

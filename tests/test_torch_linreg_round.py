@@ -3,10 +3,12 @@
 failure-free rounds of Algorithm 2 through it — against JAX.
 
 The port's plain versions (``linreg_round_ref``, which replays the
-reference's d-tile loop, and the flat ``linreg_round_fused``) are held
-against JAX ``linreg_round_kernel`` in interpret mode, JAX
-``linreg_round_ref`` and JAX ``linreg_round_fused`` with rtol 1e-4 /
-atol 1e-5 (the sums run in other orders).  Inputs come from numpy seeds;
+reference's d-tile loop, and the flat ``linreg_round_fused``) and the twin
+of the CUDA kernel's summation order on either route
+(``linreg_round_blocked``) are held against JAX ``linreg_round_kernel`` in
+interpret mode, JAX ``linreg_round_ref`` and JAX ``linreg_round_fused``
+with rtol 1e-4 / atol 1e-5 (the sums run in other orders); the kernel's
+routes and launch plan are checked here too.  Inputs come from numpy seeds;
 the slice test hands the reference's generated data across with
 ``convert.scenario_inputs_from_numpy``.  The CUDA kernel itself runs only
 on a card: tests/test_torch_cuda.py."""
@@ -205,3 +207,97 @@ def test_linreg_split_fills_the_grid_without_empty_chunks(m, n, d, want):
     chunk = -(-n // split)
     assert split == want
     assert (split - 1) * chunk < n <= split * chunk
+
+
+# ---------------------------------------------------------------------------
+# the linreg kernel's routes, launch plan and the twin of its order
+
+@pytest.mark.parametrize("d,want", [
+    (4, "one_pass"), (100, "one_pass"), (300, "one_pass"),
+    (8188, "one_pass"), (8192, "one_pass"),     # D_ONEPASS
+    (8193, "two_pass"),                          # D_ONEPASS + 1
+    (8191, "two_pass"),                          # D_ONEPASS - 1, d % 4 != 0
+    (8196, "two_pass"), (302, "two_pass"), (1, "two_pass"),
+    (25_557_032, "two_pass")])
+def test_linreg_route_by_d(d, want):
+    assert tround.D_ONEPASS == 8192
+    assert tround.linreg_route(d) == want
+
+
+@pytest.mark.parametrize("d", [4, 100, 300, 512, 516, 1024, 2048, 4096,
+                               8188, 8192])
+def test_onepass_plan_fits_a_block(d):
+    """A row group of power-of-two threads holds the row at 16 columns a
+    thread; a ring stage holds whole row groups; three stages fit in the
+    227 KB of shared memory a block may use."""
+    tpr = tround.onepass_row_threads(d)
+    groups = tround.ONEPASS_THREADS // tpr
+    rps = tround.onepass_rows_per_stage(d)
+    assert tpr in (32, 64, 128, 256, 512)
+    assert 4 * tround.ONEPASS_CHUNKS * tpr >= d
+    assert tpr == 32 or 4 * tround.ONEPASS_CHUNKS * tpr // 2 < d
+    assert rps % groups == 0 and rps >= groups
+    assert 3 * rps * d * 4 <= 227 * 1024
+    assert rps == groups or rps * d * 4 <= tround.ONEPASS_STAGE_BYTES
+
+
+@pytest.mark.parametrize("m,n,sms,want", [
+    (50, 1000, 132, 5),       # 250 blocks: two waves of 132, 95 % full
+    (50, 1000, 114, 9),       # 450 blocks: four waves of 114, 99 % full
+    (12, 16, 132, 16),        # too small to fill: one sample a chunk
+    (50, 8, 132, 8), (1, 7, 132, 7),
+    (64, 20, 132, 4)])        # 256 blocks on 264 slots
+def test_onepass_split_fills_whole_waves(m, n, sms, want):
+    split = tround.onepass_split(m, n, sms)
+    assert split == want
+    chunk = -(-n // split)
+    assert (split - 1) * chunk < n <= split * chunk       # no empty chunk
+    blocks = m * split
+    waves = -(-blocks // sms)
+    assert split == n or blocks >= tround.WAVE_FILL * waves * sms
+
+
+@pytest.mark.parametrize("m,n,split", [(1, 7, 7), (3, 10, 4), (50, 1000, 5),
+                                       (12, 16, 16), (5, 9, 1)])
+def test_sample_chunks_cover_every_row_once_within_a_worker(m, n, split):
+    blocks = tround.sample_chunks(m, n, split)
+    assert len(blocks) == m * split
+    rows = sorted((j, s) for j, s0, s1 in blocks for s in range(s0, s1))
+    assert rows == [(j, s) for j in range(m) for s in range(n)]
+    for j, s0, s1 in blocks:
+        assert 0 <= j < m and 0 <= s0 < s1 <= n           # inside worker j
+
+
+@pytest.mark.parametrize("route", ["one_pass", "two_pass"])
+@pytest.mark.parametrize("shape,scheme,trim", CASES)
+def test_linreg_round_blocked_matches_jax(shape, scheme, trim, route):
+    """The twin of the CUDA kernel's summation order, on either route, with
+    three sample chunks and a grid of two blocks, against JAX
+    ``linreg_round_kernel`` (interpret) and ``linreg_round_fused``."""
+    got = _port(functools.partial(tround.linreg_round_blocked, route=route,
+                                  n_split=3, n_blocks=2),
+                shape, scheme, trim)
+    want = _jax_results(shape, scheme, trim)
+    for name in ("kernel", "fused"):
+        np.testing.assert_allclose(got, want[name], rtol=RTOL, atol=ATOL,
+                                   err_msg=name)
+
+
+def test_linreg_round_blocked_default_plan_matches_fused():
+    """With the plan the wrapper makes on an H100 (132 SMs, two blocks of
+    the round kernel an SM: the route by d and its split) on a d of each
+    route."""
+    for d in (300, 302):
+        x, t, theta = (torch.as_tensor(a) for a in _data(12, 16, d, d))
+        grouping = make_grouping(12, 6, scheme="seeded")
+        n_split = (tround.onepass_split(12, 16, 132)
+                   if tround.linreg_route(d) == "one_pass"
+                   else tround.linreg_split(12, 16, d))
+        got, it = tround.linreg_round_blocked(
+            x, t, theta, grouping, n_blocks=tround.persistent_blocks(d, 2, 132),
+            n_split=n_split, max_iters=3, tol=0.0)
+        want, itp = tround.linreg_round_fused(x, t, theta, grouping,
+                                              max_iters=3, tol=0.0)
+        assert int(it) == int(itp) == 3
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL,
+                                   atol=ATOL)

@@ -1,10 +1,12 @@
 """The port's GMoM round (repro_torch.kernels.geomed.round) against the
 JAX package's.
 
-The port's plain PyTorch version is held against JAX
+The port's plain PyTorch version, and the twin of the CUDA kernel's
+summation order (``round_aggregate_blocked``), are held against JAX
 ``round_aggregate_ref`` on the tier-1 (m, k, d) matrix x grouping schemes x
-trim settings (rtol 1e-4, atol 1e-5: the sums run in other orders).  The
-CUDA kernel itself runs only on a card: tests/test_torch_cuda.py."""
+trim settings (rtol 1e-4, atol 1e-5: the sums run in other orders); the
+kernel's launch plan is checked here too.  The CUDA kernel itself runs
+only on a card: tests/test_torch_cuda.py."""
 
 import jax
 import jax.numpy as jnp
@@ -157,3 +159,176 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+# ---------------------------------------------------------------------------
+# the persistent kernel's launch plan and its plain twin
+
+@pytest.mark.parametrize("d,per_sm,sms,want", [
+    (100, 2, 132, 1),              # the paper's d: one tile, one block
+    (256, 2, 132, 1), (257, 2, 132, 2),
+    (8192, 2, 132, 32),            # 32 tiles of 256 columns
+    (25_557_032, 2, 132, 264),     # every SM, as many as fit at once
+    (25_557_032, 1, 132, 132), (1, 1, 1, 1), (10 ** 6, 0, 132, 1)])
+def test_persistent_blocks_fill_the_card_up_to_the_tiles(d, per_sm, sms,
+                                                         want):
+    assert tround.persistent_blocks(d, per_sm, sms) == want
+
+
+@pytest.mark.parametrize("d", [1, 100, 255, 256, 257, 8192, 10_000])
+@pytest.mark.parametrize("n_blocks", [1, 2, 3, 32, 132])
+def test_block_tiles_cover_every_column_once(d, n_blocks):
+    tiles = tround.block_tiles(d, n_blocks)
+    assert len(tiles) == n_blocks
+    cols = sorted(c for block in tiles for c0, c1 in block
+                  for c in range(c0, c1))
+    assert cols == list(range(d))
+    for b, block in enumerate(tiles):
+        for i, (c0, c1) in enumerate(block):
+            assert c0 == (b + i * n_blocks) * tround.TILE    # tile t -> t % nb
+            assert 0 < c1 - c0 <= tround.TILE
+    # the kernel keeps a block's tile resident exactly when it owns one
+    counts = [len(block) for block in tiles]
+    assert max(counts) - min(counts) <= 1
+
+
+@pytest.mark.parametrize("n_blocks", [1, 3])
+@pytest.mark.parametrize("trim", [None, 1.0, 3.0])
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("mkd", MKD_MATRIX)
+def test_round_blocked_matches_jax(mkd, scheme, trim, n_blocks):
+    """The twin of the persistent kernel's summation order (per-block
+    partials, reduced by every block in one fixed order) against JAX
+    ``round_aggregate_ref`` (rtol 1e-4, atol 1e-5: other orders)."""
+    m, k, d = mkd
+    g = _stacked(m, d, seed=m * d)
+    if trim == 1.0:
+        g[0] *= 100.0
+    want = jround.round_aggregate_ref(
+        jnp.asarray(g), jax_make_grouping(m, k, scheme=scheme),
+        trim_multiplier=trim, max_iters=16)
+    got, iters = tround.round_aggregate_blocked(
+        torch.as_tensor(g), make_grouping(m, k, scheme=scheme),
+        n_blocks=n_blocks, trim_multiplier=trim, max_iters=16)
+    assert 1 <= int(iters) <= 16
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_round_blocked_zero_and_three_iterations():
+    g = torch.as_tensor(_stacked(20, 1000, seed=3))
+    grouping = make_grouping(20, 10, scheme="strided")
+    y0, it0 = tround.round_aggregate_blocked(g, grouping, n_blocks=2,
+                                             max_iters=0)
+    want0, _ = tround.round_aggregate_ref(g, grouping, max_iters=0)
+    assert int(it0) == 0
+    np.testing.assert_allclose(y0.numpy(), want0.numpy(), rtol=RTOL,
+                               atol=ATOL)
+    y3, it3 = tround.round_aggregate_blocked(g, grouping, n_blocks=4,
+                                             max_iters=3, tol=0.0)
+    want3, itp = tround.round_aggregate_ref(g, grouping, max_iters=3, tol=0.0)
+    assert int(it3) == int(itp) == 3
+    np.testing.assert_allclose(y3.numpy(), want3.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_reduce_partials_twin_is_the_fixed_lane_order():
+    """Lane i sums rows i, i + 32, ... in order, then the butterfly: on
+    values whose float sums depend on the order, the twin follows it."""
+    rng = np.random.default_rng(0)
+    part = (rng.normal(size=(70, 3)) * 10.0 ** rng.integers(
+        -6, 6, size=(70, 3))).astype(np.float32)
+    lanes = np.zeros((32, 3), np.float32)
+    for b in range(70):
+        lanes[b % 32] += part[b]
+    for o in (16, 8, 4, 2, 1):
+        lanes[:o] = lanes[:o] + lanes[o:2 * o]
+    got = tround._reduce_partials(torch.as_tensor(part))
+    np.testing.assert_array_equal(got.numpy(), lanes[0])
+
+
+def _exact_f32(value):
+    """The float32 nearest to a Fraction, ties to even."""
+    from fractions import Fraction
+    x = np.float32(float(value))
+    cands = [x, np.nextafter(x, np.float32(np.inf)),
+             np.nextafter(x, np.float32(-np.inf))]
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - value),
+                                     int(c.view(np.uint32)) & 1))
+
+
+def test_fma_twin_rounds_once():
+    """``_fma`` is fmaf: a * b + c rounded once to float32, also where a
+    float64 sum would land on a float32 tie (double rounding)."""
+    from fractions import Fraction
+    rng = np.random.default_rng(1)
+    n = 2000
+    a = (rng.normal(size=n) * 10.0 ** rng.integers(-3, 3, n))
+    b = (rng.normal(size=n) * 10.0 ** rng.integers(-3, 3, n))
+    c = (rng.normal(size=n) * 10.0 ** rng.integers(-9, 3, n))
+    # (1 + 2^-12)^2 is a float32 tie; 2^-70 moves the exact value off it
+    a = np.append(a, [1 + 2 ** -12, 1 + 2 ** -12, -(1 + 2 ** -12)])
+    b = np.append(b, [1 + 2 ** -12, 1 + 2 ** -12, 1 + 2 ** -12])
+    c = np.append(c, [2.0 ** -70, -2.0 ** -70, -2.0 ** -70])
+    a, b, c = (v.astype(np.float32) for v in (a, b, c))
+    got = tround._fma(*map(torch.as_tensor, (a, b, c))).numpy()
+    want = np.array([_exact_f32(Fraction(float(x)) * Fraction(float(y))
+                                + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], np.float32)
+    np.testing.assert_array_equal(got, want)
+    assert got[-3] == np.float32(1 + 2 ** -11 + 2 ** -23)     # not the tie
+    assert got[-2] == np.float32(1 + 2 ** -11)
+
+
+def test_sqrt_twin_rounds_once():
+    """``_sqrt`` is ``__fsqrt_rn``: the float32 nearest to the root (held
+    against exact rational arithmetic)."""
+    from fractions import Fraction
+    rng = np.random.default_rng(3)
+    x = (rng.random(3000) * 10.0 ** rng.integers(-6, 6, 3000)).astype(
+        np.float32)
+    got = tround._sqrt(torch.as_tensor(x)).numpy()
+    for xi, r in zip(x, got):
+        lo, hi = (np.nextafter(r, np.float32(-np.inf)),
+                  np.nextafter(r, np.float32(np.inf)))
+        # r is nearest iff the midpoints to its neighbours bracket sqrt(x)
+        fx = Fraction(float(xi))
+        assert (Fraction(float(lo)) + Fraction(float(r))) ** 2 / 4 <= fx
+        assert fx <= (Fraction(float(r)) + Fraction(float(hi))) ** 2 / 4
+
+
+def test_block_partials_twin_orders():
+    """Per-block partials on a grid of two blocks over three tiles: block
+    0 streams tiles 0 and 2 (lane i fma-accumulates columns i, i + 32, ...
+    of each tile, then the butterfly), block 1 keeps tile 1 (each column
+    squared, each warp's 32 columns by the butterfly, then the warps in
+    order).  Written out element by element here."""
+    rng = np.random.default_rng(2)
+    k, d, tile = 2, 600, tround.TILE
+    e = (rng.normal(size=(k, d)) * 10.0 ** rng.integers(-4, 4, (k, d))
+         ).astype(np.float32)
+    t = torch.as_tensor(e)
+
+    def butterfly(v):
+        v = list(v)
+        for o in (16, 8, 4, 2, 1):
+            v = [np.float32(v[i] + v[i + o]) for i in range(o)]
+        return v[0]
+
+    want = np.zeros((2, k), np.float32)
+    for l in range(k):
+        lanes = [np.float32(0)] * 32
+        for t0 in (0, 2 * tile):
+            for q in range(tile // 32):
+                for i in range(32):
+                    c = t0 + 32 * q + i
+                    v = e[l, c] if c < d else np.float32(0)
+                    lanes[i] = tround._fma(*(torch.tensor([x]) for x in
+                                             (v, v, lanes[i]))).numpy()[0]
+        want[0, l] = butterfly(lanes)
+        s = np.float32(0)
+        for w in range(tile // 32):
+            cols = e[l, tile + 32 * w:tile + 32 * (w + 1)]
+            s = np.float32(s + butterfly(cols * cols))
+        want[1, l] = s
+    np.testing.assert_array_equal(tround._block_partials(t, 2).numpy(), want)
