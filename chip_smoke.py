@@ -18,12 +18,15 @@ Phases:
   0 device       nvidia-smi name and power limit, torch and CUDA versions
   1 build        nvcc build of every kernel source, one process each, all
                  at once (seconds, ptxas summary per library); no spill in
-                 any instance of the GMoM libraries or of the tensor-core
+                 any instance of the GMoM libraries (every instance named
+                 in GMOM_INSTANCES present) or of the tensor-core
                  attention kernel
   2 parity       every kernel vs its plain version (round kernel and
                  linreg round in each of MODES, the linreg round on both
                  routes and at their boundary), rtol 1e-4 / atol 1e-5
-                 against max|y|; two kernel runs must be bitwise equal
+                 against max|y|; two kernel runs must be bitwise equal;
+                 sqdist and the Weiszfeld loop kernel bit for bit equal to
+                 their twins on the wrapper's plan
   3 goldens      the nine float goldens and the interrupted-resume replay
                  on the card with round_backend="auto" (gmom -> kernel)
   4 full width   the paper config (d=100) and a wide one (d=8192):
@@ -33,8 +36,15 @@ Phases:
                  y, theta) held against the engine's failure-free run
                  (one linreg launch per round, all on the one-pass route);
                  both below paper_floor.
-                 The Weiszfeld loop over sqdist/reweight at (k, d) = (11,
-                 8192) and (11, 25 557 032) against core.geometric_median
+                 The Weiszfeld loop (geometric_median_kernel) at (k, d) =
+                 (11, 8192) and (11, 25 557 032) (the register-streamed
+                 loop kernel) and (64, 1 000 000) (the loop kernel over
+                 tiles), one launch each, and at (100, 1 000 000) over the
+                 sqdist/reweight kernels (k > 64), against
+                 core.geometric_median and the
+                 plain loop: both stop below the cap or both reach it,
+                 exact counts at max_iters=3, the loop kernel's stop
+                 replayed from its iterates
                  Flash attention vs its plain version over a grid
                  (tests/test_kernels.py's cases, H2O and Minitron widths up
                  to T = 8192, ragged and non-causal ragged): f32 through
@@ -56,8 +66,8 @@ Phases:
   5 timings      kernel, plain and library times (medians of 20 after
                  warm-up), iterations, launches per call, bounds; device
                  kernels per call counted by torch.profiler, a session per
-                 call (the round kernel must be 1, the linreg round at
-                 most 2) with their
+                 call (the round kernel, sqdist and the Weiszfeld loop
+                 must be 1, the linreg round at most 2) with their
                  device time and the wrapper's host time; the linreg round
                  also through its two-pass route on the same inputs;
                  flash attention also through its CUDA-core kernel on the
@@ -104,12 +114,31 @@ LINREG_SHAPES = [(12, 16, 300, 6), (20, 16, 400, 10), (50, 1000, 100, 10),
 LINREG_MAIN = (50, 1000, 8192, 11)
 # the timed linreg shapes: the paper's d and the main path's
 LINREG_TIMED = [(50, 1000, 100, 11), LINREG_MAIN]
-# (k, d) of the Weiszfeld-step kernels: the grid of tests/test_kernels.py,
-# the wide width, and ResNet-50's parameter count (Z is 1.12 GB)
+# (k, d) of the Weiszfeld kernels: the grid of tests/test_kernels.py,
+# the wide width, ResNet-50's parameter count (Z is 1.12 GB), the loop
+# benchmark of benchmarks/kernel_bench.py (32, 100 000), and k = 64
 GEOMED_SHAPES = [(2, 64), (8, 1000), (16, 4096), (64, 512), (5, 777),
-                 (32, 2048), (11, 8192), (11, 25_557_032)]
-GEOMED_PATH = [(11, 8192), (11, 25_557_032)]
+                 (32, 2048), (11, 8192), (11, 25_557_032), (32, 100_000),
+                 (64, 1_000_000)]
+# the Weiszfeld loop (geometric_median_kernel) at the wide width and at
+# ResNet-50's (one launch of the register-streamed loop kernel each); at
+# the reference's own benchmark of the loop, benchmarks/kernel_bench.py's
+# k = 32, d = 100 000 (the loop kernel over tiles: 16 < k <= 64); and, for
+# coverage with no workload behind them, the loop kernels' largest k (64)
+# and a k past it (100: the step kernels) at a 1M-parameter width
+GEOMED_PATH = [(11, 8192), (11, 25_557_032), (32, 100_000),
+               (64, 1_000_000), (100, 1_000_000)]
 GEOMED_MAIN = (11, 25_557_032)
+GEOMED_TILES = (32, 100_000)
+GEOMED_STEP = (100, 1_000_000)
+GEOMED_LOOP_TIMED = [(11, 8192), GEOMED_MAIN, GEOMED_TILES,
+                     (64, 1_000_000)]
+# every kernel instance of the three GMoM libraries (ptxas names)
+GMOM_INSTANCES = ("gmom_round_kernel<StackedRows>",
+                  "gmom_round_kernel<SplitGradRows>", "linreg_onepass_kernel",
+                  "residual_kernel", "grad_kernel", "sqdist_kernel<4>",
+                  "sqdist_kernel<1>", "reweight_kernel",
+                  "weiszfeld_regs_kernel", "weiszfeld_tiles_kernel")
 # (HBM bytes/s, float32 non-tensor-core FLOP/s) by part, NVIDIA data sheets
 PEAKS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12),
          "SXM": (3.35e12, 67e12)}
@@ -253,9 +282,12 @@ def timed(fn):
 
 
 def device_kernel_counts(dev, round_shapes=SHAPES,
-                         linreg_shapes=LINREG_TIMED):
-    """{("round", (m, k, d)) | ("linreg", (m, n, d, k)): (device events,
-    device ms, kernel names)} of one call of each: every kernel, copy and
+                         linreg_shapes=LINREG_TIMED,
+                         geomed_shapes=GEOMED_LOOP_TIMED):
+    """{("round", (m, k, d)) | ("linreg", (m, n, d, k)) | ("sqdist", (k,
+    d)) | ("loop", (k, d)): (device events, device ms, kernel names)} of
+    one call of each (the loop: ``geometric_median_kernel``, unit
+    weights): every kernel, copy and
     fill the call puts on the card, in a torch.profiler session of its own
     around the call, after a warm-up call.  The session records CPU
     activity too: a CUDA-only session around one short kernel can close
@@ -263,8 +295,17 @@ def device_kernel_counts(dev, round_shapes=SHAPES,
     Findings)."""
     import torch
     from repro_torch.core.grouping import make_grouping
+    from repro_torch.kernels.geomed import geomed, ops
     from repro_torch.kernels.geomed import round as rk
     gen = torch.Generator(device=dev)
+
+    def sqdist_call(k, d):
+        z, y, _ = geomed_inputs(k, d, 11, dev)
+        return lambda: geomed.sqdist(z, y)
+
+    def loop_call(k, d):
+        z = geomed_inputs(k, d, 5 * k + d % 997, dev)[0]
+        return lambda: ops.geometric_median_kernel(z)
 
     def round_call(m, k, d):
         gen.manual_seed(m * 7 + k)
@@ -282,7 +323,11 @@ def device_kernel_counts(dev, round_shapes=SHAPES,
     for key, make in ([(("round", shape), round_call)
                        for shape in round_shapes]
                       + [(("linreg", shape), linreg_call)
-                         for shape in linreg_shapes]):
+                         for shape in linreg_shapes]
+                      + [((name, shape), make)
+                         for name, make in (("sqdist", sqdist_call),
+                                            ("loop", loop_call))
+                         for shape in geomed_shapes]):
         call = make(*key[1])
         call()
         torch.cuda.synchronize()
@@ -434,11 +479,14 @@ def linreg_parity(dev, shapes=LINREG_SHAPES, main_shape=LINREG_MAIN):
     return worst
 
 
-def geomed_parity(dev, shapes=GEOMED_SHAPES):
-    """sqdist, reweight and the step vs their plain versions ->
-    {(kernel, shape): max_abs_err}."""
+def geomed_parity(dev, shapes=GEOMED_SHAPES, twin_max=10 ** 6):
+    """sqdist, reweight, the step and the loop kernel (``weiszfeld_loop``,
+    max_iters=3 and the default stop) vs their plain versions; sqdist and
+    the loop also vs their twins on the wrapper's plan (bit for bit, up to
+    k d = ``twin_max``: the twins run on the CPU) -> {(kernel, shape):
+    max_abs_err}."""
     import torch
-    from repro_torch.kernels.geomed import geomed, ref
+    from repro_torch.kernels.geomed import geomed, ops, ref
     errs = {}
     for k, d in shapes:
         z, y, w = geomed_inputs(k, d, k * 31 + d % 1000, dev)
@@ -460,7 +508,43 @@ def geomed_parity(dev, shapes=GEOMED_SHAPES):
             errs[(name, (k, d))] = err
             line[name] = {"max_abs_err": err, "max_abs_y": scale, "ok": ok,
                           "bitwise_repeat": bitwise}
+            if name == "sqdist" and k * d <= twin_max:
+                nb, vec = geomed.sqdist_plan(z, y)
+                want_bits = ref.weiszfeld_distances_blocked(
+                    z, y, n_blocks=nb, vec=vec)
+                twin = bool(torch.equal(a.cpu(), want_bits))
+                check(twin, f"sqdist {(k, d)}: not its twin's bits")
+                line[name].update(twin_equal=twin, n_blocks=nb, vec=vec)
             del a, b, want
+        w[0] = 0.0       # a zero weight: that point drops out of the sums
+        for mode, kw in (("few", dict(max_iters=3, tol=0.0)),
+                         ("early_exit", {})):
+            (y1, it1), (y2, it2) = (geomed.weiszfeld_loop(z, w, **kw),
+                                    geomed.weiszfeld_loop(z, w, **kw))
+            yp, itp = ops._geometric_median(z, w, plain=True, **kw)
+            torch.cuda.synchronize(dev)
+            err, ok, scale = compare(y1, yp)
+            bitwise = bool(torch.equal(y1, y2)) and int(it1) == int(it2)
+            tag = f"weiszfeld_loop {(k, d)} {mode}"
+            check(ok, f"parity {tag}: max_abs_err {err} (max|y| {scale})")
+            check(bitwise, f"determinism {tag}")
+            check(mode != "few" or int(it1) == int(itp) == 3,
+                  f"iterations {tag}: kernel {int(it1)} plain {int(itp)}")
+            res = {"max_abs_err": err, "max_abs_y": scale, "ok": ok,
+                   "bitwise_repeat": bitwise, "iters_kernel": int(it1),
+                   "iters_plain": int(itp)}
+            if k * d <= twin_max:
+                vec = geomed.vector_width(d, z)
+                nb = geomed.loop_blocks(k, d, vec, dev)
+                yt, itt = ops.geometric_median_blocked(z, w, n_blocks=nb,
+                                                       vec=vec, **kw)
+                twin = bool(torch.equal(y1.cpu(), yt)) and int(it1) == int(itt)
+                check(twin, f"{tag}: not its twin's bits or count")
+                res.update(twin_equal=twin, n_blocks=nb, vec=vec,
+                           kernel=geomed.loop_kernel(k))
+            line[f"weiszfeld_loop_{mode}"] = res
+            errs[("weiszfeld_loop", (k, d))] = max(
+                err, errs.get(("weiszfeld_loop", (k, d)), 0.0))
         emit(line)
         del z, y, w
         torch.cuda.empty_cache()
@@ -541,51 +625,100 @@ def linreg_path(dev, configs=None):
 
 
 def geomed_path(dev, shapes=GEOMED_PATH):
-    """The Weiszfeld loop over the step kernels at full width, held
-    against ``core.geometric_median``.  -> (sqdist, reweight) launches."""
+    """The Weiszfeld loop (``geometric_median_kernel``) at full width,
+    each route by its k: held against ``core.geometric_median`` and the
+    plain loop (exact counts at max_iters=3); on the loop kernel's route
+    both stop below the cap, or both reach it, and the kernel's stop is
+    replayed from its iterates.  The step kernels' route (k > 64) replays
+    its own stop: there the sqdist kernel's summation order settles into a
+    1-ulp cycle to the cap on about one input in four where the plain loop
+    stops, and so did the older two-launch sqdist's order, on other inputs
+    (``tests/step_route_stop.py``; PERF.md, open questions).  ->
+    launches {"weiszfeld_loop", "sqdist", "reweight"} of the run with the
+    default stop (the counts set to 0 just before it)."""
     import torch
     from repro_torch.core.geometric_median import geometric_median
     from repro_torch.kernels.geomed import geomed, ops
     points = [geomed_inputs(k, d, 5 * k + d % 997, dev)[0]
               for k, d in shapes]
+    want_routes = {r: sum(ops.loop_route(k) == r for k, _ in shapes)
+                   for r in ops.ROUTES}
+    want_kernels = {kern: sum(ops.loop_route(k) == "device_loop"
+                              and geomed.loop_kernel(k) == kern
+                              for k, _ in shapes)
+                    for kern in geomed.LOOP_KERNELS}
+    ops.reset_launches()
+    geomed.reset_loop_launches()
     geomed.sqdist.launches = geomed.reweight.launches = 0
     results = []
     for z in points:
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        results.append(ops.geometric_median_kernel(z))
+        y, it = ops._geometric_median(z)
         torch.cuda.synchronize(dev)
-        results[-1] = (results[-1], (time.perf_counter() - t0) * 1e3)
-    launches = (geomed.sqdist.launches, geomed.reweight.launches)
-    check(launches[0] > 0 and launches[0] == launches[1],
-          f"geometric_median_kernel: sqdist/reweight launches {launches}")
-    for (k, d), z, (y, ms) in zip(shapes, points, results):
+        results.append((y, int(it), (time.perf_counter() - t0) * 1e3))
+    launches = {"weiszfeld_loop": geomed.weiszfeld_loop.launches,
+                "sqdist": geomed.sqdist.launches,
+                "reweight": geomed.reweight.launches,
+                **{f"weiszfeld_{kern}": n for kern, n
+                   in geomed.weiszfeld_loop.kernel_launches.items()}}
+    routes = dict(ops.geometric_median_kernel.route_launches)
+    steps = sum(it for (k, _), (_, it, _) in zip(shapes, results)
+                if ops.loop_route(k) == "step_kernels")
+    check(routes == want_routes
+          and launches["weiszfeld_loop"] == want_routes["device_loop"]
+          and geomed.weiszfeld_loop.kernel_launches == want_kernels
+          and launches["sqdist"] == launches["reweight"] == steps,
+          f"geometric_median_kernel: routes {routes} (want {want_routes}), "
+          f"launches {launches} ({steps} steps on the step kernels)")
+    for (k, d), z, (y, it, ms) in zip(shapes, points, results):
+        cap = 64
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         y_core = geometric_median(z)
         torch.cuda.synchronize(dev)
         ms_core = (time.perf_counter() - t0) * 1e3
+        _, itp = ops._geometric_median(z, plain=True)
+        _, it3 = ops._geometric_median(z, max_iters=3, tol=0.0)
+        _, itp3 = ops._geometric_median(z, max_iters=3, tol=0.0, plain=True)
         err, ok, scale = compare(y, y_core)
-        check(ok, f"geometric_median_kernel {(k, d)} vs core: max_abs_err "
-                  f"{err} (max|y| {scale})")
-        emit({"phase": "geomed_path", "shape": [k, d], "max_abs_err": err,
-              "max_abs_y": scale, "ok": ok,
+        tag = f"geometric_median_kernel {(k, d)}"
+        check(ok, f"{tag} vs core: max_abs_err {err} (max|y| {scale})")
+        both = (it < cap) == (int(itp) < cap)
+        if ops.loop_route(k) == "device_loop":
+            check(both, f"{tag}: {it} iterations, plain {int(itp)} (cap "
+                        f"{cap})")
+        check(int(it3) == int(itp3) == 3,
+              f"{tag}: {int(it3)} iterations at max_iters=3, plain "
+              f"{int(itp3)}")
+        stop_ok = stops_on_its_test(
+            lambda i: ops._geometric_median(z, max_iters=i)[0], it, cap,
+            1e-8)
+        check(stop_ok, f"{tag}: the stop at {it} iterations")
+        emit({"phase": "geomed_path", "shape": [k, d],
+              "route": ops.loop_route(k),
+              "loop_kernel": (geomed.loop_kernel(k)
+                              if ops.loop_route(k) == "device_loop"
+                              else None), "max_abs_err": err,
+              "max_abs_y": scale, "ok": ok, "iters_kernel": it,
+              "iters_plain": int(itp), "both_or_neither_ok": both,
+              "stop_ok": stop_ok, "iters_at_3": [int(it3), int(itp3)],
               "ms": {"geometric_median_kernel": ms,
                      "core.geometric_median": ms_core}})
-    emit({"phase": "geomed_path", "sqdist_launches": launches[0],
-          "reweight_launches": launches[1]})
+    emit({"phase": "geomed_path", "launches": launches,
+          "launches_by_route": routes})
     del points, results
     torch.cuda.empty_cache()
     return launches
 
 
 def new_kernel_timings(dev, hbm, flops, smi, counts):
-    """Kernel, plain and library ms of the linreg round and the step
-    kernels at their main shapes -> {name: timing dict}.  ``counts``: the
-    linreg round's device kernels per call (``device_kernel_counts``)."""
+    """Kernel, plain and library ms of the linreg round, the step kernels
+    and the Weiszfeld loop at their main shapes -> {name: timing dict}.
+    ``counts``: device kernels per call (``device_kernel_counts``)."""
     import torch
     from repro_torch.core.grouping import make_grouping
-    from repro_torch.kernels.geomed import geomed, ref
+    from repro_torch.kernels.geomed import geomed, ops, ref
     from repro_torch.kernels.geomed import round as rk
     out = {}
     for m, n, d, k in LINREG_TIMED:
@@ -624,8 +757,8 @@ def new_kernel_timings(dev, hbm, flops, smi, counts):
         two_split = rk.linreg_split(m, n, d)
         nbytes = 4 * (m * n * d + m * n + 2 * d)
         two_pass_bytes = nbytes + 4 * (m * n * d + 2 * two_split * m * d)
-        ops = 4 * m * n * d + m * d + (iters + 1) * 6 * k * d
-        bound_ms, bound_by = bound(nbytes, ops, hbm, flops)
+        ops_ = 4 * m * n * d + m * d + (iters + 1) * 6 * k * d
+        bound_ms, bound_by = bound(nbytes, ops_, hbm, flops)
         out[("linreg_round", (m, n, d, k))] = dict(
             kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=bound_ms, bound_by=bound_by)
@@ -651,23 +784,69 @@ def new_kernel_timings(dev, hbm, flops, smi, counts):
               lambda: ref.weiszfeld_reweight_ref(z, w),
               lambda: w @ z, 4 * (k * d + k + d), 2 * k * d,
               geomed.reweight))
-    for name, kernel, plain, library, nbytes, ops, wrapper in cases:
+    for name, kernel, plain, library, nbytes, ops_, wrapper in cases:
         before = wrapper.launches
         kernel()
         per_call = wrapper.launches - before
         check(per_call == 1, f"{name}: {per_call} launches per call")
+        n_dev, dev_ms, names = counts.get((name, (k, d)), (None, None, None))
+        if name == "sqdist":
+            check(n_dev == 1, f"sqdist {(k, d)}: {n_dev} device kernels per "
+                              f"call {names}")
         kernel_ms, plain_ms = timed(kernel), timed(plain)
         library_ms = timed(library)
-        bound_ms, bound_by = bound(nbytes, ops, hbm, flops)
+        bound_ms, bound_by = bound(nbytes, ops_, hbm, flops)
         out[(name, (k, d))] = dict(
             kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=bound_ms, bound_by=bound_by)
         emit({"phase": "timing", "kernel": name, "shape": [k, d],
-              "launches_per_call": per_call, "kernel_ms": kernel_ms,
-              "plain_ms": plain_ms, "library_ms": library_ms,
-              "bound_ms": bound_ms, "bound_by": bound_by, "card": smi})
+              "launches_per_call": per_call, "device_kernels_per_call": n_dev,
+              "device_kernel_names": names, "device_ms": dev_ms,
+              "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+              "library_ms": library_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "card": smi})
     del z, y, w
     torch.cuda.empty_cache()
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    for k, d in GEOMED_LOOP_TIMED:
+        z = geomed_inputs(k, d, 5 * k + d % 997, dev)[0]
+        before = geomed.weiszfeld_loop.launches
+        _, it = ops._geometric_median(z)
+        iters = int(it)
+        per_call = geomed.weiszfeld_loop.launches - before
+        check(per_call == 1, f"weiszfeld_loop: {per_call} launches per call")
+        n_dev, dev_ms, names = counts.get(("loop", (k, d)), (None, None, None))
+        check(n_dev == 1, f"geometric_median_kernel {(k, d)}: {n_dev} device "
+                          f"kernels per call {names}")
+        kernel_ms = timed(lambda: ops.geometric_median_kernel(z))
+        wrapper_ms = host_ms(lambda: ops.geometric_median_kernel(z))
+        plain_ms = timed(lambda: ops.geometric_median_kernel(z, plain=True))
+        # the loop must read Z from HBM once a pass (init + each
+        # iteration) where Z is larger than the L2, and once where it
+        # fits; it writes y once (the kernel recomputes the previous y
+        # from Z and never reads it); Z read once beside it
+        z_reads = 1 if 4 * k * d <= l2 else iters + 1
+        nbytes = 4 * (k * d * z_reads + d)
+        ops_ = (iters + 1) * 6 * k * d
+        bound_ms, bound_by = bound(nbytes, ops_, hbm, flops)
+        out[("weiszfeld_loop", (k, d))] = dict(
+            kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+            bound_ms=bound_ms, bound_by=bound_by)
+        vec = geomed.vector_width(d, z)
+        emit({"phase": "timing", "kernel": "weiszfeld_loop", "shape": [k, d],
+              "loop_kernel": geomed.loop_kernel(k), "vec": vec,
+              "iters": iters, "launches_per_call": per_call,
+              "n_blocks": geomed.loop_blocks(k, d, vec, dev),
+              "device_kernels_per_call": n_dev, "device_kernel_names": names,
+              "device_ms": dev_ms, "wrapper_host_ms": wrapper_ms,
+              "kernel_ms": kernel_ms, "ms_per_pass": kernel_ms / (iters + 1),
+              "plain_ms": plain_ms, "library_ms": None,
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "z_reads": z_reads, "l2_bytes": l2,
+              "bound_z_once_ms": 4 * (k * d + d) / hbm * 1e3,
+              "card": smi})
+        del z
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1103,11 +1282,10 @@ def main() -> int:
                                       for sp in tc_spills.values()),
           f"tensor-core attention kernels spill: {tc_spills}")
     # nor does any kernel of the GMoM libraries (the round kernel at every
-    # k up to 64 is one instance per library)
-    check(len(gmom_spills) >= 9 and "gmom_round_kernel<StackedRows>"
-          in gmom_spills and all(sp == (0, 0)
-                                 for sp in gmom_spills.values()),
-          f"GMoM kernels spill: {gmom_spills}")
+    # k up to 64 is one instance per library; sqdist one per load width)
+    check(set(GMOM_INSTANCES) <= set(gmom_spills)
+          and all(sp == (0, 0) for sp in gmom_spills.values()),
+          f"GMoM kernels spill or are missing: {gmom_spills}")
 
     gen = torch.Generator(device=dev)
 
@@ -1225,7 +1403,7 @@ def main() -> int:
               "kernel_vs_plain_ok": not vs_plain,
               "ms_per_round": ms_round})
     linreg_launches, linreg_routes = linreg_path(dev)
-    sqdist_launches, reweight_launches = geomed_path(dev)
+    geomed_launches = geomed_path(dev)
     attn_routes = serve_path(dev)
 
     # -- 5 timings --------------------------------------------------------
@@ -1279,12 +1457,23 @@ def main() -> int:
              timing[("linreg_round", LINREG_MAIN)], LINREG_MAIN),
             ("sqdist", "geomed/csrc/geomed.cu",
              "src/repro/kernels/geomed/geomed.py:75",
-             sqdist_launches, geomed_err[("sqdist", GEOMED_MAIN)],
+             geomed_launches["sqdist"], geomed_err[("sqdist", GEOMED_MAIN)],
              timing[("sqdist", GEOMED_MAIN)], GEOMED_MAIN),
             ("reweight", "geomed/csrc/geomed.cu",
-             "src/repro/kernels/geomed/geomed.py:96", reweight_launches,
+             "src/repro/kernels/geomed/geomed.py:96",
+             geomed_launches["reweight"],
              geomed_err[("reweight", GEOMED_MAIN)],
              timing[("reweight", GEOMED_MAIN)], GEOMED_MAIN),
+            ("weiszfeld_regs", "geomed/csrc/geomed.cu",
+             "src/repro/kernels/geomed/ops.py:25",
+             geomed_launches["weiszfeld_regs"],
+             geomed_err[("weiszfeld_loop", GEOMED_MAIN)],
+             timing[("weiszfeld_loop", GEOMED_MAIN)], GEOMED_MAIN),
+            ("weiszfeld_tiles", "geomed/csrc/geomed.cu",
+             "src/repro/kernels/geomed/ops.py:25",
+             geomed_launches["weiszfeld_tiles"],
+             geomed_err[("weiszfeld_loop", GEOMED_TILES)],
+             timing[("weiszfeld_loop", GEOMED_TILES)], GEOMED_TILES),
             ("flash_attention", "attention/csrc/flash_attention_tc.cuh",
              "src/repro/kernels/attention/flash.py:124",
              attn_routes["bfloat16"]["tensor_core"],
@@ -1298,6 +1487,11 @@ def main() -> int:
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"], "shape": list(shape)}
         for kname, source, replaces, launches, err, t, shape in rows]
+    # sqdist's and reweight's launches are the step route's at GEOMED_STEP
+    # (the only route that launches them); their error and times are at
+    # GEOMED_MAIN
+    for row in line[2:4]:
+        row["launches_shape"] = list(GEOMED_STEP)
     # the linreg round's row is its one-pass route at LINREG_MAIN
     line[1].update(kernel_route="one_pass", launches_by_route=linreg_routes)
     # flash attention's row is its tensor-core route at ATTN_MAIN (bf16);

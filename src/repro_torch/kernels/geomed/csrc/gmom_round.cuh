@@ -140,16 +140,24 @@ __device__ __forceinline__ void store_tile(const float* src,
   }
 }
 
-// Stage the (k, kTile) slab of Z whose first column is c0 (cp.async, 16 B
-// a copy; a tile never runs past dz).
-__device__ __forceinline__ void load_tile(float* dst, const RoundArgs& a,
-                                          long long c0) {
-  constexpr int kChunks = kTile / 4;
-  for (int i = threadIdx.x; i < a.k * kChunks; i += kThreads) {
-    const int l = i / kChunks, c4 = i % kChunks;
-    cp_async16(dst + l * kTile + 4 * c4, a.z + (size_t)l * a.dz + c0 + 4 * c4);
+// Where z_pass reads the tiles of Z that a block does not keep resident:
+// the round's own device copy (k, dz) of whole tiles.  load() stages the
+// (k, kTile) slab whose first column is c0 (cp.async, 16 B a copy; a tile
+// never runs past dz).  The Weiszfeld loop kernel (geomed.cu) reads the
+// caller's Z through a loader of the same shape.
+struct PaddedZ {
+  static constexpr bool kRecomputeY = false;
+  const float* z;
+  long long dz;
+  int k;
+  __device__ __forceinline__ void load(float* dst, long long c0) const {
+    constexpr int kChunks = kTile / 4;
+    for (int i = threadIdx.x; i < k * kChunks; i += kThreads) {
+      const int l = i / kChunks, c4 = i % kChunks;
+      cp_async16(dst + l * kTile + 4 * c4, z + (size_t)l * dz + c0 + 4 * c4);
+    }
   }
-}
+};
 
 // acc[r] += sum over the tile's live columns c = lane, lane + 32, ... of
 // (zs[l][c] - ys[c])^2 for the batches l = warp + r * kWarps (kCentered)
@@ -254,11 +262,15 @@ __device__ __forceinline__ void publish(const float (&acc)[kRowsPerWarp],
 // per column, its squared move (kHasPrev: into dacc), and the per-batch
 // squared distances to y_new (a resident block: into dst; the others:
 // into acc).  A resident block keeps its column's y in y_keep; the others
-// read it back from device memory.
-template <bool kHasPrev>
-__device__ void z_pass(const RoundArgs& a, float* slab, bool resident,
-                       int my_tiles, const float* coef, float div, float* ys,
-                       float& y_keep, float (&acc)[kRowsPerWarp],
+// read it back from device memory, or, where the source says so
+// (Tiles::kRecomputeY), recompute it from the tile of Z in shared memory
+// and the previous pass's coefficients coef_prev / div_prev: the same
+// operations in the same order, so the same bits, and no read of y.
+template <bool kHasPrev, class Tiles>
+__device__ void z_pass(const RoundArgs& a, const Tiles& tiles, float* slab,
+                       bool resident, int my_tiles, const float* coef,
+                       float div, const float* coef_prev, float div_prev,
+                       float* ys, float& y_keep, float (&acc)[kRowsPerWarp],
                        float& dacc, float (*wsum)[kMaxBatches], float* dst) {
   const int tid = threadIdx.x, k = a.k;
   const size_t stage = (size_t)k * kTile;
@@ -267,7 +279,7 @@ __device__ void z_pass(const RoundArgs& a, float* slab, bool resident,
   dacc = 0.f;
   if (!resident) {  // tiles 0 and 1 in flight (a group may be empty)
     for (int i = 0; i < kSlabStages - 1; ++i) {
-      if (i < my_tiles) load_tile(slab + i * stage, a, tile_start(i));
+      if (i < my_tiles) tiles.load(slab + i * stage, tile_start(i));
       cp_async_commit();
     }
   }
@@ -277,12 +289,13 @@ __device__ void z_pass(const RoundArgs& a, float* slab, bool resident,
     float* zs = slab;
     float prev = y_keep;
     if (!resident) {
-      if (kHasPrev && live) prev = a.y[c];  // in flight while Z arrives
+      if (kHasPrev && !Tiles::kRecomputeY && live)
+        prev = a.y[c];  // in flight while Z arrives
       zs = slab + (i % kSlabStages) * stage;
       // the stage tile i + 2 goes to was last read in iteration i - 1
       const int ahead = i + kSlabStages - 1;
       if (ahead < my_tiles)
-        load_tile(slab + (ahead % kSlabStages) * stage, a, tile_start(ahead));
+        tiles.load(slab + (ahead % kSlabStages) * stage, tile_start(ahead));
       cp_async_commit();
       cp_async_wait<kSlabStages - 1>();  // tile i has landed
       __syncthreads();
@@ -291,6 +304,12 @@ __device__ void z_pass(const RoundArgs& a, float* slab, bool resident,
     float s = 0.f;
     for (int l = 0; l < k; ++l) s = __fmaf_rn(coef[l], zs[l * kTile + tid], s);
     const float yn = __fdiv_rn(s, div);
+    if (kHasPrev && Tiles::kRecomputeY && !resident) {
+      float sp = 0.f;
+      for (int l = 0; l < k; ++l)
+        sp = __fmaf_rn(coef_prev[l], zs[l * kTile + tid], sp);
+      prev = __fdiv_rn(sp, div_prev);
+    }
     if (live) {
       if (kHasPrev) {
         const float mv = yn - prev;
@@ -423,8 +442,10 @@ gmom_round_kernel(Rows rows, RoundArgs a) {
   __syncthreads();
 
   // -- 3. weighted-mean init + squared distances for iteration 1 ----------
-  z_pass<false>(a, slab, resident, my_tiles, s_w, s_div, s_y, y_keep, acc,
-                dacc, s_wsum, partial_row(part_half(1), s_tot, k));
+  const PaddedZ tiles{a.z, a.dz, k};
+  z_pass<false>(a, tiles, slab, resident, my_tiles, s_w, s_div, nullptr, 1.f,
+                s_y, y_keep, acc, dacc, s_wsum,
+                partial_row(part_half(1), s_tot, k));
   publish<false>(acc, resident, 0.f, k, part_half(1), s_tot, grid);
 
   // -- 4. early-exit Weiszfeld: one grid barrier per iteration ------------
@@ -443,8 +464,9 @@ gmom_round_kernel(Rows rows, RoundArgs a) {
     __syncthreads();
     if (tid < k) s_coef[tid] = __fdiv_rn(s_coef[tid], s_div);
     __syncthreads();
-    z_pass<true>(a, slab, resident, my_tiles, s_coef, 1.f, s_y, y_keep, acc,
-                 dacc, s_wsum, partial_row(part_half(h), s_tot, k));
+    z_pass<true>(a, tiles, slab, resident, my_tiles, s_coef, 1.f, nullptr,
+                 1.f, s_y, y_keep, acc, dacc, s_wsum,
+                 partial_row(part_half(h), s_tot, k));
     publish<true>(acc, resident, dacc, k, part_half(h), s_tot, grid);
     h ^= 1;
     ++it;

@@ -61,6 +61,10 @@ from repro_torch.core.geometric_median import f32_threshold
 from repro_torch.core.grouping import (Grouping, assignment_matrix,
                                        batch_members_csr)
 from repro_torch.kernels.geomed._common import THREADS, as_f32, stream
+from repro_torch.kernels.geomed.twin import (block_moves, block_partials,
+                                             butterfly, fma, fma_chain,
+                                             reduce_partials, sequential,
+                                             sqrt_rn)
 
 # The largest k the round kernels take (``gmom_round_max_batches``).
 MAX_BATCHES = 64
@@ -317,110 +321,8 @@ def linreg_split(m: int, n: int, d: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# plain PyTorch twins of the kernels' arithmetic, bit for bit: the same
-# float32 operations in the same order, every fused multiply-add of the
-# CUDA source (``__fmaf_rn``) as ``_fma``
-
-def _fma(a, b, c):
-    """``fmaf(a, b, c)`` of float32 tensors, rounded once: a * b is exact in
-    float64, the float64 sum s is off the exact a * b + c by e (TwoSum),
-    and e decides only where s lies on a float32 tie."""
-    p, c64 = a.double() * b.double(), c.double()
-    s = p + c64
-    bv = s - p
-    e = (p - (s - bv)) + (c64 - bv)
-    r = s.float()
-    r64 = r.double()
-    other = torch.nextafter(r, torch.where(s > r64, torch.inf, -torch.inf))
-    tie = (s != r64) & (s == (r64 + other.double()) * 0.5) & (e != 0)
-    up = torch.where(e > 0, torch.maximum(r, other), torch.minimum(r, other))
-    return torch.where(tie, up, r)
-
-
-def _sqrt(x):
-    """``__fsqrt_rn``: float32 square roots rounded once (through float64,
-    where the second rounding is harmless; the CPU's float32 ``torch.sqrt``
-    is off by one ulp on some inputs)."""
-    return torch.sqrt(x.double()).float()
-
-
-def _butterfly(v):
-    """Lane 0 after ``warp_sum``'s shfl_down butterfly (16, 8, 4, 2, 1)
-    over the last axis of 32 lanes."""
-    for o in (16, 8, 4, 2, 1):
-        v = v[..., :o] + v[..., o:2 * o]
-    return v[..., 0]
-
-
-def _sequential(terms):
-    """0 + t_0 + t_1 + ... in order (a float loop in one thread)."""
-    total = torch.zeros_like(terms[0])
-    for t in terms:
-        total = total + t
-    return total
-
-
-def _fma_chain(pairs):
-    """s = fma(a, b, s) from s = 0 over the (a, b) pairs in order."""
-    pairs = list(pairs)
-    s = torch.zeros_like(pairs[0][0] * pairs[0][1])
-    for a, b in pairs:
-        s = _fma(a, b, s)
-    return s
-
-
-def _reduce_partials(part):
-    """``reduce_partials`` over a (n_blocks, k) buffer -> (k,): lane i sums
-    rows i, i + 32, ... in order, then the butterfly.  Every block of the
-    persistent grid runs it on the same buffer."""
-    nb, k = part.shape
-    rows = -(-nb // 32) * 32
-    padded = torch.cat([part, part.new_zeros((rows - nb, k))])
-    return _butterfly(_sequential(list(padded.reshape(rows // 32, 32, k))).T)
-
-
-def _tiles(values, n_blocks: int):
-    """(..., d) -> (..., steps, n_blocks, TILE): tile t of block t %
-    n_blocks at step t // n_blocks, zero past d (a dead column adds 0)."""
-    d = values.shape[-1]
-    n_tiles = -(-d // TILE)
-    steps = -(-n_tiles // n_blocks)
-    pad = steps * n_blocks * TILE - d
-    v = torch.cat([values, values.new_zeros(values.shape[:-1] + (pad,))], -1)
-    return v.reshape(values.shape[:-1] + (steps, n_blocks, TILE))
-
-
-def _block_partials(e, n_blocks: int):
-    """Per-block partials (n_blocks, k) of sum_c e[l, c]^2.  A block that
-    owns one tile squares its column in each thread, sums each warp's 32
-    columns by the butterfly and then its warps in order; a block that
-    owns more gives batch l to one warp, whose lane i fma-accumulates
-    columns i, i + 32, ... of each tile in tile order, then the
-    butterfly."""
-    k, d = e.shape
-    t = _tiles(e, n_blocks)
-    steps = t.shape[1]
-    one = t[:, 0].reshape(k, n_blocks, TILE // 32, 32)
-    resident = _sequential(list(_butterfly(one * one).permute(2, 0, 1)))
-    lanes = t.reshape(k, steps, n_blocks, TILE // 32, 32)
-    streamed = _butterfly(_fma_chain(
-        (lanes[:, i, :, q], lanes[:, i, :, q])
-        for i in range(steps) for q in range(TILE // 32)))
-    n_tiles = -(-d // TILE)
-    owned = torch.tensor([len(range(b, n_tiles, n_blocks))
-                          for b in range(n_blocks)])
-    return torch.where(owned == 1, resident, streamed).T
-
-
-def _block_moves(mv, n_blocks: int):
-    """``block_sum_scalar`` of each block's squared moves -> (n_blocks,):
-    each thread fma-accumulates its column of every tile, then the warp
-    butterflies, then the warps in order."""
-    t = _tiles(mv, n_blocks)
-    acc = _fma_chain((row, row) for row in t)
-    return _sequential(list(
-        _butterfly(acc.reshape(n_blocks, THREADS // 32, 32)).T))
-
+# plain PyTorch twins of the kernels' arithmetic, bit for bit (``twin``'s
+# summation orders)
 
 def _means_ordered(rows, grouping: Grouping):
     """Batch means (k, d) as the kernel sums them: each batch's members in
@@ -428,7 +330,7 @@ def _means_ordered(rows, grouping: Grouping):
     offsets, members = batch_members_csr(grouping)
     bsz = torch.as_tensor(np.asarray(grouping.batch_sizes, np.float32))
     return torch.stack([
-        _sequential([rows[int(i)] for i in members[offsets[l]:offsets[l + 1]]])
+        sequential([rows[int(i)] for i in members[offsets[l]:offsets[l + 1]]])
         / bsz[l] for l in range(grouping.num_batches)])
 
 
@@ -442,22 +344,22 @@ def _round_tail_blocked(z, *, n_blocks, trim_multiplier, max_iters, tol,
     if trim_multiplier is None:
         w = torch.ones((k,), dtype=f32)
     else:
-        norms = _sqrt(_reduce_partials(_block_partials(z, n_blocks)))
+        norms = sqrt_rn(reduce_partials(block_partials(z, n_blocks)))
         tau = (torch.tensor(trim_multiplier, dtype=f32) * _median_small(norms)
                + torch.tensor(1e-12, dtype=f32))
         w = (norms <= tau).to(f32)
-        w = torch.where(_sequential(list(w)) > 0, w, torch.ones_like(w))
-    wsum = torch.clamp(_sequential(list(w)), min=eps)
-    y = _fma_chain((w[l], z[l]) for l in range(k)) / wsum
-    part = _block_partials(z - y, n_blocks)
+        w = torch.where(sequential(list(w)) > 0, w, torch.ones_like(w))
+    wsum = torch.clamp(sequential(list(w)), min=eps)
+    y = fma_chain((w[l], z[l]) for l in range(k)) / wsum
+    part = block_partials(z - y, n_blocks)
     tol2, eps2 = f32_threshold(tol * tol), f32_threshold(eps * eps)
     it = 0
     while it < max_iters:
-        inv = w / _sqrt(_reduce_partials(part) + eps2)
-        coef = inv / torch.clamp(_sequential(list(inv)), min=eps)
-        y_new = _fma_chain((coef[l], z[l]) for l in range(k))
-        move = _reduce_partials(_block_moves(y_new - y, n_blocks)[:, None])[0]
-        part = _block_partials(z - y_new, n_blocks)
+        inv = w / sqrt_rn(reduce_partials(part) + eps2)
+        coef = inv / torch.clamp(sequential(list(inv)), min=eps)
+        y_new = fma_chain((coef[l], z[l]) for l in range(k))
+        move = reduce_partials(block_moves(y_new - y, n_blocks)[:, None])[0]
+        part = block_partials(z - y_new, n_blocks)
         y = y_new
         it += 1
         if not float(move) > tol2:
@@ -494,16 +396,16 @@ def _onepass_partials(x, t, theta, n_split: int):
     xs = _pad_axis(x, width, 2)[..., :width].reshape(m, n, ONEPASS_CHUNKS,
                                                      tpr, 4)
     ts = _pad_axis(theta, width, 0)[:width].reshape(ONEPASS_CHUNKS, tpr, 4)
-    part = _fma_chain((xs[..., i, :, c], ts[i, :, c])
+    part = fma_chain((xs[..., i, :, c], ts[i, :, c])
                       for i in range(ONEPASS_CHUNKS) for c in range(4))
-    warps = _butterfly(part.reshape(m, n, tpr // 32, 32))
-    r = _sequential(list(warps.permute(2, 0, 1))) - t
+    warps = butterfly(part.reshape(m, n, tpr // 32, 32))
+    r = sequential(list(warps.permute(2, 0, 1))) - t
     out = []
     for _, s0, s1 in sample_chunks(1, n, n_split):
         acc = [torch.zeros((m, d)) for _ in range(groups)]
         for s in range(s0, s1):
             g = (s - s0) % groups
-            acc[g] = _fma(x[:, s], r[:, s, None], acc[g])
+            acc[g] = fma(x[:, s], r[:, s, None], acc[g])
         total = acc[0]
         for a in acc[1:]:
             total = total + a
@@ -517,11 +419,11 @@ def _twopass_partials(x, t, theta, n_split: int):
     fma-chained in order) -> P (n_split, m, d)."""
     m, n, d = x.shape
     xp, tp = _pad_axis(x, 32, 2), _pad_axis(theta, 32, 0)
-    r = _butterfly(_fma_chain(
+    r = butterfly(fma_chain(
         (xp[..., c:c + 32], tp[c:c + 32])
         for c in range(0, xp.shape[2], 32))) - t
     return torch.stack([
-        _fma_chain((x[:, s], r[:, s, None]) for s in range(s0, s1))
+        fma_chain((x[:, s], r[:, s, None]) for s in range(s0, s1))
         for _, s0, s1 in sample_chunks(1, n, n_split)])
 
 
@@ -543,7 +445,7 @@ def linreg_round_blocked(features, targets, theta, grouping: Grouping, *,
     n = x.shape[1]
     front = (_onepass_partials if (route or linreg_route(x.shape[2]))
              == "one_pass" else _twopass_partials)
-    g = _sequential(list(front(x, t, th, n_split))) * f32_threshold(1.0 / n)
+    g = sequential(list(front(x, t, th, n_split))) * f32_threshold(1.0 / n)
     return _round_tail_blocked(_means_ordered(g, grouping), n_blocks=n_blocks,
                                trim_multiplier=trim_multiplier,
                                max_iters=max_iters, tol=tol, eps=eps)

@@ -280,15 +280,21 @@ def test_one_device_kernel_per_call(cuda):
     """The round is one cooperative launch and nothing else (no fill
     kernel, no copy); a linreg round is the one-pass front and the
     persistent tail, or on the two-pass route the residual, the gradients
-    and the tail.  The session records CPU activity too: a CUDA-only
-    session can close before a short kernel's record arrives."""
+    and the tail; sqdist is one launch (no reduction kernel), and so is a
+    geometric median (a loop kernel by k, unit weights of its own).  The
+    session records CPU activity too: a CUDA-only session can close before
+    a short kernel's record arrives."""
     g = _stacked(50, 8192, 6, cuda)
     grouping = make_grouping(50, 11)
     linreg = [(_linreg_data(16, 64, d, 7, cuda), make_grouping(16, 8))
               for d in (8192, 8196)]
+    z, y, _ = _points(11, 100_000, 3, cuda)
+    z64 = _points(64, 100_000, 3, cuda)[0]
     calls = [lambda: rk.round_aggregate_kernel(g, grouping)] + [
         (lambda a=args, gr=gr: rk.linreg_round_kernel(*a, gr))
-        for args, gr in linreg]
+        for args, gr in linreg] + [
+        lambda: geomed.sqdist(z, y), lambda: ops.geometric_median_kernel(z),
+        lambda: ops.geometric_median_kernel(z64)]
     for call in calls:                                  # build and warm up
         call()
     torch.cuda.synchronize()
@@ -303,11 +309,15 @@ def test_one_device_kernel_per_call(cuda):
          if ev.device_type == torch.autograd.DeviceType.CUDA),
         key=lambda ev: ev.time_range.start)]
     kernels = [next((k for k in ("gmom_round_kernel", "linreg_onepass_kernel",
-                                 "residual_kernel", "grad_kernel")
+                                 "residual_kernel", "grad_kernel",
+                                 "sqdist_kernel", "weiszfeld_regs_kernel",
+                                 "weiszfeld_tiles_kernel")
                      if k in name), name) for name in names]
     assert kernels == ["gmom_round_kernel",
                        "linreg_onepass_kernel", "gmom_round_kernel",
-                       "residual_kernel", "grad_kernel", "gmom_round_kernel"]
+                       "residual_kernel", "grad_kernel", "gmom_round_kernel",
+                       "sqdist_kernel", "weiszfeld_regs_kernel",
+                       "weiszfeld_tiles_kernel"]
 
 
 def _linreg_data(m, n, d, seed, device, outlier=False):
@@ -601,9 +611,9 @@ def test_geomed_kernels_cast_bf16_to_f32(cuda):
 def test_geometric_median_kernel_matches_core(cuda, kd):
     k, d = kd
     z, _, _ = _points(k, d, 7, cuda)
-    before = geomed.sqdist.launches
+    before = geomed.weiszfeld_loop.launches
     got = ops.geometric_median_kernel(z)
-    assert geomed.sqdist.launches > before
+    assert geomed.weiszfeld_loop.launches > before
     assert _close(got, geometric_median(z))
     assert _close(got, ops.geometric_median_kernel(z, plain=True))
 
@@ -611,8 +621,11 @@ def test_geometric_median_kernel_matches_core(cuda, kd):
 @pytest.mark.cuda
 def test_geomed_failed_launch_raises(cuda, monkeypatch):
     lib = geomed._library()
-    assert lib.gmom_sqdist(None, None, 0, 1, None, None, 1, None) != 0
+    assert lib.gmom_sqdist(None, None, 0, 1, 4, None, None, None, 1,
+                           None) != 0
     assert lib.gmom_reweight(None, None, 1, 0, None, 1, None) != 0
+    assert lib.gmom_weiszfeld(None, None, 65, 1, 0, 1, 1e-8, 1e-12, 0.0,
+                              None, None, None, 1, None) != 0
 
     class Refusing:
         def __getattr__(self, name):
@@ -626,12 +639,19 @@ def test_geomed_failed_launch_raises(cuda, monkeypatch):
         def gmom_reweight(*args):
             return 9
 
+        @staticmethod
+        def gmom_weiszfeld(*args):
+            return 9
+
     monkeypatch.setattr(geomed, "_library", lambda: Refusing())
     z, y, w = _points(4, 64, 1, cuda)
     with pytest.raises(RuntimeError, match="sqdist kernel launch failed"):
         geomed.sqdist(z, y)
     with pytest.raises(RuntimeError, match="reweight kernel launch failed"):
         geomed.reweight(z, w)
+    with pytest.raises(RuntimeError,
+                       match="weiszfeld_loop kernel launch failed"):
+        ops.geometric_median_kernel(z)
 
 
 @pytest.mark.cuda
@@ -656,6 +676,132 @@ def test_geomed_wrappers_reject_mismatched_shapes(cuda):
         geomed.reweight(z, w[:2])
     with pytest.raises(ValueError, match="same device"):
         geomed.sqdist(z, y.cpu())
+
+
+def _misaligned(t):
+    """The same values in a contiguous view whose data starts 4 bytes past
+    a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, device=t.device)
+    flat[1:] = t.reshape(-1)
+    view = flat[1:].reshape(t.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["aligned", "misaligned"])
+@pytest.mark.parametrize("kd", [(2, 64), (8, 1000), (16, 4096), (17, 512),
+                                (64, 512), (70, 300), (5, 777), (1, 1),
+                                (11, 100_003), (11, 1_000_000)])
+def test_sqdist_matches_its_blocked_twin(cuda, kd, view):
+    """ref.weiszfeld_distances_blocked on the wrapper's plan (one wave of
+    blocks, float4 loads where the rows are 16-byte aligned, else single
+    columns; k > 16 in row chunks) replays the kernel bit for bit."""
+    k, d = kd
+    z, y, _ = _points(k, d, k + d, cuda)
+    if view == "misaligned":
+        z = _misaligned(z)
+    n_blocks, vec = geomed.sqdist_plan(z, y)
+    assert vec == (4 if d % 4 == 0 and view == "aligned" else 1)
+    assert n_blocks <= geomed._sqdist_blocks_per_sm(vec) * rk._sm_count(cuda)
+    got = geomed.sqdist(z, y)
+    want = ref.weiszfeld_distances_blocked(z, y, n_blocks=n_blocks, vec=vec)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(geomed.sqdist(z, y), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_iters,tol", [(0, 1e-8), (1, 1e-8), (3, 0.0),
+                                           (64, 1e-8)])
+@pytest.mark.parametrize("kd,n_blocks", [
+    ((11, 8192), None),               # regs: the wrapper's grid
+    ((5, 100), None), ((1, 50), None), ((16, 4096), None),
+    ((11, 100_000), None), ((11, 3001), None),
+    ((11, 100_000), 7),               # regs: several units a thread
+    ((64, 512), None), ((17, 1000), None),   # tiles: one tile a block
+    ((64, 3000), 2),                  # tiles: every block streams six
+    ((33, 3000), 5),                  # tiles: blocks of three and of two
+    ((17, 3001), 4)])
+def test_weiszfeld_loop_matches_its_blocked_twin(cuda, kd, n_blocks,
+                                                 max_iters, tol, monkeypatch):
+    """ops.geometric_median_blocked on the kernel's grid replays the loop
+    kernel for k (``geomed.loop_kernel``) bit for bit, the iteration count
+    included, with a zero weight: the register-streamed kernel in units of
+    4 columns or 1, the tile kernel on resident and streaming blocks,
+    aligned or not."""
+    k, d = kd
+    z, _, w = _points(k, d, 7 + k, cuda)
+    w[0] = 0.0
+    if n_blocks is not None:
+        monkeypatch.setattr(geomed, "loop_blocks", lambda *a: n_blocks)
+    for points in (z, _misaligned(z)):
+        vec = geomed.vector_width(d, points)
+        assert vec == (4 if d % 4 == 0 and points is z else 1)
+        nb = geomed.loop_blocks(k, d, vec, cuda)
+        y, it = geomed.weiszfeld_loop(points, w, max_iters=max_iters, tol=tol)
+        yt, itt = ops.geometric_median_blocked(points, w, n_blocks=nb,
+                                               vec=vec, max_iters=max_iters,
+                                               tol=tol)
+        assert int(it) == int(itt)
+        assert torch.equal(y.cpu(), yt)
+    if max_iters <= 3 and k > 1:
+        _, itp = ops._geometric_median(z, w, max_iters=max_iters, tol=tol,
+                                       plain=True)
+        assert int(it) == int(itp) == max_iters
+
+
+@pytest.mark.cuda
+def test_weiszfeld_loop_unit_weights_are_its_own(cuda):
+    """No weights means unit weights, taken inside the kernel."""
+    z, _, _ = _points(11, 3000, 2, cuda)
+    y, it = geomed.weiszfeld_loop(z)
+    y1, it1 = geomed.weiszfeld_loop(z, torch.ones(11, device=cuda))
+    assert torch.equal(y, y1) and int(it) == int(it1)
+
+
+@pytest.mark.cuda
+def test_geometric_median_routes_by_k(cuda):
+    """k <= 16: one launch of the register-streamed loop kernel; k <= 64:
+    one of the tile kernel; k > 64: the step kernels, one sqdist and one
+    reweight launch an iteration; counted by route and by kernel."""
+    for k, route, kernel in ((16, "device_loop", "regs"),
+                             (17, "device_loop", "tiles"),
+                             (64, "device_loop", "tiles"),
+                             (70, "step_kernels", None)):
+        z, _, _ = _points(k, 1000, k, cuda)
+        ops.reset_launches()
+        geomed.reset_loop_launches()
+        before = (geomed.weiszfeld_loop.launches, geomed.sqdist.launches,
+                  geomed.reweight.launches)
+        y, it = ops._geometric_median(z)
+        after = (geomed.weiszfeld_loop.launches, geomed.sqdist.launches,
+                 geomed.reweight.launches)
+        assert ops.geometric_median_kernel.route_launches == {
+            r: int(r == route) for r in ops.ROUTES}
+        assert geomed.weiszfeld_loop.kernel_launches == {
+            n: int(n == kernel) for n in geomed.LOOP_KERNELS}
+        steps = int(it) if route == "step_kernels" else 0
+        assert [a - b for a, b in zip(after, before)] == \
+            [int(route == "device_loop"), steps, steps]
+        yp, _ = ops._geometric_median(z, plain=True)
+        assert _close(y, yp)
+    with pytest.raises(ValueError, match="1 <= k <= 64"):
+        geomed.weiszfeld_loop(_points(65, 100, 1, cuda)[0])
+
+
+@pytest.mark.cuda
+def test_weiszfeld_loop_refuses_a_grid_the_card_cannot_hold(cuda,
+                                                            monkeypatch):
+    """A cooperative grid larger than the card holds at once is refused by
+    the launch (an error, never a hang), and the wrapper raises, for
+    either loop kernel."""
+    for k in (11, 64):
+        too_many = 2 * geomed._loop_blocks_per_sm(k) * rk._sm_count(cuda)
+        z, _, _ = _points(k, too_many * rk.TILE, 1, cuda)
+        monkeypatch.setattr(geomed, "loop_blocks", lambda *a, n=too_many: n)
+        with pytest.raises(RuntimeError,
+                           match="weiszfeld_loop kernel launch"):
+            geomed.weiszfeld_loop(z)
 
 
 # ---------------------------------------------------------------------------

@@ -301,3 +301,35 @@ def test_linreg_round_blocked_default_plan_matches_fused():
         assert int(it) == int(itp) == 3
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL,
                                    atol=ATOL)
+
+
+# where the linreg round stops: a float32 Weiszfeld loop reaches an exact
+# fixed point or settles into a 1-ulp cycle depending on its summation
+# order, in the reference too (PERF.md, open questions): (m, n, d, k),
+# numpy seed, grouping -> the iterations of the kernel's twin on the H100
+# plan at tol=0, max_iters=32 (32: it cycled to the cap)
+STOPS = [((12, 16, 300, 6), 0, "contiguous", 13),
+         ((20, 16, 400, 10), 2, "strided", 11),
+         ((50, 1000, 100, 10), 0, "strided", 15),
+         ((50, 1000, 100, 10), 0, "contiguous", 32)]
+
+
+@pytest.mark.parametrize("shape,seed,scheme,want", STOPS)
+def test_linreg_stop_on_the_h100_plan_is_pinned(shape, seed, scheme, want):
+    """The twin replays the kernel bit for bit on the plan the wrapper
+    makes on an H100 (132 SMs, two round-kernel blocks an SM), so its
+    count is the kernel's; whether it stops below the cap is a property of
+    the order, not of the algorithm: whatever the count, the aggregate
+    agrees with JAX ``linreg_round_fused``."""
+    m, n, d, k = shape
+    x, t, theta = _data(m, n, d, seed)
+    y, it = tround.linreg_round_blocked(
+        *(torch.as_tensor(a) for a in (x, t, theta)),
+        make_grouping(m, k, scheme=scheme),
+        n_blocks=tround.persistent_blocks(d, 2, 132),
+        n_split=tround.onepass_split(m, n, 132), max_iters=32, tol=0.0)
+    assert int(it) == want
+    jy = np.asarray(jround.linreg_round_fused(
+        jnp.asarray(x), jnp.asarray(t), jnp.asarray(theta),
+        jax_make_grouping(m, k, scheme=scheme), max_iters=32, tol=0.0))
+    np.testing.assert_allclose(y.numpy(), jy, rtol=RTOL, atol=ATOL)

@@ -19,6 +19,7 @@ from repro.kernels.geomed import round as jround
 from repro_torch.core import aggregators as tagg
 from repro_torch.core.grouping import batch_members_csr, make_grouping
 from repro_torch.kernels.geomed import round as tround
+from repro_torch.kernels.geomed import twin
 from test_round_kernel import MKD_MATRIX, SCHEMES
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -243,7 +244,7 @@ def test_reduce_partials_twin_is_the_fixed_lane_order():
         lanes[b % 32] += part[b]
     for o in (16, 8, 4, 2, 1):
         lanes[:o] = lanes[:o] + lanes[o:2 * o]
-    got = tround._reduce_partials(torch.as_tensor(part))
+    got = twin.reduce_partials(torch.as_tensor(part))
     np.testing.assert_array_equal(got.numpy(), lanes[0])
 
 
@@ -258,7 +259,7 @@ def _exact_f32(value):
 
 
 def test_fma_twin_rounds_once():
-    """``_fma`` is fmaf: a * b + c rounded once to float32, also where a
+    """``twin.fma`` is fmaf: a * b + c rounded once to float32, also where a
     float64 sum would land on a float32 tie (double rounding)."""
     from fractions import Fraction
     rng = np.random.default_rng(1)
@@ -271,7 +272,7 @@ def test_fma_twin_rounds_once():
     b = np.append(b, [1 + 2 ** -12, 1 + 2 ** -12, 1 + 2 ** -12])
     c = np.append(c, [2.0 ** -70, -2.0 ** -70, -2.0 ** -70])
     a, b, c = (v.astype(np.float32) for v in (a, b, c))
-    got = tround._fma(*map(torch.as_tensor, (a, b, c))).numpy()
+    got = twin.fma(*map(torch.as_tensor, (a, b, c))).numpy()
     want = np.array([_exact_f32(Fraction(float(x)) * Fraction(float(y))
                                 + Fraction(float(z)))
                      for x, y, z in zip(a, b, c)], np.float32)
@@ -281,13 +282,13 @@ def test_fma_twin_rounds_once():
 
 
 def test_sqrt_twin_rounds_once():
-    """``_sqrt`` is ``__fsqrt_rn``: the float32 nearest to the root (held
+    """``twin.sqrt_rn`` is ``__fsqrt_rn``: the float32 nearest to the root (held
     against exact rational arithmetic)."""
     from fractions import Fraction
     rng = np.random.default_rng(3)
     x = (rng.random(3000) * 10.0 ** rng.integers(-6, 6, 3000)).astype(
         np.float32)
-    got = tround._sqrt(torch.as_tensor(x)).numpy()
+    got = twin.sqrt_rn(torch.as_tensor(x)).numpy()
     for xi, r in zip(x, got):
         lo, hi = (np.nextafter(r, np.float32(-np.inf)),
                   np.nextafter(r, np.float32(np.inf)))
@@ -323,12 +324,12 @@ def test_block_partials_twin_orders():
                 for i in range(32):
                     c = t0 + 32 * q + i
                     v = e[l, c] if c < d else np.float32(0)
-                    lanes[i] = tround._fma(*(torch.tensor([x]) for x in
-                                             (v, v, lanes[i]))).numpy()[0]
+                    lanes[i] = twin.fma(*(torch.tensor([x]) for x in
+                                          (v, v, lanes[i]))).numpy()[0]
         want[0, l] = butterfly(lanes)
         s = np.float32(0)
         for w in range(tile // 32):
             cols = e[l, tile + 32 * w:tile + 32 * (w + 1)]
             s = np.float32(s + butterfly(cols * cols))
         want[1, l] = s
-    np.testing.assert_array_equal(tround._block_partials(t, 2).numpy(), want)
+    np.testing.assert_array_equal(twin.block_partials(t, 2).numpy(), want)
