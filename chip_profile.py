@@ -17,9 +17,12 @@ sign_flip/rotating through the port's engine, round_backend="auto"):
   kernel);
 * a ``torch.profiler`` trace of ``ROUNDS`` failure-free rounds through
   ``linreg_round_kernel`` (theta <- theta - eta aggregate): the same
-  shares, and the device time of each of its CUDA kernels by name.
+  shares, and the device time of each of its CUDA kernels by name;
+* a ``torch.profiler`` trace of ``ROUNDS`` rounds of each of the
+  staleness, sign-wire and int8-wire variants (``chip_smoke.py`` phase 4):
+  the same shares and the round kernel's device ms per round.
 
-Prints two JSON lines per config.  Then, for the LM serve path of
+Prints five JSON lines per config.  Then, for the LM serve path of
 ``chip_smoke.py`` (H2O-Danube3-4B at full width, bf16), a trace of one
 prefill step at B = 1, T = 8192 and one of ``DECODE_STEPS`` decode steps
 at 4 requests: device busy time, idle share, device kernels, and device
@@ -165,6 +168,54 @@ def _shares(wall_ms, events, per):
             "heaviest_device_ms": {k: v / per for k, v in top}}
 
 
+def profile_wire_and_stale(cname, cfg, dev, smi):
+    """A trace of ``ROUNDS`` rounds, run as the engine runs them, of each
+    of chip_smoke's phase-4 variants at this width: gmom with
+    straggler_rotating at tau = 2 ("stale"), sign_sgd_majority on the
+    packed sign wire ("sign") and int8_gmom on the int8_stochastic wire
+    ("int8"): wall and device busy ms per round, idle share, device
+    kernels per round and the round kernel's device ms per round."""
+    import dataclasses
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.core.train_state import advance
+    from repro_torch.sim import engine
+    from repro_torch.sim.scenarios import Scenario
+    base = Scenario(name=f"linreg-{cname}/gmom/sign_flip/rotating",
+                    **dict(cfg, rounds=ROUNDS))
+    variants = {
+        "stale": dict(arrival="straggler_rotating", staleness_bound=2),
+        "sign": dict(aggregator="sign_sgd_majority", schedule="static",
+                     compression="sign", step_size=0.05),
+        "int8": dict(aggregator="int8_gmom", compression="int8_stochastic")}
+    # the variants share the configuration's data: generate it once
+    ds = engine._generate(base, prng.PRNGKey(base.seed, device=dev), dev)
+    for label, kw in variants.items():
+        sc = dataclasses.replace(base, name=f"{base.name}/{label}", **kw)
+        run, state, batches, _, _ = engine._build_run(sc, device=dev,
+                                                      dataset=ds)
+        state, _ = advance(run, state, batches, num_rounds=2)   # warm-up
+        wall_ms, events = _trace(
+            lambda: advance(run, state, batches, num_rounds=ROUNDS), dev)
+        shares = _shares(wall_ms, events, ROUNDS)
+        ours = [ms for name, ms in events
+                if any(k in name for k in ROUND_KERNELS)]
+        print(json.dumps({
+            "config": cname, "path": label, "dim": sc.dim, "rounds": ROUNDS,
+            "card": smi, "wall_ms_per_round": shares["wall_ms"],
+            "device_busy_ms_per_round": shares["device_busy_ms"],
+            "device_idle_share": shares["device_idle_share"],
+            "device_kernels_per_round": shares["device_kernels"],
+            "round_kernel_device_ms_per_round": sum(ours) / ROUNDS,
+            "round_kernel_launches_per_round": len(ours) / ROUNDS,
+            "heaviest_device_ms": shares["heaviest_device_ms"]}),
+            flush=True)
+        del run, state, batches
+        torch.cuda.empty_cache()
+    del ds
+    torch.cuda.empty_cache()
+
+
 def profile_serve_path(dev, smi):
     """Profile the prefill step and decode steps of the serve path."""
     import torch
@@ -306,6 +357,7 @@ def main() -> int:
         del run, state, batches, params, stacked, reported
         torch.cuda.empty_cache()
         profile_linreg_path(cname, cfg, dev, smi)
+        profile_wire_and_stale(cname, cfg, dev, smi)
     profile_serve_path(dev, smi)
     return 0
 

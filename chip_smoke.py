@@ -27,11 +27,23 @@ Phases:
                  against max|y|; two kernel runs must be bitwise equal;
                  sqdist and the Weiszfeld loop kernel bit for bit equal to
                  their twins on the wrapper's plan
-  3 goldens      the nine float goldens and the interrupted-resume replay
-                 on the card with round_backend="auto" (gmom -> kernel)
+  3 goldens      the eleven goldens (the sign-wire and the staleness
+                 campaigns among them) on the card with
+                 round_backend="auto" (every gmom round one round-kernel
+                 launch, the count asserted), the interrupted-resume
+                 replay, and the compressed and staleness campaigns
+                 interrupted at round 19 and resumed (checkpoints every 7
+                 rounds) byte-identical to a straight run
   4 full width   the paper config (d=100) and a wide one (d=8192):
                  gmom under sign_flip/rotating through the engine (kernel
                  path vs plain paths, one round-kernel launch per round);
+                 on the same data, (a) gmom with straggler_rotating at
+                 tau = 2, (c) int8_gmom on the int8_stochastic wire, each
+                 kernel path vs plain path with one round-kernel launch
+                 per round, (c) also one round's int8 payload on the card
+                 bit-equal to the CPU's, and (b) sign_sgd_majority on the
+                 packed sign wire byte-identical to the raw vote; host ms
+                 per round beside the synchronous gmom round's;
                  failure-free rounds theta <- theta - eta linreg_round(X,
                  y, theta) held against the engine's failure-free run
                  (one linreg launch per round, all on the one-pass route);
@@ -78,6 +90,7 @@ Phases:
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -622,6 +635,130 @@ def linreg_path(dev, configs=None):
         del ds
         torch.cuda.empty_cache()
     return total, by_route
+
+
+def _strip(trace, *keys):
+    return {k: v for k, v in trace.items() if k not in keys}
+
+
+def wire_and_stale_paths(dev, configs=None):
+    """The staleness buffer and the report wire at full width, each through
+    the engine on the card, on the data of the configuration generated
+    once: (a) gmom under sign_flip/rotating with straggler_rotating at
+    tau = 2, kernel path vs plain path, one round-kernel launch a round;
+    (b) sign_sgd_majority on the packed sign wire vs the same rule on raw
+    reports, byte-identical traces once the trace's "compression" key (the
+    one field that names the wire) is set aside; (c) int8_gmom on the
+    int8_stochastic wire, kernel path vs plain path, and one round's int8
+    payload on the card bit-equal to the CPU's for the same inputs and
+    key.  Host ms per round with a synchronize, beside the synchronous
+    gmom round of the same width.  -> round-kernel launches of (a) and
+    (c)."""
+    import dataclasses
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.core import compression, per_worker_grads
+    from repro_torch.core.train_state import advance
+    from repro_torch.data import regression
+    from repro_torch.kernels.geomed import round as rk
+    from repro_torch.sim import engine, goldens
+    from repro_torch.sim.scenarios import Scenario
+    total = 0
+    for cname, cfg in (configs or FULL_WIDTH).items():
+        base = Scenario(name=f"linreg-{cname}/gmom/sign_flip/rotating",
+                        **cfg)
+        ds = regression.generate(
+            prng.PRNGKey(base.seed, device=dev), dim=base.dim,
+            total_samples=base.total_samples, num_workers=base.num_workers,
+            noise_std=base.noise_std, device=dev)
+
+        def drive(sc, backend="auto"):
+            """-> (trace, host ms per round, round-kernel launches)."""
+            run, state, batches, rc, _ = engine._build_run(
+                sc, round_backend=backend, device=dev, dataset=ds)
+            torch.cuda.synchronize(dev)
+            rk.round_aggregate_kernel.launches = 0
+            t0 = time.perf_counter()
+            state, _ = advance(run, state, batches, num_rounds=sc.rounds)
+            torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - t0) * 1e3 / sc.rounds
+            n = rk.round_aggregate_kernel.launches
+            return engine._trace(sc, rc, sc.rounds, state.history), ms, n
+
+        sync, sync_ms, _ = drive(base)
+        line = {"phase": "wire_and_stale", "config": cname, "dim": base.dim,
+                "rounds": base.rounds, "paper_floor": base.paper_floor,
+                "host_ms_per_round": {"gmom_sync": sync_ms}}
+
+        # (a) bounded staleness
+        stale = dataclasses.replace(base, name=base.name + "/stale",
+                                    arrival="straggler_rotating",
+                                    staleness_bound=2)
+        kern, ms, n = drive(stale)
+        plain, plain_ms, _ = drive(stale, "fused_interpret")
+        bad = goldens.compare_traces(kern, plain)
+        check(not bad, f"stale {cname}: kernel vs plain path {bad[:3]}")
+        check(n == stale.rounds, f"stale {cname}: {n} round-kernel "
+                                 f"launches for {stale.rounds} rounds")
+        check(sum(kern["stale_count"]) > 0,
+              f"stale {cname}: no round had a stale worker")
+        total += n
+        line["stale"] = {"final_est_error": kern["final_est_error"],
+                         "stale_count_sum": sum(kern["stale_count"]),
+                         "kernel_launches": n, "kernel_vs_plain_ok": not bad}
+        line["host_ms_per_round"].update(stale_kernel=ms,
+                                         stale_plain=plain_ms)
+
+        # (b) the packed sign wire against raw reports
+        sign = dataclasses.replace(base, name=f"linreg-{cname}/sign_majority",
+                                   aggregator="sign_sgd_majority",
+                                   schedule="static", compression="sign",
+                                   step_size=0.05)
+        packed, ms, _ = drive(sign)
+        raw, raw_ms, _ = drive(dataclasses.replace(sign, compression="none"))
+        same = (goldens.trace_bytes(_strip(packed, "compression"))
+                == goldens.trace_bytes(raw))
+        check(same, f"sign {cname}: packed-wire trace differs from the raw "
+                    "vote's")
+        check(all(map(math.isfinite, packed["est_error"])),
+              f"sign {cname}: non-finite est_error")
+        line["sign"] = {"final_est_error": packed["final_est_error"],
+                        "packed_equals_raw_bytes": same}
+        line["host_ms_per_round"].update(sign_packed=ms, sign_raw=raw_ms)
+
+        # (c) the int8 wire
+        int8 = dataclasses.replace(base, name=base.name + "/int8",
+                                   aggregator="int8_gmom",
+                                   compression="int8_stochastic")
+        kern, ms, n = drive(int8)
+        plain, plain_ms, _ = drive(int8, "fused_interpret")
+        bad = goldens.compare_traces(kern, plain)
+        check(not bad, f"int8 {cname}: kernel vs plain path {bad[:3]}")
+        check(n == int8.rounds, f"int8 {cname}: {n} round-kernel launches "
+                                f"for {int8.rounds} rounds")
+        total += n
+        # round 0's codec key and reports, encoded on the card and the CPU
+        key = prng.fold_in(prng.fold_in(prng.fold_in(
+            prng.PRNGKey(base.seed, device=dev), 999), 0), 29)
+        grads, _ = per_worker_grads(
+            regression.squared_loss,
+            torch.zeros((base.dim,), device=dev), regression.worker_batches(ds))
+        codec = compression.get_codec("int8_stochastic")
+        on_card = codec.encode(grads, key=key)
+        on_cpu = codec.encode(grads.cpu(), key=key.cpu())
+        payload_equal = all(torch.equal(on_card[p].cpu(), on_cpu[p])
+                            for p in ("q", "scale"))
+        check(payload_equal, f"int8 {cname}: the card's payload differs from "
+                             "the CPU's")
+        line["int8"] = {"final_est_error": kern["final_est_error"],
+                        "kernel_launches": n, "kernel_vs_plain_ok": not bad,
+                        "payload_card_equals_cpu": payload_equal}
+        line["host_ms_per_round"].update(int8_kernel=ms, int8_plain=plain_ms)
+        line["final_est_error_sync"] = sync["final_est_error"]
+        emit(line)
+        del ds, grads
+        torch.cuda.empty_cache()
+    return total
 
 
 def geomed_path(dev, shapes=GEOMED_PATH):
@@ -1241,7 +1378,7 @@ def main() -> int:
     from repro_torch.kernels.geomed import round as rk
     from repro_torch.core.train_state import advance
     from repro_torch.sim import engine, goldens
-    from repro_torch.sim.scenarios import Scenario
+    from repro_torch.sim.scenarios import Scenario, golden_scenarios
 
     dev = torch.device("cuda")
     torch.set_float32_matmul_precision("highest")
@@ -1348,13 +1485,24 @@ def main() -> int:
     rk.round_aggregate_kernel.launches = 0
     res = goldens.check_all(round_backend="auto", device=dev)
     launches = rk.round_aggregate_kernel.launches
+    # every gmom round of the goldens (the stale one's included) is one
+    # launch of the round kernel
+    want_launches = sum(sc.rounds for sc in golden_scenarios()
+                        if sc.aggregator == "gmom")
     resume = goldens.check_resume_replay(device=dev)
+    bit_exact = {n: goldens.check_resume_bit_exact(n, device=dev)
+                 for n in goldens.BIT_EXACT_RESUME_SCENARIOS}
     for gname, bad in res.items():
         check(not bad, f"golden {gname}: {bad[:3]}")
+    check(len(res) == 11, f"{len(res)} goldens, want 11")
     check(not resume, f"resume replay: {resume[:3]}")
-    check(launches > 0, "goldens did not go through the kernel")
+    for gname, bad in bit_exact.items():
+        check(not bad, f"bit-exact resume {gname}: {bad[:3]}")
+    check(launches == want_launches,
+          f"goldens: {launches} round-kernel launches, want {want_launches}")
     emit({"phase": "goldens", "matched": sum(not v for v in res.values()),
           "of": len(res), "resume_replay_ok": not resume,
+          "bit_exact_resume_ok": {n: not v for n, v in bit_exact.items()},
           "kernel_launches": launches,
           "mismatches": {k: v[:3] for k, v in res.items() if v}})
 
@@ -1362,7 +1510,7 @@ def main() -> int:
     main_launches = 0
     for cname, cfg in FULL_WIDTH.items():
         sc = Scenario(name=f"linreg-{cname}/gmom/sign_flip/rotating", **cfg)
-        traces, ms_round = {}, {}
+        traces, ms_round, host_round = {}, {}, {}
         for backend in ("auto", "reference", "fused_interpret"):
             run, state, batches, rc, _ = engine._build_run(
                 sc, round_backend=backend, device=dev)
@@ -1371,10 +1519,13 @@ def main() -> int:
                 rk.round_aggregate_kernel.launches = 0
             start, end = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
+            t0 = time.perf_counter()
             start.record()
             state, _ = advance(run, state, batches, num_rounds=sc.rounds)
             end.record()
             torch.cuda.synchronize()
+            host_round[backend] = ((time.perf_counter() - t0) * 1e3
+                                   / sc.rounds)
             if backend == "auto":
                 n_launch = rk.round_aggregate_kernel.launches
             ms_round[backend] = start.elapsed_time(end) / sc.rounds
@@ -1401,7 +1552,8 @@ def main() -> int:
               "paper_floor": sc.paper_floor, "kernel_launches": n_launch,
               "kernel_vs_reference_ok": not vs_ref,
               "kernel_vs_plain_ok": not vs_plain,
-              "ms_per_round": ms_round})
+              "ms_per_round": ms_round, "host_ms_per_round": host_round})
+    main_launches += wire_and_stale_paths(dev)
     linreg_launches, linreg_routes = linreg_path(dev)
     geomed_launches = geomed_path(dev)
     attn_routes = serve_path(dev)

@@ -22,6 +22,8 @@ import tempfile
 import numpy as np
 import torch
 
+from repro_torch import tree as jtree
+
 FORMAT_VERSION = 2
 
 
@@ -41,21 +43,6 @@ def _flatten_with_paths(tree, prefix=()):
     for name, sub in items:
         out += _flatten_with_paths(sub, prefix + (name,))
     return out
-
-
-def _rebuild(tree, leaves):
-    """``tree`` with its leaves replaced, in ``_flatten_with_paths`` order."""
-    if tree is None:
-        return None
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*[_rebuild(getattr(tree, f), leaves)
-                            for f in tree._fields])
-    if isinstance(tree, dict):
-        new = {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
-        return {k: new[k] for k in tree}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_rebuild(v, leaves) for v in tree)
-    return next(leaves)
 
 
 def _as_numpy(leaf) -> np.ndarray:
@@ -165,4 +152,4 @@ def restore(directory: str, step: int, example_tree, *,
             new_leaves.append(torch.as_tensor(arr, device=example.device))
         else:
             new_leaves.append(arr)
-    return _rebuild(example_tree, iter(new_leaves))
+    return jtree.unflatten(example_tree, new_leaves)

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch import _device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.staleness import StalenessBuffer
 from repro_torch.core.train_state import TrainState
 from repro_torch.data.regression import RegressionDataset
 from repro_torch.optim import SGDState
@@ -41,12 +42,15 @@ def _tree(x, device, dtype=None):
 def train_state_from_numpy(tree, *, device) -> TrainState:
     """A reference ``TrainState`` with numpy leaves -> the port's
     ``TrainState`` on ``device``: theta, ``SGDState``, ``attack_state``,
-    ``round_index``, ``base_key`` (uint32 words -> the port's int64 key)
-    and ``history`` (kept as float32 numpy arrays)."""
-    if tree.stale_buffer != ():
-        raise NotImplementedError("a staleness buffer is ROADMAP Queue 1 "
-                                  "item 12")
+    ``round_index``, ``base_key`` (uint32 words -> the port's int64 key),
+    ``history`` (kept as float32 numpy arrays) and the staleness buffer
+    (its gradients, int32 ages and bound; ``()`` stays ``()``)."""
     opt = tree.opt_state
+    buf = tree.stale_buffer
+    if len(buf):
+        buf = StalenessBuffer(grads=_tree(buf.grads, device),
+                              age=_tensor(buf.age, device).to(torch.int32),
+                              bound=_tensor(buf.bound, device))
     return TrainState(
         params=_tree(tree.params, device),
         opt_state=SGDState(step=_tensor(opt.step, device),
@@ -55,7 +59,8 @@ def train_state_from_numpy(tree, *, device) -> TrainState:
         round_index=_tensor(tree.round_index, device),
         base_key=_tensor(np.asarray(tree.base_key).astype(np.int64), device),
         history={k: np.asarray(v, np.float32)
-                 for k, v in tree.history.items()})
+                 for k, v in tree.history.items()},
+        stale_buffer=buf)
 
 
 def scenario_inputs_from_numpy(features, targets, theta_star, *,

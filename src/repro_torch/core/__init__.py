@@ -5,6 +5,8 @@ Public API (the port's part of ``repro.core``'s):
     batch_mean_norms, weiszfeld_step
     aggregators.get_aggregator / available
     byzantine.get_attack / available / sample_byzantine_mask
+    compression.get_codec / available (the report wire)
+    staleness.make_arrival / available_arrivals / StalenessBuffer
     RobustConfig, make_robust_train_step, make_run_rounds,
     per_worker_grads, aggregate, aggregate_reported
     TrainState, init_train_state, advance, save/restore_train_state
@@ -18,7 +20,8 @@ from repro_torch.core.geometric_median import (  # noqa: F401
     trim_weights,
     weiszfeld_step,
 )
-from repro_torch.core import aggregators, byzantine, grouping  # noqa: F401
+from repro_torch.core import (  # noqa: F401
+    aggregators, byzantine, compression, grouping, staleness)
 from repro_torch.core.robust_train import (  # noqa: F401
     RobustConfig,
     aggregate,

@@ -7,9 +7,11 @@ colluding, and B_t may change every round.  An ``Attack`` maps
 ``(stacked_honest_grads, byz_mask, key) -> stacked_reported_grads`` and may
 only change rows where ``byz_mask`` is True (enforced with ``torch.where``).
 
-This slice ports the attacks the golden traces use (``none``,
-``sign_flip``, ``inner_product``, ``alie``, ``norm_stealth``) and all five
-schedules; the other attacks are ROADMAP Queue 1 item 10.
+All twelve of the reference's attacks and its five schedules are
+registered under its names.  The attacks that draw random bits
+(``random_noise``, ``colluding_mimic``) split the key over the leaves in
+JAX's order (``repro_torch.tree``), so each leaf draws the reference's
+bits.
 
 The reference rolls rounds into ``lax.scan`` and branches with
 ``lax.cond``; here rounds are a Python loop, ``round_index`` is a Python
@@ -27,6 +29,7 @@ from torch.utils._pytree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
 
 from repro_torch import random as prng
+from repro_torch import tree as jtree
 from repro_torch.core.geometric_median import batch_mean_norms, median
 
 AttackFn = Callable[..., object]
@@ -53,8 +56,7 @@ def register(name: str, description: str = ""):
 
 def get_attack(name: str) -> Attack:
     if name not in _REGISTRY:
-        raise KeyError(f"unknown attack {name!r}; have {sorted(_REGISTRY)} "
-                       "(the others are ROADMAP Queue 1 item 10)")
+        raise KeyError(f"unknown attack {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
@@ -178,6 +180,132 @@ def norm_stealth_attack(stacked_grads, byz_mask, key, *,
         [(-scale * x).expand(leaf.shape).to(leaf.dtype)
          for x, leaf in zip(mu, leaves)], spec)
     return _where_byz(byz_mask, malicious, stacked_grads)
+
+
+@register("zero", "report zero gradients (stalling attack)")
+def zero_attack(stacked_grads, byz_mask, key, **_kw):
+    del key
+    return _where_byz(byz_mask, tree_map(torch.zeros_like, stacked_grads),
+                      stacked_grads)
+
+
+def _per_leaf_keys(stacked_grads, key):
+    """(leaves in JAX's order, one split key per leaf)."""
+    leaves = jtree.leaves(stacked_grads)
+    return leaves, prng.split(key, len(leaves))
+
+
+@register("random_noise", "report large gaussian noise")
+def random_noise_attack(stacked_grads, byz_mask, key, *,
+                        scale: float = 100.0, **_kw):
+    leaves, keys = _per_leaf_keys(stacked_grads, key)
+    noisy = [(scale * prng.normal(k, leaf.shape)).to(leaf.dtype)
+             for k, leaf in zip(keys, leaves)]
+    return _where_byz(byz_mask, jtree.unflatten(stacked_grads, noisy),
+                      stacked_grads)
+
+
+@register("mean_shift",
+          "omniscient: shift the honest mean by a huge constant direction")
+def mean_shift_attack(stacked_grads, byz_mask, key, *, scale: float = 1e3,
+                      **_kw):
+    del key
+    m = tree_leaves(stacked_grads)[0].shape[0]
+    q = torch.clamp(torch.sum(byz_mask.to(torch.float32)), min=1.0)
+    # each byzantine reports mean + (m/q) scale, so the average moves by
+    # about scale in every coordinate
+    shift = (m / q) * scale
+
+    def mal(g):
+        mu = torch.mean(g, dim=0, keepdim=True)
+        return (mu + shift).expand(g.shape).to(g.dtype)
+    return _where_byz(byz_mask, tree_map(mal, stacked_grads), stacked_grads)
+
+
+@register("colluding_mimic",
+          "omniscient collusion: all byzantine report the *same* crafted "
+          "point far away, forming a fake cluster to drag the median")
+def colluding_mimic_attack(stacked_grads, byz_mask, key, *,
+                           scale: float = 50.0, **_kw):
+    def mal(g, k):
+        mu = torch.mean(g, dim=0, keepdim=True)
+        direction = prng.normal(k, mu.shape)
+        direction = direction / torch.clamp(torch.linalg.norm(direction),
+                                            min=1e-12)
+        point = mu + scale * torch.linalg.norm(mu) * direction.to(g.dtype)
+        return point.expand(g.shape).to(g.dtype)
+    leaves, keys = _per_leaf_keys(stacked_grads, key)
+    malicious = jtree.unflatten(stacked_grads,
+                                [mal(g, k) for g, k in zip(leaves, keys)])
+    return _where_byz(byz_mask, malicious, stacked_grads)
+
+
+@register("anti_aggregation",
+          "omniscient: estimate what GMoM would output on honest grads and "
+          "report its negation scaled up (targets the aggregator itself)")
+def anti_aggregation_attack(stacked_grads, byz_mask, key, *,
+                            scale: float = 10.0, num_batches: int = 4, **_kw):
+    del key
+    from repro_torch.core import aggregators as agg
+    m = tree_leaves(stacked_grads)[0].shape[0]
+    nb = max(1, min(num_batches, m))
+    while m % nb != 0:
+        nb -= 1
+    honest_est = agg.gmom_aggregator(stacked_grads, num_batches=nb,
+                                     trim_multiplier=None, max_iters=8)
+    malicious = tree_map(
+        lambda e, g: (-scale * e[None]).expand(g.shape).to(g.dtype),
+        honest_est, stacked_grads)
+    return _where_byz(byz_mask, malicious, stacked_grads)
+
+
+@register("label_flip",
+          "non-omniscient data-poisoning proxy: gradient computed as if "
+          "labels were permuted — here approximated by negating the gradient "
+          "without rescaling (unit-norm sign attack)")
+def label_flip_attack(stacked_grads, byz_mask, key, **_kw):
+    del key
+    return _where_byz(byz_mask, tree_map(lambda g: -g, stacked_grads),
+                      stacked_grads)
+
+
+@register("sign_flip_targeted",
+          "omniscient, native to majority-vote aggregation: casts all q "
+          "byzantine votes against the honest sign exactly on the "
+          "coordinates where the margin is thin enough to flip the vote, "
+          "and reports the honest mean elsewhere — honest-sized magnitude, "
+          "maximal vote damage")
+def sign_flip_targeted_attack(stacked_grads, byz_mask, key, **_kw):
+    """The adversary native to ``sign_sgd_majority``: on the coordinates
+    where all q Byzantine votes against the honest majority flip the
+    outcome, report honest-mean magnitude with the opposing sign; report
+    the honest mean elsewhere."""
+    del key
+    m = tree_leaves(stacked_grads)[0].shape[0]
+    honest_w = torch.logical_not(byz_mask).to(torch.float32)     # (m,)
+    n_h = torch.clamp(torch.sum(honest_w), min=1.0)
+    q = torch.sum(byz_mask.to(torch.float32))
+
+    def mal(g):
+        gf = g.to(torch.float32)
+        w = _mask_like(honest_w, gf)
+        neg = torch.signbit(gf).to(torch.float32)
+        n_neg_all = torch.sum(neg, dim=0, keepdim=True)
+        n_neg_h = torch.sum(neg * w, dim=0, keepdim=True)
+        maj_neg = 2.0 * n_neg_all > m                # honest-vote outcome
+        # flippable: all q votes against the majority change the outcome
+        # (ties go to +1, as in the server's vote)
+        flip_pos_maj = torch.logical_and(torch.logical_not(maj_neg),
+                                         2.0 * (n_neg_h + q) > m)
+        flip_neg_maj = torch.logical_and(maj_neg, 2.0 * n_neg_h <= m)
+        flippable = torch.logical_or(flip_pos_maj, flip_neg_maj)
+        mu = torch.sum(gf * w, dim=0, keepdim=True) / n_h
+        mag = torch.sum(torch.abs(gf) * w, dim=0, keepdim=True) / n_h
+        against = torch.where(maj_neg, mag, -mag)
+        point = torch.where(flippable, against, mu)
+        return point.expand(g.shape).to(g.dtype)
+
+    return _where_byz(byz_mask, tree_map(mal, stacked_grads), stacked_grads)
 
 
 # ---------------------------------------------------------------------------

@@ -30,13 +30,14 @@ def sum_trailing(x: torch.Tensor) -> torch.Tensor:
 
 
 def median(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.median`` of a 1-D tensor: the mean of the two middle order
-    statistics for even length (``torch.median`` returns the lower one),
-    NaN if any entry is NaN."""
-    s = torch.sort(x).values
+    """``jnp.median(x, axis=0)``: the median over the leading axis, the
+    mean of the two middle order statistics for even length
+    (``torch.median`` returns the lower one), NaN where any entry is NaN.
+    A 1-D tensor gives a 0-d one."""
+    s = torch.sort(x, dim=0).values
     n = x.shape[0]
     mid = (s[(n - 1) // 2] + s[n // 2]) * 0.5
-    return torch.where(torch.isnan(x).any(), torch.nan, mid)
+    return torch.where(torch.isnan(x).any(dim=0), torch.nan, mid)
 
 
 def _pairwise_dists(points, y, eps: float):

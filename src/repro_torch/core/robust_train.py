@@ -10,9 +10,12 @@ The paper's Algorithm 2:
 
 The multi-round runner is a Python loop over rounds; round ``t`` uses
 ``fold_in(key, t)`` as its step key, exactly as the reference's
-``lax.scan`` does, so chunked runs replay step for step.  Wire compression
-(ROADMAP Queue 1 item 11) and asynchronous arrival (item 12) are not
-ported yet and raise ``NotImplementedError``.
+``lax.scan`` does, so chunked runs replay step for step.  The report wire
+(``cfg.compression``, ``repro_torch.core.compression``) and bounded
+staleness (``cfg.arrival``/``staleness_bound``,
+``repro_torch.core.staleness``) follow the reference: the merged rows are
+staleness-weighted first, then encoded, then decoded or handed to a rule
+whose ``native_codec`` matches.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ from torch.utils._pytree import tree_leaves, tree_map
 
 from repro_torch import _device
 from repro_torch import random as prng
-from repro_torch.core import aggregators, byzantine
+from repro_torch.core import aggregators, byzantine, compression
+from repro_torch.core import staleness as staleness_lib
 from repro_torch.core.geometric_median import median
 from repro_torch.core.grouping import choose_num_batches
 
@@ -62,18 +66,6 @@ class RobustConfig:
                                   epsilon=self.epsilon)
 
 
-def _check_ported(cfg: RobustConfig):
-    if cfg.compression != "none":
-        raise NotImplementedError(
-            f"compression={cfg.compression!r}: wire codecs are ROADMAP "
-            "Queue 1 item 11")
-    if cfg.arrival != "all_sync" or cfg.staleness_bound != 0:
-        raise NotImplementedError(
-            f"arrival={cfg.arrival!r}, staleness_bound="
-            f"{cfg.staleness_bound}: asynchronous arrival is ROADMAP Queue 1 "
-            "item 12")
-
-
 def per_worker_grads(loss_fn: Callable, params, worker_batches, *,
                      loss_kwargs: dict | None = None):
     """Stacked gradients (leaf shapes (m, *param_shape)) and per-worker
@@ -91,13 +83,36 @@ def per_worker_grads(loss_fn: Callable, params, worker_batches, *,
 def aggregate_reported(reported_grads, cfg: RobustConfig, *, key,
                        shard_spec=None, staleness=None):
     """Robust aggregation of already-(possibly-)corrupted reports; which
-    config fields a rule receives is driven by its registry metadata."""
-    _check_ported(cfg)
-    if staleness is not None:
-        raise NotImplementedError("staleness weighting is ROADMAP Queue 1 "
-                                  "item 12")
+    config fields a rule receives is driven by its registry metadata.
+
+    ``staleness`` is an ``(age, bound, discount)`` triple from the
+    bounded-staleness buffer: rows are rescaled by their normalized
+    ``discount**age`` weights before the wire codec sees them.  With
+    ``cfg.compression`` set, the reports are encoded (a keyed codec draws
+    from ``fold_in(key, 29)``); a rule whose ``native_codec`` matches gets
+    the payload with ``like=`` the reports, any other rule the decoded
+    reports."""
     agg = aggregators.get_aggregator(cfg.aggregator)
     kwargs: dict[str, Any] = {}
+    if staleness is not None:
+        age, bound, discount = staleness
+        reported_grads = staleness_lib.apply_staleness(
+            reported_grads, age, bound, discount=discount)
+    if cfg.compression != "none":
+        codec = compression.get_codec(cfg.compression)
+        ckey = None
+        if codec.needs_key:
+            if key is None:
+                raise ValueError(
+                    f"compression {cfg.compression!r} needs a PRNG key")
+            ckey = prng.fold_in(key, 29)
+        payload = codec.encode(reported_grads, key=ckey,
+                               shard_spec=shard_spec)
+        if agg.native_codec == cfg.compression:
+            kwargs.update(like=reported_grads)
+            reported_grads = payload
+        else:
+            reported_grads = codec.decode(payload, reported_grads)
     if agg.needs_num_byzantine:
         kwargs.update(num_byzantine=cfg.num_byzantine)
     if agg.needs_key:
@@ -169,14 +184,20 @@ def make_run_rounds(loss_fn: Callable, optimizer, cfg: RobustConfig, *,
     per_round_batches=False) -> (params, opt_state, attack_state,
     stale_buffer, metrics)`` where ``metrics`` are stacked over rounds.
     Round ``t`` uses ``fold_in(key, t)``.  With ``cfg.aggregator == "gmom"``
-    and ``round_backend="auto"`` every round on the card goes through the
-    CUDA round kernel.  ``extra_metrics(params, agg_grad)`` appends
-    scenario metrics."""
+    (or a rule that ends in it) and ``round_backend="auto"`` every round on
+    the card goes through the CUDA round kernel.  ``extra_metrics(params,
+    agg_grad)`` appends scenario metrics.
+
+    ``arrival`` (default ``staleness.arrival_from_config(cfg)``) turns on
+    the bounded-staleness path: each round the arrival model picks the
+    fresh reporters (reading the attack schedule's mask for the round),
+    stale workers contribute their buffered report, and the buffer is
+    carried in ``stale_buffer`` with a per-round ``stale_count`` metric.
+    When it resolves to None the buffer is ``()`` and the round is the
+    synchronous one."""
     device = _device.enter(device)
-    _check_ported(cfg)
-    if arrival is not None:
-        raise NotImplementedError("asynchronous arrival is ROADMAP Queue 1 "
-                                  "item 12")
+    if arrival is None:
+        arrival = staleness_lib.arrival_from_config(cfg)
     schedule = schedule if schedule is not None else schedule_from_config(cfg)
     loss_kwargs = loss_kwargs or {}
 
@@ -186,9 +207,6 @@ def make_run_rounds(loss_fn: Callable, optimizer, cfg: RobustConfig, *,
     def run(params, opt_state, worker_batches, key, *, num_rounds=None,
             start_round=0, attack_state=None, stale_buffer=None,
             per_round_batches=False):
-        if stale_buffer not in (None, ()):
-            raise NotImplementedError("a staleness buffer is ROADMAP Queue 1 "
-                                      "item 12")
         if num_rounds is None:
             if not per_round_batches:
                 raise ValueError("num_rounds is required with a fixed batch")
@@ -197,6 +215,13 @@ def make_run_rounds(loss_fn: Callable, optimizer, cfg: RobustConfig, *,
         worker_batches, key = to_dev(worker_batches), key.to(device)
         astate = (schedule.init_state(device) if attack_state is None
                   else to_dev(attack_state))
+        if arrival is None:
+            buf = ()
+        elif stale_buffer is None or len(stale_buffer) == 0:
+            buf = staleness_lib.init_buffer(params, arrival.num_workers,
+                                            arrival.staleness_bound)
+        else:
+            buf = to_dev(stale_buffer)
         start = int(start_round)
         rows = []
         for i in range(num_rounds):
@@ -207,7 +232,15 @@ def make_run_rounds(loss_fn: Callable, optimizer, cfg: RobustConfig, *,
             stacked, losses = per_worker_grads(loss_fn, params, batch,
                                                loss_kwargs=loss_kwargs)
             reported, mask, astate = schedule.apply(stacked, key_t, t, astate)
-            agg_grad = aggregate_reported(reported, cfg, key=key_t)
+            if arrival is None:
+                agg_grad = aggregate_reported(reported, cfg, key=key_t)
+            else:
+                fresh = arrival.arrive(key_t, t, mask)
+                reported, buf = staleness_lib.merge_reports(buf, reported,
+                                                            fresh)
+                agg_grad = aggregate_reported(
+                    reported, cfg, key=key_t,
+                    staleness=(buf.age, buf.bound, cfg.staleness_discount))
             updates, opt_state = optimizer.update(agg_grad, opt_state, params)
             params = tree_map(lambda p, u: (p + u).to(p.dtype),
                               params, updates)
@@ -215,11 +248,13 @@ def make_run_rounds(loss_fn: Callable, optimizer, cfg: RobustConfig, *,
                    "loss_median": median(losses),
                    "agg_grad_norm": _grad_norm(agg_grad),
                    "byz_count": torch.sum(mask.to(torch.int32))}
+            if arrival is not None:
+                row["stale_count"] = torch.sum((buf.age > 0).to(torch.int32))
             if extra_metrics is not None:
                 row.update(extra_metrics(params, agg_grad))
             rows.append(row)
         metrics = {name: torch.stack([r[name] for r in rows])
                    for name in rows[0]} if rows else {}
-        return params, opt_state, astate, (), metrics
+        return params, opt_state, astate, buf, metrics
 
     return run

@@ -9,8 +9,9 @@
     base_key      the PRNG key handed to the runner (round t folds in t)
     history       per-round metrics, dict[str, (round_index,)] float32
                   numpy arrays
-    stale_buffer  always ``()`` in this slice (asynchronous arrival is
-                  ROADMAP Queue 1 item 12)
+    stale_buffer  the bounded-staleness buffer
+                  (``repro_torch.core.staleness.StalenessBuffer``; ``()``
+                  when the asynchronous path is off)
 
 Checkpoints use the reference's layout, leaf paths and dtypes
 (``repro_torch.checkpoint``), so the port restores a state the JAX package
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_leaves
 
-from repro_torch.core import byzantine
+from repro_torch.core import byzantine, staleness
 
 TRAIN_STATE_PAYLOAD = "train_state"
 
@@ -44,18 +45,19 @@ class TrainState(NamedTuple):
 def init_train_state(params, opt_state, base_key, *,
                      schedule: byzantine.AttackSchedule | None = None,
                      arrival=None) -> TrainState:
-    """Round-zero state on the params' device: fresh adversary memory and
-    an empty history."""
-    if arrival is not None:
-        raise NotImplementedError("asynchronous arrival is ROADMAP Queue 1 "
-                                  "item 12")
+    """Round-zero state on the params' device: fresh adversary memory, an
+    empty history and, with an ``ArrivalSchedule``, an empty staleness
+    buffer."""
     device = tree_leaves(params)[0].device
     attack_state = schedule.init_state(device) if schedule is not None else ()
+    stale_buffer = () if arrival is None else staleness.init_buffer(
+        params, arrival.num_workers, arrival.staleness_bound)
     return TrainState(params=params, opt_state=opt_state,
                       attack_state=attack_state,
                       round_index=torch.zeros((), dtype=torch.int32,
                                               device=device),
-                      base_key=base_key.to(device), history={})
+                      base_key=base_key.to(device), history={},
+                      stale_buffer=stale_buffer)
 
 
 def _to_numpy(v) -> np.ndarray:
@@ -128,11 +130,10 @@ def restore_train_state(directory: str, step: int, example_params,
                         arrival=None, allow_cast: bool = False
                         ) -> TrainState:
     """Dtype-strict restore of a TrainState checkpoint (the port's or the
-    reference's) onto the example params' device."""
+    reference's) onto the example params' device.  ``arrival`` must match
+    the saved run's: with one the staleness buffer is restored, without
+    one the slot is ``()``."""
     from repro_torch import checkpoint
-    if arrival is not None:
-        raise NotImplementedError("asynchronous arrival is ROADMAP Queue 1 "
-                                  "item 12")
     manifest = checkpoint.read_manifest(directory, step)
     if manifest["format_version"] < 2:
         raise ValueError(
@@ -152,7 +153,9 @@ def restore_train_state(directory: str, step: int, example_params,
                       else ()),
         round_index=torch.zeros((), dtype=torch.int32, device=device),
         base_key=np.zeros((2,), np.uint32),
-        history=_history_example(manifest))
+        history=_history_example(manifest),
+        stale_buffer=() if arrival is None else staleness.init_buffer(
+            example_params, arrival.num_workers, arrival.staleness_bound))
     state = checkpoint.restore(directory, step, example,
                                allow_cast=allow_cast)
     return state._replace(base_key=torch.as_tensor(

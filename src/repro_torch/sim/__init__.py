@@ -8,6 +8,7 @@ runs on the CUDA card; pass ``device="cpu"`` for the CPU.
 
 from repro_torch.sim.engine import (  # noqa: F401
     build_schedule,
+    restore_scenario_state,
     replay_scenario,
     run_failure_free,
     run_scenario,

@@ -29,7 +29,7 @@ from repro_torch import _device, optim
 from repro_torch import random as prng
 from repro_torch.core import (RobustConfig, byzantine, init_train_state,
                               make_run_rounds, restore_train_state,
-                              save_train_state)
+                              save_train_state, staleness)
 from repro_torch.core.grouping import make_grouping
 from repro_torch.core.train_state import advance
 from repro_torch.data import regression
@@ -83,18 +83,19 @@ def _build_run(sc: Scenario, *, round_backend: str = "auto", device=None,
         return {"est_error": torch.linalg.norm(params - theta_star)}
 
     schedule = build_schedule(sc)
+    arrival = staleness.arrival_from_config(rc)
     run = make_run_rounds(regression.squared_loss, opt, rc,
                           schedule=schedule, extra_metrics=extra_metrics,
-                          device=device)
+                          arrival=arrival, device=device)
     theta0 = torch.zeros((sc.dim,), dtype=torch.float32, device=device)
     state = init_train_state(theta0, opt.init(theta0), prng.fold_in(key, 999),
-                             schedule=schedule)
+                             schedule=schedule, arrival=arrival)
     batches = tuple(x.to(device) for x in regression.worker_batches(ds))
     return run, state, batches, rc, schedule
 
 
 def _trace(sc: Scenario, rc: RobustConfig, rounds: int, history) -> dict:
-    return {
+    trace = {
         "scenario": sc.name,
         "aggregator": sc.aggregator,
         "attack": sc.attack,
@@ -114,6 +115,15 @@ def _trace(sc: Scenario, rc: RobustConfig, rounds: int, history) -> dict:
         "loss_median": [float(v) for v in history["loss_median"]],
         "byz_count": [int(v) for v in history["byz_count"]],
     }
+    # only compressed and asynchronous campaigns carry these keys, as in
+    # the reference: the synchronous goldens do not have them
+    if sc.compression != "none":
+        trace["compression"] = sc.compression
+    if sc.arrival != "all_sync" or sc.staleness_bound > 0:
+        trace["arrival"] = sc.arrival
+        trace["staleness_bound"] = sc.staleness_bound
+        trace["stale_count"] = [int(v) for v in history["stale_count"]]
+    return trace
 
 
 def run_scenario(sc: Scenario | str, *, rounds: int | None = None,
@@ -202,8 +212,10 @@ def replay_scenario(sc: Scenario | str, ckpt_dir: str, *,
     if resume:
         step = checkpoint.latest_step(ckpt_dir)
         if step is not None:
-            state = restore_train_state(ckpt_dir, step, state.params,
-                                        state.opt_state, schedule=schedule)
+            state = restore_train_state(
+                ckpt_dir, step, state.params, state.opt_state,
+                schedule=schedule,
+                arrival=staleness.arrival_from_config(rc))
     while int(state.round_index) < rounds:
         n = min(ckpt_every, rounds - int(state.round_index))
         state, _ = advance(run, state, batches, num_rounds=n)
@@ -215,3 +227,20 @@ def replay_scenario(sc: Scenario | str, ckpt_dir: str, *,
             "refusing to truncate; use a fresh ckpt_dir or resume=False")
     return _trace(sc, rc, rounds, state.history)
 
+
+
+def restore_scenario_state(sc: Scenario | str, ckpt_dir: str,
+                           step: int | None = None, *, device=None):
+    """Load a replay checkpoint (the latest by default) for inspection, on
+    ``device``, with the scenario's schedule and arrival."""
+    from repro_torch import checkpoint
+    if isinstance(sc, str):
+        sc = get_scenario(sc)
+    _, state, _, rc, schedule = _build_run(sc, device=device)
+    if step is None:
+        step = checkpoint.latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {ckpt_dir!r}")
+    return restore_train_state(ckpt_dir, step, state.params,
+                               state.opt_state, schedule=schedule,
+                               arrival=staleness.arrival_from_config(rc))

@@ -1,12 +1,14 @@
 """Golden metric traces for the port (PyTorch port of
 ``repro.sim.goldens``).
 
-The port keeps its own copies of the reference's nine float golden traces
+The port keeps its own copies of the reference's eleven golden traces
 under ``sim/goldens/`` (byte-identical to ``repro``'s; a test checks it)
 and holds its engine against them with ``compare_traces`` (rtol 1e-3,
 atol 1e-6: the port draws the reference's PRNG bits, but its float
 reductions run in other orders).  The goldens are recorded by the
-reference only; the port never re-records them.
+reference only; the port never re-records them.  ``trace_bytes`` is the
+reference's canonical serialization, so a resumed run is held against a
+straight one byte for byte.
 """
 
 from __future__ import annotations
@@ -31,6 +33,12 @@ def canonicalize(obj):
     if isinstance(obj, (list, tuple)):
         return [canonicalize(v) for v in obj]
     return obj
+
+
+def trace_bytes(trace: dict) -> bytes:
+    """The canonical bytes of a trace (the golden files' format)."""
+    return (json.dumps(canonicalize(trace), sort_keys=True,
+                       separators=(",", ": "), indent=0) + "\n").encode()
 
 
 def golden_path(name: str) -> str:
@@ -103,3 +111,32 @@ def check_resume_replay(name: str = RESUME_CHECK_SCENARIO, *,
         trace = replay_scenario(sc, ckpt_dir, ckpt_every=5,
                                 device=device)                     # resume
     return compare_traces(trace, load_golden(name))
+
+
+# The campaigns whose resume the reference holds byte for byte against a
+# straight run: the compressed wire and the staleness buffer (the buffer's
+# rows and ages must ride the checkpoint).
+BIT_EXACT_RESUME_SCENARIOS = ("linreg/sign_majority_static",
+                              "linreg/gmom/sign_flip/rotating/stale")
+
+
+def check_resume_bit_exact(name: str, *, crash_at: int = 19,
+                           ckpt_every: int = 7, device=None) -> list[str]:
+    """Run ``name`` straight, then as a checkpointed replay interrupted
+    after ``crash_at`` rounds and resumed (checkpoints every
+    ``ckpt_every``); the resumed trace must equal the straight one byte
+    for byte (``trace_bytes``) and match the golden.  Returns the
+    mismatch list (empty == bit-exact resume)."""
+    from repro_torch.sim.engine import replay_scenario, run_scenario
+    from repro_torch.sim.scenarios import get_scenario
+
+    sc = get_scenario(name)
+    straight = trace_bytes(run_scenario(sc, device=device))
+    with tempfile.TemporaryDirectory(prefix="golden_resume_") as ckpt_dir:
+        replay_scenario(sc, ckpt_dir, rounds=crash_at, ckpt_every=ckpt_every,
+                        device=device)                             # "crash"
+        trace = replay_scenario(sc, ckpt_dir, ckpt_every=ckpt_every,
+                                device=device)                     # resume
+    bad = [] if trace_bytes(trace) == straight else [
+        f"{name}: the resumed trace's bytes differ from the straight run's"]
+    return bad + compare_traces(trace, load_golden(name))

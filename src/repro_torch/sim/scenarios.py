@@ -3,11 +3,9 @@
 A ``Scenario`` pins every degree of freedom of one multi-round Byzantine
 campaign on the paper's linear-regression testbed (§4): aggregator, attack,
 multi-round schedule, the (m, q, k) fault geometry, the data dimensions and
-a seed.  The registry is the reference's, name for name, except the
-compressed and asynchronous campaigns (ROADMAP Queue 1 items 11 and 12).
-``golden=True`` marks the nine float goldens whose traces the port keeps
-under ``sim/goldens/``.  Scenarios whose attack or aggregator is not ported
-yet (Queue 1 item 10) are registered but raise ``KeyError`` when run.
+a seed.  The registry is the reference's, name for name (all 29 linreg
+campaigns).  ``golden=True`` marks the eleven goldens whose traces the
+port keeps under ``sim/goldens/``.
 """
 
 from __future__ import annotations
@@ -107,6 +105,22 @@ for _agg in ("trimmed_mean", "coordinate_median", "krum", "geomed"):
     for _attack in ("sign_flip", "alie"):
         register(Scenario(name=_n(_agg, _attack, "rotating"),
                           aggregator=_agg, attack=_attack))
+
+# Communication-compressed campaign (Jin et al. '19 signSGD majority vote):
+# workers report 1-bit packed sign words and the server votes on the wire
+# payload.  Sign steps have unit per-coordinate magnitude, so the step size
+# drops to keep the sign-descent error floor (~ eta sqrt(d)) small.
+register(Scenario(name="linreg/sign_majority_static",
+                  aggregator="sign_sgd_majority", attack="sign_flip",
+                  schedule="static", compression="sign",
+                  step_size=0.05, golden=True))
+
+# Bounded-staleness campaign: a rotating random straggler pair delivers up
+# to τ=2-round-old buffered gradients while the rotating sign_flip
+# colluders stay live.  Its trace carries the per-round stale_count.
+register(Scenario(name=_n("gmom", "sign_flip", "rotating") + "/stale",
+                  arrival="straggler_rotating", staleness_bound=2,
+                  golden=True))
 
 # Checked-in golden traces: one per schedule family plus the mean baselines
 # and one related-work aggregator — compact but covers every code path.

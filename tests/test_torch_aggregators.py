@@ -54,8 +54,12 @@ def test_registry_metadata_carried_over(name):
 
 
 def test_unported_rule_names_its_queue_item():
-    with pytest.raises(KeyError, match="item 10"):
-        tagg.get_aggregator("krum")
+    """Every rule of the reference is ported now: an unknown name raises
+    and lists the fifteen registered ones, and names no queue item."""
+    assert tagg.available() == jagg.available()
+    with pytest.raises(KeyError, match="unknown aggregator") as err:
+        tagg.get_aggregator("bulyan")
+    assert "krum" in str(err.value) and "item" not in str(err.value)
 
 
 @pytest.mark.parametrize("m,d", [(20, 20), (7, 5), (50, 100)])

@@ -140,5 +140,6 @@ def test_registries_carry_the_reference_descriptions():
     for name, desc in tbyz.describe():
         assert jatk[name] == desc
     assert dict(tbyz.describe_schedules()) == jsch
-    with pytest.raises(KeyError, match="item 10"):
-        tbyz.get_attack("mean_shift")
+    assert tbyz.available() == jbyz.available()
+    with pytest.raises(KeyError, match="unknown attack"):
+        tbyz.get_attack("gaussian_blur")

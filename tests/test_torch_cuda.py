@@ -1072,3 +1072,78 @@ def test_too_large_cooperative_grid_raises(cuda, monkeypatch):
     x, t, theta = _linreg_data(12, 16, 300, 3, cuda)
     with pytest.raises(RuntimeError, match="launch failed.*720"):
         rk.linreg_round_kernel(x, t, theta, make_grouping(12, 6))
+
+
+# ---------------------------------------------------------------------------
+# the report wire and the staleness buffer on the card
+
+def _wire_tree(m, seed, device):
+    """A multi-leaf stacked tree (dict keys inserted out of sorted order),
+    with an odd last dim, a (m,) leaf, -0.0 and a subnormal in it."""
+    rng = np.random.default_rng(seed)
+    tree = {"z": rng.normal(size=(m, 8193)).astype(np.float32),
+            "a": {"y": (rng.normal(size=(m, 3, 100)) * 7).astype(np.float32),
+                  "b": rng.normal(size=(m,)).astype(np.float32)}}
+    tree["z"][0, :3] = [-0.0, -1e-45, 0.0]
+    return {"z": torch.as_tensor(tree["z"], device=device),
+            "a": {"y": torch.as_tensor(tree["a"]["y"], device=device),
+                  "b": torch.as_tensor(tree["a"]["b"], device=device)}}
+
+
+def _cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_int8_payload_on_the_card_equals_the_cpu_payload(cuda, seed):
+    """Threefry bits, the exact max, the constant multiply, the IEEE
+    division and the floor: q and scale are the same bits on both."""
+    from repro_torch import random as prng
+    from repro_torch import tree as jtree
+    from repro_torch.core import compression
+    codec = compression.get_codec("int8_stochastic")
+    g = _wire_tree(50, seed, cuda)
+    key = prng.fold_in(prng.PRNGKey(seed), 29)
+    on_card = codec.encode(g, key=key.to(cuda))
+    on_cpu = codec.encode(_cpu(g), key=key)
+    for part in ("q", "scale"):
+        for a, b in zip(jtree.leaves(on_card[part]),
+                        jtree.leaves(on_cpu[part])):
+            assert a.device.type == "cuda"
+            assert torch.equal(a.cpu(), b), part
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [12, 50, 51])
+def test_packed_and_raw_votes_equal_on_the_card(cuda, m):
+    from repro_torch import tree as jtree
+    from repro_torch.core import compression
+    g = _wire_tree(m, m, cuda)
+    payload = compression.get_codec("sign").encode(g)
+    packed = compression.majority_vote_packed(payload, g)
+    raw = compression.majority_vote_signs(g)
+    cpu_words = compression.get_codec("sign").encode(_cpu(g))
+    for a, b in zip(jtree.leaves(payload), jtree.leaves(cpu_words)):
+        assert torch.equal(a.cpu(), b)
+    for a, b, c in zip(jtree.leaves(packed), jtree.leaves(raw),
+                       jtree.leaves(compression.majority_vote_signs(
+                           _cpu(g)))):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["linreg/gmom/sign_flip/rotating/stale",
+                                  "linreg/sign_majority_static"])
+def test_stale_and_sign_goldens_replay_on_the_card(cuda, name):
+    """Through the round kernel for the stale campaign (one launch a
+    round), and the resume interrupted at round 19 byte for byte."""
+    from repro_torch.sim import engine, goldens
+    rk.round_aggregate_kernel.launches = 0
+    trace = engine.run_scenario(name, device=cuda)
+    if "gmom" in name:
+        assert rk.round_aggregate_kernel.launches == trace["rounds"]
+    assert goldens.compare_traces(trace, goldens.load_golden(name)) == []
+    assert goldens.check_resume_bit_exact(name, device=cuda) == []

@@ -1,12 +1,14 @@
 """The port's engine end to end (repro_torch.sim) against the JAX
 package's goldens, checkpoints and data.
 
-The nine float goldens replay on the CPU through both gmom lowerings
-within ``compare_traces`` (rtol 1e-3, atol 1e-6); a checkpoint the JAX
-package wrote mid-run is resumed by the port; the data model, gradients
-and SGD step agree with JAX; the entry points refuse to fall back to the
-CPU silently."""
+All eleven goldens replay on the CPU through both gmom lowerings within
+``compare_traces`` (rtol 1e-3, atol 1e-6), the sign golden also on the
+reference's own arrays; the compressed and the staleness campaigns resume
+byte for byte; a checkpoint the JAX package wrote mid-run is resumed by
+the port; the data model, gradients and SGD step agree with JAX; the
+entry points refuse to fall back to the CPU silently."""
 
+import dataclasses
 import filecmp
 import os
 
@@ -21,6 +23,7 @@ from repro.core import robust_train as jrt
 from repro.data import regression as jreg
 from repro.sim import engine as jengine
 from repro.sim import goldens as jgoldens
+from repro.sim import scenarios as jscenarios
 from repro_torch import convert, optim
 from repro_torch import random as prng
 from repro_torch.core import robust_train as trt
@@ -28,8 +31,10 @@ from repro_torch.core.train_state import advance
 from repro_torch.data import regression
 from repro_torch.sim import engine, goldens, scenarios
 
-NINE = [sc.name for sc in scenarios.golden_scenarios()]
+GOLDENS = [sc.name for sc in scenarios.golden_scenarios()]
 STEALTH = "linreg/gmom/sign_flip/stealth_then_strike"
+SIGN = "linreg/sign_majority_static"
+STALE = "linreg/gmom/sign_flip/rotating/stale"
 
 
 @pytest.fixture(autouse=True)
@@ -41,18 +46,67 @@ def _threefry_original():
 
 
 def test_nine_float_goldens_registered():
-    assert len(NINE) == 9
-    assert "linreg/sign_majority_static" not in scenarios.available()
+    """The nine synchronous float-wire goldens, and with the sign wire and
+    the staleness buffer ported, the two others: eleven, in a registry
+    equal to the reference's 29 scenarios, field for field."""
+    sync = [n for n in GOLDENS if n not in (SIGN, STALE)]
+    assert len(sync) == 9 and len(GOLDENS) == 11
+    assert GOLDENS == [sc.name for sc in jscenarios.golden_scenarios()]
+    assert scenarios.available() == jscenarios.available()
+    assert len(scenarios.available()) == 29
+    for name in scenarios.available():
+        assert dataclasses.asdict(scenarios.get_scenario(name)) == \
+            dataclasses.asdict(jscenarios.get_scenario(name))
 
 
 @pytest.mark.parametrize("backend", ["reference", "fused_interpret"])
-@pytest.mark.parametrize("name", NINE)
+@pytest.mark.parametrize("name", GOLDENS)
 def test_golden_replays_on_cpu(name, backend):
     trace = engine.run_scenario(name, round_backend=backend, device="cpu")
     assert goldens.compare_traces(trace, goldens.load_golden(name)) == []
 
 
-@pytest.mark.parametrize("name", NINE)
+@pytest.mark.parametrize("name", [SIGN, STALE])
+def test_golden_replays_on_jax_data(name):
+    """With the reference's arrays handed across, the sign and stale
+    goldens replay too: any difference is then in the vote or the buffer,
+    not in the data."""
+    sc = scenarios.get_scenario(name)
+    ds = jreg.generate(jax.random.PRNGKey(sc.seed), dim=sc.dim,
+                       total_samples=sc.total_samples,
+                       num_workers=sc.num_workers, noise_std=sc.noise_std)
+    tds = convert.scenario_inputs_from_numpy(
+        np.asarray(ds.features), np.asarray(ds.targets),
+        np.asarray(ds.theta_star), device="cpu")
+    trace = engine.run_scenario(name, device="cpu", dataset=tds)
+    assert goldens.compare_traces(trace, goldens.load_golden(name)) == []
+
+
+@pytest.mark.parametrize("name", goldens.BIT_EXACT_RESUME_SCENARIOS)
+def test_bit_exact_resume_replay_on_cpu(name):
+    """Interrupted at round 19, resumed with checkpoints every 7 rounds:
+    byte-identical to the straight run, and on the golden."""
+    assert goldens.check_resume_bit_exact(name, device="cpu") == []
+
+
+def test_trace_bytes_is_the_golden_format():
+    for name in GOLDENS:
+        with open(goldens.golden_path(name), "rb") as f:
+            raw = f.read()
+        assert goldens.trace_bytes(goldens.load_golden(name)) == raw
+        assert goldens.trace_bytes(goldens.load_golden(name)) == \
+            jgoldens.trace_bytes(jgoldens.load_golden(name))
+
+
+def test_synchronous_traces_do_not_grow_the_new_keys():
+    trace = engine.run_scenario(STEALTH, rounds=2, device="cpu")
+    for key in ("compression", "arrival", "staleness_bound", "stale_count"):
+        assert key not in trace
+    sign = engine.run_scenario(SIGN, rounds=2, device="cpu")
+    assert sign["compression"] == "sign" and "arrival" not in sign
+
+
+@pytest.mark.parametrize("name", GOLDENS)
 def test_golden_copies_byte_identical(name):
     assert filecmp.cmp(goldens.golden_path(name),
                        jgoldens.golden_path(name), shallow=False)
@@ -195,9 +249,9 @@ def test_robust_train_step_matches_jax(aggregator, attack):
 def test_entry_points_without_device_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        engine.run_scenario(NINE[0], rounds=1)
+        engine.run_scenario(GOLDENS[0], rounds=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        engine.replay_scenario(NINE[0], os.devnull, rounds=1)
+        engine.replay_scenario(GOLDENS[0], os.devnull, rounds=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         regression.generate(prng.PRNGKey(0), dim=2, total_samples=4,
                             num_workers=2)
@@ -207,11 +261,19 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("compression", "sign", "item 11"),
-    ("arrival", "straggler_rotating", "item 12"),
-    ("staleness_bound", 2, "item 12")])
+    ("compression", "int8_stochastic", "item 13"),
+    ("arrival", "straggler_rotating", "item 13"),
+    ("staleness_bound", 2, "item 13")])
 def test_unported_features_raise(field, value, item):
-    cfg = trt.RobustConfig(num_workers=4, **{field: value})
+    """The wire and the staleness path run now; what is still unported
+    under them, shard-local aggregation, raises and names its item."""
+    cfg = trt.RobustConfig(num_workers=4, num_batches=2, **{field: value})
+    run = trt.make_run_rounds(regression.squared_loss, optim.sgd(0.5), cfg,
+                              device="cpu")
+    x = torch.ones((4, 3, 2))
+    *_, metrics = run(torch.zeros(2), optim.sgd(0.5).init(torch.zeros(2)),
+                      (x, torch.ones((4, 3))), prng.PRNGKey(0), num_rounds=2)
+    assert metrics["loss_mean"].shape == (2,)
     with pytest.raises(NotImplementedError, match=item):
-        trt.make_run_rounds(regression.squared_loss, optim.sgd(0.5), cfg,
-                            device="cpu")
+        trt.aggregate_reported(x, cfg, key=prng.PRNGKey(0),
+                               shard_spec=object())
