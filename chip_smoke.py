@@ -8,8 +8,9 @@ each against its plain PyTorch version on the card, replays the golden
 traces through the round kernel, drives the paper's Algorithm 2 at full
 width through the port's engine and through the full linreg round kernel,
 runs the Weiszfeld loop over the step kernels at full width, serves
-H2O-Danube3-4B at full width through the flash-attention kernel, and
-times every kernel.  Every phase prints JSON lines; the last line is
+H2O-Danube3-4B at full width through the flash-attention kernel, times
+every kernel, and runs shard-local aggregation in one process and on rank
+processes of the card.  Every phase prints JSON lines; the last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every check
 passed.  Exits non-zero without it on any failure, when CUDA is
 unavailable, or when the ``src/repro_torch`` package is missing.
@@ -85,6 +86,25 @@ Phases:
                  flash attention also through its CUDA-core kernel on the
                  same bf16 inputs (the kernel it replaced), and the
                  library's backend pinned with sdpa_kernel
+  6 sharded      shard-local aggregation: (a) the virtual mode on the
+                 card, every rule x (none and its native codec) at (m, k)
+                 = (50, 11) and (50, 10), d = 8192 in S = 8 shards, f32
+                 and with "w" in bf16, two runs bitwise equal, against
+                 the unsharded path (f32: round_backend="auto" within
+                 RTOL / ATOL of max|y|; bf16: the reference backend within
+                 BF16_STEPS of max|y|; int8_gmom on its wire: scales
+                 bit-equal, q within a step); (b) make_sharded_aggregate
+                 on 4 rank processes of the card over gloo at d =
+                 25 557 032 for gmom, krum, norm_filter_gmom, coord_median
+                 and int8_gmom on its wire, each rank's result its slice
+                 of the virtual result bit for bit, ms of each mode beside
+                 the unsharded gmom and round kernel; (c)
+                 make_shardmap_aggregate on 8 rank processes (m = 8, k =
+                 4, d = 8192, round_backend="auto"): one round-kernel
+                 launch per rank per call, within 1e-5 of gmom_aggregator
+                 on the gathered stack (kernel and reference)
+  7 kernel line  one JSON object, a row per kernel (the round kernel's
+                 launches include phase 6 (c)'s)
 """
 
 from __future__ import annotations
@@ -100,6 +120,10 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
+
+from repro_torch.configs import linreg_paper  # noqa: E402
+
+LINREG_PAPER = linreg_paper.CONFIG
 
 # (m, k, d): the golden geometry; the paper's configs/linreg_paper.py with
 # even and uneven k; a mid size; the wide main-path width; ResNet-50's
@@ -210,14 +234,45 @@ PREFILL_CUTS = ["prefill_32k's B=32, T=32768 cut to B=1, T=8192 for the "
 PREFILL_RTOL = {"float32": 1e-3, "bfloat16": 5e-2}
 
 # The main path at full width (gmom under sign_flip/rotating): the paper's
-# configs/linreg_paper.py (d=100, N=50 000, m=50, q=4) with k=10, and the
-# same data size at d=8192 with the paper's uneven k=11 (X is 1.64 GB).
+# configs/linreg_paper.py (d=100, N=50 000, m=50, q=4) with k=10 and its
+# rounds, and the same data size at d=8192 with the paper's uneven k=11
+# (X is 1.64 GB).
 FULL_WIDTH = {
-    "paper": dict(dim=100, total_samples=50_000, num_workers=50,
-                  num_byzantine=4, num_batches=10, rounds=60),
-    "wide": dict(dim=8192, total_samples=50_000, num_workers=50,
-                 num_byzantine=4, num_batches=11, rounds=30),
+    "paper": dict(dim=LINREG_PAPER.dim,
+                  total_samples=LINREG_PAPER.total_samples,
+                  num_workers=LINREG_PAPER.num_workers,
+                  num_byzantine=LINREG_PAPER.num_byzantine, num_batches=10,
+                  rounds=LINREG_PAPER.rounds),
+    "wide": dict(dim=8192, total_samples=LINREG_PAPER.total_samples,
+                 num_workers=LINREG_PAPER.num_workers,
+                 num_byzantine=LINREG_PAPER.num_byzantine, num_batches=11,
+                 rounds=30),
 }
+
+# Phase 6, shard-local aggregation (ShardSpec, make_sharded_aggregate,
+# make_shardmap_aggregate): (a) the virtual mode at the wide width, S = 8
+# shards, the paper's uneven k = 11 and k = 10, on {"w": (50, 8192), "s":
+# (50,)}; (b) the model axis on 4 ranks at ResNet-50's parameter count
+# (the stacked f32 gradient is 5.11 GB, 1.28 GB a rank) for one rule of
+# each kind; (c) the data axis on 8 ranks at the reference test's
+# geometry (m = 8, k = 4) and d = 8192.  Inputs: N(1, 1) rows, the first
+# SHARD_Q scaled by -10.
+SHARD_S = 8
+SHARD_VIRTUAL = [(50, 11), (50, 10)]
+SHARD_VIRTUAL_D = 8192
+SHARD_Q = 4
+SHARD_SEED = 17
+SHARD_MODEL = (50, 11, 25_557_032, 4)       # m, k, d, ranks
+SHARD_MODEL_RULES = [("gmom", "none"), ("krum", "none"),
+                     ("norm_filter_gmom", "none"), ("coord_median", "none"),
+                     ("int8_gmom", "int8_stochastic")]
+SHARD_DATA = (8, 4, 8192)                   # m = ranks, k, d
+# bf16 "w" against the unsharded reference path: the pytree Weiszfeld
+# rounds its weights to bf16, so an ulp of summation order in an f32
+# distance can flip a weight's rounding and move y by a bf16 step of
+# max|z|; four bf16 steps of max|y| (tests/test_torch_shard_aggregation.py
+# measured up to 1.6 against the JAX package)
+BF16_STEPS = 2.0 ** -6
 
 FAILURES: list[str] = []
 
@@ -1366,6 +1421,307 @@ def attention_timings(dev, hbm, smi):
     return out
 
 
+# -- phase 6: shard-local aggregation -----------------------------------
+
+def shard_rules():
+    """Every registered rule x (``none`` and its native codec)."""
+    from repro_torch.core import aggregators
+    return [(n, c) for n in aggregators.available()
+            for c in ("none",) + tuple(
+                x for x in [aggregators.get_aggregator(n).native_codec] if x)]
+
+
+def shard_inputs(m, d, seed, dev, shards=1, index=None):
+    """{"w": (m, d), "s": (m,)}: N(1, 1) rows, the first SHARD_Q rows
+    scaled by -10 (outliers for the trims and filters).  "w" is drawn in
+    ``shards`` column blocks, block j from seed (seed, j), so that rank
+    ``index`` draws its block alone (``index=None``: every block, whole)."""
+    import torch
+
+    def block(j, width):
+        gen = torch.Generator(device=dev).manual_seed(seed * 1000 + j)
+        x = torch.randn((m, width), generator=gen, device=dev) + 1.0
+        x[:SHARD_Q] *= -10.0
+        return x
+
+    c = d // shards
+    w = (block(index, c) if index is not None
+         else torch.cat([block(j, c) for j in range(shards)], dim=1))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {"w": w, "s": torch.randn((m,), generator=gen, device=dev)}
+
+
+def _timed_call(fn, dev):
+    """(result, host ms) of one call, the card synchronised around it (a
+    CPU device, for a rehearsal at a small size, has nothing to sync)."""
+    import torch
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _tree_err(got, want):
+    """(max abs error, max|want|) over the leaves, in float32."""
+    from repro_torch import tree as jtree
+    err = scale = 0.0
+    for g, w in zip(jtree.leaves(got), jtree.leaves(want)):
+        err = max(err, float((g.float() - w.float()).abs().max()))
+        scale = max(scale, float(w.float().abs().max()))
+    return err, scale
+
+
+def _tree_equal(a, b):
+    import torch
+    from repro_torch import tree as jtree
+    return all(torch.equal(x, y)
+               for x, y in zip(jtree.leaves(a), jtree.leaves(b)))
+
+
+def sharded_virtual(dev, shapes=SHARD_VIRTUAL, d=SHARD_VIRTUAL_D,
+                    shards=SHARD_S):
+    """(a) Virtual mode on the card: every rule x codec at each (m, k),
+    f32 and with "w" in bf16, two runs bitwise equal; against the
+    unsharded path on the card: f32 within RTOL / ATOL of max|y| of
+    ``round_backend="auto"`` (the round kernel for the gmom family), bf16
+    within BF16_STEPS of max|y| of the unsharded ``reference`` backend
+    (the path a partitioned spec resolves to; the bf16 Weiszfeld rounds
+    its weights to bf16, so an ulp of order in an f32 distance can flip
+    one); int8_gmom on its wire: the payload's scales bit-equal to the
+    unsharded ones and q within one step (the uniforms are keyed per
+    shard)."""
+    import dataclasses
+    import torch
+    from repro_torch import random as prng
+    from repro_torch import tree as jtree
+    from repro_torch.core import compression
+    from repro_torch.core.robust_train import RobustConfig, aggregate_reported
+    from repro_torch.core.shard_aggregation import ShardSpec
+    spec = ShardSpec(num_shards=shards, mode="virtual")
+    key = prng.PRNGKey(SHARD_SEED, device=dev)
+    worst = {}
+    for m, k in shapes:
+        base = shard_inputs(m, d, SHARD_SEED, dev)
+        for dt in ("float32", "bfloat16"):
+            stacked = dict(base, w=base["w"].to(getattr(torch, dt)))
+            for name, codec in shard_rules():
+                cfg = RobustConfig(num_workers=m, num_byzantine=SHARD_Q,
+                                   num_batches=k, aggregator=name,
+                                   compression=codec)
+                v1 = aggregate_reported(stacked, cfg, key=key,
+                                        shard_spec=spec)
+                v2 = aggregate_reported(stacked, cfg, key=key,
+                                        shard_spec=spec)
+                repeat = _tree_equal(v1, v2)
+                tag = f"{name}/{codec} {(m, k)} w {dt}"
+                check(repeat, f"sharded (a) {tag}: two runs differ")
+                line = {"phase": "sharded", "part": "a", "rule": name,
+                        "codec": codec, "m": m, "k": k, "d": d,
+                        "shards": shards, "w_dtype": dt,
+                        "bitwise_repeat": repeat}
+                if codec == "int8_stochastic":
+                    enc = compression.get_codec(codec).encode
+                    ckey = prng.fold_in(key, 29)
+                    pv = enc(stacked, key=ckey, shard_spec=spec)
+                    pu = enc(stacked, key=ckey)
+                    scales = _tree_equal(pv["scale"], pu["scale"])
+                    step = max(int((a.int() - b.int()).abs().max())
+                               for a, b in zip(jtree.leaves(pv["q"]),
+                                               jtree.leaves(pu["q"])))
+                    ok = scales and step <= 1
+                    line.update(scales_bit_equal=scales, q_max_step=step)
+                else:
+                    backend = "auto" if dt == "float32" else "reference"
+                    want = aggregate_reported(
+                        stacked, dataclasses.replace(
+                            cfg, round_backend=backend), key=key)
+                    err, scale = _tree_err(v1, want)
+                    ok = err <= (ATOL + RTOL * scale if dt == "float32"
+                                 else BF16_STEPS * scale)
+                    worst[dt] = max(worst.get(dt, 0.0),
+                                    err / max(scale, 1e-30))
+                    line.update(unsharded_backend=backend, max_abs_err=err,
+                                max_abs_y=scale)
+                check(ok, f"sharded (a) {tag}: {line}")
+                emit(dict(line, ok=ok))
+    return worst
+
+
+def _model_axis_rank(rank, world, device, m, k, d, rules, seed):
+    """(b) on one rank: its column block of the inputs, each rule through
+    ``make_sharded_aggregate`` twice (the second timed, its all-gathers
+    counted) -> ({rule: (result on the CPU, ms, bitwise repeat,
+    all-gathers)}, median ms of one all-gather of a (k,) partial, the
+    collective of a Weiszfeld iterate)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import random as prng
+    from repro_torch.core import make_sharded_aggregate
+    from repro_torch.core.robust_train import RobustConfig
+    from repro_torch.core.shard_aggregation import all_gather
+    from torch.utils._pytree import tree_map
+    dev = torch.device(device)
+    local = shard_inputs(m, d, seed, dev, shards=world, index=rank)
+    key = prng.PRNGKey(seed, device=dev)
+    gather, gathers = dist.all_gather, [0]
+
+    def counted(*args, **kwargs):
+        gathers[0] += 1
+        return gather(*args, **kwargs)
+
+    dist.all_gather = counted
+    out = {}
+    for name, codec in rules:
+        agg = make_sharded_aggregate(RobustConfig(
+            num_workers=m, num_byzantine=SHARD_Q, num_batches=k,
+            aggregator=name, compression=codec))
+        first, _ = _timed_call(lambda: agg(local, key), dev)
+        gathers[0] = 0
+        again, ms = _timed_call(lambda: agg(local, key), dev)
+        out[f"{name}/{codec}"] = (tree_map(lambda t: t.cpu(), again), ms,
+                                  _tree_equal(first, again), gathers[0])
+        del first, again
+        torch.cuda.empty_cache()
+    part = torch.ones((k,), device=dev)
+    gather_ms = statistics.median(
+        _timed_call(lambda: all_gather(part), dev)[1] for _ in range(20))
+    return out, gather_ms
+
+
+def sharded_model_axis(dev, smi, m=SHARD_MODEL[0], k=SHARD_MODEL[1],
+                       d=SHARD_MODEL[2], world=SHARD_MODEL[3],
+                       rules=SHARD_MODEL_RULES):
+    """(b) Model-axis shard_map on ``world`` rank processes of the one
+    card over gloo, against the virtual mode in this process: each rank's
+    result is its slice of the virtual result, bit for bit; ms per
+    aggregation of each mode beside the unsharded round kernel's."""
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.core.robust_train import RobustConfig, aggregate_reported
+    from repro_torch.core.grouping import make_grouping
+    from repro_torch.core.shard_aggregation import ShardSpec, shard_slice
+    from repro_torch.kernels.geomed import round as rk
+    from repro_torch.launch import ranks
+    stacked = shard_inputs(m, d, SHARD_SEED, dev, shards=world)
+    key = prng.PRNGKey(SHARD_SEED, device=dev)
+    spec = ShardSpec(num_shards=world, mode="virtual")
+    virtual, virtual_ms, virtual_repeat = {}, {}, {}
+    for name, codec in rules:
+        rid = f"{name}/{codec}"
+        cfg = RobustConfig(num_workers=m, num_byzantine=SHARD_Q,
+                           num_batches=k, aggregator=name, compression=codec)
+        first = aggregate_reported(stacked, cfg, key=key, shard_spec=spec)
+        res, virtual_ms[rid] = _timed_call(lambda: aggregate_reported(
+            stacked, cfg, key=key, shard_spec=spec), dev)
+        virtual_repeat[rid] = _tree_equal(first, res)
+        virtual[rid] = {n: t.cpu() for n, t in res.items()}
+        del first, res
+        torch.cuda.empty_cache()
+    # unsharded: gmom through aggregate_reported ("auto": the leaves
+    # concatenated, then the round kernel), and the round kernel alone on
+    # "w", the (m, d) block
+    gmom = RobustConfig(num_workers=m, num_byzantine=SHARD_Q, num_batches=k)
+    aggregate_reported(stacked, gmom, key=key)
+    _, unsharded_ms = _timed_call(lambda: aggregate_reported(stacked, gmom,
+                                                             key=key), dev)
+    grouping = make_grouping(m, k)
+    kw = dict(trim_multiplier=gmom.trim_multiplier,
+              max_iters=gmom.gmom_max_iters, tol=gmom.gmom_tol)
+    rk.round_aggregate_kernel(stacked["w"], grouping, **kw)
+    (_, iters), kernel_ms = _timed_call(lambda: rk.round_aggregate_kernel(
+        stacked["w"], grouping, **kw), dev)
+    del stacked
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    per_rank = ranks.run(_model_axis_rank, world, dev.type, m, k, d, rules,
+                         SHARD_SEED, timeout=600.0)
+    spawn_s = time.perf_counter() - t0
+    gather_ms = [res[1] for res in per_rank]
+    per_rank = [res[0] for res in per_rank]
+    for rid, want in virtual.items():
+        equal = all(
+            torch.equal(res[rid][0]["w"], shard_slice(want["w"], r, world))
+            and torch.equal(res[rid][0]["s"], want["s"])
+            for r, res in enumerate(per_rank))
+        repeat = virtual_repeat[rid] and all(res[rid][2] for res in per_rank)
+        check(equal, f"sharded (b) {rid}: a rank's slice differs from the "
+                     "virtual result")
+        check(repeat, f"sharded (b) {rid}: two runs on a rank differ")
+        emit({"phase": "sharded", "part": "b", "rule": rid, "m": m, "k": k,
+              "d": d, "ranks": world, "transport": "gloo, host-staged",
+              "ranks_bit_equal_virtual": equal, "bitwise_repeat": repeat,
+              "ms_virtual": virtual_ms[rid],
+              "ms_shard_map_per_rank": [res[rid][1] for res in per_rank],
+              "all_gathers_per_call": per_rank[0][rid][3],
+              "ms_unsharded_gmom": unsharded_ms,
+              "ms_unsharded_round_kernel_w": kernel_ms,
+              "round_kernel_iterations": int(iters), "card": smi})
+    emit({"phase": "sharded", "part": "b", "ranks_wall_s": spawn_s,
+          "ms_all_gather_k_partial_per_rank": gather_ms, "card": smi})
+
+
+def _data_axis_rank(rank, world, device, m, k, d, seed):
+    """(c) on one rank: worker ``rank``'s gradient through
+    ``make_shardmap_aggregate`` (``round_backend="auto"``) twice, the
+    second timed -> (y on the CPU, round-kernel launches of one call,
+    ms)."""
+    import torch
+    from repro_torch.core import make_shardmap_aggregate
+    from repro_torch.core.robust_train import RobustConfig
+    from repro_torch.kernels.geomed import round as rk
+    dev = torch.device(device)
+    mine = {n: t[rank] for n, t in shard_inputs(m, d, seed, dev).items()}
+    agg = make_shardmap_aggregate(RobustConfig(
+        num_workers=m, num_byzantine=1, num_batches=k, gmom_max_iters=32,
+        gmom_tol=1e-7))
+    agg(mine)
+    rk.round_aggregate_kernel.launches = 0
+    y, ms = _timed_call(lambda: agg(mine), dev)
+    return ({n: t.cpu() for n, t in y.items()},
+            rk.round_aggregate_kernel.launches, ms)
+
+
+def sharded_data_axis(dev, smi, m=SHARD_DATA[0], k=SHARD_DATA[1],
+                      d=SHARD_DATA[2]):
+    """(c) Data-axis GMoM, ``make_shardmap_aggregate`` on m rank processes
+    of the one card over gloo: one round-kernel launch per rank per call;
+    every rank the same y, within 1e-5 of ``gmom_aggregator`` on the
+    gathered stack through the kernel and through the reference path (the
+    bound of tests/test_shardmap_aggregate.py).  -> the launches."""
+    from repro_torch.core.aggregators import gmom_aggregator
+    from repro_torch.launch import ranks
+    per_rank = ranks.run(_data_axis_rank, m, dev.type, m, k, d, SHARD_SEED,
+                         timeout=600.0)
+    stacked = shard_inputs(m, d, SHARD_SEED, dev)
+    launches = [res[1] for res in per_rank]
+    check(launches == [1] * m, f"sharded (c): round-kernel launches per "
+                               f"rank {launches}, want 1 each")
+    same = all(_tree_equal(res[0], per_rank[0][0]) for res in per_rank)
+    check(same, "sharded (c): ranks disagree")
+    line = {"phase": "sharded", "part": "c", "m": m, "k": k, "d": d,
+            "launches_per_rank": launches, "ranks_equal": same,
+            "ms_per_rank": [res[2] for res in per_rank], "card": smi}
+    for backend in ("auto", "reference"):
+        want = gmom_aggregator(stacked, num_batches=k, num_byzantine=1,
+                               max_iters=32, tol=1e-7, round_backend=backend)
+        err, _ = _tree_err(per_rank[0][0],
+                           {n: t.cpu() for n, t in want.items()})
+        check(err < 1e-5, f"sharded (c) vs {backend}: {err}")
+        line[f"max_abs_err_vs_{backend}"] = err
+        _, line[f"ms_gathered_{backend}"] = _timed_call(
+            lambda: gmom_aggregator(stacked, num_batches=k, num_byzantine=1,
+                                    max_iters=32, tol=1e-7,
+                                    round_backend=backend), dev)
+    emit(line)
+    return sum(launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1598,7 +1954,16 @@ def main() -> int:
     timing.update(new_kernel_timings(dev, hbm, flops, smi, counts))
     timing.update(attention_timings(dev, hbm, smi))
 
-    # -- 6 the kernel line --------------------------------------------------
+    # -- 6 sharded: shard-local aggregation --------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    worst = sharded_virtual(dev)
+    sharded_model_axis(dev, smi)
+    main_launches += sharded_data_axis(dev, smi)
+    emit({"phase": "sharded", "seconds": time.perf_counter() - t0,
+          "worst_err_over_max_abs_y": worst, "card": smi})
+
+    # -- 7 the kernel line --------------------------------------------------
     csrc = "src/repro_torch/kernels/"
     rows = (("round_aggregate", "geomed/csrc/round_aggregate.cu",
              "src/repro/kernels/geomed/round.py:268", main_launches,

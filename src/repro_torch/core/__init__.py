@@ -9,8 +9,11 @@ Public API (the port's part of ``repro.core``'s):
     staleness.make_arrival / available_arrivals / StalenessBuffer
     RobustConfig, make_robust_train_step, make_run_rounds,
     per_worker_grads, aggregate, aggregate_reported
+    ShardSpec, blocked_partial_sum (shard-local aggregation),
+    make_sharded_aggregate, make_shardmap_aggregate (on torch.distributed)
     TrainState, init_train_state, advance, save/restore_train_state
     grouping.make_grouping / choose_num_batches
+    theory: paper constants & closed forms
 """
 
 from repro_torch.core.geometric_median import (  # noqa: F401
@@ -21,13 +24,19 @@ from repro_torch.core.geometric_median import (  # noqa: F401
     weiszfeld_step,
 )
 from repro_torch.core import (  # noqa: F401
-    aggregators, byzantine, compression, grouping, staleness)
+    aggregators, byzantine, compression, grouping, staleness, theory)
+from repro_torch.core.shard_aggregation import (  # noqa: F401
+    ShardSpec,
+    blocked_partial_sum,
+)
 from repro_torch.core.robust_train import (  # noqa: F401
     RobustConfig,
     aggregate,
     aggregate_reported,
     make_robust_train_step,
     make_run_rounds,
+    make_sharded_aggregate,
+    make_shardmap_aggregate,
     per_worker_grads,
     schedule_from_config,
 )

@@ -17,7 +17,12 @@ registry metadata (``needs_*``, ``shard_contract``, ``native_codec``,
 * the compressed-wire rules ``sign_sgd_majority`` (votes on the packed
   ``sign`` wire) and ``int8_gmom`` (dequantize, then gmom).
 
-Shard-local aggregation (a ``shard_spec``) is ROADMAP Queue 1 item 13.
+Every rule honours the shard-local contract
+(``repro_torch.core.shard_aggregation``): coordinate-wise rules touch each
+parameter shard on its own, and the norm-based rules take a ``shard_spec``
+whose blocked reductions combine per-shard partial squared norms (one
+(k,)-sized reduction a Weiszfeld iterate for GMoM, one (m, m) partial gram
+for krum).
 
 ``gmom`` (and ``norm_filter_gmom`` and ``int8_gmom``, which end in it)
 dispatches its hot path through ``round_backend``:
@@ -29,9 +34,10 @@ dispatches its hot path through ``round_backend``:
                           tensors only.
 * ``"fused_interpret"`` — the kernel's plain PyTorch version (the fused
                           formulation on the CPU tests).
-* ``"auto"`` (default)  — ``fused`` for CUDA tensors with k <= the
-                          kernel's limit (64 batches), ``reference``
-                          otherwise.
+* ``"auto"`` (default)  — ``fused`` for CUDA tensors (or a
+                          ``ShardSpec.target_backend`` of ``"cuda"``) with
+                          k <= the kernel's limit (64 batches) and
+                          unpartitioned gradients, ``reference`` otherwise.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import torch
 from torch.utils._pytree import tree_leaves, tree_map
 
 from repro_torch import random as prng
+from repro_torch.core import shard_aggregation as sa
 from repro_torch.core.geometric_median import (
     batch_mean_norms, geometric_median, geometric_median_pytree, median,
     trim_weights)
@@ -177,12 +184,6 @@ def batch_means(stacked_grads, num_batches: int, *,
                            make_grouping(m, num_batches, scheme=scheme))
 
 
-def _no_shards(shard_spec) -> None:
-    if shard_spec is not None:
-        raise NotImplementedError(
-            "shard-local aggregation is ROADMAP Queue 1 item 13")
-
-
 def _bcast(v, g):
     """A (m,) per-worker vector shaped to broadcast against leaf (m, ...)."""
     return v.reshape((-1,) + (1,) * (g.ndim - 1))
@@ -217,14 +218,23 @@ def mean_aggregator(stacked_grads, **_kw):
 
 
 def resolve_round_backend(round_backend: str | None, *, num_batches: int,
-                          device: torch.device) -> str:
+                          device: torch.device, partitioned: bool = False,
+                          target_backend: str | None = None) -> str:
     """Map the ``round_backend`` switch to a concrete path.
 
-    ``auto``/None picks the CUDA round kernel for CUDA tensors when k fits
-    the kernel (<= ``round.MAX_BATCHES``) and ``reference`` otherwise.
-    ``fused`` is the kernel and raises for CPU tensors or too many batches
-    (no silent fallback); ``fused_interpret`` is the kernel's plain
-    PyTorch version on any device."""
+    ``auto``/None picks the CUDA round kernel when the gradients are on a
+    CUDA device (``target_backend``, where given, names the device type in
+    place of ``device``'s), k fits the kernel (<= ``round.MAX_BATCHES``)
+    and the gradients are not ``partitioned`` over param shards, and
+    ``reference`` otherwise: the kernel concatenates every leaf into one
+    (m, d) block, which on partitioned slices would be the gather the
+    shard-local contract avoids.  ``fused`` is the kernel and raises for
+    CPU tensors, too many batches or partitioned gradients;
+    ``fused_interpret`` (the kernel's plain PyTorch version, any device)
+    raises for partitioned gradients too.  The reference only warns on an
+    explicit kernel backend with partitioned gradients and runs
+    ``reference``; the port, as for CPU tensors, never falls back
+    silently."""
     from repro_torch.kernels.geomed import round as round_kernel
     if round_backend not in (None, "auto", "reference", "fused",
                              "fused_interpret"):
@@ -232,7 +242,14 @@ def resolve_round_backend(round_backend: str | None, *, num_batches: int,
     device = torch.device(device)
     fits = num_batches <= round_kernel.MAX_BATCHES
     if round_backend in (None, "auto"):
-        return "fused" if device.type == "cuda" and fits else "reference"
+        on_cuda = (target_backend or device.type) == "cuda"
+        return ("fused" if on_cuda and fits and not partitioned
+                else "reference")
+    if round_backend != "reference" and partitioned:
+        raise ValueError(
+            f"round_backend={round_backend!r} concatenates every leaf into "
+            "one block, but the gradients are partitioned over param "
+            "shards; use 'reference' or 'auto'")
     if round_backend == "fused":
         if device.type != "cuda":
             raise ValueError(
@@ -261,8 +278,9 @@ def gmom_aggregator(stacked_grads, *, num_batches: int | None = None,
     """Paper Algorithm 2 step 4: A_k(g) = med{batch means}, with the
     Remark-2 norm trimming applied as zero Weiszfeld weights.  (The
     registry description is the reference's, unchanged; in the port the
-    fused path is the CUDA round kernel.)"""
-    _no_shards(shard_spec)
+    fused path is the CUDA round kernel.)  A partitioned ``shard_spec``
+    takes the ``reference`` path with blocked norm and distance
+    reductions: one (k,) reduction a Weiszfeld iterate crosses shards."""
     m = _num_workers(stacked_grads)
     if num_batches is None:
         num_batches = choose_num_batches(m, num_byzantine, epsilon=epsilon)
@@ -270,7 +288,9 @@ def gmom_aggregator(stacked_grads, *, num_batches: int | None = None,
         return mean_aggregator(stacked_grads)
     backend = resolve_round_backend(
         round_backend, num_batches=num_batches,
-        device=tree_leaves(stacked_grads)[0].device)
+        device=tree_leaves(stacked_grads)[0].device,
+        partitioned=sa.is_partitioned(shard_spec),
+        target_backend=sa.target_backend_of(shard_spec))
     if backend != "reference":
         from repro_torch.kernels.geomed import round as round_kernel
         grouping = make_grouping(m, num_batches, scheme=grouping_scheme)
@@ -281,10 +301,11 @@ def gmom_aggregator(stacked_grads, *, num_batches: int | None = None,
     means = batch_means(stacked_grads, num_batches, scheme=grouping_scheme)
     weights = None
     if trim_multiplier is not None:
-        weights = trim_weights(batch_mean_norms(means),
-                               multiplier=trim_multiplier)
+        norms = batch_mean_norms(means, shard_spec=shard_spec)
+        weights = trim_weights(norms, multiplier=trim_multiplier)
     return geometric_median_pytree(means, weights=weights,
-                                   max_iters=max_iters, tol=tol)
+                                   max_iters=max_iters, tol=tol,
+                                   shard_spec=shard_spec)
 
 
 @register("trimmed_mean", "coordinate-wise beta-trimmed mean "
@@ -315,9 +336,8 @@ def trimmed_mean_aggregator(stacked_grads, *, trim_fraction: float = 0.1,
 def geomed_aggregator(stacked_grads, *, max_iters: int = 64,
                       tol: float = 1e-8, shard_spec=None, **_kw):
     """GMoM with every worker its own batch (k = m, paper §2.1)."""
-    _no_shards(shard_spec)
     return geometric_median_pytree(stacked_grads, max_iters=max_iters,
-                                   tol=tol)
+                                   tol=tol, shard_spec=shard_spec)
 
 
 @register("coordinate_median", "coordinate-wise median — the marginal-"
@@ -340,9 +360,9 @@ def krum_aggregator(stacked_grads, *, num_byzantine: int = 0,
                     shard_spec=None, **_kw):
     """Krum (Blanchard et al. '17): the worker gradient with the smallest
     sum of squared distances to its m - q - 2 nearest neighbours, from one
-    (m, m) gram matrix accumulated leaf by leaf in float32.  Raises unless
+    (m, m) gram matrix accumulated leaf by leaf in float32 (per-shard
+    partial grams under a blocked ``shard_spec``).  Raises unless
     m > q + 2."""
-    _no_shards(shard_spec)
     m = _num_workers(stacked_grads)
     closest = m - num_byzantine - 2
     if closest < 1:
@@ -350,11 +370,13 @@ def krum_aggregator(stacked_grads, *, num_byzantine: int = 0,
             f"krum needs m > q + 2 workers (got m={m}, q={num_byzantine}): "
             "the m - q - 2 nearest-neighbour score is degenerate and the "
             "selection guarantee [BMGS17] is void")
-    leaves = tree_leaves(stacked_grads)
-    gram = torch.zeros((m, m), dtype=torch.float32, device=leaves[0].device)
-    for g in leaves:
+
+    def leaf_gram(g):
         flat = g.reshape(m, -1).to(torch.float32)
-        gram = gram + flat @ flat.T
+        return flat @ flat.T
+
+    gram = sa.blocked_partial_sum(shard_spec, tree_leaves(stacked_grads),
+                                  leaf_gram, shape=(m, m), lead_axes=1)
     sq = torch.diagonal(gram)
     d2 = sq[:, None] + sq[None, :] - 2.0 * gram
     d2 = d2 + torch.diag(torch.full((m,), torch.inf, dtype=torch.float32,
@@ -372,8 +394,7 @@ def norm_clip_mean_aggregator(stacked_grads, *, clip_multiplier: float = 1.0,
                               shard_spec=None, **_kw):
     """Mean of gradients clipped to ``clip_multiplier x median`` norm.
     Known-unsound: a coordinated small-norm report passes unclipped."""
-    _no_shards(shard_spec)
-    norms = batch_mean_norms(stacked_grads)                      # (m,)
+    norms = batch_mean_norms(stacked_grads, shard_spec=shard_spec)  # (m,)
     tau = clip_multiplier * median(norms)
     scale = torch.clamp(tau / torch.clamp(norms, min=1e-12), max=1.0)
 
@@ -414,10 +435,10 @@ def norm_select_aggregator(stacked_grads, *, num_byzantine: int = 0,
                            shard_spec=None, **_kw):
     """Average the ``m - q`` smallest-norm gradients (paper §6, rule 2).
     Known-unsound: a norm-minimizing adversary is selected first."""
-    _no_shards(shard_spec)
     m = _num_workers(stacked_grads)
     keep = max(m - max(num_byzantine, 1), 1)
-    sel = bottom_k_mask(batch_mean_norms(stacked_grads), keep)
+    sel = bottom_k_mask(batch_mean_norms(stacked_grads,
+                                         shard_spec=shard_spec), keep)
     return _masked_mean(stacked_grads, sel, keep)
 
 
@@ -510,10 +531,9 @@ def norm_filter_gmom_aggregator(stacked_grads, *,
     keeps its unfiltered mean) by rescaling rows, and
     :func:`gmom_aggregator` runs on them with its ``round_backend``
     dispatch, so on the card this rule ends in the round kernel."""
-    _no_shards(shard_spec)
     m = _num_workers(stacked_grads)
     k = _resolve_k(stacked_grads, num_batches, num_byzantine, epsilon)
-    norms = batch_mean_norms(stacked_grads)                      # (m,)
+    norms = batch_mean_norms(stacked_grads, shard_spec=shard_spec)  # (m,)
     med = median(norms)
     mad = median(torch.abs(norms - med))
     tau = envelope_multiplier * mad + 1e-3 * med + 1e-12
@@ -538,7 +558,8 @@ def norm_filter_gmom_aggregator(stacked_grads, *,
                            grouping_scheme=grouping_scheme,
                            trim_multiplier=trim_multiplier,
                            max_iters=max_iters, tol=tol,
-                           round_backend=round_backend)
+                           round_backend=round_backend,
+                           shard_spec=shard_spec)
 
 
 @register("gmom_per_leaf",
@@ -552,13 +573,22 @@ def gmom_per_leaf_aggregator(stacked_grads, *, num_batches: int | None = None,
                              grouping_scheme: str = "contiguous",
                              max_iters: int = 64, tol: float = 1e-8,
                              shard_spec=None, **_kw):
-    """Blockwise GMoM: one geometric median per parameter tensor."""
-    _no_shards(shard_spec)
+    """Blockwise GMoM: one geometric median per parameter tensor; under a
+    blocked ``shard_spec`` each leaf's median runs through the pytree
+    Weiszfeld with blocked reductions (no ``reshape(k, -1)``, whose flatten
+    would mix the shards)."""
     num_batches = _resolve_k(stacked_grads, num_batches, num_byzantine,
                              epsilon)
     if num_batches == 1:
         return mean_aggregator(stacked_grads)
     means = batch_means(stacked_grads, num_batches, scheme=grouping_scheme)
+
+    if shard_spec is not None and shard_spec.blocked:
+        def leaf_blocked(z):
+            return geometric_median_pytree(
+                {"x": z}, max_iters=max_iters, tol=tol,
+                shard_spec=shard_spec)["x"]
+        return tree_map(leaf_blocked, means)
 
     def leaf(z):
         flat = z.reshape(z.shape[0], -1).to(torch.float32)

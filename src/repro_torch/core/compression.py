@@ -22,8 +22,11 @@ Every step is exact on both devices (integer vote counts, threefry bits,
 an exact max, a constant multiply, an IEEE division and a floor), so the
 int8 payload is the same bits on the CPU and on the card, and the same as
 the JAX package's for the same key.  Leaf i of the int8 wire draws from
-``fold_in(key, i)`` with leaves in JAX's order (``repro_torch.tree``).
-Shard-local encoding (a ``shard_spec``) is ROADMAP Queue 1 item 13.
+``fold_in(key, i)`` with leaves in JAX's order (``repro_torch.tree``);
+under a blocked ``shard_spec`` shard j of a leaf draws from
+``fold_in(fold_in(key, i), j)`` and its scale is the ordered max of the
+per-shard maxima, so each shard's payload is the same on a rank and in
+the virtual oracle.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from torch.utils._pytree import tree_map
 
 from repro_torch import random as prng
 from repro_torch import tree as jtree
+from repro_torch.core import shard_aggregation as sa
 
 EncodeFn = Callable[..., object]   # stacked pytree -> payload pytree
 DecodeFn = Callable[..., object]   # (payload, like) -> stacked pytree
@@ -81,12 +85,6 @@ def available() -> list[str]:
 def describe() -> list[tuple[str, str]]:
     """(name, description) rows for every registered codec, sorted."""
     return [(n, _REGISTRY[n].description) for n in available()]
-
-
-def _no_shards(name: str, shard_spec) -> None:
-    if shard_spec is not None:
-        raise NotImplementedError(
-            f"{name}: shard-local encoding is ROADMAP Queue 1 item 13")
 
 
 # ---------------------------------------------------------------------------
@@ -177,19 +175,42 @@ def majority_vote_packed(payload, like):
 # ---------------------------------------------------------------------------
 # int8_stochastic: per-(worker, leaf) scale + keyed stochastic rounding
 
+def _chain_max(parts):
+    """Ordered maximum over the leading axis (max is exact, so this equals
+    ``torch.amax(dim=0)``; the chain keeps both blocked modes alike)."""
+    acc = parts[0]
+    for i in range(1, parts.shape[0]):
+        acc = torch.maximum(acc, parts[i])
+    return acc
+
+
 def _int8_encode(stacked, *, key=None, shard_spec=None):
     if key is None:
         raise ValueError(
             "int8_stochastic requires a PRNG key for stochastic rounding "
             "(aggregate_reported threads a per-round key automatically)")
-    _no_shards("int8_stochastic", shard_spec)
+    blocked = shard_spec is not None and shard_spec.blocked
     q_leaves, s_leaves = [], []
     for i, g in enumerate(jtree.leaves(stacked)):
+        kleaf = prng.fold_in(key, i)
         gf = g.to(torch.float32)
+        # leaves with param dims are split on their last dim; (m,) leaves
+        # are replicated
+        mode = shard_spec.mode if blocked and g.ndim > 1 else None
+        dims = tuple(range(1, g.ndim))
         if g.ndim == 1:
             amax = torch.abs(gf)                                   # (m,)
+        elif mode == "shard_map":
+            amax = _chain_max(sa.all_gather(
+                torch.amax(torch.abs(gf), dim=dims),
+                sa.shard_group(shard_spec)))
+        elif mode == "virtual":
+            s = shard_spec.num_shards
+            amax = _chain_max(torch.stack([
+                torch.amax(torch.abs(sa.shard_slice(gf, j, s)), dim=dims)
+                for j in range(s)]))
         else:
-            amax = torch.amax(torch.abs(gf), dim=tuple(range(1, g.ndim)))
+            amax = torch.amax(torch.abs(gf), dim=dims)
         # a constant multiply, as the reference scales (one exactly
         # rounded float32 op), not a division by 127
         inv127 = torch.tensor(1.0 / 127.0, dtype=torch.float32,
@@ -197,8 +218,19 @@ def _int8_encode(stacked, *, key=None, shard_spec=None):
         scale = torch.where(amax > 0.0, amax * inv127,
                             torch.ones_like(amax))                 # (m,)
         y = gf / scale.reshape((-1,) + (1,) * (g.ndim - 1))        # |y|<=127
-        u = prng.uniform(prng.fold_in(prng.fold_in(key, i), 0),
-                         tuple(g.shape))
+        if mode == "shard_map":
+            u = prng.uniform(
+                prng.fold_in(kleaf, sa.shard_index(shard_spec)),
+                tuple(g.shape))
+        elif mode == "virtual":
+            s = shard_spec.num_shards
+            c = g.shape[-1] // s
+            u = torch.cat([
+                prng.uniform(prng.fold_in(kleaf, j),
+                             tuple(g.shape[:-1]) + (c,))
+                for j in range(s)], dim=-1)
+        else:
+            u = prng.uniform(prng.fold_in(kleaf, 0), tuple(g.shape))
         qv = torch.clamp(torch.floor(y + u), -127.0, 127.0).to(torch.int8)
         q_leaves.append(qv)
         s_leaves.append(scale)

@@ -5,10 +5,10 @@ The geometric median of ``{z_1..z_n}`` is ``argmin_y sum_i ||y - z_i||_2``
 iteration initialised at the weighted mean.  Per-point weights let
 norm-trimmed points (paper Remark 2) take part with weight zero.
 
-Port of ``repro.core.geometric_median`` (unsharded paths only).  The loops
-are Python loops whose stopping test reads one scalar back from the device
-per iteration; the CUDA round kernel (``kernels.geomed.round``) is the
-path that keeps the loop on the device.
+Port of ``repro.core.geometric_median``.  The loops are Python loops
+whose stopping test reads one scalar back from the device per iteration;
+the CUDA round kernel (``kernels.geomed.round``) is the path that keeps
+the loop on the device.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
+
+from repro_torch.core.shard_aggregation import blocked_partial_sum
 
 
 def f32_threshold(x: float) -> float:
@@ -88,9 +90,15 @@ def _wsum(w, leaf):
 
 def geometric_median_pytree(batch_means, *, weights=None,
                             max_iters: int = 64, tol: float = 1e-8,
-                            eps: float = 1e-12):
+                            eps: float = 1e-12, shard_spec=None):
     """Geometric median of k stacked pytrees (leaves with leading axis k),
     taken in the concatenation of all leaves as one R^d vector.
+
+    ``shard_spec`` (a :class:`repro_torch.core.shard_aggregation.ShardSpec`)
+    selects the shard-local contract: the iterate and every weighted sum
+    stay per shard (the unrolled ``_wsum`` is coordinate-local), and only
+    the (k,) squared distances and the scalar move cross shards, one
+    blocked reduction each per iterate.
 
     Stops when the SQUARED move is <= tol^2 or after ``max_iters`` steps.
     Returns a pytree of the same structure without the leading axis."""
@@ -102,18 +110,20 @@ def geometric_median_pytree(batch_means, *, weights=None,
     weights = weights.to(torch.float32)
     w_sum = torch.clamp(torch.sum(weights), min=eps)
 
+    def pair_sq(leaf, yl):
+        diff = (leaf - yl[None]).to(torch.float32)
+        return sum_trailing(diff * diff)
+
     def sq_dists(y):
-        acc = torch.zeros((k,), dtype=torch.float32, device=dev)
-        for leaf, yl in zip(leaves, y):
-            diff = (leaf - yl[None]).to(torch.float32)
-            acc = acc + sum_trailing(diff * diff)
-        return acc
+        return blocked_partial_sum(shard_spec, list(zip(leaves, y)), pair_sq,
+                                   shape=(k,), lead_axes=1)
+
+    def pair_delta(x, z):
+        return torch.sum((x - z).to(torch.float32) ** 2)
 
     def flat_delta(a, b):
-        acc = torch.zeros((), dtype=torch.float32, device=dev)
-        for x, z in zip(a, b):
-            acc = acc + torch.sum((x - z).to(torch.float32) ** 2)
-        return acc
+        return blocked_partial_sum(shard_spec, list(zip(a, b)), pair_delta,
+                                   shape=(), lead_axes=0)
 
     y = [_wsum(weights, leaf) / w_sum.to(leaf.dtype) for leaf in leaves]
     it = 0
@@ -137,12 +147,16 @@ def trim_weights(norms, *, multiplier: float = 3.0, eps: float = 1e-12):
     return torch.where(torch.sum(w) > 0, w, torch.ones_like(w))
 
 
-def batch_mean_norms(batch_means) -> torch.Tensor:
-    """Global L2 norm of each of the k stacked pytree batch means."""
+def batch_mean_norms(batch_means, *, shard_spec=None) -> torch.Tensor:
+    """Global L2 norm of each of the k stacked pytree batch means; with a
+    blocked ``shard_spec`` the squared norms are per-shard partials
+    combined by one ordered (k,)-sized reduction."""
     leaves = tree_leaves(batch_means)
     k = leaves[0].shape[0]
-    acc = torch.zeros((k,), dtype=torch.float32, device=leaves[0].device)
-    for leaf in leaves:
+
+    def leaf_sq(leaf):
         lf = leaf.to(torch.float32)
-        acc = acc + sum_trailing(lf * lf)
-    return torch.sqrt(acc)
+        return sum_trailing(lf * lf)
+
+    return torch.sqrt(blocked_partial_sum(shard_spec, leaves, leaf_sq,
+                                          shape=(k,), lead_axes=1))

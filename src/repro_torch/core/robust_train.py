@@ -16,6 +16,11 @@ staleness (``cfg.arrival``/``staleness_bound``,
 ``repro_torch.core.staleness``) follow the reference: the merged rows are
 staleness-weighted first, then encoded, then decoded or handed to a rule
 whose ``native_codec`` matches.
+
+Shard-local aggregation runs on ``torch.distributed`` ranks:
+:func:`make_sharded_aggregate` is the model-axis (ZeRO-1) body, each rank
+holding every worker's slice of its parameter shard, and
+:func:`make_shardmap_aggregate` the data-axis GMoM, one rank a worker.
 """
 
 from __future__ import annotations
@@ -24,14 +29,17 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 from torch.utils._pytree import tree_leaves, tree_map
 
 from repro_torch import _device
 from repro_torch import random as prng
 from repro_torch.core import aggregators, byzantine, compression
+from repro_torch.core import shard_aggregation as sa
 from repro_torch.core import staleness as staleness_lib
-from repro_torch.core.geometric_median import median
-from repro_torch.core.grouping import choose_num_batches
+from repro_torch.core.geometric_median import (
+    batch_mean_norms, geometric_median_pytree, median, trim_weights)
+from repro_torch.core.grouping import choose_num_batches, make_grouping
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,14 +137,15 @@ def aggregate_reported(reported_grads, cfg: RobustConfig, *, key,
     return agg(reported_grads, **kwargs)
 
 
-def aggregate(stacked_grads, cfg: RobustConfig, *, key, round_index):
+def aggregate(stacked_grads, cfg: RobustConfig, *, key, round_index,
+              shard_spec=None):
     """Attack simulation + robust aggregation."""
     mask = byzantine.sample_byzantine_mask(
         key, cfg.num_workers, cfg.num_byzantine,
         rotate=cfg.rotate_byzantine, round_index=round_index)
     attack = byzantine.get_attack(cfg.attack)
     reported = attack(stacked_grads, mask, key, **dict(cfg.attack_kwargs))
-    return aggregate_reported(reported, cfg, key=key)
+    return aggregate_reported(reported, cfg, key=key, shard_spec=shard_spec)
 
 
 def _grad_norm(agg_grad):
@@ -258,3 +267,89 @@ def make_run_rounds(loss_fn: Callable, optimizer, cfg: RobustConfig, *,
         return params, opt_state, astate, buf, metrics
 
     return run
+
+
+# ---------------------------------------------------------------------------
+# shard-local aggregation on torch.distributed ranks
+
+def make_sharded_aggregate(cfg: RobustConfig, group=None, *,
+                           axis: str = "model",
+                           num_shards: int | None = None):
+    """Shard-local aggregation body for one rank of ``group`` (default:
+    WORLD), the stacked gradients partitioned over its ranks (ZeRO-1: each
+    rank holds every worker's LAST-dim slice of its parameter shard).
+
+    Every registered rule runs: coordinate-wise rules with no collective,
+    norm-based rules all-gathering per-shard partial squared norms (see
+    ``repro_torch.core.shard_aggregation``).  The result equals, bit for
+    bit, the same slice of the ``"virtual"``-mode oracle on the whole
+    gradients.  ``num_shards`` defaults to the group's size.
+
+    Returns ``fn(stacked_local_grads, key) -> agg_grad_shard``."""
+    if num_shards is None:
+        num_shards = dist.get_world_size(group)
+    spec = sa.ShardSpec(num_shards=num_shards, mode="shard_map", axis=axis)
+
+    def agg_local(stacked_local, key):
+        with sa.axis_group(axis, group):
+            return aggregate_reported(stacked_local, cfg, key=key,
+                                      shard_spec=spec)
+
+    return agg_local
+
+
+def make_shardmap_aggregate(cfg: RobustConfig, group=None):
+    """GMoM with the data-axis collectives scheduled by hand: one rank of
+    ``group`` (default: WORLD) per worker, ranks in worker order.
+
+    Each rank scales its gradient into a one-hot (k, ...) contribution to
+    its batch's mean; the contributions are all-gathered and summed in rank
+    order (so two runs give the same bits), which leaves all k batch means
+    on every rank.  The trim and Weiszfeld tail then runs on them through
+    ``cfg.round_backend`` as ``gmom_aggregator`` dispatches it: the round
+    kernel (or its plain version) with the identity grouping k = k, or the
+    reference trim and pytree Weiszfeld.
+
+    Needs the contiguous even grouping: raises ``ValueError`` unless k | m.
+    Returns ``fn(my_grad) -> agg_grad`` (``my_grad`` has no worker axis)."""
+    k = cfg.resolved_num_batches()
+    m = cfg.num_workers
+    if m % k != 0:
+        raise ValueError(
+            f"make_shardmap_aggregate requires k | m (got m={m}, k={k}); "
+            "use the gmom aggregator path for uneven groupings")
+    b = m // k
+
+    def agg_local(my_grad):
+        world = dist.get_world_size(group)
+        if world != m:
+            raise ValueError(f"make_shardmap_aggregate: {world} ranks for "
+                             f"{m} workers")
+        batch_id = dist.get_rank(group) // b
+
+        def leaf(g):
+            onehot = torch.zeros((k,), dtype=g.dtype, device=g.device)
+            onehot[batch_id] = 1.0
+            contrib = (onehot / b).reshape((k,) + (1,) * g.ndim) * g[None]
+            return sa.chain_sum(sa.all_gather(contrib, group))
+
+        means = tree_map(leaf, my_grad)
+        backend = aggregators.resolve_round_backend(
+            cfg.round_backend, num_batches=k,
+            device=tree_leaves(means)[0].device)
+        if backend != "reference":
+            from repro_torch.kernels.geomed import round as round_kernel
+            return round_kernel.round_aggregate_pytree(
+                means, make_grouping(k, k),
+                trim_multiplier=cfg.trim_multiplier,
+                max_iters=cfg.gmom_max_iters, tol=cfg.gmom_tol,
+                plain=(backend == "fused_interpret"))
+        weights = None
+        if cfg.trim_multiplier is not None:
+            weights = trim_weights(batch_mean_norms(means),
+                                   multiplier=cfg.trim_multiplier)
+        return geometric_median_pytree(means, weights=weights,
+                                       max_iters=cfg.gmom_max_iters,
+                                       tol=cfg.gmom_tol)
+
+    return agg_local

@@ -14,8 +14,8 @@ the plain path with ``plain=True``.  The decode step has no kernel in the
 reference and stays plain PyTorch.
 
 Not ported: cross-attention and ``apply_sequence_parallel`` (a dense
-decoder needs neither; they come with the audio family and ROADMAP Queue
-1 item 13).
+decoder needs neither; they come with the audio family and with the port
+of ``models/meshctx.py`` and a model mesh, ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -187,7 +187,8 @@ BLOCKED_ATTENTION_THRESHOLD = 2048
 
 def apply_sequence_parallel(*args, **kwargs):
     raise NotImplementedError(
-        "sequence-parallel attention comes with ROADMAP Queue 1 item 13")
+        "sequence-parallel attention needs models/meshctx.py and a model "
+        "mesh: ROADMAP Queue 1 item 16")
 
 
 def apply(params, spec: AttentionSpec, x, *, plain: bool = False):

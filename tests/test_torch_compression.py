@@ -18,9 +18,11 @@ from torch.utils._pytree import tree_map
 
 from repro.core import compression as jc
 from repro.core import robust_train as jrt
+from repro.core import shard_aggregation as jsa
 from repro_torch import tree as jtree
 from repro_torch.core import compression as tc
 from repro_torch.core import robust_train as trt
+from repro_torch.core import shard_aggregation as tsa
 
 
 @pytest.fixture(autouse=True)
@@ -178,9 +180,16 @@ def test_int8_zero_rows_unit_scale_and_key_required():
     assert tp["scale"][0] == 1.0 and tp["scale"][2] == 1.0
     with pytest.raises(ValueError, match="PRNG key"):
         tc.get_codec("int8_stochastic").encode(torch.as_tensor(x))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tc.get_codec("int8_stochastic").encode(torch.as_tensor(x), key=tk,
-                                               shard_spec=object())
+    # shard-local encoding (ROADMAP Queue 1 item 13): a virtual spec's
+    # payload is the reference's, bit for bit
+    tp = tc.get_codec("int8_stochastic").encode(
+        torch.as_tensor(x), key=tk,
+        shard_spec=tsa.ShardSpec(num_shards=2, mode="virtual"))
+    jp = jc.get_codec("int8_stochastic").encode(
+        jnp.asarray(x), key=jk,
+        shard_spec=jsa.ShardSpec(num_shards=2, mode="virtual"))
+    for part in ("q", "scale"):
+        np.testing.assert_array_equal(tp[part].numpy(), np.asarray(jp[part]))
 
 
 def test_registry_carries_the_reference_codecs():

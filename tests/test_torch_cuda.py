@@ -15,11 +15,17 @@ import numpy as np
 import pytest
 import torch
 
+import torch_shard_ranks
+from repro_torch import random as prng
+from repro_torch import tree as jtree
+from repro_torch.core import aggregators, robust_train
+from repro_torch.core import shard_aggregation as sa
 from repro_torch.core.geometric_median import geometric_median
 from repro_torch.core.grouping import make_grouping
 from repro_torch.kernels import _build
 from repro_torch.kernels.geomed import geomed, ops, ref
 from repro_torch.kernels.geomed import round as rk
+from repro_torch.launch import ranks
 
 RTOL, ATOL = 1e-4, 1e-5
 SCHEMES = ("contiguous", "strided", "seeded")
@@ -1147,3 +1153,76 @@ def test_stale_and_sign_goldens_replay_on_the_card(cuda, name):
         assert rk.round_aggregate_kernel.launches == trace["rounds"]
     assert goldens.compare_traces(trace, goldens.load_golden(name)) == []
     assert goldens.check_resume_bit_exact(name, device=cuda) == []
+
+
+# ---------------------------------------------------------------------------
+# shard-local aggregation on rank processes over gloo, CUDA tensors
+
+def _shard_cases(m, k, width, kind="sharded", **cfg_kw):
+    rng = np.random.default_rng(11)
+    stacked = {"w": rng.normal(size=(m, width)).astype(np.float32),
+               "s": rng.normal(size=(m,)).astype(np.float32)}
+    rules = [(n, c) for n in aggregators.available()
+             for c in ("none",) + tuple(
+                 x for x in [aggregators.get_aggregator(n).native_codec] if x)]
+    if kind == "shardmap":
+        rules = [("gmom", "none")]
+    return {f"{n}-{c}": {
+        "kind": kind, "stacked": stacked, "dtype": "float32", "seed": 3,
+        "cfg": robust_train.RobustConfig(
+            num_workers=m, num_byzantine=1, num_batches=k, aggregator=n,
+            compression=c, **cfg_kw)}
+        for n, c in rules}
+
+
+@pytest.fixture(scope="module")
+def two_rank_run():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the ranks hold CUDA tensors")
+    cases = _shard_cases(8, 3, 2 * 4096)
+    return cases, ranks.run(torch_shard_ranks.run_cases, 2, cases, "cuda",
+                            timeout=600.0)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_cuda_tensors_equal_virtual_mode(two_rank_run):
+    """Every rule x codec on 2 gloo ranks holding CUDA tensors (partials
+    staged through the host): each rank's result is its slice of the
+    virtual-mode result on the card, bit for bit."""
+    cases, results = two_rank_run
+    assert len(cases) == 17
+    for cid, case in cases.items():
+        want = robust_train.aggregate_reported(
+            torch_shard_ranks.stacked_tensors(case, "cuda"), case["cfg"],
+            key=prng.PRNGKey(case["seed"], device="cuda"),
+            shard_spec=sa.ShardSpec(num_shards=2, mode="virtual"))
+        for r, res in enumerate(results):
+            got, launches = res[cid]
+            assert launches == 0, cid      # partitioned: never the kernel
+            for w, g in zip(jtree.leaves(want), jtree.leaves(got)):
+                w = w.cpu() if w.ndim == 0 else sa.shard_slice(w, r, 2).cpu()
+                assert torch.equal(g, w), (cid, r)
+
+
+@pytest.mark.cuda
+def test_shardmap_aggregate_launches_the_round_kernel_once_per_rank(cuda):
+    """make_shardmap_aggregate on 4 ranks (m = 4 workers, k = 2) with
+    round_backend="auto" on CUDA tensors: one round-kernel launch per rank
+    per call, every rank the same y, within 1e-5 of gmom_aggregator on the
+    gathered stack through the kernel and through the reference path."""
+    cases = _shard_cases(4, 2, 8192, kind="shardmap", gmom_max_iters=32,
+                         gmom_tol=1e-7)
+    results = ranks.run(torch_shard_ranks.run_cases, 4, cases, "cuda",
+                        timeout=600.0)
+    stacked = torch_shard_ranks.stacked_tensors(cases["gmom-none"], "cuda")
+    first = results[0]["gmom-none"][0]
+    for backend in ("auto", "reference"):
+        want = aggregators.gmom_aggregator(
+            stacked, num_batches=2, num_byzantine=1, max_iters=32, tol=1e-7,
+            round_backend=backend)
+        for res in results:
+            got, launches = res["gmom-none"]
+            assert launches == 1
+            for key in want:
+                assert torch.equal(got[key], first[key])
+                assert float((got[key] - want[key].cpu()).abs().max()) < 1e-5

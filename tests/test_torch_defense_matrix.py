@@ -28,11 +28,13 @@ from repro.core import aggregate as jaggregate
 from repro.core import aggregators as jagg
 from repro.core import byzantine as jbyz
 from repro.core import robust_train as jrt
+from repro.core import shard_aggregation as jsa
 from repro_torch import random as prng
 from repro_torch import tree as jtree
 from repro_torch.core import aggregate, aggregate_reported, aggregators
 from repro_torch.core import byzantine, staleness
 from repro_torch.core.robust_train import RobustConfig
+from repro_torch.core.shard_aggregation import ShardSpec
 
 M, Q, K, LOC = 12, 2, 6, 1.0
 RTOL, ATOL = 1e-4, 1e-5
@@ -188,9 +190,24 @@ def test_out_of_guarantee_configurations_raise(rule):
                                   "norm_select", "norm_filter_gmom",
                                   "gmom_per_leaf", "int8_gmom"])
 def test_shard_spec_is_item_13(rule):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        aggregators.get_aggregator(rule)(_t(_np_stacked()), num_batches=K,
-                                         shard_spec=object())
+    """Every rule that takes a ``shard_spec`` (ROADMAP Queue 1 item 13)
+    runs in virtual mode: equal to the reference's virtual mode (krum's
+    selection exactly), and to its own unsharded path within f32
+    rounding."""
+    rng = np.random.default_rng(5)
+    s = {"w": (rng.normal(size=(M, 6)) * 0.05 + LOC).astype(np.float32),
+         "b": {"x": (rng.normal(size=(M, 2, 4)) * 0.05
+                     + LOC).astype(np.float32)}}
+    kw = dict(num_batches=K, num_byzantine=Q)
+    got = aggregators.get_aggregator(rule)(
+        _t(s), shard_spec=ShardSpec(num_shards=2, mode="virtual"), **kw)
+    want = jagg.get_aggregator(rule)(
+        _j(s), shard_spec=jsa.ShardSpec(num_shards=2, mode="virtual"), **kw)
+    _close(got, want, exact=rule == "krum")
+    plain = aggregators.get_aggregator(rule)(_t(s), **kw)
+    for g, p in zip(jtree.leaves(got), jtree.leaves(plain)):
+        np.testing.assert_allclose(g.numpy(), p.numpy(), rtol=RTOL,
+                                   atol=ATOL)
 
 
 @pytest.mark.parametrize("q", [1, 3, 5])

@@ -26,7 +26,9 @@ from repro.sim import goldens as jgoldens
 from repro.sim import scenarios as jscenarios
 from repro_torch import convert, optim
 from repro_torch import random as prng
+from repro_torch.core import compression
 from repro_torch.core import robust_train as trt
+from repro_torch.core.shard_aggregation import ShardSpec
 from repro_torch.core.train_state import advance
 from repro_torch.data import regression
 from repro_torch.sim import engine, goldens, scenarios
@@ -265,8 +267,12 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
     ("arrival", "straggler_rotating", "item 13"),
     ("staleness_bound", 2, "item 13")])
 def test_unported_features_raise(field, value, item):
-    """The wire and the staleness path run now; what is still unported
-    under them, shard-local aggregation, raises and names its item."""
+    """The wire and the staleness path run, and under them shard-local
+    aggregation (ROADMAP Queue 1 ``item``, once the port's last gap here)
+    runs now too: with a virtual ShardSpec the aggregate equals the
+    unsharded one within f32 rounding, and the int8 wire's scales are the
+    unsharded ones bit for bit (its uniforms are keyed per shard)."""
+    assert item == "item 13"
     cfg = trt.RobustConfig(num_workers=4, num_batches=2, **{field: value})
     run = trt.make_run_rounds(regression.squared_loss, optim.sgd(0.5), cfg,
                               device="cpu")
@@ -274,6 +280,16 @@ def test_unported_features_raise(field, value, item):
     *_, metrics = run(torch.zeros(2), optim.sgd(0.5).init(torch.zeros(2)),
                       (x, torch.ones((4, 3))), prng.PRNGKey(0), num_rounds=2)
     assert metrics["loss_mean"].shape == (2,)
-    with pytest.raises(NotImplementedError, match=item):
-        trt.aggregate_reported(x, cfg, key=prng.PRNGKey(0),
-                               shard_spec=object())
+    g = torch.as_tensor(
+        np.random.default_rng(0).normal(size=(4, 3, 2)).astype(np.float32))
+    spec = ShardSpec(num_shards=2, mode="virtual")
+    key = prng.PRNGKey(0)
+    plain = trt.aggregate_reported(g, cfg, key=key)
+    sharded = trt.aggregate_reported(g, cfg, key=key, shard_spec=spec)
+    assert sharded.shape == plain.shape and bool(torch.isfinite(sharded).all())
+    if field == "compression":
+        codec = compression.get_codec(value)
+        assert torch.equal(codec.encode(g, key=key)["scale"],
+                           codec.encode(g, key=key, shard_spec=spec)["scale"])
+    else:
+        torch.testing.assert_close(sharded, plain, rtol=1e-5, atol=1e-6)

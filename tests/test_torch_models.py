@@ -282,5 +282,5 @@ def test_unported_families_raise():
         blocks.attn_spec(configs.get_config("h2o-danube-3-4b")), cross=True)
     with pytest.raises(NotImplementedError, match="cross-attention"):
         attention.apply({}, spec, torch.zeros(1, 2, 3840))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
         attention.apply_sequence_parallel()
