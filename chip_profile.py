@@ -28,8 +28,13 @@ prefill step at B = 1, T = 8192 and one of ``DECODE_STEPS`` decode steps
 at 4 requests: device busy time, idle share, device kernels, and device
 time by kernel family (the flash kernel, matmuls, the rest) with the
 heaviest kernels by name, and the flash kernel's launches by route (the
-bf16 prefill's must all be on the tensor-core route).  Needs a CUDA
-card.
+bf16 prefill's must all be on the tensor-core route).  Last, the LM
+train path of ``chip_smoke.py`` phase 8 (a) (H2O-Danube3-4B at full width
+cut to 2 layers, m = 8, q = 2, k = 8, gmom under sign_flip, AdamW): a
+stage breakdown of single rounds (per-worker gradients, the attack, the
+f32 concatenation of the reports, the round kernel, the split back,
+AdamW, the update) and a trace of ``TRAIN_ROUNDS`` rounds as launch/train.py
+runs them, with the peak memory.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 ROUNDS = 10
 DECODE_STEPS = 8
+TRAIN_ROUNDS = 3
 # the round kernel is one persistent CUDA kernel; the linreg round adds its
 # one-pass front, or the two-pass route's residual and gradient kernels
 ROUND_KERNELS = ("gmom_round_kernel",)
@@ -268,11 +274,121 @@ def profile_serve_path(dev, smi):
     torch.cuda.empty_cache()
 
 
+def profile_train_path(dev, smi):
+    """Stage breakdown (host clock, each stage synchronised, medians over
+    ``TRAIN_ROUNDS`` rounds after one warm-up round) and a profiler trace
+    of ``TRAIN_ROUNDS`` rounds through ``make_run_rounds`` at the phase 8
+    (a) config: device busy ms, idle share, device kernels per round, the
+    round kernel's device ms and launches, its Weiszfeld iterations."""
+    import torch
+    from torch.utils._pytree import tree_leaves, tree_map
+    from chip_smoke import TRAIN_ARCH, TRAIN_MAIN, TRAIN_SEQ
+    from repro_torch import optim
+    from repro_torch import random as prng
+    from repro_torch.core import robust_train
+    from repro_torch.core.grouping import make_grouping
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels.geomed import round as rk
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model
+    cfg = train_lib.train_config(TRAIN_ARCH, "gpu")
+    m, q = TRAIN_MAIN["workers"], TRAIN_MAIN["byzantine"]
+    rc = robust_train.RobustConfig(num_workers=m, num_byzantine=q,
+                                   attack="sign_flip", aggregator="gmom")
+    k = rc.resolved_num_batches()
+    schedule = robust_train.schedule_from_config(rc)
+    opt = optim.adamw(1e-3)
+
+    def loss_fn(p, b):
+        return model.loss_fn(p, b, cfg)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(0, cfg, device=dev)
+    opt_state = opt.init(params)
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_MAIN["batch"], num_workers=m,
+                         device=dev)
+    key = prng.fold_in(prng.PRNGKey(0, device=dev), 10_000)
+    astate = schedule.init_state(dev)
+    grouping = make_grouping(m, k)
+    stages: dict[str, list[float]] = {}
+    iters = []
+
+    def stage(name, fn, t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        if t > 0:                                   # round 0 warms up
+            stages.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+        return out
+
+    for t in range(1 + TRAIN_ROUNDS):
+        batch = stream.batch(t)
+        key_t = stage("fold_in", lambda: prng.fold_in(key, t), t)
+        stacked, _ = stage("grads", lambda: robust_train.per_worker_grads(
+            loss_fn, params, batch), t)
+        reported, _, astate = stage("attack", lambda: schedule.apply(
+            stacked, key_t, t, astate), t)
+        del stacked
+        block, split = stage("concat", lambda: rk.concat_block(reported), t)
+        y, it = stage("round_kernel", lambda: rk.round_aggregate_kernel(
+            block, grouping, trim_multiplier=rc.trim_multiplier,
+            max_iters=rc.gmom_max_iters, tol=rc.gmom_tol), t)
+        del block
+        agg = stage("split", lambda: split(y), t)
+        del reported, y
+        updates, opt_state = stage("adamw", lambda: opt.update(
+            agg, opt_state, params), t)
+        params = stage("apply", lambda: tree_map(
+            lambda p, u: (p + u).to(p.dtype), params, updates), t)
+        del agg, updates
+        iters.append(int(it))
+    breakdown = {name: statistics.median(v) for name, v in stages.items()}
+    stage_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+
+    run = robust_train.make_run_rounds(loss_fn, opt, rc, schedule=schedule,
+                                       device=dev)
+    batches = tree_map(lambda *xs: torch.stack(xs),
+                       *[stream.batch(t) for t in range(TRAIN_ROUNDS)])
+    wall_ms, events = _trace(lambda: run(
+        params, opt_state, batches, key, start_round=1 + TRAIN_ROUNDS,
+        attack_state=astate, per_round_batches=True), dev)
+    busy = sum(ms for _, ms in events)
+    ours = [ms for name, ms in events
+            if any(kn in name for kn in ROUND_KERNELS)]
+    print(json.dumps({
+        "path": "train", "arch": cfg.name, "layers": cfg.num_layers,
+        "params": sum(p.numel() for p in tree_leaves(params)),
+        "num_workers": m, "num_byzantine": q, "num_batches": k,
+        "seq_len": TRAIN_SEQ, "rounds": TRAIN_ROUNDS, "card": smi,
+        "stage_ms_median": breakdown,
+        "stage_sum_ms": sum(breakdown.values()),
+        "weiszfeld_iters": iters,
+        "stage_peak_mem_gb": stage_peak,
+        "profiled_wall_ms_per_round": wall_ms / TRAIN_ROUNDS,
+        "device_busy_ms_per_round": busy / TRAIN_ROUNDS,
+        "device_idle_share": 1.0 - busy / wall_ms,
+        "device_kernels_per_round": len(events) / TRAIN_ROUNDS,
+        "round_kernel_device_ms_per_round": sum(ours) / TRAIN_ROUNDS,
+        "round_kernel_launches_per_round": len(ours) / TRAIN_ROUNDS,
+        "heaviest_device_ms": _shares(wall_ms, events,
+                                      TRAIN_ROUNDS)["heaviest_device_ms"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}),
+        flush=True)
+    del params, opt_state, run, batches
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_profile: CUDA is not available", file=sys.stderr)
         return 1
+    from repro_torch import _device
+    _device.expandable_segments()      # the train path's blocks
     from chip_smoke import FULL_WIDTH
     from repro_torch import optim
     from repro_torch import random as prng
@@ -359,6 +475,7 @@ def main() -> int:
         profile_linreg_path(cname, cfg, dev, smi)
         profile_wire_and_stale(cname, cfg, dev, smi)
     profile_serve_path(dev, smi)
+    profile_train_path(dev, smi)
     return 0
 
 

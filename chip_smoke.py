@@ -9,8 +9,9 @@ traces through the round kernel, drives the paper's Algorithm 2 at full
 width through the port's engine and through the full linreg round kernel,
 runs the Weiszfeld loop over the step kernels at full width, serves
 H2O-Danube3-4B at full width through the flash-attention kernel, times
-every kernel, and runs shard-local aggregation in one process and on rank
-processes of the card.  Every phase prints JSON lines; the last line is
+every kernel, runs shard-local aggregation in one process and on rank
+processes of the card, and trains H2O-Danube3-4B at full width (2
+layers) under attack through the round kernel.  Every phase prints JSON lines; the last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every check
 passed.  Exits non-zero without it on any failure, when CUDA is
 unavailable, or when the ``src/repro_torch`` package is missing.
@@ -103,8 +104,27 @@ Phases:
                  4, d = 8192, round_backend="auto"): one round-kernel
                  launch per rank per call, within 1e-5 of gmom_aggregator
                  on the gathered stack (kernel and reference)
+  8 train        Byzantine-robust LM training through launch/train.py's
+                 train(args) at H2O-Danube3-4B's published widths cut to
+                 2 layers (P = 555.4 M), bf16, m = 8, q = 2, gmom under
+                 sign_flip/rotating, AdamW, 2 x 512 tokens a worker:
+                 (a) 4 rounds, one round-kernel launch each, finite loss,
+                 s per step and peak memory; kernel vs plain histories
+                 ("auto" vs "fused_interpret") within compare_traces at
+                 m = 4, q = 1, k = 4 (the plain round's (k, P) blocks do
+                 not fit at k = 8); (b) 2 steps with a checkpoint resumed
+                 to 4, bit-identical to the straight run; (c)
+                 make_group_train_step with remat and 2 microbatches, k =
+                 4, 3 steps, one launch a step, kernel vs plain; (d) the
+                 reference's LM robustness assertions
+                 (tests/test_system.py) on the card, and the same curves
+                 at (a)'s config; the round kernel timed at (8, 8, P) on a
+                 block of real gradients, against round_aggregate_ref
+                 (rtol 1e-4 / atol 1e-5 of max|y|), its own stop, and
+                 both at exactly 3 iterations (max_iters=3, tol=0)
   7 kernel line  one JSON object, a row per kernel (the round kernel's
-                 launches include phase 6 (c)'s)
+                 launches include phase 6 (c)'s and phase 8's; its row
+                 carries the (8, 8, P) timing as train_shape)
 """
 
 from __future__ import annotations
@@ -274,6 +294,35 @@ SHARD_DATA = (8, 4, 8192)                   # m = ranks, k, d
 # measured up to 1.6 against the JAX package)
 BF16_STEPS = 2.0 ** -6
 
+# Phase 8, Byzantine-robust LM training (launch/train.py, worker mode):
+# H2O-Danube3-4B at its published widths (arXiv:2401.16818;
+# configs/h2o_danube3_4b.py) cut to train.GPU_TRAIN_LAYERS = 2 layers, bf16,
+# remat off (train.GPU_REMAT: torch.func refuses checkpoint's hooks);
+# m = 8 workers of 2 sequences of 512 tokens, q = 2, gmom under sign_flip
+# with the rotating schedule, AdamW 1e-3, 4 steps: one round-kernel
+# launch a round at (m, k, d) = (8, 8, P), P = 555.4 M.  The plain round
+# (round_aggregate_ref) holds four (k, P) f32 blocks at once; at k = 8
+# that is 71 GB, which with the params, moments and reports does not fit
+# an 80 GB card, so the kernel-vs-plain histories run at the reference
+# driver test's geometry, m = 4, q = 1, k = 4 (both paths).  (c) the
+# group-mode step at the same config with remat on (plain autograd):
+# k = 4 groups of 4 sequences in 2 microbatches, q = 1, 3 steps.  (d) the
+# reference's tests/test_system.py::test_lm_training_robustness_end_to_end
+# at its own setting (minitron-4b reduced, m = 8, q = 2, k = 8, 8 steps).
+TRAIN_ARCH = "h2o-danube-3-4b"
+TRAIN_STEPS = 4
+TRAIN_SEQ = 512
+TRAIN_MAIN = {"workers": 8, "byzantine": 2, "batch": 16}
+TRAIN_COMPARED = {"workers": 4, "byzantine": 1, "batch": 8}
+TRAIN_CUTS = ["24 layers cut to 2 (launch/train.py GPU_TRAIN_LAYERS)",
+              "remat off in worker mode (GPU_REMAT: torch.func)",
+              "seq_len 512, 2 sequences a worker",
+              "kernel vs plain histories at m=4, q=1, k=4 (the plain "
+              "round does not fit at k=8)"]
+TRAIN_GROUP = {"k": 4, "q": 1, "batch": 16, "microbatches": 2, "steps": 3}
+HEADLINE = {"arch": "minitron-4b", "m": 8, "q": 2, "k": 8, "steps": 8,
+            "seq_len": 32, "batch": 16}
+
 FAILURES: list[str] = []
 
 
@@ -332,13 +381,14 @@ def compare(y, y_ref):
     return err, err <= ATOL + RTOL * scale, scale
 
 
-def timed(fn):
-    """Median ms of REPEATS calls after 3 warm-up calls (CUDA events)."""
+def timed(fn, repeats=REPEATS, warmup=3):
+    """Median ms of ``repeats`` calls after ``warmup`` calls (CUDA
+    events)."""
     import torch
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     times = []
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         a, b = (torch.cuda.Event(enable_timing=True),
                 torch.cuda.Event(enable_timing=True))
         a.record()
@@ -1722,11 +1772,367 @@ def sharded_data_axis(dev, smi, m=SHARD_DATA[0], k=SHARD_DATA[1],
     return sum(launches)
 
 
+# -- phase 8: Byzantine-robust LM training -----------------------------------
+
+def _train_args(**kw):
+    """launch/train.py's arguments for the phase 8 (a) config, with
+    ``kw`` in place of the defaults (``workers``, ``ckpt_dir``, ...)."""
+    from repro_torch.launch import train as train_lib
+    args = train_lib.parse_args(
+        ["--scale", "gpu", "--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+         "--seq-len", str(TRAIN_SEQ), "--lr", "1e-3", "--attack",
+         "sign_flip", "--aggregator", "gmom", "--log-every", "1"])
+    for name, value in {**TRAIN_MAIN, **kw}.items():
+        setattr(args, name, value)
+    return args
+
+
+def _train_run(args, dev):
+    """(result, round-kernel launches, peak GB) of one ``train(args)``: the
+    count set to 0 just before, read just after."""
+    import torch
+    from repro_torch.kernels.geomed import round as rk
+    from repro_torch.launch import train as train_lib
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rk.round_aggregate_kernel.launches = 0
+    res = train_lib.train(args)
+    n = rk.round_aggregate_kernel.launches
+    return res, n, torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def _curve(res, name="loss_median"):
+    return [row[name] for row in res["history"]]
+
+
+def _compared(rows, keys=("loss_median", "agg_grad_norm")):
+    return {"history": [{k: row[k] for k in keys} for row in rows]}
+
+
+def train_block(dev, m, q, seed=0):
+    """The (m, P) f32 block the round kernel aggregates in a main-path
+    round: per-worker LM gradients of step 0's batch, sign_flip on a mask
+    of q, each leaf cast into its columns (round.concat_block, as
+    round_aggregate_pytree does)."""
+    from repro_torch import random as prng
+    from repro_torch.core import byzantine, robust_train
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels.geomed import round as rk
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model
+    cfg = train_lib.train_config(TRAIN_ARCH, "gpu")
+    params = model.init(seed, cfg, device=dev)
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         global_batch=2 * m, num_workers=m, seed=seed,
+                         device=dev)
+    grads, _ = robust_train.per_worker_grads(
+        lambda p, b: model.loss_fn(p, b, cfg), params, stream.batch(0))
+    del params
+    mask = byzantine.sample_byzantine_mask(prng.PRNGKey(seed, device=dev),
+                                           m, q)
+    reported = byzantine.get_attack("sign_flip")(grads, mask, None)
+    del grads
+    return rk.concat_block(reported)[0]
+
+
+def train_kw() -> dict:
+    """The main path's round settings: RobustConfig's defaults, which
+    ``train(args)`` leaves as they are."""
+    from repro_torch.core.robust_train import RobustConfig
+    rc = RobustConfig(num_workers=TRAIN_MAIN["workers"])
+    return {"trim_multiplier": rc.trim_multiplier,
+            "max_iters": rc.gmom_max_iters, "tol": rc.gmom_tol}
+
+
+def train_kernel_timing(dev, hbm, flops, smi, m=8, q=2):
+    """The round kernel at the main path's (m, k, P) on a block of real LM
+    gradients: ms (events), iterations, held against round_aggregate_ref
+    on the same block at the main path's settings and at exactly 3
+    iterations (max_iters=3, tol=0), the plain and library times and the
+    bound."""
+    import torch
+    from repro_torch.core.grouping import assignment_matrix, make_grouping
+    from repro_torch.kernels.geomed import round as rk
+    kw = train_kw()
+    torch.cuda.empty_cache()
+    block = train_block(dev, m, q)
+    torch.cuda.empty_cache()
+    _, d = block.shape
+    k = m
+    grouping = make_grouping(m, k)
+    y, it = rk.round_aggregate_kernel(block, grouping, **kw)
+    iters = int(it)
+    kernel_ms = timed(lambda: rk.round_aggregate_kernel(block, grouping,
+                                                        **kw),
+                      repeats=3, warmup=0)
+    torch.cuda.empty_cache()
+    a, b = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    a.record()
+    yp, itp = rk.round_aggregate_ref(block, grouping, **kw)
+    b.record()
+    torch.cuda.synchronize()
+    plain_ms = a.elapsed_time(b)
+    err, ok, scale = compare(y, yp)
+    cap = kw["max_iters"]
+    # the kernel stops on its own test, replayed from its iterates; whether
+    # the plain version stops at the same count is recorded, not held: at
+    # tol^2 = 1e-14 over 5.6e8 columns only an exact float32 fixed point
+    # stops the loop, and which order reaches one, and which cycles by an
+    # ulp, is the summation order's (ROADMAP Queue 3)
+    stop_ok = stops_on_its_test(
+        lambda i: rk.round_aggregate_kernel(
+            block, grouping, **dict(kw, max_iters=i))[0],
+        iters, cap, kw["tol"])
+    both_stop_or_cap = (iters < cap) == (int(itp) < cap)
+    del y, yp
+    torch.cuda.empty_cache()
+    # where neither can stop early the iterates are held at an exact count
+    few = dict(kw, max_iters=3, tol=0.0)
+    y3, it3 = rk.round_aggregate_kernel(block, grouping, **few)
+    yp3, itp3 = rk.round_aggregate_ref(block, grouping, **few)
+    err3, ok3, scale3 = compare(y3, yp3)
+    del y3, yp3
+    torch.cuda.empty_cache()
+    s = torch.as_tensor(assignment_matrix(grouping), device=dev)
+    bsz = torch.tensor(grouping.batch_sizes, dtype=torch.float32,
+                       device=dev).reshape(k, 1)
+    library_ms = timed(lambda: torch.matmul(s, block) / bsz, repeats=3,
+                       warmup=1)
+    # the work this block needs: the passes of whichever version stops
+    # first (the other's extra passes are its ulp cycle, not the function)
+    needed = min(iters, int(itp))
+    bound_ms, bound_by = bound(4 * (m * d + d),
+                               m * d + (needed + 1) * 6 * k * d, hbm, flops)
+    check(ok, f"train block {(m, k, d)}: kernel vs plain max_abs_err {err} "
+              f"(max|y| {scale})")
+    check(stop_ok, f"train block {(m, k, d)}: the kernel's stop at {iters} "
+                   f"iterations (cap {cap})")
+    check(ok3, f"train block {(m, k, d)} at max_iters=3, tol=0: kernel vs "
+               f"plain max_abs_err {err3} (max|y| {scale3})")
+    check(int(it3) == int(itp3) == 3,
+          f"train block {(m, k, d)} at max_iters=3, tol=0: kernel "
+          f"{int(it3)} plain {int(itp3)} iterations, want 3")
+    line = {"phase": "train", "part": "kernel", "shape": [m, k, d],
+            "iters_kernel": iters, "iters_plain": int(itp),
+            "max_abs_err": err, "max_abs_y": scale, "ok": ok,
+            "stop_ok": stop_ok, "both_stop_or_cap": both_stop_or_cap,
+            "few": {"iters_kernel": int(it3), "iters_plain": int(itp3),
+                    "max_abs_err": err3, "max_abs_y": scale3, "ok": ok3},
+            "bound_iters": needed,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms_means_only": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "card": smi}
+    emit(line)
+    del block, s
+    torch.cuda.empty_cache()
+    return {"kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err, "iters": iters,
+            "iters_plain": int(itp), "shape": (m, k, d)}
+
+
+def group_step_run(dev, backend, seed=0):
+    """(rows, launches, s per step, peak GB) of make_group_train_step at
+    the phase 8 config with remat and microbatches."""
+    import torch
+    from repro_torch import optim
+    from repro_torch import random as prng
+    from repro_torch.core import RobustConfig
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels.geomed import round as rk
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model
+    g = TRAIN_GROUP
+    cfg = train_lib.train_config(TRAIN_ARCH, "gpu").with_(remat=True)
+    rc = RobustConfig(num_workers=g["k"], num_byzantine=g["q"],
+                      num_batches=g["k"], aggregator="gmom",
+                      attack="sign_flip", round_backend=backend)
+    opt = optim.adamw(1e-3)
+    step = steps.make_group_train_step(cfg, rc, opt,
+                                       microbatches=g["microbatches"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(seed, cfg, device=dev)
+    opt_state = opt.init(params)
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         global_batch=g["batch"], num_workers=g["k"],
+                         seed=seed, device=dev)
+    key = prng.fold_in(prng.PRNGKey(seed, device=dev), 10_000)
+    rows = []
+    torch.cuda.synchronize()
+    rk.round_aggregate_kernel.launches = 0
+    t0 = time.perf_counter()
+    for t in range(g["steps"]):
+        params, opt_state, met = step(params, opt_state, stream.batch(t),
+                                      prng.fold_in(key, t), t)
+        rows.append({name: float(v) for name, v in met.items()})
+    seconds = time.perf_counter() - t0
+    n = rk.round_aggregate_kernel.launches
+    del params, opt_state
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    torch.cuda.empty_cache()
+    return rows, n, seconds / g["steps"], peak
+
+
+def headline_run(dev, aggregator, attack):
+    """The reference's _run_lm (tests/test_system.py) on the card: the
+    loss_median curve and the round-kernel launches."""
+    from repro_torch import configs, optim
+    from repro_torch import random as prng
+    from repro_torch.core import RobustConfig, make_robust_train_step
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels.geomed import round as rk
+    from repro_torch.models import model
+    h = HEADLINE
+    cfg = configs.get_config(h["arch"]).reduced()
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=h["seq_len"],
+                         global_batch=h["batch"], num_workers=h["m"], seed=0,
+                         device=dev)
+    rc = RobustConfig(num_workers=h["m"], num_byzantine=h["q"],
+                      attack=attack, aggregator=aggregator,
+                      num_batches=h["k"])
+    opt = optim.adamw(1e-3)
+    step = make_robust_train_step(lambda p, b: model.loss_fn(p, b, cfg),
+                                  opt, rc)
+    params = model.init(0, cfg, device=dev)
+    opt_state = opt.init(params)
+    losses = []
+    rk.round_aggregate_kernel.launches = 0
+    for i in range(h["steps"]):
+        params, opt_state, met = step(params, opt_state, stream.batch(i),
+                                      prng.PRNGKey(7, device=dev), i)
+        losses.append(float(met["loss_median"]))
+    return losses, rk.round_aggregate_kernel.launches
+
+
+def train_path(dev, hbm, flops, smi):
+    """Phase 8 -> (round-kernel launches of its runs, the kernel's timing
+    at the main path's (8, 8, P)).  (a) launch/train.py's train(args) at
+    the main config through round_backend "auto" (4 rounds, 4 launches),
+    and at m = 4 on "auto" and "fused_interpret" (histories within
+    compare_traces); (b) 2 steps with a checkpoint, resumed to 4, against
+    the straight run bit for bit; (c) make_group_train_step with remat and
+    microbatches, kernel vs plain; (d) the reference's LM robustness
+    assertions at their own setting, and the same comparison's curves at
+    the main config."""
+    import shutil
+    import tempfile
+
+    from repro_torch.sim.goldens import compare_traces
+    t_phase = time.perf_counter()
+    launches = 0
+    # (a) kernel vs plain at the compared geometry (which also warms the
+    # card up for the LM's shapes), then the main path
+    compared = {}
+    for backend in ("auto", "fused_interpret"):
+        res, n, peak = _train_run(_train_args(round_backend=backend,
+                                              **TRAIN_COMPARED), dev)
+        compared[backend] = (res, n, peak)
+    launches += compared["auto"][1]
+    main, n_main, peak_main = _train_run(_train_args(), dev)
+    launches += n_main
+    finite = all(math.isfinite(v) for row in main["history"]
+                 for v in row.values())
+    check(n_main == TRAIN_STEPS, f"train: {n_main} round-kernel launches "
+                                 f"for {TRAIN_STEPS} rounds")
+    check(finite and len(main["history"]) == TRAIN_STEPS,
+          f"train: history {main['history']}")
+    vs_plain = compare_traces(
+        _compared(compared["auto"][0]["history"]),
+        _compared(compared["fused_interpret"][0]["history"]))
+    check(not vs_plain, f"train m=4: kernel vs plain {vs_plain[:3]}")
+    check(compared["auto"][1] == TRAIN_STEPS
+          and compared["fused_interpret"][1] == 0,
+          f"train m=4: launches {compared['auto'][1]} (kernel), "
+          f"{compared['fused_interpret'][1]} (plain)")
+    emit({"phase": "train", "part": "a", "arch": TRAIN_ARCH,
+          "layers": 2, "seq_len": TRAIN_SEQ, **TRAIN_MAIN,
+          "num_batches": 8, "steps": TRAIN_STEPS, "reduced": TRAIN_CUTS,
+          "kernel_launches": n_main, "s_per_step":
+          main["seconds"] / TRAIN_STEPS, "peak_mem_gb": peak_main,
+          "loss_median": _curve(main),
+          "agg_grad_norm": _curve(main, "agg_grad_norm"),
+          "finite": finite, "compared_geometry": TRAIN_COMPARED,
+          "compared": {b: {"launches": n, "peak_mem_gb": peak,
+                           "s_per_step": r["seconds"] / TRAIN_STEPS,
+                           "loss_median": _curve(r),
+                           "agg_grad_norm": _curve(r, "agg_grad_norm")}
+                       for b, (r, n, peak) in compared.items()},
+          "kernel_vs_plain_ok": not vs_plain, "card": smi})
+    del compared
+    # (b) resume: 2 steps with a checkpoint, then on to 4
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        first, n1, _ = _train_run(_train_args(steps=2, ckpt_dir=ckpt,
+                                              ckpt_every=2), dev)
+        resumed, n2, _ = _train_run(_train_args(ckpt_dir=ckpt, ckpt_every=2),
+                                    dev)
+        resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    launches += n1 + n2
+    bitwise = (resumed["resumed_from"] == 2
+               and resumed["history"] == main["history"])
+    check(bitwise and n1 == 2 and n2 == 2,
+          f"train resume: resumed_from {resumed['resumed_from']}, history "
+          f"{resumed['history']} vs {main['history']}; launches {n1}, {n2}")
+    emit({"phase": "train", "part": "b", "resumed_from":
+          resumed["resumed_from"], "bit_identical": bitwise,
+          "launches": [n1, n2], "seconds": resume_s})
+    # (c) the group-mode step with remat and microbatches
+    group = {b: group_step_run(dev, b) for b in ("auto", "fused_interpret")}
+    launches += group["auto"][1]
+    vs_group = compare_traces(_compared(group["auto"][0]),
+                              _compared(group["fused_interpret"][0]))
+    check(not vs_group, f"group step: kernel vs plain {vs_group[:3]}")
+    check(group["auto"][1] == TRAIN_GROUP["steps"]
+          and group["fused_interpret"][1] == 0,
+          f"group step: launches {group['auto'][1]}, "
+          f"{group['fused_interpret'][1]}")
+    emit({"phase": "train", "part": "c", **TRAIN_GROUP, "remat": True,
+          "kernel_vs_plain_ok": not vs_group,
+          "runs": {b: {"history": rows, "launches": n, "s_per_step": s,
+                       "peak_mem_gb": peak}
+                   for b, (rows, n, s, peak) in group.items()}})
+    # (d) the reference's headline on the card, at its own setting
+    clean, _ = headline_run(dev, "mean", "none")
+    broken, _ = headline_run(dev, "mean", "sign_flip")
+    robust, n_robust = headline_run(dev, "gmom", "sign_flip")
+    launches += n_robust
+    asserts = {"learns": clean[-1] < clean[0],
+               "mean_destroyed": broken[-1] > clean[-1] + 1.0,
+               "gmom_tracks_clean": abs(robust[-1] - clean[-1]) < 0.5}
+    for what, ok in asserts.items():
+        check(ok, f"headline {what}: clean {clean}, mean+attack {broken}, "
+                  f"gmom+attack {robust}")
+    check(n_robust == HEADLINE["steps"],
+          f"headline gmom: {n_robust} round-kernel launches")
+    curves = {"gmom_sign_flip": _curve(main)}
+    for agg, attack in (("mean", "none"), ("mean", "sign_flip")):
+        res, _, _ = _train_run(_train_args(aggregator=agg, attack=attack),
+                               dev)
+        curves[f"{agg}_{attack}"] = _curve(res)
+    emit({"phase": "train", "part": "d", "setting": HEADLINE,
+          "clean": clean, "mean_attack": broken, "gmom_attack": robust,
+          "assertions": asserts, "gmom_launches": n_robust,
+          "curves_at_main_config": curves})
+    timing = train_kernel_timing(dev, hbm, flops, smi)
+    emit({"phase": "train", "seconds": time.perf_counter() - t_phase,
+          "kernel_launches": launches})
+    return launches, timing
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    from repro_torch import _device
+    # phase 8's (8, P) and (k, P) f32 blocks, after every earlier phase
+    _device.expandable_segments()
     from repro_torch.core.grouping import assignment_matrix, make_grouping
     from repro_torch.kernels import _build
     from repro_torch.kernels.attention import flash
@@ -1963,6 +2369,10 @@ def main() -> int:
     emit({"phase": "sharded", "seconds": time.perf_counter() - t0,
           "worst_err_over_max_abs_y": worst, "card": smi})
 
+    # -- 8 train: Byzantine-robust LM training ------------------------------
+    train_launches, train_timing = train_path(dev, hbm, flops, smi)
+    main_launches += train_launches
+
     # -- 7 the kernel line --------------------------------------------------
     csrc = "src/repro_torch/kernels/"
     rows = (("round_aggregate", "geomed/csrc/round_aggregate.cu",
@@ -2009,6 +2419,12 @@ def main() -> int:
     # GEOMED_MAIN
     for row in line[2:4]:
         row["launches_shape"] = list(GEOMED_STEP)
+    # the round kernel at the train path's (8, 8, P), phase 8
+    line[0]["train_shape"] = {
+        "shape": list(train_timing["shape"]),
+        **{key: train_timing[key] for key in (
+            "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err", "iters", "iters_plain")}}
     # the linreg round's row is its one-pass route at LINREG_MAIN
     line[1].update(kernel_route="one_pass", launches_by_route=linreg_routes)
     # flash attention's row is its tensor-core route at ATTN_MAIN (bf16);

@@ -10,6 +10,8 @@ and bf16 matmuls reduce in float32.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -35,6 +37,17 @@ def set_precision() -> None:
         raise RuntimeError(
             "torch.backends.cuda.matmul.allow_tf32 is True; the reference is "
             "float32 throughout and TF32 matmuls would drift from it")
+
+
+def expandable_segments() -> None:
+    """Let the CUDA caching allocator grow its segments in place.  At LM
+    width a round holds (m, P) and (k, P) float32 blocks of tens of GB,
+    which a cache fragmented by earlier allocations may otherwise refuse.
+    CUDA reads the setting when it first initialises, so it is set only
+    while CUDA is not yet initialised (a caller's own setting wins)."""
+    if not torch.cuda.is_initialized():
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
 
 
 def enter(device=None) -> torch.device:

@@ -2,7 +2,11 @@
 
 Layout: ``<dir>/step_<n:08d>/{manifest.msgpack, arrays.npz}``.  The
 manifest records leaf paths, dtypes, shapes, ``format_version`` (2) and an
-optional ``payload`` tag; arrays go in one compressed ``.npz``.  Leaf paths
+optional ``payload`` tag; arrays go in one ``.npz`` (stored, not
+compressed: random and trained weights do not compress, and an LM's
+optimizer state is gigabytes; ``np.load`` reads both kinds).  bfloat16
+leaves are stored as the reference stores them, their raw two-byte words
+(``|V2`` in the archive) under the manifest dtype ``bfloat16``.  Leaf paths
 are the strings ``jax.tree_util.tree_flatten_with_path`` gives
 (``.field`` for named tuples, ``['key']`` for dicts in sorted key order,
 ``[i]`` for sequences, joined by ``/``), so the port restores what the
@@ -45,16 +49,33 @@ def _flatten_with_paths(tree, prefix=()):
     return out
 
 
+BF16 = "bfloat16"
+
+
 def _as_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view("V2")
+        return leaf.numpy()
     return np.asarray(leaf)
 
 
 def _dtype_name(leaf) -> str:
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            return BF16
         return str(torch.empty((0,), dtype=leaf.dtype).numpy().dtype)
     return str(np.asarray(leaf).dtype)
+
+
+def _bf16_tensor(arr: np.ndarray, stored: str, device) -> torch.Tensor:
+    """A stored leaf as a bfloat16 tensor: raw words when it was saved as
+    bfloat16, a rounding cast of its values otherwise."""
+    if stored == BF16:
+        words = np.ascontiguousarray(arr).view(np.int16)
+        return torch.as_tensor(words, device=device).view(torch.bfloat16)
+    return torch.as_tensor(arr, device=device).to(torch.bfloat16)
 
 
 def save(directory: str, step: int, tree, *, keep: int | None = 3,
@@ -71,14 +92,14 @@ def save(directory: str, step: int, tree, *, keep: int | None = 3,
         key = f"leaf_{i}"
         arrays[key] = arr
         manifest["leaves"].append(
-            {"path": p, "key": key, "dtype": str(arr.dtype),
+            {"path": p, "key": key, "dtype": _dtype_name(leaf),
              "shape": list(arr.shape)})
 
     tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_")
     try:
         with open(os.path.join(tmp, "manifest.msgpack"), "wb") as f:
             f.write(msgpack.packb(manifest))
-        np.savez_compressed(os.path.join(tmp, "arrays.npz"), **arrays)
+        np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
         final = os.path.join(directory, f"step_{step:08d}")
         if os.path.exists(final):
             shutil.rmtree(final)
@@ -147,6 +168,11 @@ def restore(directory: str, step: int, example_tree, *,
             raise ValueError(
                 f"dtype mismatch for {p!r}: ckpt {dtypes[p]} vs {want} "
                 "(pass allow_cast=True to cast)")
+        if want == BF16:
+            new_leaves.append(_bf16_tensor(arr, dtypes[p], example.device))
+            continue
+        if dtypes[p] == BF16:    # raw words -> values, then the cast
+            arr = _bf16_tensor(arr, BF16, "cpu").float().numpy()
         arr = arr.astype(want)
         if isinstance(example, torch.Tensor):
             new_leaves.append(torch.as_tensor(arr, device=example.device))

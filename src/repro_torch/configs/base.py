@@ -1,11 +1,14 @@
 """Model and run configuration (port of ``repro.configs.base``).
 
-The fields of the dense family, the one ported so far; the other
-families' fields (experts, SSM state, encoder, frontend) come with their
-model code, and the training knobs (``remat``, ``loss_chunk``) with
-training (ROADMAP Queue 1 item 16).  ``dtype`` and ``param_dtype`` are
-torch dtypes.  ``reduced()`` is the CPU-smoke variant (<= 2 layers,
-d_model <= 256, float32), the same cut as the reference's.
+The fields of the dense family, the one ported so far, and the training
+knobs ``remat`` (activation rematerialization of each block,
+``models.blocks.maybe_remat``) and ``loss_chunk`` (the sequence chunk of
+``models.layers.cross_entropy_loss``); the other families' fields
+(experts, SSM state, encoder, frontend) come with their model code
+(ROADMAP Queue 1 item 16).  ``dtype`` and ``param_dtype`` are torch
+dtypes.  ``reduced()`` is the CPU-smoke variant (<= 2 layers, d_model <=
+256, float32, no remat, the loss's default chunk), the same cut as the
+reference's.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    loss_chunk: int = 512
 
     def __post_init__(self):
         if self.num_heads and self.head_dim == 0:
@@ -63,6 +68,8 @@ class ModelConfig:
                             if self.sliding_window else None),
             dtype=torch.float32,
             param_dtype=torch.float32,
+            remat=False,
+            loss_chunk=0,
         )
 
     def param_count(self) -> int:

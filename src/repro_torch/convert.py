@@ -17,7 +17,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.staleness import StalenessBuffer
 from repro_torch.core.train_state import TrainState
 from repro_torch.data.regression import RegressionDataset
-from repro_torch.optim import SGDState
+from repro_torch.optim import AdamState, SGDState
 
 
 def _tensor(x, device, dtype=None):
@@ -39,13 +39,27 @@ def _tree(x, device, dtype=None):
     return _tensor(x, device, dtype)
 
 
+def _opt_state(opt, device):
+    """The reference's optimizer state, read by its field names:
+    ``AdamState(step, mu, nu)`` or ``SGDState(step, momentum)``."""
+    fields = tuple(getattr(opt, "_fields", ()))
+    if fields == AdamState._fields:
+        return AdamState(step=_tensor(opt.step, device),
+                         mu=_tree(opt.mu, device), nu=_tree(opt.nu, device))
+    if fields == SGDState._fields:
+        return SGDState(step=_tensor(opt.step, device),
+                        momentum=_tree(opt.momentum, device))
+    raise ValueError(f"unknown optimizer state {type(opt).__name__} with "
+                     f"fields {fields}")
+
+
 def train_state_from_numpy(tree, *, device) -> TrainState:
     """A reference ``TrainState`` with numpy leaves -> the port's
-    ``TrainState`` on ``device``: theta, ``SGDState``, ``attack_state``,
+    ``TrainState`` on ``device``: the params, the optimizer state
+    (``AdamState`` or ``SGDState``, by its field names), ``attack_state``,
     ``round_index``, ``base_key`` (uint32 words -> the port's int64 key),
     ``history`` (kept as float32 numpy arrays) and the staleness buffer
     (its gradients, int32 ages and bound; ``()`` stays ``()``)."""
-    opt = tree.opt_state
     buf = tree.stale_buffer
     if len(buf):
         buf = StalenessBuffer(grads=_tree(buf.grads, device),
@@ -53,8 +67,7 @@ def train_state_from_numpy(tree, *, device) -> TrainState:
                               bound=_tensor(buf.bound, device))
     return TrainState(
         params=_tree(tree.params, device),
-        opt_state=SGDState(step=_tensor(opt.step, device),
-                           momentum=_tree(opt.momentum, device)),
+        opt_state=_opt_state(tree.opt_state, device),
         attack_state=_tree(tree.attack_state, device),
         round_index=_tensor(tree.round_index, device),
         base_key=_tensor(np.asarray(tree.base_key).astype(np.int64), device),

@@ -44,6 +44,7 @@ from repro_torch.core.train_state import (  # noqa: F401
     TrainState,
     advance,
     append_history,
+    history_rows,
     init_train_state,
     restore_train_state,
     save_train_state,

@@ -241,6 +241,7 @@ def make_run_rounds(loss_fn: Callable, optimizer, cfg: RobustConfig, *,
             stacked, losses = per_worker_grads(loss_fn, params, batch,
                                                loss_kwargs=loss_kwargs)
             reported, mask, astate = schedule.apply(stacked, key_t, t, astate)
+            del stacked   # the honest stack; at LM width it is (m, P)
             if arrival is None:
                 agg_grad = aggregate_reported(reported, cfg, key=key_t)
             else:

@@ -2,7 +2,7 @@
 (PyTorch port of ``repro.core.train_state``).
 
     params        model/estimator parameters (tensor pytree)
-    opt_state     optimizer state (``optim.SGDState``)
+    opt_state     optimizer state (``optim.SGDState`` or ``optim.AdamState``)
     attack_state  the schedule's carried adversary memory (``()`` when
                   stateless)
     round_index   number of completed rounds (int32 0-d tensor)
@@ -77,6 +77,15 @@ def append_history(history, metrics) -> dict:
             f"metrics keys changed across chunks: {sorted(history)} vs "
             f"{sorted(new)}")
     return {k: np.concatenate([_to_numpy(history[k]), new[k]]) for k in new}
+
+
+def history_rows(history) -> list[dict]:
+    """The history as a list of per-round {metric: float} dicts (the
+    launch driver's logging format)."""
+    if not history:
+        return []
+    n = len(next(iter(history.values())))
+    return [{k: float(v[j]) for k, v in history.items()} for j in range(n)]
 
 
 def advance(run, state: TrainState, worker_batches, *, num_rounds=None,

@@ -684,27 +684,47 @@ def reset_linreg_launches() -> None:
 reset_linreg_launches()
 
 
+def concat_block(stacked_grads):
+    """Stacked (m, ...) gradient pytree -> ((m, D) float32 block, split):
+    each leaf flattened and cast into its columns of one block (no f32
+    copy of a leaf beside it: at LM width the block alone is m x P x 4
+    bytes), and ``split(y)`` the (D,) result back as the tree, each leaf
+    in its own dtype."""
+    leaves, spec = tree_flatten(stacked_grads)
+    m = leaves[0].shape[0]
+    shapes = [(leaf.shape[1:], leaf.dtype) for leaf in leaves]
+    sizes = [int(np.prod(shape, dtype=np.int64)) for shape, _ in shapes]
+    block = torch.empty((m, sum(sizes)), dtype=torch.float32,
+                        device=leaves[0].device)
+    offset = 0
+    for leaf, size in zip(leaves, sizes):
+        block[:, offset:offset + size].copy_(leaf.reshape(m, size))
+        offset += size
+
+    def split(y):
+        out, offset = [], 0
+        for (shape, dtype), size in zip(shapes, sizes):
+            out.append(y[offset:offset + size].reshape(shape).to(dtype))
+            offset += size
+        return tree_unflatten(out, spec)
+
+    return block, split
+
+
 def round_aggregate_pytree(stacked_grads, grouping: Grouping, *,
                            trim_multiplier: float | None = 3.0,
                            max_iters: int = 64, tol: float = 1e-8,
                            eps: float = 1e-12, plain: bool = False):
     """Pytree front door: stacked (m, ...) gradient pytree -> aggregate.
 
-    Leaves are flattened and concatenated into one (m, D) f32 block (the
-    median is taken in the concatenated R^D) and the result is split back,
-    cast to each leaf's dtype.  ``plain=True`` runs the plain PyTorch
-    version on any device (the ``fused_interpret`` backend)."""
-    leaves, spec = tree_flatten(stacked_grads)
-    m = leaves[0].shape[0]
-    flat = [leaf.reshape(m, -1).to(torch.float32) for leaf in leaves]
-    block = flat[0] if len(flat) == 1 else torch.cat(flat, dim=1)
+    Leaves are flattened and concatenated into one (m, D) f32 block
+    (``concat_block``: the median is taken in the concatenated R^D) and
+    the result is split back, cast to each leaf's dtype.  ``plain=True``
+    runs the plain PyTorch version on any device (the ``fused_interpret``
+    backend)."""
+    block, split = concat_block(stacked_grads)
     fn = round_aggregate_ref if plain else round_aggregate_kernel
-    y, _ = fn(block.contiguous(), grouping, trim_multiplier=trim_multiplier,
+    y, _ = fn(block, grouping, trim_multiplier=trim_multiplier,
               max_iters=max_iters, tol=tol, eps=eps)
-    out, offset = [], 0
-    for leaf in leaves:
-        size = int(np.prod(leaf.shape[1:], dtype=np.int64))
-        out.append(y[offset:offset + size].reshape(leaf.shape[1:])
-                   .to(leaf.dtype))
-        offset += size
-    return tree_unflatten(out, spec)
+    del block
+    return split(y)

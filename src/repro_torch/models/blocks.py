@@ -2,11 +2,16 @@
 ``repro.models.blocks``, the dense family).
 
 Stacked params carry a leading L axis; the reference scans the block over
-it, the port loops over it in Python (``layer``).  The MoE, RWKV, Mamba
-and encoder blocks come with their families (ROADMAP Queue 1 item 16).
+it, the port loops over it in Python (``layer``).  ``maybe_remat`` is the
+reference's activation rematerialization on ``torch.utils.checkpoint``.
+The MoE, RWKV, Mamba and encoder blocks come with their families (ROADMAP
+Queue 1 item 16).
 """
 
 from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers
@@ -82,3 +87,37 @@ def layer(params_stack, i: int):
     if isinstance(params_stack, dict):
         return {k: layer(v, i) for k, v in params_stack.items()}
     return params_stack[i]
+
+
+def _under_torch_func() -> bool:
+    """True inside a ``torch.func`` transform (vmap, grad, ...)."""
+    return torch._C._functorch.peek_interpreter_stack() is not None
+
+
+def maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` under activation rematerialization when ``cfg.remat``: the
+    reference's ``jax.checkpoint`` as ``torch.utils.checkpoint`` (not
+    reentrant).  Remat changes memory, not numbers, so it applies only
+    where autograd records (never under ``no_grad``, as in prefill).
+
+    ``torch.utils.checkpoint`` works through saved-tensor hooks, which
+    ``torch.func``'s grad transforms refuse; under one (the worker-mode
+    ``robust_train.per_worker_grads``, a ``vmap`` of ``grad``) a remat
+    config raises ``ValueError`` rather than dropping remat silently:
+    that path takes ``cfg.with_(remat=False)``."""
+    if not cfg.remat:
+        return fn
+
+    def remat_fn(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        if _under_torch_func():
+            raise ValueError(
+                f"{cfg.name}: cfg.remat=True under a torch.func transform "
+                "(vmap/grad, e.g. robust_train.per_worker_grads): "
+                "torch.utils.checkpoint's saved-tensor hooks do not compose "
+                "with torch.func; pass cfg.with_(remat=False) on this path "
+                "(the group-mode step, on plain autograd, honours remat)")
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return remat_fn

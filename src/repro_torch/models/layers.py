@@ -8,8 +8,7 @@ generator's device: the values follow the reference's distributions, not
 its bits (tests hand the JAX params across instead).
 
 Not ported: the shard_map sequence-parallel SwiGLU region (ROADMAP Queue 1
-items 13 and 17), the GELU MLP and LayerNorm (the audio family) and
-``cross_entropy_loss`` (training).
+items 13 and 17), the GELU MLP and LayerNorm (the audio family).
 """
 
 from __future__ import annotations
@@ -102,3 +101,36 @@ def swiglu(params, x):
     up = x @ params["w_up"]
     hidden = F.silu(gate.to(torch.float32)).to(x.dtype) * up
     return hidden @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# losses
+
+def cross_entropy_loss(logits_fn, hidden, labels, *, vocab_chunk: int = 0,
+                       ignore_index: int = -1):
+    """Memory-frugal LM cross entropy.
+
+    ``logits_fn(h_chunk) -> (..., V)`` is applied to sequence chunks of
+    ``vocab_chunk`` positions (0: min(T, 512); T itself when the chunk does
+    not divide T, as in the reference) in a loop, so the full (B, T, V)
+    logits never exist at once.  Logits and ``logsumexp`` in float32.
+
+    hidden: (B, T, D); labels: (B, T) int with ``ignore_index`` masked out.
+    Returns the mean loss over unmasked positions."""
+    B, T = labels.shape
+    chunk = vocab_chunk if vocab_chunk > 0 else min(T, 512)
+    if T % chunk != 0:
+        chunk = T
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for s in range(0, T, chunk):
+        logits = logits_fn(hidden[:, s:s + chunk]).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        yc = labels[:, s:s + chunk]
+        mask = yc != ignore_index
+        safe_y = torch.where(mask, yc, torch.zeros_like(yc))
+        picked = torch.gather(logits, -1, safe_y[..., None].long())[..., 0]
+        nll = torch.where(mask, lse - picked, torch.zeros_like(lse))
+        total = total + torch.sum(nll)
+        count = count + torch.sum(mask.to(torch.float32))
+    return total / torch.clamp(count, min=1.0)

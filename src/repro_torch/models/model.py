@@ -3,11 +3,15 @@
 
 Batch formats (one worker's shard, as in the reference):
 
+  train:   {"tokens": (B, T) int, "labels": (B, T) int}
   prefill: {"tokens": (B, T) int}
   decode:  tokens (B, 1) int, positions (B,) int, state dict
 
 The reference scans the layer stack; here a Python loop walks the stacked
-params (``blocks.layer``).  ``init`` and ``init_decode_state`` are entry
+params (``blocks.layer``), each block under ``blocks.maybe_remat``.
+``loss_fn`` trains through the plain attention core (``plain=True``), as
+the reference trains through its jnp core: the flash kernel has no
+backward.  ``init`` and ``init_decode_state`` are entry
 points: ``device=None`` means the CUDA card and raises without one.  The
 other families (vlm, moe, ssm, hybrid, audio) raise
 ``NotImplementedError`` until their code is ported (ROADMAP Queue 1 item
@@ -17,6 +21,7 @@ other families (vlm, moe, ssm, hybrid, audio) raise
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import _device
 from repro_torch.configs.base import ModelConfig
@@ -53,7 +58,12 @@ def init(seed: int, cfg: ModelConfig, *, device=None):
 # full-sequence forward (train / prefill)
 
 def _embed(params, cfg: ModelConfig, tokens):
-    return params["embed"][tokens].to(cfg.dtype)
+    """The reference's ``embed[tokens]``.  Through ``F.embedding``, whose
+    backward sums each row's gradients in a fixed order; the backward of
+    indexing (``index_put_`` with accumulation, under ``vmap`` too) adds
+    them from several CPU threads at once, so two runs would differ in the
+    last bits."""
+    return F.embedding(tokens, params["embed"]).to(cfg.dtype)
 
 
 def _unembed_fn(params, cfg: ModelConfig):
@@ -66,11 +76,22 @@ def forward(params, cfg: ModelConfig, batch, *, plain: bool = False):
     keeps the attention core off the CUDA kernel."""
     blocks.require_dense(cfg)
     x = _embed(params, cfg, batch["tokens"])
+    block = blocks.maybe_remat(
+        lambda p, h: blocks.decoder_block(p, cfg, h, plain=plain)[0], cfg)
     for i in range(cfg.num_layers):
-        x, _ = blocks.decoder_block(blocks.layer(params["layers"], i), cfg, x,
-                                    plain=plain)
+        x = block(blocks.layer(params["layers"], i), x)
     h = layers.rmsnorm(params["ln_f"], x, eps=cfg.norm_eps)
     return h, 0.0
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Mean next-token cross entropy (+ the aux loss, 0 for dense), through
+    the plain attention core on every device."""
+    h, aux = forward(params, cfg, batch, plain=True)
+    ce = layers.cross_entropy_loss(_unembed_fn(params, cfg), h,
+                                   batch["labels"],
+                                   vocab_chunk=cfg.loss_chunk)
+    return ce + aux
 
 
 def logits(params, cfg: ModelConfig, batch):

@@ -1,13 +1,12 @@
-"""Pytree SGD (the paper's gradient descent).
+"""Pytree optimizers: SGD (the paper's gradient descent) and AdamW (the
+LM substrate's).
 
 Interface (optax-like, as in ``repro.optim``):
 
-    opt = sgd(lr)
+    opt = sgd(lr)                        # or adamw(...)
     state = opt.init(params)
     updates, state = opt.update(grads, state, params)
     params = tree_map(lambda p, u: p + u, params, updates)
-
-AdamW is not ported yet (ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -66,3 +65,55 @@ def sgd(learning_rate, *, momentum: float = 0.0,
         return updates, SGDState(step=state.step + 1, momentum=())
 
     return Optimizer(name="sgd", init=init, update=update)
+
+
+class AdamState(NamedTuple):
+    step: torch.Tensor
+    mu: Any
+    nu: Any
+
+
+def adamw(learning_rate, *, b1: float = 0.9, b2: float = 0.95,
+          eps: float = 1e-8, weight_decay: float = 0.0,
+          grad_clip_norm: float | None = None) -> Optimizer:
+    """AdamW with optional global-norm gradient clipping.
+
+    The moments are float32 whatever the param dtype (bf16 params, f32
+    optimizer state); bias correction counts from ``step + 1``; the
+    learning rate is ``sched(step)``; the updates are float32."""
+    sched = _as_schedule(learning_rate)
+    f32 = torch.float32
+
+    def init(params):
+        def zeros(p):
+            return torch.zeros(p.shape, dtype=f32, device=p.device)
+        step = torch.zeros((), dtype=torch.int32,
+                           device=tree_leaves(params)[0].device)
+        return AdamState(step=step, mu=tree_map(zeros, params),
+                         nu=tree_map(zeros, params))
+
+    def update(grads, state: AdamState, params):
+        grads = tree_map(lambda g: g.to(f32), grads)
+        if grad_clip_norm is not None:
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(g))
+                                   for g in tree_leaves(grads)))
+            scale = torch.clamp(grad_clip_norm / (gnorm + 1e-9), max=1.0)
+            grads = tree_map(lambda g: g * scale, grads)
+        count = state.step + 1
+        lr = sched(state.step)
+        bc1 = 1.0 - b1 ** count.to(f32)
+        bc2 = 1.0 - b2 ** count.to(f32)
+        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
+        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g,
+                      state.nu, grads)
+
+        def upd(m, v, p):
+            step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            if weight_decay:
+                step = step + weight_decay * p.to(f32)
+            return (-lr * step).to(f32)
+
+        updates = tree_map(upd, mu, nu, params)
+        return updates, AdamState(step=count, mu=mu, nu=nu)
+
+    return Optimizer(name="adamw", init=init, update=update)

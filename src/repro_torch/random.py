@@ -6,12 +6,13 @@ bits the reference draws: the threefry2x32 hash with JAX's
 the scheme the golden traces were recorded with).  Mirrors
 ``jax/_src/prng.py`` (``threefry_2x32``, ``_threefry_split_original``,
 ``_threefry_fold_in``, ``_threefry_random_bits_original``) and
-``jax/_src/random.py`` (``_uniform``, ``_normal_real``).
+``jax/_src/random.py`` (``_uniform``, ``_normal_real``, ``_randint``,
+``_bernoulli``).
 
 A key is a (2,) int64 tensor holding two uint32 words; every intermediate
 is masked to 32 bits, so the hash is exact integer arithmetic and gives
 the same bits on the CPU and on the card.  Draws land on the key's device.
-``uniform`` is bit-exact; ``normal`` goes through ``torch.erfinv``, which
+``uniform``, ``randint`` and ``bernoulli`` are bit-exact; ``normal`` goes through ``torch.erfinv``, which
 differs from XLA's ``erf_inv`` by a few ulps.
 """
 
@@ -114,3 +115,44 @@ def normal(key, shape):
     """``jax.random.normal`` in float32: sqrt(2) * erfinv(U(-1+ulp, 1))."""
     u = uniform(key, shape, _NORMAL_LO, 1.0)
     return _f32(_SQRT2, key.device) * torch.erfinv(u)
+
+
+def _wrap_int32(x):
+    """int64 -> int32 with two's-complement wraparound (XLA's int32 add)."""
+    return (((x + 2 ** 31) & _MASK) - 2 ** 31).to(torch.int32)
+
+
+def randint(key, shape, minval, maxval):
+    """``jax.random.randint`` in int32 (x64 disabled): uniform integers in
+    [minval, maxval), broadcast to ``shape``.
+
+    Two 32-bit draws from ``split(key)`` (high and low words), each reduced
+    mod ``span = maxval - minval`` (as uint32, 1 where maxval <= minval);
+    the high word is scaled by ``(2**16 % span)**2 % span``, every product
+    and sum wrapping in uint32 as the reference's do (so the scale is 0,
+    not 2**32 mod span, once span > 2**16), and the sum is reduced
+    again.  Bounds are
+    clipped to int32 as the reference clips them; a bound outside int32
+    cannot reach the reference with x64 disabled."""
+    shape = tuple(shape)
+    dev = key.device
+    lo = torch.as_tensor(minval, dtype=torch.int64, device=dev).clamp(
+        -2 ** 31, 2 ** 31 - 1)
+    hi = torch.as_tensor(maxval, dtype=torch.int64, device=dev).clamp(
+        -2 ** 31, 2 ** 31 - 1)
+    k1, k2 = split(key)
+    higher, lower = bits(k1, shape), bits(k2, shape)
+    span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & _MASK)
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & _MASK) % span
+    offset = (((higher % span) * mult) & _MASK) + (lower % span)
+    offset = (offset & _MASK) % span
+    return _wrap_int32(lo + offset)
+
+
+def bernoulli(key, p=0.5, shape=None):
+    """``jax.random.bernoulli`` (mode "low"): ``uniform(key, shape) < p`` in
+    float32; ``shape`` defaults to ``p``'s."""
+    p = _f32(p, key.device)
+    shape = tuple(p.shape) if shape is None else tuple(shape)
+    return uniform(key, shape) < p

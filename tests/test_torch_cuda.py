@@ -1226,3 +1226,109 @@ def test_shardmap_aggregate_launches_the_round_kernel_once_per_rank(cuda):
             for key in want:
                 assert torch.equal(got[key], first[key])
                 assert float((got[key] - want[key].cpu()).abs().max()) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# Byzantine-robust LM training on the card (reduced config)
+
+def _train_rows(metrics):
+    n = metrics["loss_median"].shape[0]
+    return {"history": [{k: float(v[i]) for k, v in metrics.items()}
+                        for i in range(n)]}
+
+
+@pytest.mark.cuda
+def test_lm_rounds_kernel_matches_plain_backend(cuda):
+    """Three worker-mode LM rounds (H2O-Danube3-4B reduced, m = 4, k = 4,
+    gmom under sign_flip, AdamW) through round_backend "auto" (one
+    round-kernel launch a round) and "fused_interpret" (none) agree under
+    compare_traces; two kernel runs are bitwise equal."""
+    from torch.utils._pytree import tree_map
+
+    from repro_torch import configs, optim
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import model
+    from repro_torch.sim.goldens import compare_traces
+    cfg = configs.get_config("h2o-danube-3-4b").reduced()
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=80,
+                         global_batch=8, num_workers=4, device=cuda)
+    batches = tree_map(lambda *xs: torch.stack(xs),
+                       *[stream.batch(i) for i in range(3)])
+    rows, launches = [], []
+    for backend in ("auto", "auto", "fused_interpret"):
+        rc = robust_train.RobustConfig(
+            num_workers=4, num_byzantine=1, num_batches=4,
+            aggregator="gmom", attack="sign_flip", round_backend=backend)
+        opt = optim.adamw(1e-3)
+        run = robust_train.make_run_rounds(
+            lambda p, b: model.loss_fn(p, b, cfg), opt, rc, device=cuda)
+        params = model.init(0, cfg, device=cuda)
+        rk.round_aggregate_kernel.launches = 0
+        *_, metrics = run(params, opt.init(params), batches,
+                          prng.PRNGKey(3, device=cuda),
+                          per_round_batches=True)
+        launches.append(rk.round_aggregate_kernel.launches)
+        rows.append(_train_rows(metrics))
+    assert launches == [3, 3, 0]
+    assert rows[0] == rows[1]
+    assert compare_traces(rows[0], rows[2]) == []
+
+
+@pytest.mark.cuda
+def test_group_step_kernel_matches_plain_backend(cuda):
+    """make_group_train_step with remat and two microbatches on the card:
+    one round-kernel launch a step on "auto", the same metrics as on
+    "fused_interpret" under compare_traces."""
+    from repro_torch import configs, optim
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    from repro_torch.sim.goldens import compare_traces
+    cfg = configs.get_config("minitron-4b").reduced().with_(remat=True)
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=32,
+                         global_batch=16, num_workers=4, device=cuda)
+    traces, launches = {}, {}
+    for backend in ("auto", "fused_interpret"):
+        rc = robust_train.RobustConfig(
+            num_workers=4, num_byzantine=1, num_batches=4,
+            aggregator="gmom", attack="sign_flip", round_backend=backend)
+        opt = optim.adamw(1e-3)
+        step = steps.make_group_train_step(cfg, rc, opt, microbatches=2)
+        params = model.init(1, cfg, device=cuda)
+        opt_state = opt.init(params)
+        rk.round_aggregate_kernel.launches = 0
+        hist = []
+        for t in range(3):
+            params, opt_state, met = step(params, opt_state, stream.batch(t),
+                                          prng.PRNGKey(t, device=cuda), t)
+            hist.append({k: float(v) for k, v in met.items()})
+        launches[backend] = rk.round_aggregate_kernel.launches
+        traces[backend] = {"history": hist}
+    assert launches == {"auto": 3, "fused_interpret": 0}
+    assert compare_traces(traces["auto"], traces["fused_interpret"]) == []
+
+
+@pytest.mark.cuda
+def test_loss_fn_never_launches_flash(cuda):
+    """Training runs the plain attention core, as the reference trains
+    through its jnp core: loss_fn and its gradient launch no flash kernel,
+    while the prefill step on the same params launches one a layer."""
+    from repro_torch import configs
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels.attention import flash
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    cfg = configs.get_config("h2o-danube-3-4b").reduced()
+    params = model.init(0, cfg, device=cuda)
+    batch = TokenStream(vocab_size=cfg.vocab_size, seq_len=80,
+                        global_batch=2, num_workers=1,
+                        device=cuda).batch(0)
+    one = {k: v[0] for k, v in batch.items()}
+    flash.reset_launches()
+    loss = model.loss_fn(params, one, cfg)
+    grads, _ = robust_train.per_worker_grads(
+        lambda p, b: model.loss_fn(p, b, cfg), params, batch)
+    assert bool(torch.isfinite(loss)) and flash.flash_attention.launches == 0
+    assert all(bool(torch.isfinite(g).all()) for g in jtree.leaves(grads))
+    steps.make_prefill_step(cfg)(params, {"tokens": one["tokens"]})
+    assert flash.flash_attention.launches == cfg.num_layers

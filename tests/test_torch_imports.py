@@ -48,7 +48,8 @@ def test_port_has_modules():
                    "configs/qwen3_14b.py", "configs/qwen2_72b.py",
                    "models/layers.py", "models/attention.py",
                    "models/blocks.py", "models/model.py",
-                   "launch/steps.py", "launch/serve.py"):
+                   "launch/steps.py", "launch/serve.py", "launch/train.py",
+                   "data/tokens.py"):
         assert os.path.join("src", "repro_torch", *module.split("/")) \
             in names
     csrc = os.path.join(PORT, "kernels", "geomed", "csrc")

@@ -54,8 +54,7 @@ def _close(got, want, rtol=RTOL):
 UNPORTED_FIELDS = {"num_experts", "experts_per_token", "moe_capacity_factor",
                    "ssm_state", "ssm_head_dim", "ssm_chunk",
                    "shared_attn_every", "encoder_layers",
-                   "encoder_seq_divisor", "frontend", "num_patches", "remat",
-                   "loss_chunk"}
+                   "encoder_seq_divisor", "frontend", "num_patches"}
 
 @pytest.mark.parametrize("arch", DENSE)
 def test_dense_configs_equal_the_reference(arch):
