@@ -28,13 +28,16 @@ prefill step at B = 1, T = 8192 and one of ``DECODE_STEPS`` decode steps
 at 4 requests: device busy time, idle share, device kernels, and device
 time by kernel family (the flash kernel, matmuls, the rest) with the
 heaviest kernels by name, and the flash kernel's launches by route (the
-bf16 prefill's must all be on the tensor-core route).  Last, the LM
-train path of ``chip_smoke.py`` phase 8 (a) (H2O-Danube3-4B at full width
-cut to 2 layers, m = 8, q = 2, k = 8, gmom under sign_flip, AdamW): a
-stage breakdown of single rounds (per-worker gradients, the attack, the
-f32 concatenation of the reports, the round kernel, the split back,
-AdamW, the update) and a trace of ``TRAIN_ROUNDS`` rounds as launch/train.py
-runs them, with the peak memory.  Needs a CUDA card.
+bf16 prefill's must all be on the tensor-core route); the same for
+Granite-3.0-1B-A400M's serve path (phase 9), and its MoE layer's four
+stages (router, dispatch, expert matmuls, combine) timed alone.  Last,
+the LM train path of ``chip_smoke.py`` phase 8 (a) (H2O-Danube3-4B at
+full width cut to 2 layers, m = 8, q = 2, k = 8, gmom under sign_flip,
+AdamW), then Granite's at 8 layers (phase 9 (b)): a stage breakdown of
+single rounds (per-worker gradients, the attack, the f32 concatenation
+of the reports, the round kernel, the split back, AdamW, the update) and
+a trace of ``TRAIN_ROUNDS`` rounds as launch/train.py runs them, with the
+peak memory.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -222,15 +225,16 @@ def profile_wire_and_stale(cname, cfg, dev, smi):
     torch.cuda.empty_cache()
 
 
-def profile_serve_path(dev, smi):
-    """Profile the prefill step and decode steps of the serve path."""
+def profile_serve_path(dev, smi, arch):
+    """Profile the prefill step and decode steps of the serve path of
+    ``arch`` at full width."""
     import torch
-    from chip_smoke import PREFILL_T, SERVE_ARCH
+    from chip_smoke import PREFILL_T
     from repro_torch.configs import get_config
     from repro_torch.kernels.attention import flash
     from repro_torch.launch import steps
     from repro_torch.models import model
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     params = model.init(0, cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(7)
     tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_T), generator=gen,
@@ -274,15 +278,16 @@ def profile_serve_path(dev, smi):
     torch.cuda.empty_cache()
 
 
-def profile_train_path(dev, smi):
+def profile_train_path(dev, smi, arch):
     """Stage breakdown (host clock, each stage synchronised, medians over
     ``TRAIN_ROUNDS`` rounds after one warm-up round) and a profiler trace
     of ``TRAIN_ROUNDS`` rounds through ``make_run_rounds`` at the phase 8
-    (a) config: device busy ms, idle share, device kernels per round, the
-    round kernel's device ms and launches, its Weiszfeld iterations."""
+    (a) config for ``arch`` at its train depth: device busy ms, idle
+    share, device kernels per round, the round kernel's device ms and
+    launches, its Weiszfeld iterations."""
     import torch
     from torch.utils._pytree import tree_leaves, tree_map
-    from chip_smoke import TRAIN_ARCH, TRAIN_MAIN, TRAIN_SEQ
+    from chip_smoke import TRAIN_MAIN, TRAIN_SEQ
     from repro_torch import optim
     from repro_torch import random as prng
     from repro_torch.core import robust_train
@@ -291,7 +296,7 @@ def profile_train_path(dev, smi):
     from repro_torch.kernels.geomed import round as rk
     from repro_torch.launch import train as train_lib
     from repro_torch.models import model
-    cfg = train_lib.train_config(TRAIN_ARCH, "gpu")
+    cfg = train_lib.train_config(arch, "gpu")
     m, q = TRAIN_MAIN["workers"], TRAIN_MAIN["byzantine"]
     rc = robust_train.RobustConfig(num_workers=m, num_byzantine=q,
                                    attack="sign_flip", aggregator="gmom")
@@ -379,6 +384,50 @@ def profile_train_path(dev, smi):
         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}),
         flush=True)
     del params, opt_state, run, batches
+    torch.cuda.empty_cache()
+
+
+def profile_moe_layer(dev, smi):
+    """The MoE layer's four stages at Granite-3.0-1B-A400M's widths in
+    bf16, one layer's forward: the router (f32 products, softmax, top-k,
+    the aux losses), the dispatch (ranks, the slot gathers), the experts'
+    batched matmuls and the combine; CUDA-event ms (medians of 20) at the
+    prefill's N = 8192 tokens and a train worker's 2 x 512, with the
+    expert matmuls' bf16 FLOP rate."""
+    import torch
+    from chip_smoke import MOE_ARCH, PREFILL_T, TRAIN_SEQ, timed
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks, moe
+    cfg = get_config(MOE_ARCH)
+    spec = blocks.moe_spec(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = moe.init(gen, spec, dtype=torch.bfloat16)
+    for n in (PREFILL_T, 2 * TRAIN_SEQ):
+        x = torch.randn((n, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        C = moe._capacity(spec, n)
+        ids, w, _, _ = moe.route(p, spec, x)
+        xin, info = moe._dispatch_local(spec, x, ids, w, expert_lo=0,
+                                        num_local=spec.num_experts,
+                                        capacity=C)
+        out = moe._expert_ffn(p["w_gate"], p["w_up"], p["w_down"], xin)
+        ms = {
+            "route": timed(lambda: moe.route(p, spec, x)),
+            "dispatch": timed(lambda: moe._dispatch_local(
+                spec, x, ids, w, expert_lo=0, num_local=spec.num_experts,
+                capacity=C)),
+            "experts": timed(lambda: moe._expert_ffn(
+                p["w_gate"], p["w_up"], p["w_down"], xin)),
+            "combine": timed(lambda: moe._combine(out, info, n)),
+            "layer": timed(lambda: moe.apply(p, spec, x[None]))}
+        flops = 2 * 3 * spec.num_experts * C * cfg.d_model * cfg.d_ff
+        print(json.dumps({
+            "path": "moe_layer", "arch": cfg.name, "tokens": n,
+            "capacity": C, "experts": spec.num_experts,
+            "top_k": spec.experts_per_token, "card": smi, "ms": ms,
+            "experts_tflops": flops / ms["experts"] / 1e9}), flush=True)
+        del x, xin, out, info
+    del p
     torch.cuda.empty_cache()
 
 
@@ -474,8 +523,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         profile_linreg_path(cname, cfg, dev, smi)
         profile_wire_and_stale(cname, cfg, dev, smi)
-    profile_serve_path(dev, smi)
-    profile_train_path(dev, smi)
+    from chip_smoke import MOE_ARCH, SERVE_ARCH, TRAIN_ARCH
+    for arch in (SERVE_ARCH, MOE_ARCH):
+        profile_serve_path(dev, smi, arch)
+    profile_moe_layer(dev, smi)
+    for arch in (TRAIN_ARCH, MOE_ARCH):
+        profile_train_path(dev, smi, arch)
     return 0
 
 

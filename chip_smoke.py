@@ -10,8 +10,10 @@ width through the port's engine and through the full linreg round kernel,
 runs the Weiszfeld loop over the step kernels at full width, serves
 H2O-Danube3-4B at full width through the flash-attention kernel, times
 every kernel, runs shard-local aggregation in one process and on rank
-processes of the card, and trains H2O-Danube3-4B at full width (2
-layers) under attack through the round kernel.  Every phase prints JSON lines; the last line is
+processes of the card, trains H2O-Danube3-4B at full width (2 layers)
+under attack through the round kernel, and serves and trains the MoE
+Granite-3.0-1B-A400M (full width; 8 layers for training) and checks
+Kimi-K2's router and dispatch.  Every phase prints JSON lines; the last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every check
 passed.  Exits non-zero without it on any failure, when CUDA is
 unavailable, or when the ``src/repro_torch`` package is missing.
@@ -122,13 +124,42 @@ Phases:
                  block of real gradients, against round_aggregate_ref
                  (rtol 1e-4 / atol 1e-5 of max|y|), its own stop, and
                  both at exactly 3 iterations (max_iters=3, tol=0)
+  9 moe          the MoE family: (a) Granite-3.0-1B-A400M at full width
+                 and depth (24 layers, 1024, 16 x 8 heads of 64, 32
+                 experts of 512, top-8, 49 155): the prefill step at B =
+                 1, T = 8192 in bf16 and f32, the kernel path (24 flash
+                 launches at hd 64 on the dtype's route) and again with
+                 the plain path's expert choices replayed, held against
+                 the plain path under PREFILL_RTOL (the free path's error
+                 and router flips recorded; the earliest flip's margin held
+                 to FLIP_MARGIN_FACTOR x the replayed run's router
+                 probability error), the dropped assignments at
+                 the configured capacity; serve --arch
+                 granite-moe-1b-a400m --scale gpu; in f32 at C = N the
+                 prefill's last-position logits vs the decode loop's; (b)
+                 launch/train.py at Granite's widths cut to 8 layers
+                 (P = 528.8 M) with phase 8's settings: one round-kernel
+                 launch a round at (8, 8, P), s per step and peak GB,
+                 kernel vs plain histories at m = 4, 2 steps resumed to
+                 4 bit-identical, the checkpoint's router leaves float32;
+                 (c) the group-mode step with remat, kernel vs plain, and
+                 the loss with remat equal to the loss without; the round
+                 kernel timed at (8, 8, P) on a block of real Granite
+                 gradients, as phase 8 times it on H2O's; (d)
+                 Kimi-K2's router and dispatch (E = 384, D = 7168) on 8192
+                 tokens: top_ids equal across card and CPU except at near
+                 ties, the dispatch on the same routing bitwise equal
   7 kernel line  one JSON object, a row per kernel (the round kernel's
-                 launches include phase 6 (c)'s and phase 8's; its row
-                 carries the (8, 8, P) timing as train_shape)
+                 launches include phase 6 (c)'s, phase 8's and phase 9's;
+                 its row carries the (8, 8, P) timings as train_shape
+                 (H2O) and granite_train_shape (Granite); the
+                 flash row's launches include phase 9's prefills and it
+                 carries Granite's prefill shape as granite_shape)
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -206,7 +237,8 @@ PEAK_BF16 = {"PCIe": 756e12, "NVL": 835e12, "SXM": 989e12}
 # flash attention (B, Tq, Tk, H, KV, hd, causal, window): the grid of
 # tests/test_kernels.py; a ragged T at H2O's head width; non-causal ragged
 # Tk; H2O-Danube3-4B's heads (32/8 of 120, window 4096) around and past
-# the window; Minitron-4B's (24/8 of 128, causal)
+# the window; Minitron-4B's (24/8 of 128, causal); Granite-3.0-1B-A400M's
+# prefill (16/8 of 64, causal: ATTN_GRANITE)
 ATTN_GRID = [(2, 64, 64, 4, 2, 32, True, None),
              (1, 128, 128, 8, 8, 64, True, None),
              (2, 100, 100, 4, 1, 32, True, None),
@@ -219,7 +251,8 @@ ATTN_GRID = [(2, 64, 64, 4, 2, 32, True, None),
              (1, 1000, 1000, 32, 8, 120, True, 4096),
              (1, 4097, 4097, 32, 8, 120, True, 4096),
              (1, 8192, 8192, 32, 8, 120, True, 4096),
-             (1, 8192, 8192, 24, 8, 128, True, None)]
+             (1, 8192, 8192, 24, 8, 128, True, None),
+             (1, 8192, 8192, 16, 8, 64, True, None)]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # bf16 against the plain version in f32 on the same inputs, elementwise:
 #   |d| <= 2**-8 |y| + 2**-8 (P|V|) + 2 ATTN_TOL["float32"]
@@ -232,10 +265,12 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # about sqrt(e / 4096) = 0.026 for random inputs (P|V| is about 0.8 there)
 BF16_BOUND = 2.0 ** -8
 # the timed shapes: H2O's prefill at T = 8192 (the serve path's), Minitron's
-# at 8192, and one H2O call at prefill_32k's sequence length
+# at 8192, one H2O call at prefill_32k's sequence length, and Granite's
+# prefill at 8192 (phase 9's serve path)
 ATTN_MAIN = (1, 8192, 8192, 32, 8, 120, True, 4096)
+ATTN_GRANITE = (1, 8192, 8192, 16, 8, 64, True, None)
 ATTN_TIMED = [ATTN_MAIN, (1, 8192, 8192, 24, 8, 128, True, None),
-              (1, 32768, 32768, 32, 8, 120, True, 4096)]
+              (1, 32768, 32768, 32, 8, 120, True, 4096), ATTN_GRANITE]
 # the serve path: H2O-Danube3-4B at full width; prefill_32k (B=32,
 # T=32 768) cut to B=1, T=8192 for the whole model
 SERVE_ARCH = "h2o-danube-3-4b"
@@ -296,7 +331,7 @@ BF16_STEPS = 2.0 ** -6
 
 # Phase 8, Byzantine-robust LM training (launch/train.py, worker mode):
 # H2O-Danube3-4B at its published widths (arXiv:2401.16818;
-# configs/h2o_danube3_4b.py) cut to train.GPU_TRAIN_LAYERS = 2 layers, bf16,
+# configs/h2o_danube3_4b.py) cut to 2 layers (train.gpu_train_layers), bf16,
 # remat off (train.GPU_REMAT: torch.func refuses checkpoint's hooks);
 # m = 8 workers of 2 sequences of 512 tokens, q = 2, gmom under sign_flip
 # with the rotating schedule, AdamW 1e-3, 4 steps: one round-kernel
@@ -314,7 +349,7 @@ TRAIN_STEPS = 4
 TRAIN_SEQ = 512
 TRAIN_MAIN = {"workers": 8, "byzantine": 2, "batch": 16}
 TRAIN_COMPARED = {"workers": 4, "byzantine": 1, "batch": 8}
-TRAIN_CUTS = ["24 layers cut to 2 (launch/train.py GPU_TRAIN_LAYERS)",
+TRAIN_CUTS = ["24 layers cut to 2 (launch/train.py gpu_train_layers)",
               "remat off in worker mode (GPU_REMAT: torch.func)",
               "seq_len 512, 2 sequences a worker",
               "kernel vs plain histories at m=4, q=1, k=4 (the plain "
@@ -322,6 +357,32 @@ TRAIN_CUTS = ["24 layers cut to 2 (launch/train.py GPU_TRAIN_LAYERS)",
 TRAIN_GROUP = {"k": 4, "q": 1, "batch": 16, "microbatches": 2, "steps": 3}
 HEADLINE = {"arch": "minitron-4b", "m": 8, "q": 2, "k": 8, "steps": 8,
             "seq_len": 32, "batch": 16}
+# Phase 9, the MoE family: Granite-3.0-1B-A400M
+# (hf:ibm-granite/granite-3.0-1b-a400m-base; configs/granite_moe_1b.py),
+# (a) served at full width and depth (24 layers, 1024 wide, 16/8 heads of
+# 64, 32 experts of 512, top-8, vocab 49 155) with phase 4b's prefill and
+# serve settings; (b) trained with phase 8's settings at its published
+# widths cut to 8 layers (launch/train.py gpu_train_layers: P = 528.8 M);
+# (c) the group-mode step with remat at phase 8 (c)'s settings; (d)
+# Kimi-K2's router and dispatch (arXiv:2501.kimi2; configs/kimi_k2_1t.py:
+# 384 experts, top-8, d_model 7168) on KIMI_TOKENS tokens of a random
+# float32 router, without the experts (one layer's are 16.9 G params).
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_TRAIN_CUTS = ["24 layers cut to 8 (launch/train.py gpu_train_layers)",
+                  "remat off in worker mode (GPU_REMAT: torch.func)",
+                  "seq_len 512, 2 sequences a worker",
+                  "kernel vs plain histories at m=4, q=1, k=4, as phase 8"]
+KIMI_ARCH = "kimi-k2-1t-a32b"
+KIMI_TOKENS = 8192
+# a near tie of the router: the two swapped experts' probabilities within
+# this many float32 ulps (top-k on f32 router products that cuBLAS and the
+# CPU's BLAS sum in other orders)
+TIE_ULPS = 4
+# Granite's free-routing prefill: at the earliest layer where the kernel
+# path's experts leave the plain path's, every flipped token's margin is
+# held within this many times the replayed run's router probability error
+# there (a flip needs a margin of at most twice it)
+FLIP_MARGIN_FACTOR = 4.0
 
 FAILURES: list[str] = []
 
@@ -1809,18 +1870,18 @@ def _compared(rows, keys=("loss_median", "agg_grad_norm")):
     return {"history": [{k: row[k] for k in keys} for row in rows]}
 
 
-def train_block(dev, m, q, seed=0):
+def train_block(dev, m, q, seed=0, arch=TRAIN_ARCH):
     """The (m, P) f32 block the round kernel aggregates in a main-path
-    round: per-worker LM gradients of step 0's batch, sign_flip on a mask
-    of q, each leaf cast into its columns (round.concat_block, as
-    round_aggregate_pytree does)."""
+    round of ``arch`` at its train depth: per-worker LM gradients of step
+    0's batch, sign_flip on a mask of q, each leaf cast into its columns
+    (round.concat_block, as round_aggregate_pytree does)."""
     from repro_torch import random as prng
     from repro_torch.core import byzantine, robust_train
     from repro_torch.data.tokens import TokenStream
     from repro_torch.kernels.geomed import round as rk
     from repro_torch.launch import train as train_lib
     from repro_torch.models import model
-    cfg = train_lib.train_config(TRAIN_ARCH, "gpu")
+    cfg = train_lib.train_config(arch, "gpu")
     params = model.init(seed, cfg, device=dev)
     stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                          global_batch=2 * m, num_workers=m, seed=seed,
@@ -1844,7 +1905,7 @@ def train_kw() -> dict:
             "max_iters": rc.gmom_max_iters, "tol": rc.gmom_tol}
 
 
-def train_kernel_timing(dev, hbm, flops, smi, m=8, q=2):
+def train_kernel_timing(dev, hbm, flops, smi, m=8, q=2, arch=TRAIN_ARCH):
     """The round kernel at the main path's (m, k, P) on a block of real LM
     gradients: ms (events), iterations, held against round_aggregate_ref
     on the same block at the main path's settings and at exactly 3
@@ -1855,7 +1916,7 @@ def train_kernel_timing(dev, hbm, flops, smi, m=8, q=2):
     from repro_torch.kernels.geomed import round as rk
     kw = train_kw()
     torch.cuda.empty_cache()
-    block = train_block(dev, m, q)
+    block = train_block(dev, m, q, arch=arch)
     torch.cuda.empty_cache()
     _, d = block.shape
     k = m
@@ -1913,7 +1974,8 @@ def train_kernel_timing(dev, hbm, flops, smi, m=8, q=2):
     check(int(it3) == int(itp3) == 3,
           f"train block {(m, k, d)} at max_iters=3, tol=0: kernel "
           f"{int(it3)} plain {int(itp3)} iterations, want 3")
-    line = {"phase": "train", "part": "kernel", "shape": [m, k, d],
+    line = {"phase": "train", "part": "kernel", "arch": arch,
+            "shape": [m, k, d],
             "iters_kernel": iters, "iters_plain": int(itp),
             "max_abs_err": err, "max_abs_y": scale, "ok": ok,
             "stop_ok": stop_ok, "both_stop_or_cap": both_stop_or_cap,
@@ -1932,9 +1994,10 @@ def train_kernel_timing(dev, hbm, flops, smi, m=8, q=2):
             "iters_plain": int(itp), "shape": (m, k, d)}
 
 
-def group_step_run(dev, backend, seed=0):
+def group_step_run(dev, backend, seed=0, arch=TRAIN_ARCH):
     """(rows, launches, s per step, peak GB) of make_group_train_step at
-    the phase 8 config with remat and microbatches."""
+    the phase 8 config (``arch`` at its train depth) with remat and
+    microbatches."""
     import torch
     from repro_torch import optim
     from repro_torch import random as prng
@@ -1945,7 +2008,7 @@ def group_step_run(dev, backend, seed=0):
     from repro_torch.launch import train as train_lib
     from repro_torch.models import model
     g = TRAIN_GROUP
-    cfg = train_lib.train_config(TRAIN_ARCH, "gpu").with_(remat=True)
+    cfg = train_lib.train_config(arch, "gpu").with_(remat=True)
     rc = RobustConfig(num_workers=g["k"], num_byzantine=g["q"],
                       num_batches=g["k"], aggregator="gmom",
                       attack="sign_flip", round_backend=backend)
@@ -2123,6 +2186,447 @@ def train_path(dev, hbm, flops, smi):
     emit({"phase": "train", "seconds": time.perf_counter() - t_phase,
           "kernel_launches": launches})
     return launches, timing
+
+
+# -- phase 9: the MoE family ----------------------------------------------------
+
+class RouteTape:
+    """``models.moe.route`` for one pass of the model, call by call (one
+    call a layer): records each call's top_ids and, with ``keep_probs``,
+    the router's probabilities; given ``replay`` (an earlier tape's ids),
+    hands each call the recorded ids in place of its own top-k, weighted
+    by its own probabilities renormalised over them.  ``installed()``
+    puts it in place of ``moe.route`` for a ``with`` block."""
+
+    def __init__(self, replay=None, keep_probs=False):
+        self.replay, self.keep_probs = replay, keep_probs
+        self.ids, self.probs = [], []
+        self._route = None
+
+    def __call__(self, params, spec, x_flat):
+        import torch
+        ids, w, aux, z = self._route(params, spec, x_flat)
+        if self.replay is not None or self.keep_probs:
+            probs = torch.softmax(x_flat.float() @ params["router"], dim=-1)
+        if self.replay is not None:
+            ids = self.replay[len(self.ids)]
+            w = torch.gather(probs, 1, ids)
+            w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        if self.keep_probs:
+            self.probs.append(probs)
+        self.ids.append(ids)
+        return ids, w, aux, z
+
+    @contextlib.contextmanager
+    def installed(self):
+        from repro_torch.models import moe
+        self._route = moe.route
+        moe.route = self
+        try:
+            yield self
+        finally:
+            moe.route = self._route
+
+
+def route_flips(plain, other, num_experts):
+    """Where ``other``'s expert choices left ``plain``'s, layer by layer:
+    (assignments whose expert differs, tokens that diverged, the plain
+    run's margin at each token's first divergence: the least probability
+    it kept that ``other`` dropped minus the largest it dropped that
+    ``other`` took, the max and the median over tokens; the earliest
+    layer where any token diverged and the max margin there)."""
+    import torch
+    n_tok = plain.ids[0].shape[0]
+    dev = plain.ids[0].device
+    diverged = torch.zeros(n_tok, dtype=torch.bool, device=dev)
+    flips, margins, first_layer = 0, [], None
+    for layer, (a, b, p) in enumerate(zip(plain.ids, other.ids,
+                                          plain.probs)):
+        ina = torch.zeros((n_tok, num_experts), dtype=torch.bool,
+                          device=dev).scatter(1, a, True)
+        inb = torch.zeros_like(ina).scatter(1, b, True)
+        differs = (ina != inb).any(-1)
+        flips += int((ina & ~inb).sum())
+        first = differs & ~diverged
+        if bool(first.any()):
+            lost, gained, pf = (ina & ~inb)[first], (inb & ~ina)[first], \
+                p[first]
+            margins.append(pf.masked_fill(~lost, float("inf")).amin(-1)
+                           - pf.masked_fill(~gained, -float("inf"))
+                           .amax(-1))
+            if first_layer is None:
+                first_layer = layer
+        diverged |= differs
+    m = torch.cat(margins) if margins else torch.zeros(0, device=dev)
+    return {"assignments": flips, "tokens": int(diverged.sum()),
+            "max_first_margin": float(m.max()) if len(m) else None,
+            "median_first_margin": float(m.median()) if len(m) else None,
+            "first_layer": first_layer,
+            "first_layer_tokens": len(margins[0]) if margins else 0,
+            "first_layer_max_margin": (float(margins[0].max()) if margins
+                                       else None)}
+
+
+def moe_serve_path(dev):
+    """Phase 9 (a), Granite at full width and depth -> ({dtype: the flash
+    kernel's launches by route in the kernel-path prefill}, bf16 prefill
+    ms).  The prefill step at B = 1, T = PREFILL_T in bf16 and f32: the
+    plain path; the kernel path (the main path's run: 24 launches on the
+    dtype's route); and the kernel path again with the plain path's
+    expert choices replayed (``RouteTape``), held against the plain path
+    under PREFILL_RTOL.  Near ties of the router flip experts between
+    two summation orders, and a flipped expert moves its token by a
+    weighted expert output, far past what the attention kernel's rounding
+    moves: so the free kernel path's error and its flips are recorded,
+    not held, but at the earliest layer where any token flips, every
+    flipped token's margin is held to ``FLIP_MARGIN_FACTOR`` times the
+    replayed run's router probability error there (a near tie, not a
+    fault).  The dropped assignments at the configured capacity are
+    counted from the kernel path's choices.  Then launch/serve.py
+    --arch granite-moe-1b-a400m --scale gpu, and in f32 at C = N (nothing
+    drops) the prefill step's last-position logits vs the decode loop's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import flash
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import blocks, model, moe
+    base = get_config(MOE_ARCH)
+    L, E, K = base.num_layers, base.num_experts, base.experts_per_token
+    C = moe._capacity(blocks.moe_spec(base), PREFILL_T)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(0, base.vocab_size, (1, PREFILL_T),
+                           generator=gen, device=dev)
+    prompts = torch.randint(0, base.vocab_size, (4, 16), generator=gen,
+                            device=dev)
+    by_route, ms = {}, {}
+    for dname in ("bfloat16", "float32"):
+        cfg = base.with_(dtype=getattr(torch, dname),
+                         param_dtype=getattr(torch, dname))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = model.init(0, cfg, device=dev)
+        check(params["layers"]["moe"]["router"].dtype == torch.float32,
+              f"granite {dname}: router "
+              f"{params['layers']['moe']['router'].dtype}")
+        kernel_step = steps.make_prefill_step(cfg)
+        plain_step = steps.make_prefill_step(cfg, plain=True)
+        _prefill_ms(kernel_step, params, {"tokens": tokens[:, :256]}, dev)
+        plain_tape = RouteTape(keep_probs=True)
+        flash.reset_launches()
+        with plain_tape.installed():
+            h_plain, ms_plain = _prefill_ms(plain_step, params,
+                                            {"tokens": tokens}, dev)
+        plain_launches = flash.flash_attention.launches
+        free_tape = RouteTape()
+        flash.reset_launches()
+        with free_tape.installed():
+            h, ms_kernel = _prefill_ms(kernel_step, params,
+                                       {"tokens": tokens}, dev)
+        n_prefill = flash.flash_attention.launches
+        routes = by_route[dname] = dict(flash.flash_attention.route_launches)
+        ms[dname] = ms_kernel
+        forced_tape = RouteTape(replay=plain_tape.ids, keep_probs=True)
+        with forced_tape.installed():
+            h_forced = kernel_step(params, {"tokens": tokens})
+        n_forced = flash.flash_attention.launches - n_prefill
+        scale = float(h_plain.float().abs().max())
+        err = float((h_forced.float() - h_plain.float()).abs().max())
+        ok = err <= PREFILL_RTOL[dname] * scale
+        free_err = float((h.float() - h_plain.float()).abs().max())
+        flips = route_flips(plain_tape, free_tape, E)
+        # up to the earliest layer where a token flips, the free run routed
+        # as the replayed run: a flip there needs a margin of at most twice
+        # the router probabilities' error, which the replayed run shows
+        lf = flips["first_layer"]
+        prob_err = None if lf is None else float(
+            (forced_tape.probs[lf] - plain_tape.probs[lf]).abs().max())
+        ties_ok = lf is None or (flips["first_layer_max_margin"]
+                                 <= FLIP_MARGIN_FACTOR * prob_err)
+        dropped = [int((moe._ranks(ids.reshape(-1), E)[3] >= C).sum())
+                   for ids in free_tape.ids]
+        finite = bool(torch.isfinite(h).all())
+        check(ok, f"granite prefill {dname}: kernel (plain path's experts) "
+                  f"vs plain max_abs_err {err} (max|h| {scale}, rtol "
+                  f"{PREFILL_RTOL[dname]})")
+        check(finite and h.shape == (1, PREFILL_T, cfg.d_model),
+              f"granite prefill {dname}: output {tuple(h.shape)}, finite "
+              f"{finite}")
+        check(ties_ok,
+              f"granite prefill {dname}: routing flips first at layer {lf} "
+              f"with a margin of {flips['first_layer_max_margin']}, past "
+              f"{FLIP_MARGIN_FACTOR} x the replayed run's router "
+              f"probability error {prob_err}")
+        check(n_prefill == L and n_forced == L and plain_launches == 0,
+              f"granite prefill {dname}: {n_prefill} and {n_forced} kernel "
+              f"launches (want {L}), plain path {plain_launches}")
+        want_route = "tensor_core" if dname == "bfloat16" else "cuda_core"
+        check(routes == {r: L * (r == want_route) for r in routes},
+              f"granite prefill {dname}: launches by route {routes}, want "
+              f"{L} on {want_route}")
+        check(len(free_tape.ids) == len(plain_tape.ids) == L,
+              f"granite prefill {dname}: {len(free_tape.ids)} router calls")
+        emit({"phase": "moe", "part": "a", "step": "prefill",
+              "arch": cfg.name, "dtype": dname, "batch": 1,
+              "seq_len": PREFILL_T, "num_layers": L,
+              "reduced": PREFILL_CUTS[:1],
+              "kernel_launches": n_prefill, "launches_by_route": routes,
+              "ms_per_prefill": {"kernel": ms_kernel, "plain": ms_plain},
+              "max_abs_err": err, "max_abs_h": scale,
+              "rel_err": err / scale, "rtol": PREFILL_RTOL[dname], "ok": ok,
+              "free_routing": {"max_abs_err": free_err,
+                               "rel_err": free_err / scale,
+                               "flips": flips,
+                               "first_layer_prob_err": prob_err,
+                               "flip_margin_factor": FLIP_MARGIN_FACTOR,
+                               "ties_ok": ties_ok},
+              "capacity": C, "dropped_assignments": sum(dropped),
+              "dropped_by_layer": dropped, "assignments": PREFILL_T * K * L,
+              "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+        del h, h_plain, h_forced, plain_tape, free_tape, forced_tape
+        if dname == "float32":
+            # at C = N nothing drops: the prefill step and the decode loop
+            # compute one function
+            slack = cfg.with_(moe_capacity_factor=E / K)
+            n = prompts.numel()
+            check(moe._capacity(blocks.moe_spec(slack), n) == n,
+                  "granite slack capacity")
+            flash.reset_launches()
+            hp = steps.make_prefill_step(slack)(params, {"tokens": prompts})
+            n_check = flash.flash_attention.launches
+            want = model._unembed_fn(params, slack)(hp[:, -1:])
+            _, got, _ = serve.generate(params, slack, prompts, 1)
+            lscale = float(want.abs().max())
+            lerr = float((got - want).abs().max())
+            lok = lerr <= 1e-3 * lscale
+            check(lok and n_check == L,
+                  f"granite prefill vs decode logits (f32, C = N): "
+                  f"max_abs_err {lerr} (max|logits| {lscale}), {n_check} "
+                  "kernel launches")
+            emit({"phase": "moe", "part": "a", "step": "prefill_vs_decode",
+                  "dtype": dname, "capacity_factor": E / K,
+                  "prompts": list(prompts.shape), "kernel_launches": n_check,
+                  "max_abs_err": lerr, "max_abs_logits": lscale,
+                  "rtol": 1e-3, "ok": lok})
+            del hp, want, got
+        del params
+        torch.cuda.empty_cache()
+        if dname == "bfloat16":
+            out, stats = serve.main(["--scale", "gpu", "--arch", MOE_ARCH])
+            good = (tuple(out.shape) == (4, 32) and int(out.min()) >= 0
+                    and int(out.max()) < base.vocab_size)
+            check(good, f"serve --arch {MOE_ARCH}: tokens "
+                        f"{tuple(out.shape)}")
+            emit({"phase": "moe", "part": "a", "step": "serve_gpu",
+                  "arch": MOE_ARCH, "requests": 4, "prompt_len": 16,
+                  "new_tokens": 32, "tokens_per_s": stats["tokens_per_s"],
+                  "prefill_s": stats["prefill_s"],
+                  "decode_s": stats["decode_s"], "ok": good,
+                  "first_tokens": out[0, :8].tolist()})
+            del out
+            torch.cuda.empty_cache()
+    return by_route, ms
+
+
+def moe_train_path(dev, hbm, flops, smi):
+    """Phase 9 (b), (c) -> the round-kernel launches of its runs.  (b)
+    launch/train.py's train(args) for Granite at its train depth with
+    phase 8's settings: m = 4 kernel vs plain histories, the main run at
+    m = 8 (one launch a round at (8, 8, P)), 2 steps checkpointed and
+    resumed to 4 bit-identical, the checkpoint's router leaves float32;
+    (c) the group-mode step with remat, kernel vs plain, and the loss with
+    remat (the block hands its aux back) equal to the loss without; then
+    the round kernel timed at (8, 8, P) on a block of real Granite
+    gradients (``train_kernel_timing``).  -> (launches, that timing)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.utils._pytree import tree_map
+    from repro_torch import checkpoint
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model
+    from repro_torch.sim.goldens import compare_traces
+    t_phase = time.perf_counter()
+    cfg = train_lib.train_config(MOE_ARCH, "gpu")
+    P = cfg.param_count()
+    launches = 0
+    compared = {}
+    for backend in ("auto", "fused_interpret"):
+        compared[backend] = _train_run(_train_args(
+            arch=MOE_ARCH, round_backend=backend, **TRAIN_COMPARED), dev)
+    launches += compared["auto"][1]
+    main_res, n_main, peak_main = _train_run(_train_args(arch=MOE_ARCH), dev)
+    launches += n_main
+    finite = all(math.isfinite(v) for row in main_res["history"]
+                 for v in row.values())
+    vs_plain = compare_traces(
+        _compared(compared["auto"][0]["history"]),
+        _compared(compared["fused_interpret"][0]["history"]))
+    check(n_main == TRAIN_STEPS, f"granite train: {n_main} round-kernel "
+                                 f"launches for {TRAIN_STEPS} rounds")
+    check(finite and len(main_res["history"]) == TRAIN_STEPS,
+          f"granite train: history {main_res['history']}")
+    check(not vs_plain, f"granite train m=4: kernel vs plain {vs_plain[:3]}")
+    check(compared["auto"][1] == TRAIN_STEPS
+          and compared["fused_interpret"][1] == 0,
+          f"granite train m=4: launches {compared['auto'][1]} (kernel), "
+          f"{compared['fused_interpret'][1]} (plain)")
+    emit({"phase": "moe", "part": "b", "arch": MOE_ARCH,
+          "layers": cfg.num_layers, "params": P, "seq_len": TRAIN_SEQ,
+          **TRAIN_MAIN, "num_batches": TRAIN_MAIN["workers"],
+          "round_shape": [TRAIN_MAIN["workers"], TRAIN_MAIN["workers"], P],
+          "steps": TRAIN_STEPS, "reduced": MOE_TRAIN_CUTS,
+          "kernel_launches": n_main,
+          "s_per_step": main_res["seconds"] / TRAIN_STEPS,
+          "peak_mem_gb": peak_main, "loss_median": _curve(main_res),
+          "agg_grad_norm": _curve(main_res, "agg_grad_norm"),
+          "finite": finite, "compared_geometry": TRAIN_COMPARED,
+          "compared": {b: {"launches": n, "peak_mem_gb": peak,
+                           "s_per_step": r["seconds"] / TRAIN_STEPS,
+                           "loss_median": _curve(r)}
+                       for b, (r, n, peak) in compared.items()},
+          "kernel_vs_plain_ok": not vs_plain, "card": smi})
+    del compared
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_moe_ckpt_")
+    try:
+        first, n1, _ = _train_run(_train_args(
+            arch=MOE_ARCH, steps=2, ckpt_dir=ckpt, ckpt_every=2), dev)
+        resumed, n2, _ = _train_run(_train_args(
+            arch=MOE_ARCH, ckpt_dir=ckpt, ckpt_every=2), dev)
+        leaves = checkpoint.read_manifest(ckpt, TRAIN_STEPS)["leaves"]
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    launches += n1 + n2
+    dtypes = {e["path"]: e["dtype"] for e in leaves
+              if e["path"].startswith(".params/")}
+    router = {p: d for p, d in dtypes.items() if "['router']" in p}
+    experts = {p: d for p, d in dtypes.items() if "['w_gate']" in p}
+    router_ok = (set(router.values()) == {"float32"}
+                 and set(experts.values()) == {"bfloat16"})
+    bitwise = (resumed["resumed_from"] == 2
+               and resumed["history"] == main_res["history"])
+    check(bitwise and n1 == 2 and n2 == 2,
+          f"granite resume: resumed_from {resumed['resumed_from']}, history "
+          f"{resumed['history']} vs {main_res['history']}; launches {n1}, "
+          f"{n2}")
+    check(router_ok, f"granite checkpoint dtypes: router {router}, experts "
+                     f"{experts}")
+    emit({"phase": "moe", "part": "b", "resumed_from":
+          resumed["resumed_from"], "bit_identical": bitwise,
+          "launches": [n1, n2], "param_dtypes": {"router": router,
+                                                 "w_gate": experts},
+          "router_f32": router_ok})
+    group = {b: group_step_run(dev, b, arch=MOE_ARCH)
+             for b in ("auto", "fused_interpret")}
+    launches += group["auto"][1]
+    vs_group = compare_traces(_compared(group["auto"][0]),
+                              _compared(group["fused_interpret"][0]))
+    check(not vs_group, f"granite group step: kernel vs plain "
+                        f"{vs_group[:3]}")
+    check(group["auto"][1] == TRAIN_GROUP["steps"]
+          and group["fused_interpret"][1] == 0,
+          f"granite group step: launches {group['auto'][1]}, "
+          f"{group['fused_interpret'][1]}")
+    # the loss with autograd recording, with and without remat
+    torch.cuda.empty_cache()
+    params = model.init(0, cfg, device=dev)
+    batch = TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                        global_batch=2, num_workers=1, device=dev).batch(0)
+    one = {k: v[0] for k, v in batch.items()}
+    losses = []
+    with torch.enable_grad():
+        for remat in (False, True):
+            ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
+            losses.append(model.loss_fn(ps, one,
+                                        cfg.with_(remat=remat)).detach())
+            del ps
+    _, aux = model.forward(params, cfg, one)
+    remat_ok = bool(torch.equal(losses[0], losses[1])) and float(aux) > 0
+    check(remat_ok, f"granite loss with remat {float(losses[1])} vs without "
+                    f"{float(losses[0])}, aux {float(aux)}")
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "moe", "part": "c", **TRAIN_GROUP, "remat": True,
+          "kernel_vs_plain_ok": not vs_group,
+          "loss_with_remat": float(losses[1]),
+          "loss_without_remat": float(losses[0]), "aux": float(aux),
+          "remat_keeps_aux": remat_ok,
+          "runs": {b: {"history": rows, "launches": n, "s_per_step": s,
+                       "peak_mem_gb": peak}
+                   for b, (rows, n, s, peak) in group.items()},
+          "seconds": time.perf_counter() - t_phase})
+    return launches, train_kernel_timing(dev, hbm, flops, smi, arch=MOE_ARCH)
+
+
+def kimi_dispatch(dev):
+    """Phase 9 (d): Kimi-K2's router (E = 384, D = 7168, top-8) on
+    KIMI_TOKENS random tokens with a random float32 router: the card's
+    top_ids equal the CPU's except at near ties (TIE_ULPS); on the CPU's
+    top_ids/top_w the card's dispatch (expert buffers, slots, experts,
+    weights) is bitwise the CPU's; ms of the router and of the dispatch
+    on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks, moe
+    cfg = get_config(KIMI_ARCH)
+    spec = blocks.moe_spec(cfg)
+    E, D, N = cfg.num_experts, cfg.d_model, KIMI_TOKENS
+    C = moe._capacity(spec, N)
+    gen = torch.Generator().manual_seed(384)
+    router = torch.randn(D, E, generator=gen) * D ** -0.5
+    x = torch.randn(N, D, generator=gen)
+    ids, w, aux, z = moe.route({"router": router}, spec, x)
+    on_card = {"router": router.to(dev)}
+    xc = x.to(dev)
+    cids, cw, caux, cz = moe.route(on_card, spec, xc)
+    route_ms = timed(lambda: moe.route(on_card, spec, xc), repeats=5)
+    probs = torch.softmax(x @ router, dim=-1)
+    differ = (cids.cpu() != ids).nonzero().tolist()
+    gaps = [float((probs[n, ids[n, j]] - probs[n, cids[n, j]]).abs())
+            / float(np.spacing(np.float32(probs[n, ids[n, j]])))
+            for n, j in differ]
+    ties_ok = all(g <= TIE_ULPS for g in gaps)
+    check(ties_ok, f"kimi router: card top_ids differ from the CPU's at "
+                   f"{len(differ)} entries, gaps {gaps[:5]} ulps")
+    want_in, want = moe._dispatch_local(spec, x, ids, w, expert_lo=0,
+                                        num_local=E, capacity=C)
+    idc, wc = ids.to(dev), w.to(dev)
+    got_in, got = moe._dispatch_local(spec, xc, idc, wc, expert_lo=0,
+                                      num_local=E, capacity=C)
+    dispatch_ms = timed(lambda: moe._dispatch_local(
+        spec, xc, idc, wc, expert_lo=0, num_local=E, capacity=C),
+        repeats=5)
+    equal = bool(torch.equal(got_in.cpu(), want_in)) and all(
+        bool(torch.equal(a.cpu(), b)) for a, b in zip(got, want))
+    kept = int((want[3] != 0).sum())
+    check(equal, "kimi dispatch: the card's slots, keep mask or buffers "
+                 "differ from the CPU's on the same routing")
+    emit({"phase": "moe", "part": "d", "arch": KIMI_ARCH, "experts": E,
+          "top_k": spec.experts_per_token, "d_model": D, "tokens": N,
+          "capacity": C, "kept_assignments": kept,
+          "assignments": N * spec.experts_per_token,
+          "top_ids_differ": len(differ), "tie_gaps_ulps": gaps[:16],
+          "ties_ok": ties_ok, "dispatch_bitwise_equal": equal,
+          "aux": [float(aux), float(caux)], "z": [float(z), float(cz)],
+          "route_ms": route_ms, "dispatch_ms": dispatch_ms})
+    del want_in, got_in, xc, on_card
+    torch.cuda.empty_cache()
+
+
+def moe_path(dev, hbm, flops, smi):
+    """Phase 9 -> (round-kernel launches, flash launches by dtype and
+    route, the round kernel's timing at Granite's (8, 8, P))."""
+    t0 = time.perf_counter()
+    attn_routes, prefill_ms = moe_serve_path(dev)
+    launches, timing = moe_train_path(dev, hbm, flops, smi)
+    kimi_dispatch(dev)
+    emit({"phase": "moe", "seconds": time.perf_counter() - t0,
+          "round_kernel_launches": launches,
+          "flash_launches_by_route": attn_routes,
+          "granite_prefill_ms": prefill_ms})
+    return launches, attn_routes, timing
 
 
 def main() -> int:
@@ -2373,6 +2877,10 @@ def main() -> int:
     train_launches, train_timing = train_path(dev, hbm, flops, smi)
     main_launches += train_launches
 
+    # -- 9 moe: the MoE family ----------------------------------------------
+    moe_launches, moe_routes, moe_timing = moe_path(dev, hbm, flops, smi)
+    main_launches += moe_launches
+
     # -- 7 the kernel line --------------------------------------------------
     csrc = "src/repro_torch/kernels/"
     rows = (("round_aggregate", "geomed/csrc/round_aggregate.cu",
@@ -2403,7 +2911,8 @@ def main() -> int:
              timing[("weiszfeld_loop", GEOMED_TILES)], GEOMED_TILES),
             ("flash_attention", "attention/csrc/flash_attention_tc.cuh",
              "src/repro/kernels/attention/flash.py:124",
-             attn_routes["bfloat16"]["tensor_core"],
+             attn_routes["bfloat16"]["tensor_core"]
+             + moe_routes["bfloat16"]["tensor_core"],
              attn_err[(ATTN_MAIN, "bfloat16")], timing[ATTN_MAIN],
              ATTN_MAIN))
     print(smi, flush=True)
@@ -2419,19 +2928,29 @@ def main() -> int:
     # GEOMED_MAIN
     for row in line[2:4]:
         row["launches_shape"] = list(GEOMED_STEP)
-    # the round kernel at the train path's (8, 8, P), phase 8
-    line[0]["train_shape"] = {
-        "shape": list(train_timing["shape"]),
-        **{key: train_timing[key] for key in (
+    # the round kernel at the train paths' (8, 8, P): H2O's, phase 8, and
+    # Granite's, phase 9
+    for key, t in (("train_shape", train_timing),
+                   ("granite_train_shape", moe_timing)):
+        line[0][key] = {"shape": list(t["shape"]), **{k: t[k] for k in (
             "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err", "iters", "iters_plain")}}
     # the linreg round's row is its one-pass route at LINREG_MAIN
     line[1].update(kernel_route="one_pass", launches_by_route=linreg_routes)
     # flash attention's row is its tensor-core route at ATTN_MAIN (bf16);
-    # the f32 prefill's launches went to the CUDA-core route
+    # the f32 prefills' launches went to the CUDA-core route; its launches
+    # are H2O's prefills (phase 4b) and Granite's (phase 9); Granite's
+    # prefill shape is timed beside ATTN_MAIN
     line[-1].update(kernel_route="tensor_core", launches_by_route={
-        "tensor_core": attn_routes["bfloat16"]["tensor_core"],
-        "cuda_core": attn_routes["float32"]["cuda_core"]})
+        "tensor_core": attn_routes["bfloat16"]["tensor_core"]
+        + moe_routes["bfloat16"]["tensor_core"],
+        "cuda_core": attn_routes["float32"]["cuda_core"]
+        + moe_routes["float32"]["cuda_core"]},
+        granite_shape={"shape": list(ATTN_GRANITE), **{
+            key: timing[ATTN_GRANITE][key] for key in (
+                "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by")},
+            "max_abs_err": attn_err[(ATTN_GRANITE, "bfloat16")]})
     emit({"kernels": line})
 
     if FAILURES:

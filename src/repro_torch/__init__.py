@@ -13,9 +13,10 @@ Subpackages:
     optim       SGD and learning-rate schedules
     checkpoint  msgpack/npz checkpoints, layout-compatible with ``repro``
     sim         scenario registry, engine and golden traces
-    configs     model configs (the dense family) and input shapes
-    models      the dense GQA decoder: layers, attention, blocks, model
-    launch      prefill/serve steps and the serve CLI
+    configs     model configs (the dense and MoE families) and input shapes
+    models      the GQA decoder, dense or MoE: layers, attention, moe,
+                blocks, model
+    launch      prefill/serve/train steps, the serve and train CLIs
 
 Entry points (``sim.run_scenario``, ``sim.replay_scenario``,
 ``core.robust_train.make_run_rounds``, ``data.regression.generate``,

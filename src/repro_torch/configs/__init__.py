@@ -2,7 +2,7 @@
 (port of ``repro.configs``).
 
 ``ARCHITECTURES`` names every architecture of the reference.  The dense
-family is ported; ``get_config`` of another family raises
+and MoE families are ported; ``get_config`` of another family raises
 ``NotImplementedError`` until its model code is (ROADMAP Queue 1 item 16).
 """
 
@@ -18,8 +18,8 @@ _ARCH_MODULES = {
     "rwkv6-7b": None,
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
     "seamless-m4t-medium": None,
-    "granite-moe-1b-a400m": None,
-    "kimi-k2-1t-a32b": None,
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t",
     "zamba2-2.7b": None,
     "internvl2-26b": None,
     "minitron-4b": "repro_torch.configs.minitron_4b",

@@ -1,13 +1,13 @@
 """Model and run configuration (port of ``repro.configs.base``).
 
-The fields of the dense family, the one ported so far, and the training
-knobs ``remat`` (activation rematerialization of each block,
+The fields of the dense and MoE families, the ones ported so far, and
+the training knobs ``remat`` (activation rematerialization of each block,
 ``models.blocks.maybe_remat``) and ``loss_chunk`` (the sequence chunk of
-``models.layers.cross_entropy_loss``); the other families' fields
-(experts, SSM state, encoder, frontend) come with their model code
-(ROADMAP Queue 1 item 16).  ``dtype`` and ``param_dtype`` are torch
-dtypes.  ``reduced()`` is the CPU-smoke variant (<= 2 layers, d_model <=
-256, float32, no remat, the loss's default chunk), the same cut as the
+``models.layers.cross_entropy_loss``); the other families' fields (SSM
+state, encoder, frontend) come with their model code (ROADMAP Queue 1
+item 16).  ``dtype`` and ``param_dtype`` are torch dtypes.  ``reduced()``
+is the CPU-smoke variant (<= 2 layers, d_model <= 256, <= 4 experts of
+top-2, float32, no remat, the loss's default chunk), the same cut as the
 reference's.
 """
 
@@ -16,6 +16,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+# the families whose config fields, param counts and blocks the port has
+PORTED_FAMILIES = ("dense", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +39,10 @@ class ModelConfig:
     rope_theta: float = 1e6
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_capacity_factor: float = 1.25
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.bfloat16
     remat: bool = True
@@ -64,6 +71,8 @@ class ModelConfig:
             num_kv_heads=kv,
             head_dim=hd,
             vocab_size=min(self.vocab_size, 512),
+            num_experts=min(self.num_experts, 4),
+            experts_per_token=min(self.experts_per_token, 2),
             sliding_window=(min(self.sliding_window, 64)
                             if self.sliding_window else None),
             dtype=torch.float32,
@@ -72,18 +81,40 @@ class ModelConfig:
             loss_chunk=0,
         )
 
+    def _attn_params(self) -> int:
+        return self.d_model * self.head_dim * 2 \
+            * (self.num_heads + self.num_kv_heads)
+
+    def _embed_params(self) -> int:
+        return self.vocab_size * self.d_model \
+            * (1 if self.tie_embeddings else 2)
+
+    def _require_counted(self):
+        if self.family not in PORTED_FAMILIES:
+            raise NotImplementedError(
+                f"param_count of the {self.family!r} family comes with its "
+                "model code (ROADMAP Queue 1 item 16)")
+
     def param_count(self) -> int:
-        """Parameters of the dense family (the reference's approximate
-        count; the other families come with their models)."""
-        D, F, V, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
-        emb = V * D * (1 if self.tie_embeddings else 2)
-        attn = D * self.num_heads * self.head_dim * 2 \
-            + D * self.num_kv_heads * self.head_dim * 2
+        """Parameters of the dense and MoE families (the reference's
+        approximate count: no norms; the router counted)."""
+        self._require_counted()
+        D, F, L = self.d_model, self.d_ff, self.num_layers
         if self.family == "dense":
-            return emb + L * (attn + 3 * D * F)
-        raise NotImplementedError(
-            f"param_count of the {self.family!r} family comes with its "
-            "model code (ROADMAP Queue 1 item 16)")
+            ffn = 3 * D * F
+        else:
+            ffn = self.num_experts * 3 * D * F + D * self.num_experts
+        return self._embed_params() + L * (self._attn_params() + ffn)
+
+    def active_param_count(self) -> int:
+        """Parameters a token passes through (MoE: its top-k experts and
+        the router)."""
+        self._require_counted()
+        if self.family != "moe":
+            return self.param_count()
+        D, F, L = self.d_model, self.d_ff, self.num_layers
+        act_moe = self.experts_per_token * 3 * D * F + D * self.num_experts
+        return self._embed_params() + L * (self._attn_params() + act_moe)
 
 
 @dataclasses.dataclass(frozen=True)

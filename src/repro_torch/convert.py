@@ -89,20 +89,28 @@ def scenario_inputs_from_numpy(features, targets, theta_star, *,
 def lm_params_from_numpy(cfg: ModelConfig, tree, device=None):
     """The reference's ``models.model.init`` params with numpy leaves ->
     the port's params on ``device`` (``None``: the CUDA card), leaf for
-    leaf (the same keys and layouts, stacked layers included), floating
-    leaves in ``cfg.param_dtype``."""
+    leaf (the same keys and layouts, stacked layers included), each leaf
+    in its own dtype (in a bf16 config the MoE router stays float32).
+    The dense layout has ``layers.mlp``; the MoE layout ``layers.moe``
+    with (L, E, d_in, d_out) experts and an (L, D, E) router."""
     dev = _device.resolve_device(device)
     L, D, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
-    want = {"embed": (V, D),
-            "wq": (L, D, cfg.num_heads, cfg.head_dim),
-            "w_gate": (L, D, cfg.d_ff)}
+    want = {"embed": (V, D), "wq": (L, D, cfg.num_heads, cfg.head_dim)}
     got = {"embed": np.shape(tree["embed"]),
-           "wq": np.shape(tree["layers"]["attn"]["wq"]),
-           "w_gate": np.shape(tree["layers"]["mlp"]["w_gate"])}
+           "wq": np.shape(tree["layers"]["attn"]["wq"])}
+    if cfg.family == "moe":
+        E = cfg.num_experts
+        want.update(router=(L, D, E), w_gate=(L, E, D, cfg.d_ff))
+        got.update({name: np.shape(tree["layers"].get("moe", {}).get(name))
+                    for name in ("router", "w_gate")})
+    else:
+        want.update(w_gate=(L, D, cfg.d_ff))
+        got.update(w_gate=np.shape(
+            tree["layers"].get("mlp", {}).get("w_gate")))
     if got != want:
         raise ValueError(f"params of shapes {got} do not fit {cfg.name} "
                          f"({want})")
-    return _tree(tree, dev, cfg.param_dtype)
+    return _tree(tree, dev)
 
 
 def decode_state_from_numpy(cfg: ModelConfig, tree, device=None):

@@ -6,7 +6,7 @@ robust aggregation (GMoM through the CUDA round kernel on the card),
 AdamW, checkpoints of the full ``TrainState`` and a metrics log.
 
 * ``--scale gpu`` (default): the architecture at its published widths on
-  the CUDA card, cut only in depth (``GPU_TRAIN_LAYERS``), with remat off
+  the CUDA card, cut only in depth (``gpu_train_layers``), with remat off
   (``GPU_REMAT``); raises without a card.
 * ``--scale cpu``: the reduced config on the CPU, as the reference's
   default.
@@ -18,6 +18,8 @@ Usage:
         --steps 20 --byzantine 2 --attack sign_flip --aggregator gmom
     PYTHONPATH=src python -m repro_torch.launch.train --steps 4 \\
         --seq-len 512          # H2O-Danube3-4B, 2 layers, on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --steps 4 \\
+        --seq-len 512 --arch granite-moe-1b-a400m     # 8 layers
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from torch.utils._pytree import tree_map
 from repro_torch import _device, checkpoint, optim
 from repro_torch import random as prng
 from repro_torch.configs import ARCHITECTURES, get_config
+from repro_torch.configs.base import PORTED_FAMILIES
 from repro_torch.core import (RobustConfig, aggregators, byzantine,
                               init_train_state, make_run_rounds,
                               restore_train_state, save_train_state,
@@ -40,11 +43,18 @@ from repro_torch.core.train_state import advance, history_rows
 from repro_torch.data.tokens import TokenStream
 from repro_torch.models import model as model_lib
 
-# --scale gpu keeps the published widths and cuts the depth: two layers
-# hold every kind of parameter the model has, and H2O-Danube3-4B at 2
-# layers has P = 555.4 M parameters, so the m = 8 stacked worker
-# gradients and their f32 block for the round kernel fit one 80 GB card
-GPU_TRAIN_LAYERS = 2
+# --scale gpu keeps the published widths and cuts the depth to the most
+# layers whose reckoned round fits the card: a round at m = k = 8 holds
+# about 111 bytes a parameter (params, AdamW moments, the stacked and
+# reported bf16 gradients, the (8, P) f32 block, the round kernel's Z;
+# 61.6 GB at H2O-Danube3-4B's P = 555.4 M on an H100 80GB), and the
+# reckoning may take 64 GB of the card's 80, leaving 16 GB to what does
+# not scale with P: Granite-3.0-1B-A400M's dispatch and combine
+# activations under vmap add 11 GB (a round peaked at 69.6 GB against
+# 58.7 GB reckoned at P = 528.8 M, chip_smoke.py phase 9).  So H2O trains
+# at 2 layers, Granite at 8 of its 24.
+GPU_TRAIN_BYTES_PER_PARAM = 111
+GPU_TRAIN_BUDGET_BYTES = 64e9
 # worker mode takes per-worker gradients with torch.func (vmap of grad),
 # which refuses torch.utils.checkpoint's saved-tensor hooks
 # (models.blocks.maybe_remat): train() runs without remat
@@ -52,26 +62,45 @@ GPU_REMAT = False
 DEFAULT_ARCH = {"cpu": "minitron-4b", "gpu": "h2o-danube-3-4b"}
 
 
+def gpu_train_layers(cfg) -> int:
+    """The most layers (up to ``cfg.num_layers``) at which
+    ``GPU_TRAIN_BYTES_PER_PARAM`` bytes a parameter fit
+    ``GPU_TRAIN_BUDGET_BYTES``; raises when not even one layer fits."""
+    def reckoned(layers):
+        return (GPU_TRAIN_BYTES_PER_PARAM
+                * cfg.with_(num_layers=layers).param_count())
+
+    if reckoned(1) > GPU_TRAIN_BUDGET_BYTES:
+        raise NotImplementedError(
+            f"{cfg.name} at one layer reckons {reckoned(1) / 1e9:.1f} GB a "
+            f"round, past the card's {GPU_TRAIN_BUDGET_BYTES / 1e9:.0f} GB "
+            "budget: it needs its params and gradients sharded over a model "
+            "mesh (ROADMAP Queue 1 item 16.10)")
+    return max(layers for layers in range(1, cfg.num_layers + 1)
+               if reckoned(layers) <= GPU_TRAIN_BUDGET_BYTES)
+
+
 def train_config(arch: str, scale: str):
     """The config ``train`` runs at ``scale``: reduced on the CPU; the
-    published widths at ``GPU_TRAIN_LAYERS`` layers without remat on the
+    published widths at ``gpu_train_layers`` layers without remat on the
     card."""
     if scale == "cpu":
         return get_config(arch).reduced()
     if scale == "gpu":
-        return get_config(arch).with_(num_layers=GPU_TRAIN_LAYERS,
-                                      remat=GPU_REMAT)
+        cfg = get_config(arch)
+        return cfg.with_(num_layers=gpu_train_layers(cfg), remat=GPU_REMAT)
     raise NotImplementedError(
         f"--scale {scale}: the reference lowers the production job in a "
         "dry run, which needs the dry-run tooling (ROADMAP Queue 1 item 17)")
 
 
 def build_cpu_batch(cfg, stream: TokenStream, step: int, key):
-    """The step's worker batches, (m, B/m, T) tokens and labels.  The audio
-    and VLM families add their frame and patch stubs in the reference;
-    they come with those families (ROADMAP Queue 1 item 16)."""
-    del key    # the dense family draws nothing beyond the stream
-    if cfg.family != "dense":
+    """The step's worker batches, (m, B/m, T) tokens and labels (the dense
+    and MoE families' batches).  The audio and VLM families add their
+    frame and patch stubs in the reference; they come with those families
+    (ROADMAP Queue 1 item 16)."""
+    del key    # the dense and MoE families draw nothing beyond the stream
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"train batches of the {cfg.family!r} family come with its "
             "model code (ROADMAP Queue 1 item 16)")

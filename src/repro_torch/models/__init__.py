@@ -1,4 +1,5 @@
-"""Model code of the port (``repro.models``): the dense GQA decoder.
+"""Model code of the port (``repro.models``): the GQA decoder with a
+SwiGLU (dense) or a mixture of experts (moe).
 
 Params are nested dicts of tensors with the reference's keys and layouts
 (``wq`` is (D, H, hd); layer stacks carry a leading L axis), so

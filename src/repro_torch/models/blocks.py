@@ -1,10 +1,10 @@
 """Decoder blocks and their stack helpers (port of
-``repro.models.blocks``, the dense family).
+``repro.models.blocks``, the dense and MoE families).
 
 Stacked params carry a leading L axis; the reference scans the block over
 it, the port loops over it in Python (``layer``).  ``maybe_remat`` is the
 reference's activation rematerialization on ``torch.utils.checkpoint``.
-The MoE, RWKV, Mamba and encoder blocks come with their families (ROADMAP
+The RWKV, Mamba and encoder blocks come with their families (ROADMAP
 Queue 1 item 16).
 """
 
@@ -13,8 +13,8 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers
+from repro_torch.configs.base import PORTED_FAMILIES, ModelConfig
+from repro_torch.models import attention, layers, moe
 
 
 def attn_spec(cfg: ModelConfig) -> attention.AttentionSpec:
@@ -31,39 +31,56 @@ def attn_spec(cfg: ModelConfig) -> attention.AttentionSpec:
     )
 
 
-def require_dense(cfg: ModelConfig):
+def moe_spec(cfg: ModelConfig) -> moe.MoESpec:
+    return moe.MoESpec(
+        d_model=cfg.d_model, d_ff=cfg.d_ff,
+        num_experts=cfg.num_experts,
+        experts_per_token=cfg.experts_per_token,
+        capacity_factor=cfg.moe_capacity_factor)
+
+
+def require_ported(cfg: ModelConfig):
     """Raise for a family whose blocks are not ported yet."""
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family!r} family's blocks come with ROADMAP Queue 1 "
-            "item 16; the port has the dense decoder")
+            f"item 16; the port has the {' and '.join(PORTED_FAMILIES)} "
+            "decoders")
 
 
 # ---------------------------------------------------------------------------
-# decoder block (dense): pre-norm GQA + SwiGLU
+# decoder block (dense / moe): pre-norm GQA + (SwiGLU | MoE)
 
 def init_decoder_block(gen, cfg: ModelConfig, *, stack: tuple = ()):
     """One block's params, or ``stack=(L,)`` blocks stacked leaf by leaf."""
-    require_dense(cfg)
+    require_ported(cfg)
     dt, dev = cfg.param_dtype, gen.device
-    return {
+    p = {
         "ln_attn": layers.rmsnorm_init(cfg.d_model, dtype=dt, device=dev,
                                        stack=stack),
         "attn": attention.init(gen, attn_spec(cfg), dtype=dt, stack=stack),
         "ln_mlp": layers.rmsnorm_init(cfg.d_model, dtype=dt, device=dev,
                                       stack=stack),
-        "mlp": layers.swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype=dt,
-                                  stack=stack),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe.init(gen, moe_spec(cfg), dtype=dt, stack=stack)
+    else:
+        p["mlp"] = layers.swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype=dt,
+                                      stack=stack)
+    return p
 
 
 def decoder_block(p, cfg: ModelConfig, x, *, plain: bool = False):
-    """Full-sequence (train/prefill) block: (x (B, T, D)) -> (x, aux)."""
+    """Full-sequence (train/prefill) block: (x (B, T, D)) -> (x, aux): the
+    MoE router's loss, or 0.0 for the dense block."""
     h = attention.apply(p["attn"], attn_spec(cfg),
                         layers.rmsnorm(p["ln_attn"], x, eps=cfg.norm_eps),
                         plain=plain)
     x = x + h
     normed = layers.rmsnorm(p["ln_mlp"], x, eps=cfg.norm_eps)
+    if cfg.family == "moe":
+        h, aux = moe.apply(p["moe"], moe_spec(cfg), normed)
+        return x + h, aux
     return x + layers.swiglu(p["mlp"], normed), 0.0
 
 
@@ -76,7 +93,11 @@ def decoder_block_decode(p, cfg: ModelConfig, x, cache, position):
         cache["self"], position)
     x = x + h
     normed = layers.rmsnorm(p["ln_mlp"], x, eps=cfg.norm_eps)
-    return x + layers.swiglu(p["mlp"], normed), {"self": new_cache}
+    if cfg.family == "moe":
+        h, _ = moe.apply(p["moe"], moe_spec(cfg), normed)
+    else:
+        h = layers.swiglu(p["mlp"], normed)
+    return x + h, {"self": new_cache}
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """The language model: init / forward / prefill / decode (port of
-``repro.models.model``, the dense family).
+``repro.models.model``, the dense and MoE families).
 
 Batch formats (one worker's shard, as in the reference):
 
@@ -11,11 +11,11 @@ The reference scans the layer stack; here a Python loop walks the stacked
 params (``blocks.layer``), each block under ``blocks.maybe_remat``.
 ``loss_fn`` trains through the plain attention core (``plain=True``), as
 the reference trains through its jnp core: the flash kernel has no
-backward.  ``init`` and ``init_decode_state`` are entry
+backward.  ``forward`` sums the blocks' aux losses (the MoE router's,
+float32) in layer order, and ``loss_fn`` returns ``ce + aux``.  ``init`` and ``init_decode_state`` are entry
 points: ``device=None`` means the CUDA card and raises without one.  The
-other families (vlm, moe, ssm, hybrid, audio) raise
-``NotImplementedError`` until their code is ported (ROADMAP Queue 1 item
-16).
+other families (vlm, ssm, hybrid, audio) raise ``NotImplementedError``
+until their code is ported (ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -34,8 +34,8 @@ from repro_torch.models import attention, blocks, layers
 def init(seed: int, cfg: ModelConfig, *, device=None):
     """Random params from ``seed``, drawn leaf by leaf on the device (a
     float32 scratch of the largest leaf at a time) and stored in
-    ``cfg.param_dtype``."""
-    blocks.require_dense(cfg)
+    ``cfg.param_dtype`` (the MoE router in float32)."""
+    blocks.require_ported(cfg)
     dev = _device.enter(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = cfg.param_dtype
@@ -72,21 +72,25 @@ def _unembed_fn(params, cfg: ModelConfig):
 
 
 def forward(params, cfg: ModelConfig, batch, *, plain: bool = False):
-    """Full-sequence hidden states (B, T, D) + aux loss.  ``plain=True``
-    keeps the attention core off the CUDA kernel."""
-    blocks.require_dense(cfg)
+    """Full-sequence hidden states (B, T, D) + aux loss (a float32 scalar
+    for MoE, 0.0 for dense).  ``plain=True`` keeps the attention core off
+    the CUDA kernel.  Under remat the block returns its aux beside h, so
+    the router's loss survives rematerialization."""
+    blocks.require_ported(cfg)
     x = _embed(params, cfg, batch["tokens"])
     block = blocks.maybe_remat(
-        lambda p, h: blocks.decoder_block(p, cfg, h, plain=plain)[0], cfg)
+        lambda p, h: blocks.decoder_block(p, cfg, h, plain=plain), cfg)
+    aux = 0.0
     for i in range(cfg.num_layers):
-        x = block(blocks.layer(params["layers"], i), x)
+        x, a = block(blocks.layer(params["layers"], i), x)
+        aux = aux + a
     h = layers.rmsnorm(params["ln_f"], x, eps=cfg.norm_eps)
-    return h, 0.0
+    return h, aux
 
 
 def loss_fn(params, batch, cfg: ModelConfig):
-    """Mean next-token cross entropy (+ the aux loss, 0 for dense), through
-    the plain attention core on every device."""
+    """Mean next-token cross entropy + the aux loss (the MoE router's, 0
+    for dense), through the plain attention core on every device."""
     h, aux = forward(params, cfg, batch, plain=True)
     ce = layers.cross_entropy_loss(_unembed_fn(params, cfg), h,
                                    batch["labels"],
@@ -114,7 +118,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
     """The KV cache for single-token decoding against a ``max_len``
     context: {"cache": {"self": {"k", "v"}}}, each (L, B, phys, KV, hd)
     with phys = min(max_len, window) (a ring buffer under a window)."""
-    blocks.require_dense(cfg)
+    blocks.require_ported(cfg)
     dev = _device.enter(device)
     shape = attention.cache_shape(blocks.attn_spec(cfg), batch, max_len)
     full = (cfg.num_layers, *shape)
@@ -126,7 +130,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
 def decode_step(params, cfg: ModelConfig, state, tokens, positions):
     """One decode step.  tokens (B, 1), positions (B,).  Returns (logits
     (B, 1, V), state); the cache is updated in place, layer by layer."""
-    blocks.require_dense(cfg)
+    blocks.require_ported(cfg)
     x = _embed(params, cfg, tokens)
     cache = state["cache"]
     for i in range(cfg.num_layers):

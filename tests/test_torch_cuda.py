@@ -1332,3 +1332,63 @@ def test_loss_fn_never_launches_flash(cuda):
     assert all(bool(torch.isfinite(g).all()) for g in jtree.leaves(grads))
     steps.make_prefill_step(cfg)(params, {"tokens": one["tokens"]})
     assert flash.flash_attention.launches == cfg.num_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ekn", [(32, 8, 2048, 256), (384, 8, 1024, 512)])
+def test_moe_dispatch_on_the_card_equals_the_cpu(cuda, ekn):
+    """Granite's 32 experts of top-8 and Kimi-K2's 384: on the CPU's
+    top_ids/top_w the card's expert buffers, slots, experts and weights
+    are bitwise the CPU's, at the configured capacity and at one that
+    drops; the card's own top_ids equal the CPU's except at near ties (the
+    swapped experts' probabilities within 4 float32 ulps)."""
+    from repro_torch.models import moe
+    E, K, N, D = ekn
+    spec = moe.MoESpec(d_model=D, d_ff=64, num_experts=E,
+                       experts_per_token=K)
+    gen = torch.Generator().manual_seed(E)
+    params = {"router": torch.randn(D, E, generator=gen) * D ** -0.5}
+    x = torch.randn(N, D, generator=gen)
+    ids, w, _, _ = moe.route(params, spec, x)
+    on_card = {"router": params["router"].to(cuda)}
+    cids, cw, _, _ = moe.route(on_card, spec, x.to(cuda))
+    probs = torch.softmax(x @ params["router"], dim=-1)
+    diff = (cids.cpu() != ids)
+    for n, j in diff.nonzero().tolist():
+        a, b = int(ids[n, j]), int(cids[n, j])
+        gap = float((probs[n, a] - probs[n, b]).abs())
+        assert gap <= 4 * float(np.spacing(np.float32(probs[n, a]))), \
+            (n, a, b, gap)
+    for capacity in (moe._capacity(spec, N), N * K // (4 * E)):
+        want_in, want = moe._dispatch_local(
+            spec, x, ids, w, expert_lo=0, num_local=E, capacity=capacity)
+        got_in, got = moe._dispatch_local(
+            spec, x.to(cuda), ids.to(cuda), w.to(cuda), expert_lo=0,
+            num_local=E, capacity=capacity)
+        assert torch.equal(got_in.cpu(), want_in)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_moe_per_worker_grads_repeat_bitwise(cuda):
+    """Worker-mode gradients (torch.func.vmap of grad) of a bf16 Granite
+    at reduced width through the dispatch, twice on the card: bitwise
+    equal, the router's gradient float32."""
+    from repro_torch import configs
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import model
+    cfg = configs.get_config("granite-moe-1b-a400m").reduced().with_(
+        num_experts=32, experts_per_token=8, dtype=torch.bfloat16,
+        param_dtype=torch.bfloat16)
+    params = model.init(0, cfg, device=cuda)
+    batch = TokenStream(vocab_size=cfg.vocab_size, seq_len=128,
+                        global_batch=8, num_workers=4, device=cuda).batch(0)
+    runs = [robust_train.per_worker_grads(
+        lambda p, b: model.loss_fn(p, b, cfg), params, batch)
+        for _ in range(2)]
+    (g1, l1), (g2, l2) = runs
+    assert torch.equal(l1, l2) and bool(torch.isfinite(l1).all())
+    assert g1["layers"]["moe"]["router"].dtype == torch.float32
+    for a, b in zip(jtree.leaves(g1), jtree.leaves(g2)):
+        assert torch.equal(a, b)

@@ -46,7 +46,8 @@ def test_port_has_modules():
     for module in ("configs/base.py", "configs/shapes.py",
                    "configs/h2o_danube3_4b.py", "configs/minitron_4b.py",
                    "configs/qwen3_14b.py", "configs/qwen2_72b.py",
-                   "models/layers.py", "models/attention.py",
+                   "configs/granite_moe_1b.py", "configs/kimi_k2_1t.py",
+                   "models/layers.py", "models/moe.py", "models/attention.py",
                    "models/blocks.py", "models/model.py",
                    "launch/steps.py", "launch/serve.py", "launch/train.py",
                    "data/tokens.py"):

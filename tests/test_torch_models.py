@@ -1,12 +1,12 @@
-"""The port's dense LM (repro_torch.configs, models.layers / attention /
-blocks / model, convert) against the JAX package's.
+"""The port's LM (repro_torch.configs, models.layers / attention / blocks
+/ model, convert), dense and MoE, against the JAX package's.
 
 Inputs come from numpy seeds; the whole-model checks hand the JAX params
 (``repro.models.model.init``) across through
 ``convert.lm_params_from_numpy``, since the port's initialiser draws other
 bits.  Tolerances: the layers at 1e-6 (float32, the same ops); the
-reduced H2O-Danube3 model at rtol 1e-4 against max|y| (two layers of
-float32 matmuls summed in other orders).  The CUDA path runs only on a
+reduced H2O-Danube3, Granite and Kimi models at rtol 1e-4 against
+max|y| (two layers of float32 matmuls summed in other orders).  The CUDA path runs only on a
 card: tests/test_torch_cuda.py."""
 
 import dataclasses
@@ -29,6 +29,7 @@ from repro_torch.launch import steps
 from repro_torch.models import attention, blocks, layers, model
 
 DENSE = ("h2o-danube-3-4b", "minitron-4b", "qwen3-14b", "qwen2-72b")
+MOE = ("granite-moe-1b-a400m", "kimi-k2-1t-a32b")
 RTOL = 1e-4
 
 
@@ -51,8 +52,7 @@ def _close(got, want, rtol=RTOL):
 # ---------------------------------------------------------------------------
 # configs
 
-UNPORTED_FIELDS = {"num_experts", "experts_per_token", "moe_capacity_factor",
-                   "ssm_state", "ssm_head_dim", "ssm_chunk",
+UNPORTED_FIELDS = {"ssm_state", "ssm_head_dim", "ssm_chunk",
                    "shared_attn_every", "encoder_layers",
                    "encoder_seq_divisor", "frontend", "num_patches"}
 
@@ -64,8 +64,8 @@ def test_dense_configs_equal_the_reference(arch):
         for key in ("dtype", "param_dtype"):
             assert str(a.pop(key)).split(".")[-1] == \
                 jnp.dtype(b.pop(key)).name
-        # the port has every field the dense family reads; the others come
-        # with their families' model code
+        # the port has every field the dense and MoE families read; the
+        # others come with their families' model code
         assert set(b) - set(a) == UNPORTED_FIELDS
         assert a == {key: b[key] for key in a}
         assert cfg.param_count() == jcfg.param_count()
@@ -76,7 +76,7 @@ def test_registry_and_shapes():
     assert {k: dataclasses.asdict(v) for k, v in shapes.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in jconfigs.SHAPES.items()}
     assert configs.get_shape("prefill_32k").seq_len == 32_768
-    for arch in set(configs.ARCHITECTURES) - set(DENSE):
+    for arch in set(configs.ARCHITECTURES) - set(DENSE) - set(MOE):
         with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
             configs.get_config(arch)
     with pytest.raises(KeyError):
@@ -90,6 +90,36 @@ def test_h2o_full_width():
         (24, 3840, 32, 8, 120, 10240, 32000, 4096)
     assert cfg.dtype == cfg.param_dtype == torch.bfloat16
     assert 3.9e9 < cfg.param_count() < 4.0e9
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_configs_equal_the_reference(arch):
+    mine, ref = configs.get_config(arch), jconfigs.get_config(arch)
+    for cfg, jcfg in ((mine, ref), (mine.reduced(), ref.reduced())):
+        a, b = dataclasses.asdict(cfg), dataclasses.asdict(jcfg)
+        for key in ("dtype", "param_dtype"):
+            assert str(a.pop(key)).split(".")[-1] == \
+                jnp.dtype(b.pop(key)).name
+        assert set(b) - set(a) == UNPORTED_FIELDS
+        assert a == {key: b[key] for key in a}
+        assert cfg.param_count() == jcfg.param_count()
+        assert cfg.active_param_count() == jcfg.active_param_count()
+    assert (mine.reduced().num_experts,
+            mine.reduced().experts_per_token) == (4, 2)
+
+
+def test_granite_full_width():
+    cfg = configs.get_config("granite-moe-1b-a400m")
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.num_experts,
+            cfg.experts_per_token, cfg.tie_embeddings) == \
+        (24, 1024, 16, 8, 64, 512, 49155, 32, 8, False)
+    assert 1.38e9 < cfg.param_count() < 1.39e9
+    # the embeddings (100.7 M) and 24 layers of attention and top-8 experts
+    assert cfg.active_param_count() == 478_943_232
+    # the dense family's active count is its count
+    dense = configs.get_config("h2o-danube-3-4b")
+    assert dense.active_param_count() == dense.param_count()
 
 
 # ---------------------------------------------------------------------------
@@ -274,12 +304,105 @@ def test_entry_points_want_the_card_by_default():
 
 
 def test_unported_families_raise():
-    cfg = configs.get_config("h2o-danube-3-4b").reduced().with_(family="moe")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        model.init(0, cfg, device="cpu")
+    for family in ("ssm", "hybrid", "audio", "vlm"):
+        cfg = configs.get_config("h2o-danube-3-4b").reduced().with_(
+            family=family)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+            model.init(0, cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+            cfg.param_count()
     spec = dataclasses.replace(
         blocks.attn_spec(configs.get_config("h2o-danube-3-4b")), cross=True)
     with pytest.raises(NotImplementedError, match="cross-attention"):
         attention.apply({}, spec, torch.zeros(1, 2, 3840))
     with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
         attention.apply_sequence_parallel()
+
+
+# ---------------------------------------------------------------------------
+# the reduced MoE models (Granite, Kimi): 2 layers, 4 experts of top-2
+
+def _moe_lm(arch, seed=3, **kw):
+    jcfg = jconfigs.get_config(arch).reduced().with_(**kw)
+    cfg = configs.get_config(arch).reduced().with_(**kw)
+    jparams = jmodel.init(jax.random.PRNGKey(seed), jcfg)
+    return jcfg, jparams, cfg, convert.lm_params_from_numpy(
+        cfg, jax.tree.map(np.asarray, jparams), "cpu")
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_loss_and_logits_match_jax(arch):
+    jcfg, jparams, cfg, params = _moe_lm(arch)
+    rng = np.random.default_rng(11)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 48))
+    labels = rng.integers(0, cfg.vocab_size, (2, 48))
+    jb = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)}
+    tb = {"tokens": torch.as_tensor(tokens), "labels": torch.as_tensor(labels)}
+    want = float(jmodel.loss_fn(jparams, jb, jcfg))
+    got = model.loss_fn(params, tb, cfg)
+    assert got.dtype == torch.float32
+    assert float(got) == pytest.approx(want, rel=1e-5)
+    # the aux term is in the loss: forward's aux, summed over the layers
+    _, jaux = jmodel.forward(jparams, jcfg, jb)
+    _, aux = model.forward(params, cfg, tb)
+    assert float(aux) == pytest.approx(float(jaux), rel=1e-5)
+    assert float(aux) > 0
+    _close(model.logits(params, cfg, tb), jmodel.logits(jparams, jcfg, jb))
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_decode_matches_forward_with_slack_capacity(arch):
+    """The reference's test of the same name on the port (no token drops
+    with slack capacity, so the decode loop reproduces the forward), and
+    the decode logits against the reference's decode."""
+    jcfg, jparams, cfg, params = _moe_lm(arch, seed=1,
+                                         moe_capacity_factor=100.0)
+    B, T = 2, 8
+    tok = np.random.default_rng(12).integers(0, cfg.vocab_size, (B, T))
+    full = model.logits(params, cfg, {"tokens": torch.as_tensor(tok)})
+    state = model.init_decode_state(cfg, B, T, device="cpu")
+    jstate = jmodel.init_decode_state(jcfg, B, T)
+    step = steps.make_serve_step(cfg)
+    outs = []
+    for t in range(T):
+        pos = np.full((B,), t, np.int32)
+        lg, state = step(params, state, torch.as_tensor(tok[:, t:t + 1]),
+                         torch.as_tensor(pos))
+        jl, jstate = jmodel.decode_step(jparams, jcfg, jstate,
+                                        jnp.asarray(tok[:, t:t + 1]),
+                                        jnp.asarray(pos))
+        _close(lg, jl)
+        outs.append(lg[:, 0])
+    dec = torch.stack(outs, dim=1)
+    assert float((full - dec).abs().max()) < 1e-3
+
+
+def test_moe_params_cross_keeping_the_router_f32():
+    """A bf16 Granite config: the reference's params cross leaf for leaf,
+    each in its own dtype (the router float32, the rest bf16)."""
+    arch = "granite-moe-1b-a400m"
+    kw = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    jcfg = jconfigs.get_config(arch).reduced().with_(
+        dtype=jnp.bfloat16, param_dtype=jnp.bfloat16)
+    cfg = configs.get_config(arch).reduced().with_(**kw)
+    jparams = jmodel.init(jax.random.PRNGKey(0), jcfg)
+    params = convert.lm_params_from_numpy(
+        cfg, jax.tree.map(np.asarray, jparams), "cpu")
+    mine = model.init(0, cfg, device="cpu")
+    for path, leaf in jax.tree_util.tree_flatten_with_path(jparams)[0]:
+        node, other = params, mine
+        for key in path:
+            node, other = node[key.key], other[key.key]
+        want = torch.float32 if path[-1].key == "router" else torch.bfloat16
+        assert node.dtype == other.dtype == want, path
+        assert tuple(node.shape) == leaf.shape == tuple(other.shape)
+        np.testing.assert_array_equal(
+            node.float().numpy(), np.asarray(leaf, np.float32))
+    with pytest.raises(ValueError, match="do not fit"):
+        convert.lm_params_from_numpy(
+            configs.get_config("h2o-danube-3-4b").reduced(),
+            jax.tree.map(np.asarray, jparams), "cpu")
+    # a bf16 prefill through the port keeps bf16 activations
+    h = model.prefill(params, cfg, {"tokens": torch.zeros((1, 8),
+                                                          dtype=torch.int64)})
+    assert h.dtype == torch.bfloat16 and bool(torch.isfinite(h).all())

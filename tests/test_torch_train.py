@@ -502,10 +502,210 @@ def test_train_scales(monkeypatch):
 
 
 def test_build_cpu_batch_is_dense_only():
+    """The dense and MoE families' batches are the stream's; the families
+    with frame or patch stubs still raise."""
     cfg = configs.get_config("minitron-4b").reduced()
     stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=8,
                          global_batch=4, num_workers=2, device="cpu")
     assert train_lib.build_cpu_batch(cfg, stream, 0, None)["tokens"].shape \
         == (2, 2, 8)
+    moe_cfg = configs.get_config("granite-moe-1b-a400m").reduced()
+    batch = train_lib.build_cpu_batch(moe_cfg, stream, 0, None)
+    for name, leaf in stream.batch(0).items():
+        assert torch.equal(batch[name], leaf)
     with pytest.raises(NotImplementedError, match="item 16"):
         train_lib.build_cpu_batch(cfg.with_(family="vlm"), stream, 0, None)
+
+
+# ---------------------------------------------------------------------------
+# the MoE family (Granite reduced: 2 layers, 4 experts of top-2)
+
+MOE_ARCH = "granite-moe-1b-a400m"
+
+
+def test_moe_run_rounds_lm_history_matches_jax():
+    """Four rounds of reduced Granite through make_run_rounds (gmom under
+    sign_flip with the rotating schedule, AdamW), per-round batches."""
+    jcfg, cfg, jp, tp = _models(MOE_ARCH)
+    jstream, tstream = _streams(cfg, 4, 8, seq=24)
+    rc = dict(num_workers=4, num_byzantine=1, num_batches=4,
+              aggregator="gmom", attack="sign_flip")
+    jrun = jrt.make_run_rounds(lambda p, b: jmodel.loss_fn(p, b, jcfg),
+                               joptim.adamw(LR), jrt.RobustConfig(**rc))
+    trun = trt.make_run_rounds(lambda p, b: model.loss_fn(p, b, cfg),
+                               optim.adamw(LR), trt.RobustConfig(**rc),
+                               device="cpu")
+    jb = jax.tree.map(lambda *xs: jnp.stack(xs),
+                      *[jstream.batch(i) for i in range(4)])
+    tb = tree_map(lambda *xs: torch.stack(xs),
+                  *[tstream.batch(i) for i in range(4)])
+    jp2, *_, jm = jrun(jp, joptim.adamw(LR).init(jp), jb,
+                       jax.random.PRNGKey(3), per_round_batches=True)
+    tp2, *_, tm = trun(tp, optim.adamw(LR).init(tp), tb, prng.PRNGKey(3),
+                       per_round_batches=True)
+    assert compare_traces(_rows(tm), _rows(jm)) == []
+    _close_leaves(jp2, tp2, 1e-4, STEP_ATOL)
+
+
+def _recording(lib, inner):
+    """``inner`` whose state also carries the last aggregated gradient the
+    step handed it: ``(inner state, grads)``."""
+    def update(grads, state, params):
+        updates, inner_state = inner.update(grads, state[0], params)
+        return updates, (inner_state, grads)
+    return lib.Optimizer(name=f"recording {inner.name}", update=update,
+                         init=lambda params: (inner.init(params), None))
+
+
+def test_moe_group_step_remat_keeps_the_aux_loss():
+    """Under remat the block hands its router loss back beside h: the loss
+    with grad recorded (checkpoint live) equals the loss without remat and
+    includes the aux term; the group-mode step (two microbatches, so the
+    capacity is a microbatch's) with remat gives the same numbers as
+    without, and as the reference's step with remat: the metrics at rel
+    1e-5, the first step's aggregated gradient at 1e-5 of each leaf's
+    max|g|, the params after two AdamW steps at ``STEP_ATOL`` where the
+    reference's aggregated gradient has |g| >= 100 eps in both steps.
+    There AdamW's update lr g / (|g| + eps) has slope at most
+    lr / (1e4 eps), so a gradient within 1e-5 max|g| (<= 3.2e-6 here)
+    moves it by at most 0.032 lr (over 99 % of every leaf's coordinates
+    are held so).  Below 100 eps it turns on the last
+    bits of g: wo[0, 28, 14] has g = 1.61e-9 in the reference and
+    -1.75e-9 in the port (an f32 sum order, 1e-7 of the leaf's max|g|),
+    and their first updates differ by 0.287 lr."""
+    jcfg, cfg, jp, tp = _models(MOE_ARCH)
+    jstream, tstream = _streams(cfg, 4, 8, seq=16)
+    b0 = {k: v[0] for k, v in tstream.batch(0).items()}
+    losses = []
+    for remat in (False, True):
+        with torch.enable_grad():
+            leaves = tree_map(lambda p: p.detach().requires_grad_(True), tp)
+            losses.append(model.loss_fn(leaves, b0, cfg.with_(remat=remat)))
+    assert torch.equal(losses[0], losses[1])
+    _, aux = model.forward(tp, cfg, b0)
+    assert float(aux) > 0
+    rc = dict(num_workers=4, num_byzantine=1, num_batches=4,
+              aggregator="gmom", attack="sign_flip")
+    jopt = _recording(joptim, joptim.adamw(LR))
+    jstep = jsteps.make_group_train_step(
+        jcfg.with_(remat=True), jrt.RobustConfig(**rc), jopt, microbatches=2)
+    js = jopt.init(jp)
+    jms, jaggs = [], []
+    for t in range(2):
+        jp, js, jm = jstep(jp, js, jstream.batch(t),
+                           jax.random.PRNGKey(10 + t), t)
+        jms.append(jm)
+        jaggs.append(js[1])
+    out = {}
+    for remat in (False, True):
+        topt = _recording(optim, optim.adamw(LR))
+        tstep = steps.make_group_train_step(
+            cfg.with_(remat=remat), trt.RobustConfig(**rc), topt,
+            microbatches=2)
+        tp_, ts = tp, topt.init(tp)
+        for t in range(2):
+            tp_, ts, tm = tstep(tp_, ts, tstream.batch(t),
+                                prng.PRNGKey(10 + t), t)
+            for name in jms[t]:
+                assert float(tm[name]) == pytest.approx(
+                    float(jms[t][name]), rel=1e-5), name
+            if t == 0:
+                _close_leaves(jaggs[0], ts[1], 1e-5)
+        out[remat] = (tp_, tm)
+        # coordinates away from eps (or at an exact 0: a token that is in
+        # neither step's batch leaves its embedding row unmoved)
+        conditioned = [
+            ((np.abs(g0) >= 100 * 1e-8) | (g0 == 0))
+            & ((np.abs(g1) >= 100 * 1e-8) | (g1 == 0))
+            for (_, g0, _), (_, g1, _) in zip(_leaf_pairs(jaggs[0], ts[1]),
+                                              _leaf_pairs(jaggs[1], ts[1]))]
+        for (path, want, got), keep in zip(_leaf_pairs(jp, tp_),
+                                           conditioned):
+            assert keep.mean() > 0.99, path
+            err = float(np.abs(got - want)[keep].max())
+            assert err <= 1e-4 * float(np.abs(want).max()) + STEP_ATOL, \
+                (path, err)
+    for a, b in zip(jax.tree.leaves(out[False]), jax.tree.leaves(out[True])):
+        assert torch.equal(a, b)
+
+
+def test_bf16_moe_rounds_keep_the_router_f32(tmp_path):
+    """A bf16 Granite config through two rounds of make_run_rounds (the
+    per-worker gradients, sign_flip, the gmom round's f32 block and its
+    split, AdamW, the update) and a checkpoint: the router leaf is
+    float32 in the gradients, the params and after a restore, every other
+    param bf16."""
+    cfg = configs.get_config(MOE_ARCH).reduced().with_(
+        dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    params = model.init(0, cfg, device="cpu")
+    _, tstream = _streams(cfg, 4, 8, seq=16)
+    grads, _ = trt.per_worker_grads(lambda p, b: model.loss_fn(p, b, cfg),
+                                    params, tstream.batch(0))
+    assert grads["layers"]["moe"]["router"].dtype == torch.float32
+    assert grads["layers"]["moe"]["w_gate"].dtype == torch.bfloat16
+    rc = trt.RobustConfig(num_workers=4, num_byzantine=1, num_batches=4,
+                          aggregator="gmom", attack="sign_flip")
+    opt = optim.adamw(LR)
+    run = trt.make_run_rounds(lambda p, b: model.loss_fn(p, b, cfg), opt,
+                              rc, device="cpu")
+    state = tts.init_train_state(params, opt.init(params), prng.PRNGKey(2))
+    state, _ = tts.advance(run, state, tree_map(
+        lambda *xs: torch.stack(xs), *[tstream.batch(i) for i in range(2)]),
+        per_round_batches=True)
+    assert np.isfinite(state.history["loss_median"]).all()
+
+    def dtypes(tree):
+        return {k: v.dtype for k, v in tree["layers"]["moe"].items()}
+
+    want = {"router": torch.float32, "w_gate": torch.bfloat16,
+            "w_up": torch.bfloat16, "w_down": torch.bfloat16}
+    assert dtypes(state.params) == want
+    assert not torch.equal(state.params["layers"]["moe"]["router"],
+                           params["layers"]["moe"]["router"])
+    tts.save_train_state(str(tmp_path), state)
+    back = tts.restore_train_state(str(tmp_path), 2, params,
+                                   opt.init(params))
+    assert dtypes(back.params) == want
+    for a, b in zip(jax.tree.leaves(state.params),
+                    jax.tree.leaves(back.params)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_moe_train_driver_resume_bit_identical(tmp_path):
+    """launch/train.py on reduced Granite, interrupted at round 3 and
+    resumed: the exact uninterrupted history."""
+    kw = dict(arch=MOE_ARCH, steps=5, seq_len=12)
+    straight = train_lib.train(_args(**kw))
+    ckpt = str(tmp_path / "ckpt")
+    train_lib.train(_args(**dict(kw, steps=3), ckpt_dir=ckpt))
+    resumed = train_lib.train(_args(**kw, ckpt_dir=ckpt))
+    assert resumed["resumed_from"] == 3
+    assert resumed["history"] == straight["history"]
+    assert np.isfinite(straight["final_loss"])
+
+
+def test_moe_train_config_fits_the_card():
+    """The depth rule keeps the recorded cut: Granite at 8 of its 24
+    layers (P = 528.8 M, 58.7 GB reckoned; 9 layers would reckon 64.6 GB);
+    an architecture whose embeddings alone pass the budget raises."""
+    cfg = train_lib.train_config(MOE_ARCH, "gpu")
+    full = configs.get_config(MOE_ARCH)
+    assert cfg == full.with_(num_layers=8, remat=False)
+    assert cfg.param_count() == 528_750_592     # the reference's count
+    nine = full.with_(num_layers=9).param_count()
+    assert train_lib.GPU_TRAIN_BYTES_PER_PARAM * nine \
+        > train_lib.GPU_TRAIN_BUDGET_BYTES
+    for arch in ("minitron-4b", "qwen3-14b", "qwen2-72b", "kimi-k2-1t-a32b"):
+        with pytest.raises(NotImplementedError, match="item 16.10"):
+            train_lib.train_config(arch, "gpu")
+
+
+def test_gpu_train_layers_rule():
+    """The most layers that fit, up to the config's own depth."""
+    cfg = configs.get_config("h2o-danube-3-4b")
+    per = train_lib.GPU_TRAIN_BYTES_PER_PARAM
+    budget = train_lib.GPU_TRAIN_BUDGET_BYTES
+    assert train_lib.gpu_train_layers(cfg) == 2
+    assert per * cfg.with_(num_layers=3).param_count() > budget
+    small = configs.get_config(MOE_ARCH).with_(num_layers=4)
+    assert train_lib.gpu_train_layers(small) == 4
