@@ -37,7 +37,10 @@ AdamW), then Granite's at 8 layers (phase 9 (b)): a stage breakdown of
 single rounds (per-worker gradients, the attack, the f32 concatenation
 of the reports, the round kernel, the split back, AdamW, the update) and
 a trace of ``TRAIN_ROUNDS`` rounds as launch/train.py runs them, with the
-peak memory.  Needs a CUDA card.
+peak memory.  The recurrent families of phase 10 come after Granite's
+in both: RWKV6-7B's and Zamba2-2.7B's serve paths (Zamba2's shared block
+through the flash kernel, 9 launches a prefill; RWKV6 has no attention),
+and Zamba2's train path at 6 layers.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -248,7 +251,13 @@ def profile_serve_path(dev, smi, arch):
                       "dtype": "bfloat16", "batch": 1, "seq_len": PREFILL_T,
                       "card": smi, "launches_by_route": routes,
                       **_shares(wall, events, 1)}), flush=True)
-    if routes != {"tensor_core": cfg.num_layers, "cuda_core": 0}:
+    if cfg.family == "ssm":
+        attention_layers = 0
+    elif cfg.family == "hybrid":
+        attention_layers = cfg.num_layers // cfg.shared_attn_every
+    else:
+        attention_layers = cfg.num_layers
+    if routes != {"tensor_core": attention_layers, "cuda_core": 0}:
         raise RuntimeError(f"bf16 prefill: flash launches by route {routes}")
 
     B, P = 4, 16
@@ -523,11 +532,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         profile_linreg_path(cname, cfg, dev, smi)
         profile_wire_and_stale(cname, cfg, dev, smi)
-    from chip_smoke import MOE_ARCH, SERVE_ARCH, TRAIN_ARCH
-    for arch in (SERVE_ARCH, MOE_ARCH):
+    from chip_smoke import (MOE_ARCH, RWKV_ARCH, SERVE_ARCH, TRAIN_ARCH,
+                            ZAMBA_ARCH)
+    for arch in (SERVE_ARCH, MOE_ARCH, RWKV_ARCH, ZAMBA_ARCH):
         profile_serve_path(dev, smi, arch)
     profile_moe_layer(dev, smi)
-    for arch in (TRAIN_ARCH, MOE_ARCH):
+    for arch in (TRAIN_ARCH, MOE_ARCH, ZAMBA_ARCH):
         profile_train_path(dev, smi, arch)
     return 0
 

@@ -12,8 +12,11 @@ H2O-Danube3-4B at full width through the flash-attention kernel, times
 every kernel, runs shard-local aggregation in one process and on rank
 processes of the card, trains H2O-Danube3-4B at full width (2 layers)
 under attack through the round kernel, and serves and trains the MoE
-Granite-3.0-1B-A400M (full width; 8 layers for training) and checks
-Kimi-K2's router and dispatch.  Every phase prints JSON lines; the last line is
+Granite-3.0-1B-A400M (full width; 8 layers for training), checks
+Kimi-K2's router and dispatch, serves RWKV6-7B and Zamba2-2.7B at full
+width (Zamba2's shared attention through the flash kernel at head width
+80) and trains Zamba2 (6 layers) under attack through the round kernel.
+Every phase prints JSON lines; the last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every check
 passed.  Exits non-zero without it on any failure, when CUDA is
 unavailable, or when the ``src/repro_torch`` package is missing.
@@ -108,7 +111,7 @@ Phases:
                  on the gathered stack (kernel and reference)
   8 train        Byzantine-robust LM training through launch/train.py's
                  train(args) at H2O-Danube3-4B's published widths cut to
-                 2 layers (P = 555.4 M), bf16, m = 8, q = 2, gmom under
+                 2 layers (P = 555.4 M), bf16, remat, m = 8, q = 2, gmom under
                  sign_flip/rotating, AdamW, 2 x 512 tokens a worker:
                  (a) 4 rounds, one round-kernel launch each, finite loss,
                  s per step and peak memory; kernel vs plain histories
@@ -149,12 +152,40 @@ Phases:
                  Kimi-K2's router and dispatch (E = 384, D = 7168) on 8192
                  tokens: top_ids equal across card and CPU except at near
                  ties, the dispatch on the same routing bitwise equal
+ 10 recurrent    the recurrent families: (a) RWKV6-7B at full width and
+                 depth (32 layers, 4096, heads of 64, 65 536): the WKV
+                 recurrence at one layer's (1, 8192, 64, 64) in f32,
+                 chunked vs token by token within WKV_RTOL; the bf16
+                 prefill at B = 1, T = 8192; serve --arch rwkv6-7b --scale
+                 gpu (tokens/s, decode ms a step); in f32 a 512-token
+                 prefill's last logits vs 512 decode steps (1e-3 of
+                 max|logits|); the reduced model on the card vs the CPU
+                 (CARD_VS_CPU_RTOL); (b) Zamba2-2.7B at full width and depth
+                 (54 Mamba2 blocks, 9 applications of the shared block of
+                 32 x 32 heads of 80): the prefill at B = 1, T = 8192 in
+                 bf16 and f32, kernel path vs plain path under
+                 PREFILL_RTOL, 9 flash launches per prefill on the dtype's
+                 route; in f32 the served prompts' prefill logits vs the
+                 decode loop's; serve --arch zamba2-2.7b --scale gpu; (c)
+                 launch/train.py at Zamba2's widths cut to 6 layers with
+                 remat, phase 8's settings: one round-kernel launch a round
+                 at (8, 8, P), kernel vs plain histories at m = 4, 2 steps
+                 resumed to 4 bit-identical, s per step and peak GB; the
+                 round kernel timed at (8, 8, P) on a block of real Zamba2
+                 gradients; (d) train --arch rwkv6-7b --scale gpu refused
+                 (item 16.10), the reduced config's 4 rounds on the card
+                 through the round kernel vs plain; (e) per_worker_grads
+                 with remat torch.equal to without at Granite and Zamba2
+                 reduced, and at m = 8 at H2O's, Granite's and Zamba2's
+                 train depth, with the peak GB above the params of each
   7 kernel line  one JSON object, a row per kernel (the round kernel's
-                 launches include phase 6 (c)'s, phase 8's and phase 9's;
-                 its row carries the (8, 8, P) timings as train_shape
-                 (H2O) and granite_train_shape (Granite); the
-                 flash row's launches include phase 9's prefills and it
-                 carries Granite's prefill shape as granite_shape)
+                 launches include phase 6 (c)'s, phase 8's, phase 9's and
+                 phase 10's; its row carries the (8, 8, P) timings as
+                 train_shape (H2O), granite_train_shape (Granite) and
+                 zamba2_train_shape (Zamba2); the flash row's launches
+                 include phase 9's and phase 10's prefills and it carries
+                 Granite's and Zamba2's prefill shapes as granite_shape
+                 and zamba2_shape)
 """
 
 from __future__ import annotations
@@ -238,7 +269,9 @@ PEAK_BF16 = {"PCIe": 756e12, "NVL": 835e12, "SXM": 989e12}
 # tests/test_kernels.py; a ragged T at H2O's head width; non-causal ragged
 # Tk; H2O-Danube3-4B's heads (32/8 of 120, window 4096) around and past
 # the window; Minitron-4B's (24/8 of 128, causal); Granite-3.0-1B-A400M's
-# prefill (16/8 of 64, causal: ATTN_GRANITE)
+# prefill (16/8 of 64, causal: ATTN_GRANITE); Zamba2-2.7B's shared block
+# (32/32 of 80, causal: ATTN_ZAMBA; the tensor-core route's 128-column
+# instance, 48 columns padded)
 ATTN_GRID = [(2, 64, 64, 4, 2, 32, True, None),
              (1, 128, 128, 8, 8, 64, True, None),
              (2, 100, 100, 4, 1, 32, True, None),
@@ -252,7 +285,8 @@ ATTN_GRID = [(2, 64, 64, 4, 2, 32, True, None),
              (1, 4097, 4097, 32, 8, 120, True, 4096),
              (1, 8192, 8192, 32, 8, 120, True, 4096),
              (1, 8192, 8192, 24, 8, 128, True, None),
-             (1, 8192, 8192, 16, 8, 64, True, None)]
+             (1, 8192, 8192, 16, 8, 64, True, None),
+             (1, 8192, 8192, 32, 32, 80, True, None)]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # bf16 against the plain version in f32 on the same inputs, elementwise:
 #   |d| <= 2**-8 |y| + 2**-8 (P|V|) + 2 ATTN_TOL["float32"]
@@ -265,12 +299,14 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # about sqrt(e / 4096) = 0.026 for random inputs (P|V| is about 0.8 there)
 BF16_BOUND = 2.0 ** -8
 # the timed shapes: H2O's prefill at T = 8192 (the serve path's), Minitron's
-# at 8192, one H2O call at prefill_32k's sequence length, and Granite's
-# prefill at 8192 (phase 9's serve path)
+# at 8192, one H2O call at prefill_32k's sequence length, Granite's
+# prefill at 8192 (phase 9's serve path) and Zamba2's (phase 10's)
 ATTN_MAIN = (1, 8192, 8192, 32, 8, 120, True, 4096)
 ATTN_GRANITE = (1, 8192, 8192, 16, 8, 64, True, None)
+ATTN_ZAMBA = (1, 8192, 8192, 32, 32, 80, True, None)
 ATTN_TIMED = [ATTN_MAIN, (1, 8192, 8192, 24, 8, 128, True, None),
-              (1, 32768, 32768, 32, 8, 120, True, 4096), ATTN_GRANITE]
+              (1, 32768, 32768, 32, 8, 120, True, 4096), ATTN_GRANITE,
+              ATTN_ZAMBA]
 # the serve path: H2O-Danube3-4B at full width; prefill_32k (B=32,
 # T=32 768) cut to B=1, T=8192 for the whole model
 SERVE_ARCH = "h2o-danube-3-4b"
@@ -332,7 +368,7 @@ BF16_STEPS = 2.0 ** -6
 # Phase 8, Byzantine-robust LM training (launch/train.py, worker mode):
 # H2O-Danube3-4B at its published widths (arXiv:2401.16818;
 # configs/h2o_danube3_4b.py) cut to 2 layers (train.gpu_train_layers), bf16,
-# remat off (train.GPU_REMAT: torch.func refuses checkpoint's hooks);
+# remat on (the config's: blocks.maybe_remat batches under vmap of grad);
 # m = 8 workers of 2 sequences of 512 tokens, q = 2, gmom under sign_flip
 # with the rotating schedule, AdamW 1e-3, 4 steps: one round-kernel
 # launch a round at (m, k, d) = (8, 8, P), P = 555.4 M.  The plain round
@@ -350,7 +386,6 @@ TRAIN_SEQ = 512
 TRAIN_MAIN = {"workers": 8, "byzantine": 2, "batch": 16}
 TRAIN_COMPARED = {"workers": 4, "byzantine": 1, "batch": 8}
 TRAIN_CUTS = ["24 layers cut to 2 (launch/train.py gpu_train_layers)",
-              "remat off in worker mode (GPU_REMAT: torch.func)",
               "seq_len 512, 2 sequences a worker",
               "kernel vs plain histories at m=4, q=1, k=4 (the plain "
               "round does not fit at k=8)"]
@@ -369,11 +404,40 @@ HEADLINE = {"arch": "minitron-4b", "m": 8, "q": 2, "k": 8, "steps": 8,
 # float32 router, without the experts (one layer's are 16.9 G params).
 MOE_ARCH = "granite-moe-1b-a400m"
 MOE_TRAIN_CUTS = ["24 layers cut to 8 (launch/train.py gpu_train_layers)",
-                  "remat off in worker mode (GPU_REMAT: torch.func)",
                   "seq_len 512, 2 sequences a worker",
                   "kernel vs plain histories at m=4, q=1, k=4, as phase 8"]
 KIMI_ARCH = "kimi-k2-1t-a32b"
 KIMI_TOKENS = 8192
+# Phase 10, the recurrent families: (a) RWKV6-7B (arXiv:2404.05892;
+# configs/rwkv6_7b.py) at full width and depth (32 layers, 4096 wide,
+# heads of 64, d_ff 14 336, vocab 65 536), bf16, prefill at B = 1, T =
+# PREFILL_T and serve with phase 4b's settings; in f32 the recurrence at
+# one layer's shape (chunked vs token by token, WKV_RTOL of max|y|) and a
+# RWKV_DECODE_T-token prefill against as many decode steps; (b)
+# Zamba2-2.7B (arXiv:2411.15242; configs/zamba2_2p7b.py) at full width and
+# depth (54 Mamba2 blocks of state 64 and heads of 64, 9 applications of
+# one shared block of 32 x 32 heads of 80 and d_ff 10 240, vocab 32 000),
+# the prefill at B = 1, T = PREFILL_T in bf16 and f32, kernel path vs
+# plain path as phase 4b; (c) Zamba2 trained with phase 8's settings at
+# launch/train.py's depth (6 layers, one group: P = 507.8 M); (d) RWKV6's
+# card path: --scale gpu refused (one layer reckons 83.8 GB), the reduced
+# config's rounds on the card (RWKV_TRAIN); (e) remat under vmap of grad.
+RWKV_ARCH = "rwkv6-7b"
+ZAMBA_ARCH = "zamba2-2.7b"
+RWKV_DECODE_T = 512
+# wkv_chunked vs wkv_scan (float32): the chunk's decays are exps of
+# differences of cumulative log sums, the scan's products of w; they agree
+# to float32 rounding over a chunk's 64 terms
+WKV_RTOL = 1e-4
+# the card vs the CPU on the same reduced inputs (float32): matmuls summed
+# in other orders over 2 layers
+CARD_VS_CPU_RTOL = 1e-5
+ZAMBA_TRAIN_CUTS = ["54 layers cut to 6, one group of the shared block "
+                    "(launch/train.py gpu_train_layers)",
+                    "seq_len 512, 2 sequences a worker",
+                    "kernel vs plain histories at m=4, q=1, k=4, as phase 8"]
+RWKV_TRAIN = {"m": 8, "q": 2, "k": 8, "steps": 4, "batch": 16,
+              "seq_len": 128}
 # a near tie of the router: the two swapped experts' probabilities within
 # this many float32 ulps (top-k on f32 router products that cuBLAS and the
 # CPU's BLAS sum in other orders)
@@ -1277,13 +1341,18 @@ def planted_attention_fault(q, k, v, want, want32, allowed):
             "passes_vs_f32": strict_ok}
 
 
-def _prefill_ms(step, params, batch, dev):
+def _synced_ms(fn, dev):
+    """(fn(), ms) on the host clock, synchronised before and after."""
     import torch
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    h = step(params, batch)
+    out = fn()
     torch.cuda.synchronize(dev)
-    return h, (time.perf_counter() - t0) * 1e3
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _prefill_ms(step, params, batch, dev):
+    return _synced_ms(lambda: step(params, batch), dev)
 
 
 def serve_path(dev):
@@ -2629,6 +2698,453 @@ def moe_path(dev, hbm, flops, smi):
     return launches, attn_routes, timing
 
 
+# -- phase 10: the recurrent families (RWKV6, Zamba2) ------------------------
+
+def _serve_gpu(arch, vocab):
+    """launch/serve.py --arch ``arch`` --scale gpu: (ok, its stats line)."""
+    from repro_torch.launch import serve
+    out, stats = serve.main(["--scale", "gpu", "--arch", arch])
+    good = (tuple(out.shape) == (4, 32) and int(out.min()) >= 0
+            and int(out.max()) < vocab)
+    check(good, f"serve --arch {arch}: tokens {tuple(out.shape)}")
+    return {"arch": arch, "requests": 4, "prompt_len": 16, "new_tokens": 32,
+            "tokens_per_s": stats["tokens_per_s"],
+            "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+            "decode_ms_per_step": stats["decode_s"] * 1e3 / 31, "ok": good,
+            "first_tokens": out[0, :8].tolist()}
+
+
+def _prefill_vs_decode(params, cfg, prompts):
+    """The kernel-path prefill's last-position logits against the logits
+    the decode loop reaches after the same prompt: (err, max|logits|)."""
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import model
+    hp = steps.make_prefill_step(cfg)(params, {"tokens": prompts})
+    want = model._unembed_fn(params, cfg)(hp[:, -1:])
+    _, got, _ = serve.generate(params, cfg, prompts, 1)
+    return float((got - want).abs().max()), float(want.abs().max())
+
+
+def rwkv_serve_path(dev):
+    """Phase 10 (a), RWKV6-7B at full width and depth: the recurrence at
+    one layer's shape in f32 (``wkv_chunked`` vs ``wkv_scan``); the bf16
+    prefill step at B = 1, T = PREFILL_T; serve --arch rwkv6-7b --scale
+    gpu; in f32 a RWKV_DECODE_T-token prefill's last logits against as
+    many decode steps (the chunked path against the token-by-token path
+    through the whole model); the reduced model on the card against the
+    CPU."""
+    import torch
+    from torch.utils._pytree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import model, rwkv
+    t_phase = time.perf_counter()
+    base = get_config(RWKV_ARCH)
+    H, hd = base.d_model // base.ssm_head_dim, base.ssm_head_dim
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(0, base.vocab_size, (1, PREFILL_T),
+                           generator=gen, device=dev)
+    shape = (1, PREFILL_T, H, hd)
+    r, k, v = (torch.randn(shape, generator=gen, device=dev)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(
+        torch.randn(shape, generator=gen, device=dev) * 0.5 - 0.6))
+    u = torch.randn((H, hd), generator=gen, device=dev) * 0.1
+    s0 = torch.zeros((1, H, hd, hd), device=dev)
+    (y, S), chunked_ms = _synced_ms(
+        lambda: rwkv.wkv_chunked(r, k, v, w, u, s0), dev)
+    (ys, Ss), scan_ms = _synced_ms(
+        lambda: rwkv.wkv_scan(r, k, v, w, u, s0), dev)
+    wkv_err = float((y - ys).abs().max())
+    wkv_scale = float(ys.abs().max())
+    state_err = float((S - Ss).abs().max()) / float(Ss.abs().max())
+    wkv_ok = wkv_err <= WKV_RTOL * wkv_scale
+    check(wkv_ok, f"rwkv wkv_chunked vs wkv_scan at {shape}: max_abs_err "
+                  f"{wkv_err} (max|y| {wkv_scale})")
+    emit({"phase": "recurrent", "part": "a", "step": "wkv",
+          "shape": list(shape), "chunked_ms": chunked_ms,
+          "scan_ms": scan_ms, "max_abs_err": wkv_err, "max_abs_y": wkv_scale,
+          "state_rel_err": state_err, "rtol": WKV_RTOL, "ok": wkv_ok})
+    del r, k, v, w, y, ys, S, Ss
+    # the bf16 prefill, the main path's run
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, init_ms = _synced_ms(lambda: model.init(0, base, device=dev), dev)
+    step = steps.make_prefill_step(base)
+    _prefill_ms(step, params, {"tokens": tokens[:, :256]}, dev)
+    h, ms = _prefill_ms(step, params, {"tokens": tokens}, dev)
+    finite = bool(torch.isfinite(h).all())
+    check(finite and h.shape == (1, PREFILL_T, base.d_model),
+          f"rwkv prefill bf16: output {tuple(h.shape)}, finite {finite}")
+    emit({"phase": "recurrent", "part": "a", "step": "prefill",
+          "arch": RWKV_ARCH, "dtype": "bfloat16", "batch": 1,
+          "seq_len": PREFILL_T, "num_layers": base.num_layers,
+          "params": base.param_count(), "reduced": PREFILL_CUTS[:1],
+          "init_ms": init_ms, "ms_per_prefill": ms, "finite": finite,
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+    del params, h
+    torch.cuda.empty_cache()
+    emit({"phase": "recurrent", "part": "a", "step": "serve_gpu",
+          **_serve_gpu(RWKV_ARCH, base.vocab_size)})
+    torch.cuda.empty_cache()
+    # f32: the chunked prefill against the token-by-token decode
+    cfg = base.with_(dtype=torch.float32, param_dtype=torch.float32)
+    params = model.init(0, cfg, device=dev)
+    prompts = tokens[:, :RWKV_DECODE_T]
+    (lerr, lscale), pd_ms = _synced_ms(
+        lambda: _prefill_vs_decode(params, cfg, prompts), dev)
+    lok = lerr <= 1e-3 * lscale
+    check(lok, f"rwkv prefill vs decode logits (f32, T={RWKV_DECODE_T}): "
+               f"max_abs_err {lerr} (max|logits| {lscale})")
+    del params
+    torch.cuda.empty_cache()
+    # the reduced model on the card against the CPU
+    rcfg = base.reduced()
+    cpu_params = model.init(0, rcfg, device="cpu")
+    card_params = tree_map(lambda t: t.to(dev), cpu_params)
+    rtok = torch.randint(0, rcfg.vocab_size, (2, 128),
+                         generator=torch.Generator().manual_seed(3))
+    h_cpu, _ = model.forward(cpu_params, rcfg, {"tokens": rtok})
+    h_card, _ = model.forward(card_params, rcfg, {"tokens": rtok.to(dev)})
+    cerr = float((h_card.cpu() - h_cpu).abs().max())
+    cscale = float(h_cpu.abs().max())
+    cok = cerr <= CARD_VS_CPU_RTOL * cscale
+    check(cok, f"rwkv reduced forward card vs CPU: max_abs_err {cerr} "
+               f"(max|h| {cscale})")
+    emit({"phase": "recurrent", "part": "a", "step": "prefill_vs_decode",
+          "dtype": "float32", "prompt_len": RWKV_DECODE_T,
+          "max_abs_err": lerr, "max_abs_logits": lscale, "rtol": 1e-3,
+          "ok": lok, "ms": pd_ms,
+          "card_vs_cpu": {"max_abs_err": cerr, "max_abs_h": cscale,
+                          "rtol": CARD_VS_CPU_RTOL, "ok": cok},
+          "seconds": time.perf_counter() - t_phase})
+    return ms
+
+
+def zamba_serve_path(dev):
+    """Phase 10 (b), Zamba2-2.7B at full width and depth -> ({dtype: the
+    flash kernel's launches by route in the kernel-path prefill}, bf16
+    prefill ms).  The prefill step at B = 1, T = PREFILL_T in bf16 and
+    f32: the kernel path (the main path's run: one flash launch per
+    shared-block application on the dtype's route) against the plain
+    path under PREFILL_RTOL; in f32 the served prompts' prefill logits
+    against the decode loop's; serve --arch zamba2-2.7b --scale gpu."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import flash
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    base = get_config(ZAMBA_ARCH)
+    G = base.num_layers // base.shared_attn_every
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(0, base.vocab_size, (1, PREFILL_T),
+                           generator=gen, device=dev)
+    prompts = torch.randint(0, base.vocab_size, (4, 16), generator=gen,
+                            device=dev)
+    by_route, ms = {}, {}
+    for dname in ("bfloat16", "float32"):
+        cfg = base.with_(dtype=getattr(torch, dname),
+                         param_dtype=getattr(torch, dname))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = model.init(0, cfg, device=dev)
+        scalars = {n: params["mamba"][n].dtype
+                   for n in ("A_log", "dt_bias", "D")}
+        check(set(scalars.values()) == {torch.float32},
+              f"zamba2 {dname}: SSM scalars {scalars}")
+        kernel_step = steps.make_prefill_step(cfg)
+        plain_step = steps.make_prefill_step(cfg, plain=True)
+        _prefill_ms(kernel_step, params, {"tokens": tokens[:, :256]}, dev)
+        flash.reset_launches()
+        h, ms_kernel = _prefill_ms(kernel_step, params, {"tokens": tokens},
+                                   dev)
+        n_prefill = flash.flash_attention.launches
+        routes = by_route[dname] = dict(flash.flash_attention.route_launches)
+        ms[dname] = ms_kernel
+        h_plain, ms_plain = _prefill_ms(plain_step, params,
+                                        {"tokens": tokens}, dev)
+        plain_launches = flash.flash_attention.launches - n_prefill
+        scale = float(h_plain.float().abs().max())
+        err = float((h.float() - h_plain.float()).abs().max())
+        ok = err <= PREFILL_RTOL[dname] * scale
+        finite = bool(torch.isfinite(h).all())
+        want_route = "tensor_core" if dname == "bfloat16" else "cuda_core"
+        check(ok, f"zamba2 prefill {dname}: kernel vs plain max_abs_err "
+                  f"{err} (max|h| {scale}, rtol {PREFILL_RTOL[dname]})")
+        check(finite and h.shape == (1, PREFILL_T, cfg.d_model),
+              f"zamba2 prefill {dname}: output {tuple(h.shape)}, finite "
+              f"{finite}")
+        check(n_prefill == G and plain_launches == 0
+              and routes == {r: G * (r == want_route) for r in routes},
+              f"zamba2 prefill {dname}: launches by route {routes} (want "
+              f"{G} on {want_route}), plain path {plain_launches}")
+        line = {"phase": "recurrent", "part": "b", "step": "prefill",
+                "arch": cfg.name, "dtype": dname, "batch": 1,
+                "seq_len": PREFILL_T, "num_layers": cfg.num_layers,
+                "shared_block_applications": G, "params":
+                cfg.param_count(), "reduced": PREFILL_CUTS[:1],
+                "kernel_launches": n_prefill, "launches_by_route": routes,
+                "ms_per_prefill": {"kernel": ms_kernel, "plain": ms_plain},
+                "max_abs_err": err, "max_abs_h": scale,
+                "rel_err": err / scale, "rtol": PREFILL_RTOL[dname],
+                "ok": ok,
+                "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        del h, h_plain
+        if dname == "float32":
+            flash.reset_launches()
+            lerr, lscale = _prefill_vs_decode(params, cfg, prompts)
+            n_check = flash.flash_attention.launches
+            lok = lerr <= 1e-3 * lscale
+            check(lok and n_check == G,
+                  f"zamba2 prefill vs decode logits (f32): max_abs_err "
+                  f"{lerr} (max|logits| {lscale}), {n_check} launches")
+            line["prefill_vs_decode"] = {
+                "prompts": list(prompts.shape), "max_abs_err": lerr,
+                "max_abs_logits": lscale, "rtol": 1e-3, "ok": lok}
+        emit(line)
+        del params
+        torch.cuda.empty_cache()
+        if dname == "bfloat16":
+            emit({"phase": "recurrent", "part": "b", "step": "serve_gpu",
+                  **_serve_gpu(ZAMBA_ARCH, base.vocab_size)})
+            torch.cuda.empty_cache()
+    return by_route, ms
+
+
+def zamba_train_path(dev, hbm, flops, smi):
+    """Phase 10 (c): launch/train.py's train(args) for Zamba2 at its train
+    depth (6 layers, remat as the config has it) with phase 8's settings:
+    m = 4 kernel vs plain histories, the main run at m = 8 (one launch a
+    round at (8, 8, P)), 2 steps checkpointed and resumed to 4
+    bit-identical; then the round kernel timed at (8, 8, P) on a block of
+    real Zamba2 gradients.  -> (launches, that timing)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train as train_lib
+    from repro_torch.sim.goldens import compare_traces
+    t_phase = time.perf_counter()
+    cfg = train_lib.train_config(ZAMBA_ARCH, "gpu")
+    launches = 0
+    compared = {}
+    for backend in ("auto", "fused_interpret"):
+        compared[backend] = _train_run(_train_args(
+            arch=ZAMBA_ARCH, round_backend=backend, **TRAIN_COMPARED), dev)
+    launches += compared["auto"][1]
+    main_res, n_main, peak_main = _train_run(_train_args(arch=ZAMBA_ARCH),
+                                             dev)
+    launches += n_main
+    finite = all(math.isfinite(v) for row in main_res["history"]
+                 for v in row.values())
+    vs_plain = compare_traces(
+        _compared(compared["auto"][0]["history"]),
+        _compared(compared["fused_interpret"][0]["history"]))
+    check(n_main == TRAIN_STEPS, f"zamba2 train: {n_main} round-kernel "
+                                 f"launches for {TRAIN_STEPS} rounds")
+    check(finite and len(main_res["history"]) == TRAIN_STEPS,
+          f"zamba2 train: history {main_res['history']}")
+    check(not vs_plain, f"zamba2 train m=4: kernel vs plain {vs_plain[:3]}")
+    check(compared["auto"][1] == TRAIN_STEPS
+          and compared["fused_interpret"][1] == 0,
+          f"zamba2 train m=4: launches {compared['auto'][1]} (kernel), "
+          f"{compared['fused_interpret'][1]} (plain)")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_zamba_ckpt_")
+    try:
+        _, n1, _ = _train_run(_train_args(
+            arch=ZAMBA_ARCH, steps=2, ckpt_dir=ckpt, ckpt_every=2), dev)
+        resumed, n2, _ = _train_run(_train_args(
+            arch=ZAMBA_ARCH, ckpt_dir=ckpt, ckpt_every=2), dev)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    launches += n1 + n2
+    bitwise = (resumed["resumed_from"] == 2
+               and resumed["history"] == main_res["history"])
+    check(bitwise and n1 == 2 and n2 == 2,
+          f"zamba2 resume: resumed_from {resumed['resumed_from']}, history "
+          f"{resumed['history']} vs {main_res['history']}; launches {n1}, "
+          f"{n2}")
+    timing = train_kernel_timing(dev, hbm, flops, smi, arch=ZAMBA_ARCH)
+    m = TRAIN_MAIN["workers"]
+    emit({"phase": "recurrent", "part": "c", "arch": ZAMBA_ARCH,
+          "layers": cfg.num_layers, "remat": cfg.remat,
+          "params": cfg.param_count(), "seq_len": TRAIN_SEQ, **TRAIN_MAIN,
+          "num_batches": m, "round_shape": list(timing["shape"]),
+          "steps": TRAIN_STEPS, "reduced": ZAMBA_TRAIN_CUTS,
+          "kernel_launches": n_main,
+          "s_per_step": main_res["seconds"] / TRAIN_STEPS,
+          "peak_mem_gb": peak_main, "loss_median": _curve(main_res),
+          "agg_grad_norm": _curve(main_res, "agg_grad_norm"),
+          "finite": finite, "compared_geometry": TRAIN_COMPARED,
+          "compared": {b: {"launches": n, "peak_mem_gb": peak,
+                           "s_per_step": r["seconds"] / TRAIN_STEPS,
+                           "loss_median": _curve(r)}
+                       for b, (r, n, peak) in compared.items()},
+          "kernel_vs_plain_ok": not vs_plain,
+          "resume": {"resumed_from": resumed["resumed_from"],
+                     "bit_identical": bitwise, "launches": [n1, n2]},
+          "card": smi, "seconds": time.perf_counter() - t_phase})
+    return launches, timing
+
+
+def reduced_rounds(dev, arch, backend, seed=0):
+    """RWKV_TRAIN's rounds of ``arch``'s reduced config on the card
+    through make_run_rounds (gmom under sign_flip, the rotating schedule,
+    AdamW 1e-3) -> (history rows, round-kernel launches, s a round)."""
+    import torch
+    from torch.utils._pytree import tree_map
+    from repro_torch import configs, optim
+    from repro_torch import random as prng
+    from repro_torch.core import (RobustConfig, init_train_state,
+                                  make_run_rounds, schedule_from_config)
+    from repro_torch.core.train_state import advance, history_rows
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels.geomed import round as rk
+    from repro_torch.models import model
+    s = RWKV_TRAIN
+    cfg = configs.get_config(arch).reduced()
+    rc = RobustConfig(num_workers=s["m"], num_byzantine=s["q"],
+                      attack="sign_flip", aggregator="gmom",
+                      num_batches=s["k"], round_backend=backend)
+    opt = optim.adamw(1e-3)
+    schedule = schedule_from_config(rc)
+    run = make_run_rounds(lambda p, b: model.loss_fn(p, b, cfg), opt, rc,
+                          schedule=schedule, device=dev)
+    params = model.init(seed, cfg, device=dev)
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=s["seq_len"],
+                         global_batch=s["batch"], num_workers=s["m"],
+                         seed=seed, device=dev)
+    batch = tree_map(lambda *xs: torch.stack(xs),
+                     *[stream.batch(i) for i in range(s["steps"])])
+    state = init_train_state(
+        params, opt.init(params),
+        prng.fold_in(prng.PRNGKey(seed, device=dev), 10_000),
+        schedule=schedule)
+    rk.round_aggregate_kernel.launches = 0
+    (state, _), ms = _synced_ms(
+        lambda: advance(run, state, batch, per_round_batches=True), dev)
+    return (history_rows(state.history), rk.round_aggregate_kernel.launches,
+            ms / 1e3 / s["steps"])
+
+
+def rwkv_card_train(dev):
+    """Phase 10 (d): ``train --arch rwkv6-7b --scale gpu`` is refused,
+    naming item 16.10; the reduced config's rounds on the card through the
+    round kernel, kernel vs plain histories within compare_traces.  ->
+    round-kernel launches."""
+    from repro_torch.launch import train as train_lib
+    from repro_torch.sim.goldens import compare_traces
+    try:
+        train_lib.train(train_lib.parse_args(
+            ["--arch", RWKV_ARCH, "--scale", "gpu", "--steps", "1"]))
+        refusal = None
+    except NotImplementedError as exc:
+        refusal = str(exc)
+    refused = refusal is not None and "16.10" in refusal
+    check(refused, f"train --arch {RWKV_ARCH} --scale gpu: {refusal}")
+    runs = {b: reduced_rounds(dev, RWKV_ARCH, b)
+            for b in ("auto", "fused_interpret")}
+    vs_plain = compare_traces(_compared(runs["auto"][0]),
+                              _compared(runs["fused_interpret"][0]))
+    finite = all(math.isfinite(v) for row in runs["auto"][0]
+                 for v in row.values())
+    steps_ = RWKV_TRAIN["steps"]
+    check(not vs_plain and finite,
+          f"rwkv reduced rounds: kernel vs plain {vs_plain[:3]}, finite "
+          f"{finite}")
+    check(runs["auto"][1] == steps_ and runs["fused_interpret"][1] == 0,
+          f"rwkv reduced rounds: launches {runs['auto'][1]}, "
+          f"{runs['fused_interpret'][1]}")
+    emit({"phase": "recurrent", "part": "d", "gpu_scale_refused": refused,
+          "refusal": refusal, "setting": RWKV_TRAIN,
+          "kernel_vs_plain_ok": not vs_plain,
+          "runs": {b: {"loss_median": [r["loss_median"] for r in rows],
+                       "launches": n, "s_per_round": sec}
+                   for b, (rows, n, sec) in runs.items()}})
+    return runs["auto"][1]
+
+
+def _grads_with_and_without_remat(cfg, params, batch, dev):
+    """per_worker_grads of ``cfg`` without remat, then with (the larger
+    peak first, while nothing of the other is held) -> (equal, the peak
+    GB each allocated above what was live before it)."""
+    import torch
+    from repro_torch.core import robust_train
+    from repro_torch.models import model
+    runs, peak = [], {}
+    for remat in (False, True):
+        c = cfg.with_(remat=remat)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        live = torch.cuda.memory_allocated(dev)
+        runs.append(robust_train.per_worker_grads(
+            lambda p, b: model.loss_fn(p, b, c), params, batch))
+        torch.cuda.synchronize(dev)
+        peak[remat] = (torch.cuda.max_memory_allocated(dev) - live) / 1e9
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(
+        torch.utils._pytree.tree_leaves(runs[0]),
+        torch.utils._pytree.tree_leaves(runs[1])))
+    return equal, peak
+
+
+def remat_on_card(dev):
+    """Phase 10 (e): per_worker_grads (vmap of grad) with remat torch.equal
+    to without, at Granite reduced and Zamba2 reduced on the card; then at
+    the main path's m = 8 and 2 x TRAIN_SEQ tokens a worker, at the train
+    depth of H2O, Granite and Zamba2, equal too, with the peak GB each
+    allocates above the params and the batch, with remat and without."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model
+    out, peaks_gb = {}, {}
+    for arch in (MOE_ARCH, ZAMBA_ARCH):
+        cfg = configs.get_config(arch).reduced()
+        params = model.init(0, cfg, device=dev)
+        batch = TokenStream(vocab_size=cfg.vocab_size, seq_len=64,
+                            global_batch=8, num_workers=4,
+                            device=dev).batch(0)
+        equal, _ = _grads_with_and_without_remat(cfg, params, batch, dev)
+        check(equal, f"{arch} reduced: per_worker_grads with remat differ "
+                     "from without")
+        out[arch] = equal
+    m = TRAIN_MAIN["workers"]
+    for arch in (TRAIN_ARCH, MOE_ARCH, ZAMBA_ARCH):
+        cfg = train_lib.train_config(arch, "gpu")
+        params = model.init(0, cfg, device=dev)
+        batch = TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                            global_batch=2 * m, num_workers=m,
+                            device=dev).batch(0)
+        equal, peak = _grads_with_and_without_remat(cfg, params, batch, dev)
+        check(equal, f"{arch} at {cfg.num_layers} layers, m = {m}: "
+                     "per_worker_grads with remat differ from without")
+        out[f"{arch} train depth"] = equal
+        peaks_gb[arch] = {"layers": cfg.num_layers, "remat": peak[True],
+                          "no_remat": peak[False]}
+        del params, batch
+        torch.cuda.empty_cache()
+    emit({"phase": "recurrent", "part": "e", "remat_equal": out,
+          "per_worker_grads_peak_gb_above_params": peaks_gb,
+          "workers": m, "seq_len": TRAIN_SEQ, "sequences_a_worker": 2})
+
+
+def recurrent_path(dev, hbm, flops, smi):
+    """Phase 10 -> (round-kernel launches, flash launches by dtype and
+    route, the round kernel's timing at Zamba2's (8, 8, P), RWKV6's and
+    Zamba2's bf16 prefill ms)."""
+    t0 = time.perf_counter()
+    rwkv_ms = rwkv_serve_path(dev)
+    attn_routes, zamba_ms = zamba_serve_path(dev)
+    launches, timing = zamba_train_path(dev, hbm, flops, smi)
+    launches += rwkv_card_train(dev)
+    remat_on_card(dev)
+    emit({"phase": "recurrent", "seconds": time.perf_counter() - t0,
+          "round_kernel_launches": launches,
+          "flash_launches_by_route": attn_routes,
+          "prefill_ms": {"rwkv6_bf16": rwkv_ms, "zamba2": zamba_ms}})
+    return launches, attn_routes, timing
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2881,6 +3397,11 @@ def main() -> int:
     moe_launches, moe_routes, moe_timing = moe_path(dev, hbm, flops, smi)
     main_launches += moe_launches
 
+    # -- 10 recurrent: RWKV6 and Zamba2 --------------------------------------
+    rec_launches, rec_routes, rec_timing = recurrent_path(dev, hbm, flops,
+                                                          smi)
+    main_launches += rec_launches
+
     # -- 7 the kernel line --------------------------------------------------
     csrc = "src/repro_torch/kernels/"
     rows = (("round_aggregate", "geomed/csrc/round_aggregate.cu",
@@ -2912,7 +3433,8 @@ def main() -> int:
             ("flash_attention", "attention/csrc/flash_attention_tc.cuh",
              "src/repro/kernels/attention/flash.py:124",
              attn_routes["bfloat16"]["tensor_core"]
-             + moe_routes["bfloat16"]["tensor_core"],
+             + moe_routes["bfloat16"]["tensor_core"]
+             + rec_routes["bfloat16"]["tensor_core"],
              attn_err[(ATTN_MAIN, "bfloat16")], timing[ATTN_MAIN],
              ATTN_MAIN))
     print(smi, flush=True)
@@ -2928,10 +3450,11 @@ def main() -> int:
     # GEOMED_MAIN
     for row in line[2:4]:
         row["launches_shape"] = list(GEOMED_STEP)
-    # the round kernel at the train paths' (8, 8, P): H2O's, phase 8, and
-    # Granite's, phase 9
+    # the round kernel at the train paths' (8, 8, P): H2O's, phase 8,
+    # Granite's, phase 9, and Zamba2's, phase 10
     for key, t in (("train_shape", train_timing),
-                   ("granite_train_shape", moe_timing)):
+                   ("granite_train_shape", moe_timing),
+                   ("zamba2_train_shape", rec_timing)):
         line[0][key] = {"shape": list(t["shape"]), **{k: t[k] for k in (
             "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err", "iters", "iters_plain")}}
@@ -2939,18 +3462,21 @@ def main() -> int:
     line[1].update(kernel_route="one_pass", launches_by_route=linreg_routes)
     # flash attention's row is its tensor-core route at ATTN_MAIN (bf16);
     # the f32 prefills' launches went to the CUDA-core route; its launches
-    # are H2O's prefills (phase 4b) and Granite's (phase 9); Granite's
-    # prefill shape is timed beside ATTN_MAIN
+    # are H2O's prefills (phase 4b), Granite's (phase 9) and Zamba2's
+    # (phase 10); Granite's and Zamba2's prefill shapes are timed beside
+    # ATTN_MAIN
     line[-1].update(kernel_route="tensor_core", launches_by_route={
-        "tensor_core": attn_routes["bfloat16"]["tensor_core"]
-        + moe_routes["bfloat16"]["tensor_core"],
-        "cuda_core": attn_routes["float32"]["cuda_core"]
-        + moe_routes["float32"]["cuda_core"]},
-        granite_shape={"shape": list(ATTN_GRANITE), **{
-            key: timing[ATTN_GRANITE][key] for key in (
+        route: attn_routes[dname][route] + moe_routes[dname][route]
+        + rec_routes[dname][route]
+        for dname, route in (("bfloat16", "tensor_core"),
+                             ("float32", "cuda_core"))}, **{
+        key: {"shape": list(case), **{
+            k: timing[case][k] for k in (
                 "kernel_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by")},
-            "max_abs_err": attn_err[(ATTN_GRANITE, "bfloat16")]})
+            "max_abs_err": attn_err[(case, "bfloat16")]}
+        for key, case in (("granite_shape", ATTN_GRANITE),
+                          ("zamba2_shape", ATTN_ZAMBA))})
     emit({"kernels": line})
 
     if FAILURES:

@@ -1,9 +1,10 @@
 """Architecture registry: ``get_config("<arch-id>")`` and the shape table
 (port of ``repro.configs``).
 
-``ARCHITECTURES`` names every architecture of the reference.  The dense
-and MoE families are ported; ``get_config`` of another family raises
-``NotImplementedError`` until its model code is (ROADMAP Queue 1 item 16).
+``ARCHITECTURES`` names every architecture of the reference.  The dense,
+MoE, SSM (RWKV6) and hybrid (Zamba2) families are ported; ``get_config``
+of another family raises ``NotImplementedError`` until its model code is
+(ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -15,12 +16,12 @@ from repro_torch.configs.shapes import SHAPES, get_shape  # noqa: F401
 
 _ARCH_MODULES = {
     "qwen2-72b": "repro_torch.configs.qwen2_72b",
-    "rwkv6-7b": None,
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
     "seamless-m4t-medium": None,
     "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t",
-    "zamba2-2.7b": None,
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
     "internvl2-26b": None,
     "minitron-4b": "repro_torch.configs.minitron_4b",
     "h2o-danube-3-4b": "repro_torch.configs.h2o_danube3_4b",

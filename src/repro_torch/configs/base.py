@@ -1,14 +1,15 @@
 """Model and run configuration (port of ``repro.configs.base``).
 
-The fields of the dense and MoE families, the ones ported so far, and
-the training knobs ``remat`` (activation rematerialization of each block,
-``models.blocks.maybe_remat``) and ``loss_chunk`` (the sequence chunk of
-``models.layers.cross_entropy_loss``); the other families' fields (SSM
-state, encoder, frontend) come with their model code (ROADMAP Queue 1
-item 16).  ``dtype`` and ``param_dtype`` are torch dtypes.  ``reduced()``
-is the CPU-smoke variant (<= 2 layers, d_model <= 256, <= 4 experts of
-top-2, float32, no remat, the loss's default chunk), the same cut as the
-reference's.
+The fields of the dense, MoE, SSM (RWKV6) and hybrid (Zamba2) families,
+the ones ported so far, and the training knobs ``remat`` (activation
+rematerialization of each block, ``models.blocks.maybe_remat``) and
+``loss_chunk`` (the sequence chunk of ``models.layers.cross_entropy_loss``);
+the other families' fields (encoder, frontend) come with their model code
+(ROADMAP Queue 1 item 16).  ``dtype`` and ``param_dtype`` are torch
+dtypes.  ``reduced()`` is the CPU-smoke variant (<= 2 layers, d_model <=
+256, <= 4 experts of top-2, a shared block every 2 layers, SSM chunks of
+16, state <= 16, head width <= 32, float32, no remat, the loss's default
+chunk), the same cut as the reference's.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import dataclasses
 import torch
 
 # the families whose config fields, param counts and blocks the port has
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +44,12 @@ class ModelConfig:
     num_experts: int = 0
     experts_per_token: int = 0
     moe_capacity_factor: float = 1.25
+    # --- SSM (rwkv / mamba) ---
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 128
+    # --- hybrid (zamba2): one shared attn+mlp block every N mamba blocks ---
+    shared_attn_every: int = 0
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.bfloat16
     remat: bool = True
@@ -75,6 +82,10 @@ class ModelConfig:
             experts_per_token=min(self.experts_per_token, 2),
             sliding_window=(min(self.sliding_window, 64)
                             if self.sliding_window else None),
+            shared_attn_every=(2 if self.shared_attn_every else 0),
+            ssm_chunk=16,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_head_dim=min(self.ssm_head_dim, 32),
             dtype=torch.float32,
             param_dtype=torch.float32,
             remat=False,
@@ -96,10 +107,21 @@ class ModelConfig:
                 "model code (ROADMAP Queue 1 item 16)")
 
     def param_count(self) -> int:
-        """Parameters of the dense and MoE families (the reference's
-        approximate count: no norms; the router counted)."""
+        """Parameters (the reference's approximate count: no norms, token
+        shift mixes or SSM scalars; the router counted; RWKV6's decay LoRA
+        at rank 64; Zamba2's one shared block counted once)."""
         self._require_counted()
         D, F, L = self.d_model, self.d_ff, self.num_layers
+        if self.family == "ssm":
+            time_mix = 5 * D * D + D * 64 + 64 * D
+            channel_mix = D * F * 2 + D * D
+            return self._embed_params() + L * (time_mix + channel_mix)
+        if self.family == "hybrid":
+            din = 2 * D
+            mamba = D * (2 * din + 2 * self.ssm_state
+                         + din // self.ssm_head_dim) + din * D
+            shared = self._attn_params() + 3 * D * F
+            return self._embed_params() + L * mamba + shared
         if self.family == "dense":
             ffn = 3 * D * F
         else:

@@ -86,27 +86,65 @@ def scenario_inputs_from_numpy(features, targets, theta_star, *,
         theta_star=_tensor(theta_star, device).to(torch.float32))
 
 
+def _param_shapes(cfg: ModelConfig, tree):
+    """(want, got): the shapes of a few leaves that pin each layout."""
+    L, D, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
+
+    def at(*path):
+        node = tree
+        for key in path:
+            node = node.get(key, {}) if isinstance(node, dict) else {}
+        return np.shape(node) if not isinstance(node, dict) else None
+
+    want, got = {"embed": (V, D)}, {"embed": at("embed")}
+    if cfg.family == "ssm":
+        H, hd = D // cfg.ssm_head_dim, cfg.ssm_head_dim
+        want.update(wr=(L, D, H, hd), u=(L, H, hd), w_lora_b=(L, 64, H, hd),
+                    wk_cm=(L, D, cfg.d_ff), ln_tm=(L, D))
+        got.update(wr=at("layers", "time_mix", "wr"),
+                   u=at("layers", "time_mix", "u"),
+                   w_lora_b=at("layers", "time_mix", "w_lora_b"),
+                   wk_cm=at("layers", "channel_mix", "wk"),
+                   ln_tm=at("layers", "ln_tm", "scale"))
+        return want, got
+    if cfg.family == "hybrid":
+        every = cfg.shared_attn_every or L
+        G, per, din = L // every, every, 2 * D
+        H = din // cfg.ssm_head_dim
+        want.update(w_x=(G, per, D, din), w_B=(G, per, D, cfg.ssm_state),
+                    A_log=(G, per, H), conv_x=(G, per, 4, din),
+                    wq=(D, cfg.num_heads, cfg.head_dim),
+                    w_gate=(D, cfg.d_ff))
+        got.update(w_x=at("mamba", "w_x"), w_B=at("mamba", "w_B"),
+                   A_log=at("mamba", "A_log"), conv_x=at("mamba", "conv_x"),
+                   wq=at("shared", "attn", "wq"),
+                   w_gate=at("shared", "mlp", "w_gate"))
+        return want, got
+    want["wq"] = (L, D, cfg.num_heads, cfg.head_dim)
+    got["wq"] = at("layers", "attn", "wq")
+    if cfg.family == "moe":
+        E = cfg.num_experts
+        want.update(router=(L, D, E), w_gate=(L, E, D, cfg.d_ff))
+        got.update(router=at("layers", "moe", "router"),
+                   w_gate=at("layers", "moe", "w_gate"))
+    else:
+        want.update(w_gate=(L, D, cfg.d_ff))
+        got.update(w_gate=at("layers", "mlp", "w_gate"))
+    return want, got
+
+
 def lm_params_from_numpy(cfg: ModelConfig, tree, device=None):
     """The reference's ``models.model.init`` params with numpy leaves ->
     the port's params on ``device`` (``None``: the CUDA card), leaf for
     leaf (the same keys and layouts, stacked layers included), each leaf
-    in its own dtype (in a bf16 config the MoE router stays float32).
-    The dense layout has ``layers.mlp``; the MoE layout ``layers.moe``
-    with (L, E, d_in, d_out) experts and an (L, D, E) router."""
+    in its own dtype (in a bf16 config the MoE router and Mamba2's
+    ``A_log``, ``dt_bias`` and ``D`` stay float32).  The dense layout has
+    ``layers.mlp``; the MoE layout ``layers.moe`` with (L, E, d_in, d_out)
+    experts and an (L, D, E) router; RWKV6 ``layers.time_mix`` and
+    ``layers.channel_mix``; Zamba2 ``mamba`` stacked (groups, per) and an
+    unstacked ``shared`` decoder block."""
     dev = _device.resolve_device(device)
-    L, D, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
-    want = {"embed": (V, D), "wq": (L, D, cfg.num_heads, cfg.head_dim)}
-    got = {"embed": np.shape(tree["embed"]),
-           "wq": np.shape(tree["layers"]["attn"]["wq"])}
-    if cfg.family == "moe":
-        E = cfg.num_experts
-        want.update(router=(L, D, E), w_gate=(L, E, D, cfg.d_ff))
-        got.update({name: np.shape(tree["layers"].get("moe", {}).get(name))
-                    for name in ("router", "w_gate")})
-    else:
-        want.update(w_gate=(L, D, cfg.d_ff))
-        got.update(w_gate=np.shape(
-            tree["layers"].get("mlp", {}).get("w_gate")))
+    want, got = _param_shapes(cfg, tree)
     if got != want:
         raise ValueError(f"params of shapes {got} do not fit {cfg.name} "
                          f"({want})")
@@ -115,8 +153,20 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device=None):
 
 def decode_state_from_numpy(cfg: ModelConfig, tree, device=None):
     """The reference's ``init_decode_state`` (or a stepped state) with numpy
-    leaves -> the port's decode state on ``device``, in ``cfg.dtype``."""
+    leaves -> the port's decode state on ``device``: the KV caches, token
+    shifts and conv states in ``cfg.dtype``, RWKV6's WKV states and
+    Mamba2's SSM states in float32."""
     dev = _device.resolve_device(device)
+    if cfg.family == "ssm":
+        prev_tm, wkv, prev_cm = tree["states"]
+        return {"states": (_tree(prev_tm, dev, cfg.dtype),
+                           _tree(wkv, dev, torch.float32),
+                           _tree(prev_cm, dev, cfg.dtype))}
+    if cfg.family == "hybrid":
+        return {"conv": _tree(tree["conv"], dev, cfg.dtype),
+                "ssm": _tree(tree["ssm"], dev, torch.float32),
+                "attn": {k: _tree(tree["attn"][k], dev, cfg.dtype)
+                         for k in ("k", "v")}}
     cache = tree["cache"]["self"]
     return {"cache": {"self": {
         k: _tree(cache[k], dev, cfg.dtype) for k in ("k", "v")}}}

@@ -16,6 +16,8 @@ its ``--shape`` and ``--multi-pod`` flags, which are refused.
 
     PYTHONPATH=src python -m repro_torch.launch.serve          # the card
     PYTHONPATH=src python -m repro_torch.launch.serve --scale cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
 """
 
 from __future__ import annotations
@@ -96,8 +98,10 @@ def _serve(args, cfg, device):
 
 def serve_cpu(args):
     """The reduced config on the CPU.  -> (tokens, stats)."""
-    return _serve(args, get_config(args.arch).reduced(),
-                  _device.enter("cpu"))
+    cfg = get_config(args.arch).reduced()
+    if cfg.family == "hybrid":
+        cfg = cfg.with_(ssm_chunk=8)
+    return _serve(args, cfg, _device.enter("cpu"))
 
 
 def serve_gpu(args):

@@ -12,8 +12,8 @@ Two gradient paths implement the paper's Algorithm 2:
   corruption is injected at batch-mean granularity, and aggregation
   dispatches through ``robust_train.aggregate_reported``, so
   ``rc.aggregator``, ``rc.round_backend`` and an ``AttackSchedule`` are
-  first-class.  Plain autograd (not ``torch.func``) lets the step honour
-  ``cfg.remat`` (``models.blocks.maybe_remat``).
+  first-class.  Both modes honour ``cfg.remat``
+  (``models.blocks.maybe_remat``), with the same numbers as without it.
 
 The serve steps (``make_prefill_step``, ``make_serve_step``) run under
 ``torch.no_grad``.  A step sets the port's matmul precision

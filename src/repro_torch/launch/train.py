@@ -6,8 +6,9 @@ robust aggregation (GMoM through the CUDA round kernel on the card),
 AdamW, checkpoints of the full ``TrainState`` and a metrics log.
 
 * ``--scale gpu`` (default): the architecture at its published widths on
-  the CUDA card, cut only in depth (``gpu_train_layers``), with remat off
-  (``GPU_REMAT``); raises without a card.
+  the CUDA card, cut only in depth (``gpu_train_layers``), with the
+  config's remat (``models.blocks.maybe_remat``, which batches under the
+  per-worker ``vmap`` of ``grad``); raises without a card.
 * ``--scale cpu``: the reduced config on the CPU, as the reference's
   default.
 * ``--scale pod`` (the reference's dry-run lowering of the production job)
@@ -20,6 +21,8 @@ Usage:
         --seq-len 512          # H2O-Danube3-4B, 2 layers, on the card
     PYTHONPATH=src python -m repro_torch.launch.train --steps 4 \\
         --seq-len 512 --arch granite-moe-1b-a400m     # 8 layers
+    PYTHONPATH=src python -m repro_torch.launch.train --steps 4 \\
+        --seq-len 512 --arch zamba2-2.7b              # 6 layers
 """
 
 from __future__ import annotations
@@ -49,57 +52,61 @@ from repro_torch.models import model as model_lib
 # reported bf16 gradients, the (8, P) f32 block, the round kernel's Z;
 # 61.6 GB at H2O-Danube3-4B's P = 555.4 M on an H100 80GB), and the
 # reckoning may take 64 GB of the card's 80, leaving 16 GB to what does
-# not scale with P: Granite-3.0-1B-A400M's dispatch and combine
-# activations under vmap add 11 GB (a round peaked at 69.6 GB against
-# 58.7 GB reckoned at P = 528.8 M, chip_smoke.py phase 9).  So H2O trains
-# at 2 layers, Granite at 8 of its 24.
+# not scale with P: the activations of m workers under vmap.  With remat
+# the per-worker gradients at m = 8 and 2 x 512 tokens a worker take 14.5
+# to 16.0 GB above the params for H2O, Granite-3.0-1B-A400M and Zamba2
+# (24.3, 42.0 and 63.9 GB without remat; an H100 80GB, as chip_smoke.py
+# phase 10 (e) measures them).  So H2O trains at
+# 2 layers, Granite at 8 of its 24, Zamba2 at 6 of its 54 (one group: a
+# hybrid depth is a multiple of its shared-block period).
 GPU_TRAIN_BYTES_PER_PARAM = 111
 GPU_TRAIN_BUDGET_BYTES = 64e9
-# worker mode takes per-worker gradients with torch.func (vmap of grad),
-# which refuses torch.utils.checkpoint's saved-tensor hooks
-# (models.blocks.maybe_remat): train() runs without remat
-GPU_REMAT = False
 DEFAULT_ARCH = {"cpu": "minitron-4b", "gpu": "h2o-danube-3-4b"}
 
 
 def gpu_train_layers(cfg) -> int:
-    """The most layers (up to ``cfg.num_layers``) at which
+    """The most layers (up to ``cfg.num_layers``; for the hybrid family a
+    multiple of ``shared_attn_every``, whole groups) at which
     ``GPU_TRAIN_BYTES_PER_PARAM`` bytes a parameter fit
-    ``GPU_TRAIN_BUDGET_BYTES``; raises when not even one layer fits."""
+    ``GPU_TRAIN_BUDGET_BYTES``; raises when not even the least depth
+    fits."""
+    step = (cfg.shared_attn_every or 1) if cfg.family == "hybrid" else 1
+
     def reckoned(layers):
         return (GPU_TRAIN_BYTES_PER_PARAM
                 * cfg.with_(num_layers=layers).param_count())
 
-    if reckoned(1) > GPU_TRAIN_BUDGET_BYTES:
+    if reckoned(step) > GPU_TRAIN_BUDGET_BYTES:
         raise NotImplementedError(
-            f"{cfg.name} at one layer reckons {reckoned(1) / 1e9:.1f} GB a "
-            f"round, past the card's {GPU_TRAIN_BUDGET_BYTES / 1e9:.0f} GB "
-            "budget: it needs its params and gradients sharded over a model "
-            "mesh (ROADMAP Queue 1 item 16.10)")
-    return max(layers for layers in range(1, cfg.num_layers + 1)
+            f"{cfg.name} at {step} layer(s) reckons "
+            f"{reckoned(step) / 1e9:.1f} GB a round, past the card's "
+            f"{GPU_TRAIN_BUDGET_BYTES / 1e9:.0f} GB budget: it needs its "
+            "params and gradients sharded over a model mesh (ROADMAP Queue 1 "
+            "item 16.10)")
+    return max(layers for layers in range(step, cfg.num_layers + 1, step)
                if reckoned(layers) <= GPU_TRAIN_BUDGET_BYTES)
 
 
 def train_config(arch: str, scale: str):
     """The config ``train`` runs at ``scale``: reduced on the CPU; the
-    published widths at ``gpu_train_layers`` layers without remat on the
-    card."""
+    published widths at ``gpu_train_layers`` layers on the card, remat as
+    the config has it."""
     if scale == "cpu":
         return get_config(arch).reduced()
     if scale == "gpu":
         cfg = get_config(arch)
-        return cfg.with_(num_layers=gpu_train_layers(cfg), remat=GPU_REMAT)
+        return cfg.with_(num_layers=gpu_train_layers(cfg))
     raise NotImplementedError(
         f"--scale {scale}: the reference lowers the production job in a "
         "dry run, which needs the dry-run tooling (ROADMAP Queue 1 item 17)")
 
 
 def build_cpu_batch(cfg, stream: TokenStream, step: int, key):
-    """The step's worker batches, (m, B/m, T) tokens and labels (the dense
-    and MoE families' batches).  The audio and VLM families add their
-    frame and patch stubs in the reference; they come with those families
-    (ROADMAP Queue 1 item 16)."""
-    del key    # the dense and MoE families draw nothing beyond the stream
+    """The step's worker batches, (m, B/m, T) tokens and labels (the dense,
+    MoE, SSM and hybrid families need only tokens).  The audio and VLM
+    families add their frame and patch stubs in the reference; they come
+    with those families (ROADMAP Queue 1 item 16)."""
+    del key    # the ported families draw nothing beyond the stream
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"train batches of the {cfg.family!r} family come with its "

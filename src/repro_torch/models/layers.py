@@ -8,7 +8,7 @@ generator's device: the values follow the reference's distributions, not
 its bits (tests hand the JAX params across instead).
 
 Not ported: the shard_map sequence-parallel SwiGLU region (ROADMAP Queue 1
-items 13 and 17), the GELU MLP and LayerNorm (the audio family).
+items 13 and 17) and the GELU MLP (the audio family).
 """
 
 from __future__ import annotations
@@ -59,6 +59,23 @@ def rmsnorm(params, x, *, eps: float = 1e-5):
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
     return (normed * params["scale"].to(torch.float32)).to(x.dtype)
+
+
+def layernorm_init(dim: int, *, dtype, device=None, stack: tuple = ()):
+    return {"scale": torch.ones((*stack, dim), dtype=dtype, device=device),
+            "bias": torch.zeros((*stack, dim), dtype=dtype, device=device)}
+
+
+def layernorm(params, x, *, eps: float = 1e-5):
+    """Mean and variance in float32, rounded once to the input type."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    centred = xf - mu
+    var = torch.mean(centred * centred, dim=-1, keepdim=True)
+    normed = centred * torch.rsqrt(var + eps)
+    out = normed * params["scale"].to(torch.float32) \
+        + params["bias"].to(torch.float32)
+    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
 """The language model: init / forward / prefill / decode (port of
-``repro.models.model``, the dense and MoE families).
+``repro.models.model``: the dense and MoE decoders, the RWKV6 stack
+(ssm) and Zamba2 (hybrid: groups of Mamba2 blocks, each group after one
+application of a shared attention block)).
 
 Batch formats (one worker's shard, as in the reference):
 
@@ -8,14 +10,17 @@ Batch formats (one worker's shard, as in the reference):
   decode:  tokens (B, 1) int, positions (B,) int, state dict
 
 The reference scans the layer stack; here a Python loop walks the stacked
-params (``blocks.layer``), each block under ``blocks.maybe_remat``.
+params (``blocks.unstack``, whose backward stacks the layers' gradients
+once), each block under ``blocks.maybe_remat``.
 ``loss_fn`` trains through the plain attention core (``plain=True``), as
 the reference trains through its jnp core: the flash kernel has no
 backward.  ``forward`` sums the blocks' aux losses (the MoE router's,
-float32) in layer order, and ``loss_fn`` returns ``ce + aux``.  ``init`` and ``init_decode_state`` are entry
-points: ``device=None`` means the CUDA card and raises without one.  The
-other families (vlm, ssm, hybrid, audio) raise ``NotImplementedError``
-until their code is ported (ROADMAP Queue 1 item 16).
+float32) in layer order, and ``loss_fn`` returns ``ce + aux``.  ``init``
+and ``init_decode_state`` are entry points: ``device=None`` means the
+CUDA card and raises without one.  Decode states are updated in place.
+The vlm and audio families raise
+``NotImplementedError`` until their code is ported (ROADMAP Queue 1
+item 16).
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch import _device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, blocks, layers
+from repro_torch.models import attention, blocks, layers, mamba
 
 
 # ---------------------------------------------------------------------------
@@ -34,7 +39,11 @@ from repro_torch.models import attention, blocks, layers
 def init(seed: int, cfg: ModelConfig, *, device=None):
     """Random params from ``seed``, drawn leaf by leaf on the device (a
     float32 scratch of the largest leaf at a time) and stored in
-    ``cfg.param_dtype`` (the MoE router in float32)."""
+    ``cfg.param_dtype`` (the MoE router and Mamba2's ``A_log``,
+    ``dt_bias`` and ``D`` in float32).  The layouts are the reference's:
+    ``layers`` stacked (L, ...) for the decoders and RWKV6; for Zamba2
+    ``mamba`` stacked (groups, per, ...) and one unstacked ``shared``
+    decoder block."""
     blocks.require_ported(cfg)
     dev = _device.enter(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -47,11 +56,28 @@ def init(seed: int, cfg: ModelConfig, *, device=None):
     if not cfg.tie_embeddings:
         params["unembed"] = layers.dense_init(gen, cfg.d_model,
                                               cfg.vocab_size, dtype=dt)
-    # each leaf drawn whole with a leading L axis (the reference vmaps the
-    # init over split keys)
-    params["layers"] = blocks.init_decoder_block(gen, cfg,
-                                                 stack=(cfg.num_layers,))
+    # each leaf drawn whole with its leading layer axes (the reference
+    # vmaps the init over split keys)
+    if cfg.family == "ssm":
+        params["layers"] = blocks.init_rwkv_block(gen, cfg,
+                                                  stack=(cfg.num_layers,))
+    elif cfg.family == "hybrid":
+        params["mamba"] = blocks.init_mamba_block(
+            gen, cfg, stack=_hybrid_shape(cfg))
+        params["shared"] = blocks.init_decoder_block(gen, cfg)
+    else:
+        params["layers"] = blocks.init_decoder_block(
+            gen, cfg, stack=(cfg.num_layers,))
     return params
+
+
+def _hybrid_shape(cfg: ModelConfig) -> tuple[int, int]:
+    """(groups, Mamba2 blocks a group): one shared-block application a
+    group."""
+    every = cfg.shared_attn_every or cfg.num_layers
+    if cfg.num_layers % every != 0:
+        raise ValueError("num_layers must be divisible by shared_attn_every")
+    return cfg.num_layers // every, every
 
 
 # ---------------------------------------------------------------------------
@@ -71,19 +97,68 @@ def _unembed_fn(params, cfg: ModelConfig):
     return lambda h: h @ w
 
 
-def forward(params, cfg: ModelConfig, batch, *, plain: bool = False):
-    """Full-sequence hidden states (B, T, D) + aux loss (a float32 scalar
-    for MoE, 0.0 for dense).  ``plain=True`` keeps the attention core off
-    the CUDA kernel.  Under remat the block returns its aux beside h, so
-    the router's loss survives rematerialization."""
-    blocks.require_ported(cfg)
-    x = _embed(params, cfg, batch["tokens"])
+def _run_decoder_stack(params_stack, cfg: ModelConfig, x, *, plain):
     block = blocks.maybe_remat(
         lambda p, h: blocks.decoder_block(p, cfg, h, plain=plain), cfg)
     aux = 0.0
-    for i in range(cfg.num_layers):
-        x, a = block(blocks.layer(params["layers"], i), x)
+    for p in blocks.unstack(params_stack):
+        x, a = block(p, x)
         aux = aux + a
+    return x, aux
+
+
+def _run_rwkv_stack(params_stack, cfg: ModelConfig, x, *, states=None):
+    """The RWKV6 stack from zero states (train / prefill: remat applies),
+    or from ``states`` (``decode_step``'s, stacked (L, ...) as
+    ``init_decode_state`` makes them), then -> (x, the new states
+    stacked)."""
+    if states is None:
+        block = blocks.maybe_remat(
+            lambda p, h: blocks.rwkv_block(p, cfg, h)[0], cfg)
+        for p in blocks.unstack(params_stack):
+            x = block(p, x)
+        return x, None
+    new = []
+    for i, p in enumerate(blocks.unstack(params_stack)):
+        x, s = blocks.rwkv_block(p, cfg, x,
+                                 state=tuple(t[i] for t in states))
+        new.append(s)
+    return x, tuple(torch.stack(ts) for ts in zip(*new))
+
+
+def _run_hybrid_stack(params, cfg: ModelConfig, x, *, plain, states=None):
+    """Zamba2: [the shared block, then ``per`` Mamba2 blocks] x groups,
+    each Mamba2 block from zero states.  The shared block's params are an
+    argument of its remat, so its gradient reaches them."""
+    if states is not None:
+        raise NotImplementedError(
+            "full-seq hybrid with states: use decode path")
+    shared_fn = blocks.maybe_remat(
+        lambda p, h: blocks.decoder_block(p, cfg, h, plain=plain)[0], cfg)
+    mamba_fn = blocks.maybe_remat(
+        lambda p, h: blocks.mamba_block(p, cfg, h)[0], cfg)
+    for group in blocks.unstack(params["mamba"]):
+        x = shared_fn(params["shared"], x)
+        for p in blocks.unstack(group):
+            x = mamba_fn(p, x)
+    return x, None
+
+
+def forward(params, cfg: ModelConfig, batch, *, plain: bool = False):
+    """Full-sequence hidden states (B, T, D) + aux loss (a float32 scalar
+    for MoE, 0.0 for the others).  ``plain=True`` keeps the attention core
+    off the CUDA kernel.  Under remat the block returns its aux beside h,
+    so the router's loss survives rematerialization."""
+    blocks.require_ported(cfg)
+    x = _embed(params, cfg, batch["tokens"])
+    if cfg.family == "ssm":
+        x, _ = _run_rwkv_stack(params["layers"], cfg, x)
+        aux = 0.0
+    elif cfg.family == "hybrid":
+        x, _ = _run_hybrid_stack(params, cfg, x, plain=plain)
+        aux = 0.0
+    else:
+        x, aux = _run_decoder_stack(params["layers"], cfg, x, plain=plain)
     h = layers.rmsnorm(params["ln_f"], x, eps=cfg.norm_eps)
     return h, aux
 
@@ -115,27 +190,78 @@ def prefill(params, cfg: ModelConfig, batch, *, plain: bool = False):
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       device=None):
-    """The KV cache for single-token decoding against a ``max_len``
-    context: {"cache": {"self": {"k", "v"}}}, each (L, B, phys, KV, hd)
-    with phys = min(max_len, window) (a ring buffer under a window)."""
+    """The decode state against a ``max_len`` context.  Decoders: the KV
+    cache {"cache": {"self": {"k", "v"}}}, each (L, B, phys, KV, hd) with
+    phys = min(max_len, window) (a ring buffer under a window).  RWKV6:
+    {"states": (prev_tm (L, B, D), wkv (L, B, H, hd, hd) float32, prev_cm
+    (L, B, D))}.  Zamba2: {"conv": {"x", "B", "C"} (groups, per, B, K-1,
+    C), "ssm": (groups, per, B, H, P, N) float32, "attn": {"k", "v"}
+    (groups, B, max_len, KV, hd)}.  O(1) in context but for the caches."""
     blocks.require_ported(cfg)
     dev = _device.enter(device)
+    if cfg.family == "ssm":
+        spec = blocks.rwkv_spec(cfg)
+        L, D = cfg.num_layers, cfg.d_model
+        H, hd = spec.num_heads, spec.head_dim
+        return {"states": (
+            torch.zeros((L, batch, D), dtype=cfg.dtype, device=dev),
+            torch.zeros((L, batch, H, hd, hd), dtype=torch.float32,
+                        device=dev),
+            torch.zeros((L, batch, D), dtype=cfg.dtype, device=dev))}
     shape = attention.cache_shape(blocks.attn_spec(cfg), batch, max_len)
+    if cfg.family == "hybrid":
+        groups, per = _hybrid_shape(cfg)
+        conv, ssm = mamba.init_states(blocks.mamba_spec(cfg), batch,
+                                      dtype=cfg.dtype, device=dev,
+                                      stack=(groups, per))
+        full = (groups, *shape)
+        return {"conv": conv, "ssm": ssm, "attn": {
+            "k": torch.zeros(full, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(full, dtype=cfg.dtype, device=dev)}}
     full = (cfg.num_layers, *shape)
     return {"cache": {"self": {
         "k": torch.zeros(full, dtype=cfg.dtype, device=dev),
         "v": torch.zeros(full, dtype=cfg.dtype, device=dev)}}}
 
 
+def _write(dst, src):
+    """Copy a tree of new states into the state tensors in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _write(dst[k], src[k])
+    elif isinstance(dst, tuple):
+        for d, s in zip(dst, src):
+            _write(d, s)
+    else:
+        dst.copy_(src)
+
+
 def decode_step(params, cfg: ModelConfig, state, tokens, positions):
     """One decode step.  tokens (B, 1), positions (B,).  Returns (logits
-    (B, 1, V), state); the cache is updated in place, layer by layer."""
+    (B, 1, V), state); the state is updated in place (RWKV6's after the
+    stack, from the stacked new states; the others layer by layer)."""
     blocks.require_ported(cfg)
     x = _embed(params, cfg, tokens)
-    cache = state["cache"]
-    for i in range(cfg.num_layers):
-        x, _ = blocks.decoder_block_decode(
-            blocks.layer(params["layers"], i), cfg, x,
-            blocks.layer(cache, i), positions)
+    if cfg.family == "ssm":
+        x, new = _run_rwkv_stack(params["layers"], cfg, x,
+                                 states=state["states"])
+        _write(state["states"], new)
+    elif cfg.family == "hybrid":
+        caches = blocks.unstack(state["attn"])
+        convs = blocks.unstack(state["conv"])
+        for g, group in enumerate(blocks.unstack(params["mamba"])):
+            x, _ = blocks.decoder_block_decode(
+                params["shared"], cfg, x, {"self": caches[g]}, positions)
+            conv_g = blocks.unstack(convs[g])
+            for j, p in enumerate(blocks.unstack(group)):
+                ssm = state["ssm"][g, j]
+                x, (new_conv, new_ssm) = blocks.mamba_block_decode(
+                    p, cfg, x, (conv_g[j], ssm))
+                _write(conv_g[j], new_conv)
+                ssm.copy_(new_ssm)
+    else:
+        for p, cache in zip(blocks.unstack(params["layers"]),
+                            blocks.unstack(state["cache"])):
+            x, _ = blocks.decoder_block_decode(p, cfg, x, cache, positions)
     h = layers.rmsnorm(params["ln_f"], x, eps=cfg.norm_eps)
     return _unembed_fn(params, cfg)(h), state

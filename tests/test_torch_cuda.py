@@ -1392,3 +1392,119 @@ def test_moe_per_worker_grads_repeat_bitwise(cuda):
     assert g1["layers"]["moe"]["router"].dtype == torch.float32
     for a, b in zip(jtree.leaves(g1), jtree.leaves(g2)):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families (RWKV6, Zamba2) and worker-mode remat
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_at_zamba2_head_width(cuda, dtype):
+    """Zamba2's shared attention: 32 heads over 32 KV heads of 80, causal,
+    no window; bf16 takes the tensor-core route (the 128-column instance,
+    48 padded columns), f32 the CUDA-core route."""
+    from repro_torch.kernels.attention import flash, ops, ref
+    case = (1, 512, 512, 32, 32, 80, True, None)
+    q, k, v = _qkv(case, dtype, cuda, seed=80)
+    route = flash.route(dtype, 80)
+    assert route == ("tensor_core" if dtype == torch.bfloat16
+                     else "cuda_core")
+    by_route = dict(flash.flash_attention.route_launches)
+    a = ops.attention(q, k, v, causal=True, sliding_window=None)
+    b = ops.attention(q, k, v, causal=True, sliding_window=None)
+    assert flash.flash_attention.route_launches == {
+        r: n + 2 * (r == route) for r, n in by_route.items()}
+    assert torch.equal(a, b)
+    want = ref.flash_attention_ref(q, k, v, causal=True, sliding_window=None)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(a.float(), want.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        want32, allowed = _restated_bound(q, k, v, True, None)
+        assert bool(((a.float() - want32).abs() <= allowed).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [128, 100])
+def test_wkv_chunked_on_the_card_equals_the_cpu(cuda, T):
+    """The chunked WKV (two chunks; and a ragged T, the scan) on the card
+    against the same call on the CPU, at rtol 1e-5 of max|y| (float32
+    matmuls summed in other orders)."""
+    from repro_torch.models import rwkv
+    rng = np.random.default_rng(T)
+    mk = lambda *s, scale=1.0: torch.as_tensor(       # noqa: E731
+        (rng.normal(size=s) * scale).astype(np.float32))
+    r, k, v = mk(2, T, 4, 16), mk(2, T, 4, 16), mk(2, T, 4, 16)
+    w = torch.exp(-torch.exp(mk(2, T, 4, 16, scale=0.5) - 0.6))
+    u, S = mk(4, 16, scale=0.1), mk(2, 4, 16, 16, scale=0.1)
+    args = (r, k, v, w, u, S)
+    y, s = rwkv.wkv_chunked(*args)
+    yc, sc = rwkv.wkv_chunked(*(a.to(cuda) for a in args))
+    for got, want in ((yc, y), (sc, s)):
+        assert float((got.cpu() - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [16, 128])
+def test_ssd_chunked_on_the_card_equals_the_cpu(cuda, chunk):
+    from repro_torch.models import mamba
+    spec = mamba.MambaSpec(d_model=64, d_state=16, head_dim=16, chunk=chunk)
+    rng = np.random.default_rng(chunk)
+    mk = lambda *s: torch.as_tensor(                  # noqa: E731
+        rng.normal(size=s).astype(np.float32))
+    x, Bm, Cm = mk(2, 256, 8, 16), mk(2, 256, 16), mk(2, 256, 16)
+    dt = torch.nn.functional.softplus(mk(2, 256, 8))
+    A = torch.exp(mk(8) * 0.5)
+    S0 = mk(2, 8, 16, 16)
+    args = (x, dt, A, Bm, Cm)
+    y, s = mamba._ssd_chunked(*args, spec, init_state=S0)
+    yc, sc = mamba._ssd_chunked(*(a.to(cuda) for a in args), spec,
+                                init_state=S0.to(cuda))
+    for got, want in ((yc, y), (sc, s)):
+        assert float((got.cpu() - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minitron-4b", "zamba2-2.7b"])
+def test_remat_under_vmap_of_grad_on_the_card(cuda, arch):
+    """Worker-mode gradients (torch.func.vmap of grad) with remat on the
+    card's torch: torch.equal to those without remat."""
+    from repro_torch import configs
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import model
+    cfg = configs.get_config(arch).reduced()
+    params = model.init(0, cfg, device=cuda)
+    batch = TokenStream(vocab_size=cfg.vocab_size, seq_len=32,
+                        global_batch=8, num_workers=4, device=cuda).batch(0)
+    runs = []
+    for remat in (False, True):
+        c = cfg.with_(remat=remat)
+        runs.append(robust_train.per_worker_grads(
+            lambda p, b: model.loss_fn(p, b, c), params, batch))
+    for a, b in zip(jtree.leaves(runs[0]), jtree.leaves(runs[1])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-2.7b"])
+def test_recurrent_serve_on_the_card_matches_the_cpu(cuda, arch):
+    """Reduced RWKV6 and Zamba2: the prefill (Zamba2's shared block through
+    the flash kernel) and decode on the card against the CPU."""
+    from torch.utils._pytree import tree_map
+    from repro_torch import configs
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import model
+    cfg = configs.get_config(arch).reduced()
+    params = model.init(0, cfg, device="cpu")
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    tokens = torch.as_tensor(
+        np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 64)))
+    h = steps.make_prefill_step(cfg)(on_card, {"tokens": tokens.to(cuda)})
+    h_cpu = steps.make_prefill_step(cfg)(params, {"tokens": tokens})
+    assert float((h.cpu() - h_cpu).abs().max()) <= \
+        1e-4 * float(h_cpu.abs().max())
+    tok, logits, _ = serve.generate(on_card, cfg, tokens[:, :16].to(cuda), 4)
+    tok_cpu, logits_cpu, _ = serve.generate(params, cfg, tokens[:, :16], 4)
+    torch.testing.assert_close(logits.cpu(), logits_cpu, atol=1e-4,
+                               rtol=1e-4)

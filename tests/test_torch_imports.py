@@ -47,7 +47,9 @@ def test_port_has_modules():
                    "configs/h2o_danube3_4b.py", "configs/minitron_4b.py",
                    "configs/qwen3_14b.py", "configs/qwen2_72b.py",
                    "configs/granite_moe_1b.py", "configs/kimi_k2_1t.py",
+                   "configs/rwkv6_7b.py", "configs/zamba2_2p7b.py",
                    "models/layers.py", "models/moe.py", "models/attention.py",
+                   "models/rwkv.py", "models/mamba.py",
                    "models/blocks.py", "models/model.py",
                    "launch/steps.py", "launch/serve.py", "launch/train.py",
                    "data/tokens.py"):

@@ -52,9 +52,8 @@ def _close(got, want, rtol=RTOL):
 # ---------------------------------------------------------------------------
 # configs
 
-UNPORTED_FIELDS = {"ssm_state", "ssm_head_dim", "ssm_chunk",
-                   "shared_attn_every", "encoder_layers",
-                   "encoder_seq_divisor", "frontend", "num_patches"}
+UNPORTED_FIELDS = {"encoder_layers", "encoder_seq_divisor", "frontend",
+                   "num_patches"}
 
 @pytest.mark.parametrize("arch", DENSE)
 def test_dense_configs_equal_the_reference(arch):
@@ -64,8 +63,8 @@ def test_dense_configs_equal_the_reference(arch):
         for key in ("dtype", "param_dtype"):
             assert str(a.pop(key)).split(".")[-1] == \
                 jnp.dtype(b.pop(key)).name
-        # the port has every field the dense and MoE families read; the
-        # others come with their families' model code
+        # the port has every field the dense, MoE, SSM and hybrid
+        # families read; the others come with their families' model code
         assert set(b) - set(a) == UNPORTED_FIELDS
         assert a == {key: b[key] for key in a}
         assert cfg.param_count() == jcfg.param_count()
@@ -76,7 +75,8 @@ def test_registry_and_shapes():
     assert {k: dataclasses.asdict(v) for k, v in shapes.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in jconfigs.SHAPES.items()}
     assert configs.get_shape("prefill_32k").seq_len == 32_768
-    for arch in set(configs.ARCHITECTURES) - set(DENSE) - set(MOE):
+    for arch in (set(configs.ARCHITECTURES) - set(DENSE) - set(MOE)
+                 - {"rwkv6-7b", "zamba2-2.7b"}):
         with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
             configs.get_config(arch)
     with pytest.raises(KeyError):
@@ -304,7 +304,7 @@ def test_entry_points_want_the_card_by_default():
 
 
 def test_unported_families_raise():
-    for family in ("ssm", "hybrid", "audio", "vlm"):
+    for family in ("audio", "vlm"):
         cfg = configs.get_config("h2o-danube-3-4b").reduced().with_(
             family=family)
         with pytest.raises(NotImplementedError, match="Queue 1 item 16"):

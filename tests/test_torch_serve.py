@@ -59,6 +59,30 @@ def test_greedy_tokens_equal_jax_serve_cpu(seed, prompt_len):
     assert times["prefill_s"] > 0 and times["decode_s"] > 0
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-2.7b"])
+def test_recurrent_greedy_tokens_equal_jax_serve_cpu(arch):
+    """RWKV6 and Zamba2 reduced (Zamba2 with SSM chunks of 8, as both
+    serve_cpu's set it) at the reference's defaults: the prompt and the
+    new tokens through decode steps carrying the recurrent states."""
+    args = _args(arch=arch)
+    want = np.asarray(jserve.serve_cpu(args))
+    jcfg = jconfigs.get_config(arch).reduced()
+    cfg = configs.get_config(arch).reduced()
+    if cfg.family == "hybrid":
+        jcfg, cfg = jcfg.with_(ssm_chunk=8), cfg.with_(ssm_chunk=8)
+    jparams = jmodel.init(jax.random.PRNGKey(args.seed), jcfg)
+    prompt_key = jax.random.fold_in(jax.random.PRNGKey(args.seed), 1)
+    prompts = np.array(jax.random.randint(
+        prompt_key, (args.batch, args.prompt_len), 0, jcfg.vocab_size))
+    params = convert.lm_params_from_numpy(
+        cfg, jax.tree.map(np.asarray, jparams), "cpu")
+    tokens, _, _ = serve.generate(params, cfg, torch.as_tensor(prompts),
+                                  args.new_tokens)
+    np.testing.assert_array_equal(tokens.numpy(), want)
+    out, _ = serve.main(["--scale", "cpu", "--arch", arch])
+    assert out.shape == (4, 32)
+
+
 def test_serve_cpu_from_the_command_line(capsys):
     tokens, stats = serve.main(["--scale", "cpu", "--seed", "3"])
     assert tokens.shape == (4, 32)

@@ -45,7 +45,7 @@ from repro_torch.core import train_state as tts
 from repro_torch.data.tokens import TokenStream
 from repro_torch.launch import steps
 from repro_torch.launch import train as train_lib
-from repro_torch.models import layers, model
+from repro_torch.models import blocks, layers, model
 from repro_torch.sim.goldens import compare_traces
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -169,18 +169,129 @@ def test_lm_per_worker_grads_match_jax(arch):
     _close_leaves(jg, tg, 1e-4)
 
 
-def test_worker_mode_refuses_remat():
-    """torch.func's grad refuses checkpoint's saved-tensor hooks: a remat
-    config on the vmap-of-grad path raises, naming the cause."""
-    _, cfg, _, tp = _models("minitron-4b", remat=True)
-    _, tstream = _streams(cfg, 2, 2, seq=8)
-    with pytest.raises(ValueError, match="remat=True under a torch.func"):
-        trt.per_worker_grads(lambda p, b: model.loss_fn(p, b, cfg), tp,
-                             tstream.batch(0))
-    # under no_grad (prefill) remat is a no-op and the forward runs
+REMAT_ARCHS = ("minitron-4b", "granite-moe-1b-a400m", "zamba2-2.7b")
+
+
+@pytest.mark.parametrize("arch", REMAT_ARCHS)
+def test_worker_mode_remat_matches_no_remat_and_jax(arch):
+    """``per_worker_grads`` (a vmap of grad) on a remat config: the remat
+    Function recomputes each block in its backward, so the gradients and
+    losses are torch.equal to the config without remat, and match the
+    reference's ``per_worker_grads`` with remat (``jax.checkpoint``) at
+    the LM tolerance.  Under no_grad (prefill) remat is a no-op."""
+    jcfg, cfg, jp, tp = _models(arch, remat=True)
+    jstream, tstream = _streams(cfg, 2, 4, seq=16)
+    got = {}
+    for remat in (True, False):
+        c = cfg.with_(remat=remat)
+        got[remat] = trt.per_worker_grads(
+            lambda p, b: model.loss_fn(p, b, c), tp, tstream.batch(0))
+    for a, b in zip(jax.tree.leaves(got[True]), jax.tree.leaves(got[False])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    jg, jl = jrt.per_worker_grads(lambda p, b: jmodel.loss_fn(p, b, jcfg),
+                                  jp, jstream.batch(0))
+    np.testing.assert_allclose(got[True][1].numpy(), np.asarray(jl),
+                               rtol=1e-5)
+    _close_leaves(jg, got[True][0], 1e-4)
     with torch.no_grad():
         h, _ = model.forward(tp, cfg, {"tokens": tstream.batch(0)["tokens"][0]})
-    assert h.shape == (1, 8, cfg.d_model)
+    assert h.shape == (2, 16, cfg.d_model)
+
+
+_REMAT_RSS = """
+import sys, torch
+from repro_torch import configs
+from repro_torch.models import blocks
+torch.set_num_threads(1)
+cfg = configs.get_config("minitron-4b").reduced().with_(remat=sys.argv[1] == "1")
+def block(p, x):
+    h = torch.tanh(x @ p["w"])
+    return (torch.sin(h) * h) @ p["v"] + x
+f = blocks.maybe_remat(block, cfg)
+def loss(p, x):
+    for _ in range(12):
+        x = f(p, x)
+    return (x * x).sum()
+p = {"w": torch.randn(64, 1024) * 0.1, "v": torch.randn(1024, 64) * 0.01}
+xs = torch.randn(4, 1024, 64)
+def status(field):
+    with open("/proc/self/status") as fh:
+        return next(int(line.split()[1]) for line in fh
+                    if line.startswith(field + ":"))
+with open("/proc/self/clear_refs", "w") as fh:
+    fh.write("5")           # the peak (VmHWM) restarts from the current RSS
+before = status("VmRSS")
+torch.func.vmap(torch.func.grad(loss), in_dims=(None, 0))(p, xs)
+print(status("VmHWM") - before)
+"""
+
+
+def test_remat_frees_each_block_under_vmap_of_grad():
+    """Twelve blocks of 4 MB activations, 4 workers, under vmap(grad):
+    with remat the peak resident memory grows by less than half of what
+    it grows by without (each block's recomputed graph is freed when its
+    backward ends; a gradient that kept it would hold all twelve to the
+    end).  One thread and one malloc arena, so that the peak
+    is the tensors' and not the allocator's per-thread caches.  The peak
+    is the process's own high-water mark (VmHWM, reset before the call):
+    ``ru_maxrss`` also carries the peak of the process that spawned it."""
+    grown = {}
+    for remat in ("0", "1"):
+        res = subprocess.run([sys.executable, "-c", _REMAT_RSS, remat],
+                             cwd=REPO, capture_output=True, text=True,
+                             timeout=300, env=dict(
+                                 os.environ, MALLOC_ARENA_MAX="1",
+                                 PYTHONPATH=os.path.join(REPO, "src")))
+        assert res.returncode == 0, res.stderr[-2000:]
+        grown[remat] = int(res.stdout.split()[-1])
+    assert grown["1"] < 0.5 * grown["0"], grown
+
+
+def test_remat_function_batches_under_vmap_of_grad():
+    """The remat Function alone on a block with a tuple output and a dict
+    of params, under vmap(grad): torch.equal to the plain block."""
+    cfg = configs.get_config("minitron-4b").reduced()
+    gen = torch.Generator().manual_seed(0)
+    params = {"w": torch.randn(6, 6, generator=gen),
+              "b": torch.randn(6, generator=gen)}
+    xs = torch.randn(3, 4, 6, generator=gen)
+
+    def block(p, x):
+        h = torch.tanh(x @ p["w"] + p["b"])
+        return x + h, torch.sum(h * h), 0.0
+
+    def loss(p, x, remat):
+        f = blocks.maybe_remat(block, cfg.with_(remat=remat))
+        y, aux, zero = f(p, x)
+        assert zero == 0.0
+        return torch.sum(y * y) + aux
+
+    out = [torch.func.vmap(torch.func.grad(loss, argnums=(0, 1)),
+                           in_dims=(None, 0, None))(params, xs, remat)
+           for remat in (False, True)]
+    for a, b in zip(jax.tree.leaves(out[0]), jax.tree.leaves(out[1])):
+        assert torch.equal(a, b)
+
+
+def test_remat_refuses_second_order_gradients():
+    """A second derivative through a remat'd block raises, under
+    ``torch.func`` (grad of grad) and on plain autograd (a backward with
+    create_graph), where its backward's gradients would carry no graph;
+    the first derivative of either runs."""
+    cfg = configs.get_config("minitron-4b").reduced().with_(remat=True)
+    f = blocks.maybe_remat(lambda w, x: torch.tanh(x * w), cfg)
+    w, x = torch.tensor(0.5), torch.randn(5)
+
+    def loss(w):
+        return torch.sum(f(w, x) ** 2)
+
+    torch.func.grad(loss)(w)
+    with pytest.raises(NotImplementedError, match="first-order"):
+        torch.func.grad(torch.func.grad(loss))(w)
+    wg = w.clone().requires_grad_(True)
+    torch.autograd.grad(loss(wg), wg)
+    with pytest.raises(NotImplementedError, match="first-order"):
+        torch.autograd.grad(loss(wg), wg, create_graph=True)
 
 
 # ---------------------------------------------------------------------------
@@ -494,7 +605,8 @@ def test_train_scales(monkeypatch):
     assert train_lib.parse_args(["--scale", "cpu"]).arch == "minitron-4b"
     cfg = train_lib.train_config("h2o-danube-3-4b", "gpu")
     full = configs.get_config("h2o-danube-3-4b")
-    assert cfg == full.with_(num_layers=2, remat=False)
+    assert cfg == full.with_(num_layers=2)
+    assert cfg.remat    # the config's own remat, worker mode included
     assert cfg.param_count() == 555_417_600     # the reference's count
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -502,17 +614,19 @@ def test_train_scales(monkeypatch):
 
 
 def test_build_cpu_batch_is_dense_only():
-    """The dense and MoE families' batches are the stream's; the families
-    with frame or patch stubs still raise."""
+    """The dense, MoE, SSM and hybrid families' batches are the stream's
+    (they need only tokens); the families with frame or patch stubs still
+    raise."""
     cfg = configs.get_config("minitron-4b").reduced()
     stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=8,
                          global_batch=4, num_workers=2, device="cpu")
     assert train_lib.build_cpu_batch(cfg, stream, 0, None)["tokens"].shape \
         == (2, 2, 8)
-    moe_cfg = configs.get_config("granite-moe-1b-a400m").reduced()
-    batch = train_lib.build_cpu_batch(moe_cfg, stream, 0, None)
-    for name, leaf in stream.batch(0).items():
-        assert torch.equal(batch[name], leaf)
+    for arch in ("granite-moe-1b-a400m", "rwkv6-7b", "zamba2-2.7b"):
+        other = configs.get_config(arch).reduced()
+        batch = train_lib.build_cpu_batch(other, stream, 0, None)
+        for name, leaf in stream.batch(0).items():
+            assert torch.equal(batch[name], leaf)
     with pytest.raises(NotImplementedError, match="item 16"):
         train_lib.build_cpu_batch(cfg.with_(family="vlm"), stream, 0, None)
 
@@ -690,7 +804,7 @@ def test_moe_train_config_fits_the_card():
     an architecture whose embeddings alone pass the budget raises."""
     cfg = train_lib.train_config(MOE_ARCH, "gpu")
     full = configs.get_config(MOE_ARCH)
-    assert cfg == full.with_(num_layers=8, remat=False)
+    assert cfg == full.with_(num_layers=8)
     assert cfg.param_count() == 528_750_592     # the reference's count
     nine = full.with_(num_layers=9).param_count()
     assert train_lib.GPU_TRAIN_BYTES_PER_PARAM * nine \
@@ -709,3 +823,51 @@ def test_gpu_train_layers_rule():
     assert per * cfg.with_(num_layers=3).param_count() > budget
     small = configs.get_config(MOE_ARCH).with_(num_layers=4)
     assert train_lib.gpu_train_layers(small) == 4
+
+
+def test_gpu_train_layers_keeps_whole_hybrid_groups():
+    """Zamba2 trains at 6 layers, one group (507.8 M parameters, 56.4 GB
+    reckoned; 7 layers would fit the budget but not _hybrid_shape, and 12
+    do not fit); RWKV6 at one layer reckons 83.8 GB and raises."""
+    cfg = train_lib.train_config("zamba2-2.7b", "gpu")
+    full = configs.get_config("zamba2-2.7b")
+    assert cfg == full.with_(num_layers=6)
+    assert cfg.param_count() == 507_822_080
+    assert model._hybrid_shape(cfg) == (1, 6)
+    per = train_lib.GPU_TRAIN_BYTES_PER_PARAM
+    assert per * full.with_(num_layers=12).param_count() \
+        > train_lib.GPU_TRAIN_BUDGET_BYTES
+    with pytest.raises(NotImplementedError, match="item 16.10"):
+        train_lib.train_config("rwkv6-7b", "gpu")
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-7b"])
+def test_recurrent_group_step_remat_changes_no_number(arch):
+    """The group-mode step (plain autograd) on reduced Zamba2 and RWKV6:
+    remat on and off give the same params and metrics bit for bit."""
+    cfg = configs.get_config(arch).reduced()
+    tp = model.init(0, cfg, device="cpu")
+    _, tstream = _streams(cfg, 2, 4, seq=16)
+    rc = trt.RobustConfig(num_workers=2, num_batches=2, aggregator="mean")
+    out = []
+    for remat in (False, True):
+        step = steps.make_group_train_step(cfg.with_(remat=remat), rc,
+                                           optim.sgd(0.1))
+        p, _, m = step(tp, optim.sgd(0.1).init(tp), tstream.batch(0),
+                       prng.PRNGKey(0), 0)
+        out.append((p, m))
+    for a, b in zip(jax.tree.leaves(out[0]), jax.tree.leaves(out[1])):
+        assert torch.equal(a, b)
+
+
+def test_hybrid_train_driver_resume_bit_identical(tmp_path):
+    """launch/train.py on reduced Zamba2, interrupted at round 2
+    and resumed: the exact uninterrupted history."""
+    kw = dict(arch="zamba2-2.7b", steps=3, seq_len=16)
+    straight = train_lib.train(_args(**kw))
+    ckpt = str(tmp_path / "ckpt")
+    train_lib.train(_args(**dict(kw, steps=2), ckpt_dir=ckpt, ckpt_every=2))
+    resumed = train_lib.train(_args(**kw, ckpt_dir=ckpt, ckpt_every=2))
+    assert resumed["resumed_from"] == 2
+    assert resumed["history"] == straight["history"]
+    assert np.isfinite(straight["final_loss"])
