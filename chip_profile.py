@@ -40,7 +40,11 @@ a trace of ``TRAIN_ROUNDS`` rounds as launch/train.py runs them, with the
 peak memory.  The recurrent families of phase 10 come after Granite's
 in both: RWKV6-7B's and Zamba2-2.7B's serve paths (Zamba2's shared block
 through the flash kernel, 9 launches a prefill; RWKV6 has no attention),
-and Zamba2's train path at 6 layers.  Needs a CUDA card.
+and Zamba2's train path at 6 layers.  The audio and VLM families of
+phase 11 close the serve paths: SeamlessM4T-medium's (2048 frames from
+``frame_embeddings``; 36 flash launches a prefill: the encoder's, the
+decoder's self- and cross-attention) and InternVL2-26B's (256 patches
+ahead of 7936 tokens; 48 launches).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -237,24 +241,37 @@ def profile_serve_path(dev, smi, arch):
     from repro_torch.kernels.attention import flash
     from repro_torch.launch import steps
     from repro_torch.models import model
+    from chip_smoke import _stub
     cfg = get_config(arch)
     params = model.init(0, cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(7)
-    tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_T), generator=gen,
-                           device=dev)
+    # the vlm prefix's patches take PREFILL_T's first positions; the audio
+    # encoder reads PREFILL_T / 4 frames
+    stub = {"vlm": ("patches", cfg.num_patches),
+            "audio": ("frames", PREFILL_T // cfg.encoder_seq_divisor)}
+    kind, n = stub.get(cfg.family, (None, 0))
+    T = PREFILL_T - n if kind == "patches" else PREFILL_T
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, T),
+                                     generator=gen, device=dev)}
+    if kind:
+        batch[kind] = _stub(kind, cfg, n, dev)
     prefill = steps.make_prefill_step(cfg)
-    prefill(params, {"tokens": tokens[:, :256]})                # warm-up
+    prefill(params, {name: x[:, :256] for name, x in batch.items()})
     flash.reset_launches()
-    wall, events = _trace(lambda: prefill(params, {"tokens": tokens}), dev)
+    wall, events = _trace(lambda: prefill(params, batch), dev)
     routes = dict(flash.flash_attention.route_launches)
     print(json.dumps({"path": "serve_prefill", "arch": cfg.name,
                       "dtype": "bfloat16", "batch": 1, "seq_len": PREFILL_T,
+                      "stub": kind, "stub_len": n,
                       "card": smi, "launches_by_route": routes,
                       **_shares(wall, events, 1)}), flush=True)
     if cfg.family == "ssm":
         attention_layers = 0
     elif cfg.family == "hybrid":
         attention_layers = cfg.num_layers // cfg.shared_attn_every
+    elif cfg.family == "audio":
+        # the encoder's, and the decoder's self- and cross-attention
+        attention_layers = cfg.encoder_layers + 2 * cfg.num_layers
     else:
         attention_layers = cfg.num_layers
     if routes != {"tensor_core": attention_layers, "cuda_core": 0}:
@@ -532,9 +549,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         profile_linreg_path(cname, cfg, dev, smi)
         profile_wire_and_stale(cname, cfg, dev, smi)
-    from chip_smoke import (MOE_ARCH, RWKV_ARCH, SERVE_ARCH, TRAIN_ARCH,
-                            ZAMBA_ARCH)
-    for arch in (SERVE_ARCH, MOE_ARCH, RWKV_ARCH, ZAMBA_ARCH):
+    from chip_smoke import (AUDIO_ARCH, MOE_ARCH, RWKV_ARCH, SERVE_ARCH,
+                            TRAIN_ARCH, VLM_ARCH, ZAMBA_ARCH)
+    for arch in (SERVE_ARCH, MOE_ARCH, RWKV_ARCH, ZAMBA_ARCH, AUDIO_ARCH,
+                 VLM_ARCH):
         profile_serve_path(dev, smi, arch)
     profile_moe_layer(dev, smi)
     for arch in (TRAIN_ARCH, MOE_ARCH, ZAMBA_ARCH):

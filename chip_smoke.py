@@ -15,7 +15,11 @@ under attack through the round kernel, and serves and trains the MoE
 Granite-3.0-1B-A400M (full width; 8 layers for training), checks
 Kimi-K2's router and dispatch, serves RWKV6-7B and Zamba2-2.7B at full
 width (Zamba2's shared attention through the flash kernel at head width
-80) and trains Zamba2 (6 layers) under attack through the round kernel.
+80) and trains Zamba2 (6 layers) under attack through the round kernel,
+serves SeamlessM4T-medium (its encoder and cross-attention through the
+flash kernel's non-causal calls) and InternVL2-26B (a patch prefix) at
+full width, and trains SeamlessM4T (1 + 1 layers) under attack through
+the round kernel.
 Every phase prints JSON lines; the last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every check
 passed.  Exits non-zero without it on any failure, when CUDA is
@@ -178,14 +182,41 @@ Phases:
                  with remat torch.equal to without at Granite and Zamba2
                  reduced, and at m = 8 at H2O's, Granite's and Zamba2's
                  train depth, with the peak GB above the params of each
+ 11 audio_vlm    the audio and VLM families: (a) SeamlessM4T-medium at
+                 full width and depth (12 encoder and 12 decoder layers,
+                 1024, 16 x 16 heads of 64, 4096, 256 206): the prefill
+                 step at B = 1, T = 8192 tokens and 2048 frames
+                 (frame_embeddings) in bf16 and f32, kernel path vs plain
+                 path under PREFILL_RTOL, 36 flash launches a prefill on
+                 the dtype's route (12 encoder non-causal, 12 decoder
+                 causal, 12 cross-attention non-causal with Tq > Tk); the
+                 encoder made causal as a planted fault must fail the f32
+                 check; in f32 a 64-token, 16-frame prefill's last logits
+                 vs the decode loop with the encoder's memory (1e-3 of
+                 max|logits|); serve --arch seamless-m4t-medium --scale
+                 gpu; (b) launch/train.py at 1 encoder + 1 decoder layer
+                 (558 279 680 leaves) with phase 8's settings: one
+                 round-kernel launch a round at (8, 8, P), kernel vs plain
+                 histories at m = 4, 2 steps resumed to 4 bit-identical,
+                 s per step, peak GB, the round kernel timed on real
+                 gradients; (c) InternVL2-26B at full width (48 layers,
+                 6144, 48 x 8 heads of 128, 16 384, 92 553, 256 patches):
+                 the bf16 prefill of 256 patches + 7936 tokens at full
+                 depth (48 launches) and the f32 prefill at 8 layers,
+                 kernel vs plain; serve --arch internvl2-26b --scale gpu;
+                 train --scale gpu refused (item 16.10), the reduced
+                 config's rounds on the card through the round kernel vs
+                 plain
   7 kernel line  one JSON object, a row per kernel (the round kernel's
-                 launches include phase 6 (c)'s, phase 8's, phase 9's and
-                 phase 10's; its row carries the (8, 8, P) timings as
-                 train_shape (H2O), granite_train_shape (Granite) and
-                 zamba2_train_shape (Zamba2); the flash row's launches
-                 include phase 9's and phase 10's prefills and it carries
-                 Granite's and Zamba2's prefill shapes as granite_shape
-                 and zamba2_shape)
+                 launches include phase 6 (c)'s, phase 8's, phase 9's,
+                 phase 10's and phase 11's; its row carries the (8, 8, P)
+                 timings as train_shape (H2O), granite_train_shape
+                 (Granite), zamba2_train_shape (Zamba2) and
+                 seamless_train_shape (SeamlessM4T); the flash row's
+                 launches include phase 9's, 10's and 11's prefills and it
+                 carries Granite's, Zamba2's, SeamlessM4T's and
+                 InternVL2's shapes as granite_shape, zamba2_shape,
+                 audio_enc_shape, audio_cross_shape and vlm_shape)
 """
 
 from __future__ import annotations
@@ -271,7 +302,9 @@ PEAK_BF16 = {"PCIe": 756e12, "NVL": 835e12, "SXM": 989e12}
 # the window; Minitron-4B's (24/8 of 128, causal); Granite-3.0-1B-A400M's
 # prefill (16/8 of 64, causal: ATTN_GRANITE); Zamba2-2.7B's shared block
 # (32/32 of 80, causal: ATTN_ZAMBA; the tensor-core route's 128-column
-# instance, 48 columns padded)
+# instance, 48 columns padded); a ragged cross-attention case (Tq > Tk,
+# non-causal), SeamlessM4T's encoder and cross-attention and InternVL2's
+# prefill (phase 11's)
 ATTN_GRID = [(2, 64, 64, 4, 2, 32, True, None),
              (1, 128, 128, 8, 8, 64, True, None),
              (2, 100, 100, 4, 1, 32, True, None),
@@ -286,7 +319,11 @@ ATTN_GRID = [(2, 64, 64, 4, 2, 32, True, None),
              (1, 8192, 8192, 32, 8, 120, True, 4096),
              (1, 8192, 8192, 24, 8, 128, True, None),
              (1, 8192, 8192, 16, 8, 64, True, None),
-             (1, 8192, 8192, 32, 32, 80, True, None)]
+             (1, 8192, 8192, 32, 32, 80, True, None),
+             (2, 333, 84, 4, 2, 64, False, None),
+             (1, 2048, 2048, 16, 16, 64, False, None),
+             (1, 8192, 2048, 16, 16, 64, False, None),
+             (1, 8192, 8192, 48, 8, 128, True, None)]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # bf16 against the plain version in f32 on the same inputs, elementwise:
 #   |d| <= 2**-8 |y| + 2**-8 (P|V|) + 2 ATTN_TOL["float32"]
@@ -300,13 +337,20 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 BF16_BOUND = 2.0 ** -8
 # the timed shapes: H2O's prefill at T = 8192 (the serve path's), Minitron's
 # at 8192, one H2O call at prefill_32k's sequence length, Granite's
-# prefill at 8192 (phase 9's serve path) and Zamba2's (phase 10's)
+# prefill at 8192 (phase 9's serve path) and Zamba2's (phase 10's), and
+# phase 11's: SeamlessM4T's encoder and cross-attention, InternVL2's
+# prefill
 ATTN_MAIN = (1, 8192, 8192, 32, 8, 120, True, 4096)
 ATTN_GRANITE = (1, 8192, 8192, 16, 8, 64, True, None)
 ATTN_ZAMBA = (1, 8192, 8192, 32, 32, 80, True, None)
+# SeamlessM4T's encoder (bidirectional) and cross-attention (Tq > Tk) and
+# InternVL2's prefill: phase 11's shapes
+ATTN_AUDIO_ENC = (1, 2048, 2048, 16, 16, 64, False, None)
+ATTN_AUDIO_CROSS = (1, 8192, 2048, 16, 16, 64, False, None)
+ATTN_VLM = (1, 8192, 8192, 48, 8, 128, True, None)
 ATTN_TIMED = [ATTN_MAIN, (1, 8192, 8192, 24, 8, 128, True, None),
               (1, 32768, 32768, 32, 8, 120, True, 4096), ATTN_GRANITE,
-              ATTN_ZAMBA]
+              ATTN_ZAMBA, ATTN_AUDIO_ENC, ATTN_AUDIO_CROSS, ATTN_VLM]
 # the serve path: H2O-Danube3-4B at full width; prefill_32k (B=32,
 # T=32 768) cut to B=1, T=8192 for the whole model
 SERVE_ARCH = "h2o-danube-3-4b"
@@ -447,6 +491,36 @@ TIE_ULPS = 4
 # held within this many times the replayed run's router probability error
 # there (a flip needs a margin of at most twice it)
 FLIP_MARGIN_FACTOR = 4.0
+
+# Phase 11, the audio and VLM families: (a) SeamlessM4T-medium
+# (arXiv:2308.11596; configs/seamless_m4t_medium.py) at full width and
+# depth (12 encoder and 12 decoder layers, 1024 wide, 16 x 16 heads of 64,
+# d_ff 4096, vocab 256 206): the prefill at B = 1, T = PREFILL_T tokens and
+# PREFILL_T // 4 = 2048 frames from frame_embeddings, in bf16 and f32,
+# kernel path vs plain path; 36 flash launches a prefill (12 encoder
+# non-causal 2048 x 2048, 12 decoder causal 8192 x 8192, 12 cross non-causal
+# 8192 x 2048); the encoder made causal as the planted fault; in f32 a
+# short prefill (AUDIO_DECODE tokens and frames) against the decode loop
+# with the encoder's memory; serve --arch seamless-m4t-medium --scale gpu;
+# (b) trained at launch/train.py's depth (1 encoder + 1 decoder layer:
+# 558 279 680 leaves) with phase 8's settings; (c) InternVL2-26B
+# (arXiv:2404.16821; configs/internvl2_26b.py) at full width and depth (48
+# layers, 6144 wide, 48 x 8 heads of 128, d_ff 16 384, vocab 92 553, 256
+# patches): the bf16 prefill at B = 1, 256 patches + 7936 tokens, kernel vs
+# plain (48 launches), f32 kernel vs plain at VLM_F32_LAYERS of 48 layers
+# (17.0 GB; the whole model in f32 is 79.4 GB), serve --arch internvl2-26b
+# --scale gpu, train --scale gpu refused (item 16.10) and the reduced
+# config's rounds on the card.
+AUDIO_ARCH = "seamless-m4t-medium"
+VLM_ARCH = "internvl2-26b"
+AUDIO_DECODE = (64, 16)             # tokens, frames
+VLM_F32_LAYERS = 8
+VLM_F32_CUTS = ["48 layers cut to 8 in f32 (79.4 GB of f32 weights at 48)"]
+AUDIO_TRAIN_CUTS = ["12 encoder and 12 decoder layers cut to 1 + 1 "
+                    "(launch/train.py gpu_train_layers; the reference's "
+                    "param_count reckons 2 + 2 at 66.6 GB)",
+                    "seq_len 512 (128 frames), 2 sequences a worker",
+                    "kernel vs plain histories at m=4, q=1, k=4, as phase 8"]
 
 FAILURES: list[str] = []
 
@@ -1955,9 +2029,13 @@ def train_block(dev, m, q, seed=0, arch=TRAIN_ARCH):
     stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                          global_batch=2 * m, num_workers=m, seed=seed,
                          device=dev)
+    # step 0's batch as train(args) builds it (the audio family's frames
+    # drawn on its round key)
+    batch = train_lib.build_cpu_batch(
+        cfg, stream, 0, prng.fold_in(prng.PRNGKey(seed, device=dev), 0))
     grads, _ = robust_train.per_worker_grads(
-        lambda p, b: model.loss_fn(p, b, cfg), params, stream.batch(0))
-    del params
+        lambda p, b: model.loss_fn(p, b, cfg), params, batch)
+    del params, batch
     mask = byzantine.sample_byzantine_mask(prng.PRNGKey(seed, device=dev),
                                            m, q)
     reported = byzantine.get_attack("sign_flip")(grads, mask, None)
@@ -2911,65 +2989,68 @@ def zamba_serve_path(dev):
     return by_route, ms
 
 
-def zamba_train_path(dev, hbm, flops, smi):
-    """Phase 10 (c): launch/train.py's train(args) for Zamba2 at its train
-    depth (6 layers, remat as the config has it) with phase 8's settings:
-    m = 4 kernel vs plain histories, the main run at m = 8 (one launch a
-    round at (8, 8, P)), 2 steps checkpointed and resumed to 4
+def train_at_depth(dev, hbm, flops, smi, arch=ZAMBA_ARCH,
+                   cuts=ZAMBA_TRAIN_CUTS, phase="recurrent", part="c"):
+    """Phase 10 (c), phase 11 (b): launch/train.py's train(args) for
+    ``arch`` at its train depth (Zamba2: 6 layers; SeamlessM4T: 1 encoder
+    and 1 decoder layer; remat as the config has it) with phase 8's
+    settings: m = 4 kernel vs plain histories, the main run at m = 8 (one
+    launch a round at (8, 8, P)), 2 steps checkpointed and resumed to 4
     bit-identical; then the round kernel timed at (8, 8, P) on a block of
-    real Zamba2 gradients.  -> (launches, that timing)."""
+    real gradients of ``arch``.  -> (launches, that timing)."""
     import shutil
     import tempfile
 
     from repro_torch.launch import train as train_lib
     from repro_torch.sim.goldens import compare_traces
     t_phase = time.perf_counter()
-    cfg = train_lib.train_config(ZAMBA_ARCH, "gpu")
+    cfg = train_lib.train_config(arch, "gpu")
     launches = 0
     compared = {}
     for backend in ("auto", "fused_interpret"):
         compared[backend] = _train_run(_train_args(
-            arch=ZAMBA_ARCH, round_backend=backend, **TRAIN_COMPARED), dev)
+            arch=arch, round_backend=backend, **TRAIN_COMPARED), dev)
     launches += compared["auto"][1]
-    main_res, n_main, peak_main = _train_run(_train_args(arch=ZAMBA_ARCH),
-                                             dev)
+    main_res, n_main, peak_main = _train_run(_train_args(arch=arch), dev)
     launches += n_main
     finite = all(math.isfinite(v) for row in main_res["history"]
                  for v in row.values())
     vs_plain = compare_traces(
         _compared(compared["auto"][0]["history"]),
         _compared(compared["fused_interpret"][0]["history"]))
-    check(n_main == TRAIN_STEPS, f"zamba2 train: {n_main} round-kernel "
+    check(n_main == TRAIN_STEPS, f"{arch} train: {n_main} round-kernel "
                                  f"launches for {TRAIN_STEPS} rounds")
     check(finite and len(main_res["history"]) == TRAIN_STEPS,
-          f"zamba2 train: history {main_res['history']}")
-    check(not vs_plain, f"zamba2 train m=4: kernel vs plain {vs_plain[:3]}")
+          f"{arch} train: history {main_res['history']}")
+    check(not vs_plain, f"{arch} train m=4: kernel vs plain {vs_plain[:3]}")
     check(compared["auto"][1] == TRAIN_STEPS
           and compared["fused_interpret"][1] == 0,
-          f"zamba2 train m=4: launches {compared['auto'][1]} (kernel), "
+          f"{arch} train m=4: launches {compared['auto'][1]} (kernel), "
           f"{compared['fused_interpret'][1]} (plain)")
-    ckpt = tempfile.mkdtemp(prefix="chip_smoke_zamba_ckpt_")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         _, n1, _ = _train_run(_train_args(
-            arch=ZAMBA_ARCH, steps=2, ckpt_dir=ckpt, ckpt_every=2), dev)
+            arch=arch, steps=2, ckpt_dir=ckpt, ckpt_every=2), dev)
         resumed, n2, _ = _train_run(_train_args(
-            arch=ZAMBA_ARCH, ckpt_dir=ckpt, ckpt_every=2), dev)
+            arch=arch, ckpt_dir=ckpt, ckpt_every=2), dev)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     launches += n1 + n2
     bitwise = (resumed["resumed_from"] == 2
                and resumed["history"] == main_res["history"])
     check(bitwise and n1 == 2 and n2 == 2,
-          f"zamba2 resume: resumed_from {resumed['resumed_from']}, history "
+          f"{arch} resume: resumed_from {resumed['resumed_from']}, history "
           f"{resumed['history']} vs {main_res['history']}; launches {n1}, "
           f"{n2}")
-    timing = train_kernel_timing(dev, hbm, flops, smi, arch=ZAMBA_ARCH)
+    timing = train_kernel_timing(dev, hbm, flops, smi, arch=arch)
     m = TRAIN_MAIN["workers"]
-    emit({"phase": "recurrent", "part": "c", "arch": ZAMBA_ARCH,
-          "layers": cfg.num_layers, "remat": cfg.remat,
-          "params": cfg.param_count(), "seq_len": TRAIN_SEQ, **TRAIN_MAIN,
+    emit({"phase": phase, "part": part, "arch": arch,
+          "layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers,
+          "remat": cfg.remat, "params": cfg.param_count(),
+          "param_leaves": timing["shape"][2], "seq_len": TRAIN_SEQ,
+          **TRAIN_MAIN,
           "num_batches": m, "round_shape": list(timing["shape"]),
-          "steps": TRAIN_STEPS, "reduced": ZAMBA_TRAIN_CUTS,
+          "steps": TRAIN_STEPS, "reduced": cuts,
           "kernel_launches": n_main,
           "s_per_step": main_res["seconds"] / TRAIN_STEPS,
           "peak_mem_gb": peak_main, "loss_median": _curve(main_res),
@@ -2999,6 +3080,7 @@ def reduced_rounds(dev, arch, backend, seed=0):
     from repro_torch.core.train_state import advance, history_rows
     from repro_torch.data.tokens import TokenStream
     from repro_torch.kernels.geomed import round as rk
+    from repro_torch.launch import train as train_lib
     from repro_torch.models import model
     s = RWKV_TRAIN
     cfg = configs.get_config(arch).reduced()
@@ -3013,8 +3095,10 @@ def reduced_rounds(dev, arch, backend, seed=0):
     stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=s["seq_len"],
                          global_batch=s["batch"], num_workers=s["m"],
                          seed=seed, device=dev)
-    batch = tree_map(lambda *xs: torch.stack(xs),
-                     *[stream.batch(i) for i in range(s["steps"])])
+    key = prng.PRNGKey(seed, device=dev)
+    batch = tree_map(lambda *xs: torch.stack(xs), *[
+        train_lib.build_cpu_batch(cfg, stream, i, prng.fold_in(key, i))
+        for i in range(s["steps"])])
     state = init_train_state(
         params, opt.init(params),
         prng.fold_in(prng.PRNGKey(seed, device=dev), 10_000),
@@ -3026,22 +3110,22 @@ def reduced_rounds(dev, arch, backend, seed=0):
             ms / 1e3 / s["steps"])
 
 
-def rwkv_card_train(dev):
-    """Phase 10 (d): ``train --arch rwkv6-7b --scale gpu`` is refused,
-    naming item 16.10; the reduced config's rounds on the card through the
-    round kernel, kernel vs plain histories within compare_traces.  ->
-    round-kernel launches."""
+def refused_card_train(dev, arch=RWKV_ARCH, phase="recurrent", part="d"):
+    """Phase 10 (d), phase 11 (c): ``train --arch <arch> --scale gpu`` is
+    refused, naming item 16.10; the reduced config's rounds on the card
+    through the round kernel, kernel vs plain histories within
+    compare_traces.  -> round-kernel launches."""
     from repro_torch.launch import train as train_lib
     from repro_torch.sim.goldens import compare_traces
     try:
         train_lib.train(train_lib.parse_args(
-            ["--arch", RWKV_ARCH, "--scale", "gpu", "--steps", "1"]))
+            ["--arch", arch, "--scale", "gpu", "--steps", "1"]))
         refusal = None
     except NotImplementedError as exc:
         refusal = str(exc)
     refused = refusal is not None and "16.10" in refusal
-    check(refused, f"train --arch {RWKV_ARCH} --scale gpu: {refusal}")
-    runs = {b: reduced_rounds(dev, RWKV_ARCH, b)
+    check(refused, f"train --arch {arch} --scale gpu: {refusal}")
+    runs = {b: reduced_rounds(dev, arch, b)
             for b in ("auto", "fused_interpret")}
     vs_plain = compare_traces(_compared(runs["auto"][0]),
                               _compared(runs["fused_interpret"][0]))
@@ -3049,12 +3133,13 @@ def rwkv_card_train(dev):
                  for v in row.values())
     steps_ = RWKV_TRAIN["steps"]
     check(not vs_plain and finite,
-          f"rwkv reduced rounds: kernel vs plain {vs_plain[:3]}, finite "
+          f"{arch} reduced rounds: kernel vs plain {vs_plain[:3]}, finite "
           f"{finite}")
     check(runs["auto"][1] == steps_ and runs["fused_interpret"][1] == 0,
-          f"rwkv reduced rounds: launches {runs['auto'][1]}, "
+          f"{arch} reduced rounds: launches {runs['auto'][1]}, "
           f"{runs['fused_interpret'][1]}")
-    emit({"phase": "recurrent", "part": "d", "gpu_scale_refused": refused,
+    emit({"phase": phase, "part": part, "arch": arch,
+          "gpu_scale_refused": refused,
           "refusal": refusal, "setting": RWKV_TRAIN,
           "kernel_vs_plain_ok": not vs_plain,
           "runs": {b: {"loss_median": [r["loss_median"] for r in rows],
@@ -3135,8 +3220,8 @@ def recurrent_path(dev, hbm, flops, smi):
     t0 = time.perf_counter()
     rwkv_ms = rwkv_serve_path(dev)
     attn_routes, zamba_ms = zamba_serve_path(dev)
-    launches, timing = zamba_train_path(dev, hbm, flops, smi)
-    launches += rwkv_card_train(dev)
+    launches, timing = train_at_depth(dev, hbm, flops, smi)
+    launches += refused_card_train(dev)
     remat_on_card(dev)
     emit({"phase": "recurrent", "seconds": time.perf_counter() - t0,
           "round_kernel_launches": launches,
@@ -3145,7 +3230,235 @@ def recurrent_path(dev, hbm, flops, smi):
     return launches, attn_routes, timing
 
 
+# -- phase 11: the audio and VLM families (SeamlessM4T, InternVL2) -----------
+
+def _stub(kind, cfg, n, dev, seed=7):
+    """(1, n, D) float32 frames (``kind`` "frames") or patches from
+    data/tokens.py's stubs, on the card."""
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.data import tokens
+    fn = (tokens.frame_embeddings if kind == "frames"
+          else tokens.patch_embeddings)
+    size = {"num_frames" if kind == "frames" else "num_patches": n}
+    return fn(prng.PRNGKey(seed, device=dev), num_workers=1, per_worker=1,
+              d_model=cfg.d_model, dtype=torch.float32, **size)[0]
+
+
+@contextlib.contextmanager
+def causal_encoder():
+    """The planted fault: the audio encoder's self-attention made causal
+    (``blocks.encoder_attn_spec``, which ``encoder_block`` reads)."""
+    import dataclasses
+    from repro_torch.models import blocks
+    spec = blocks.encoder_attn_spec
+    blocks.encoder_attn_spec = lambda cfg: dataclasses.replace(spec(cfg),
+                                                               causal=True)
+    try:
+        yield
+    finally:
+        blocks.encoder_attn_spec = spec
+
+
+def _prefill_pair(cfg, params, batch, warm, dev, want_launches, dname, tag):
+    """The prefill step's kernel path (the flash counts zeroed just before,
+    read just after) against its plain path on ``batch`` under
+    PREFILL_RTOL -> (line, launches by route, h_plain, max|h_plain|)."""
+    import torch
+    from repro_torch.kernels.attention import flash
+    from repro_torch.launch import steps
+    kernel_step = steps.make_prefill_step(cfg)
+    plain_step = steps.make_prefill_step(cfg, plain=True)
+    _prefill_ms(kernel_step, params, warm, dev)
+    flash.reset_launches()
+    h, ms_kernel = _prefill_ms(kernel_step, params, batch, dev)
+    n_prefill = flash.flash_attention.launches
+    routes = dict(flash.flash_attention.route_launches)
+    h_plain, ms_plain = _prefill_ms(plain_step, params, batch, dev)
+    plain_launches = flash.flash_attention.launches - n_prefill
+    scale = float(h_plain.float().abs().max())
+    err = float((h.float() - h_plain.float()).abs().max())
+    ok = err <= PREFILL_RTOL[dname] * scale
+    finite = bool(torch.isfinite(h).all())
+    T = batch["tokens"].shape[1]
+    want_route = "tensor_core" if dname == "bfloat16" else "cuda_core"
+    check(ok, f"{tag} prefill {dname}: kernel vs plain max_abs_err {err} "
+              f"(max|h| {scale}, rtol {PREFILL_RTOL[dname]})")
+    check(finite and h.shape == (1, T, cfg.d_model),
+          f"{tag} prefill {dname}: output {tuple(h.shape)}, finite {finite}")
+    check(n_prefill == want_launches and plain_launches == 0
+          and routes == {r: want_launches * (r == want_route)
+                         for r in routes},
+          f"{tag} prefill {dname}: launches by route {routes} (want "
+          f"{want_launches} on {want_route}), plain path {plain_launches}")
+    line = {"arch": cfg.name, "dtype": dname, "batch": 1, "seq_len": T,
+            "num_layers": cfg.num_layers, "params": cfg.param_count(),
+            "kernel_launches": n_prefill, "launches_by_route": routes,
+            "ms_per_prefill": {"kernel": ms_kernel, "plain": ms_plain},
+            "max_abs_err": err, "max_abs_h": scale, "rel_err": err / scale,
+            "rtol": PREFILL_RTOL[dname], "ok": ok,
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del h
+    return line, routes, h_plain, scale
+
+
+def _audio_prefill_vs_decode(params, cfg, tokens, frames):
+    """The kernel path's last-position logits against the decode loop's
+    with ``state["memory"]`` set to the encoder's output for the same
+    frames: (err, max|logits|)."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    dev = tokens.device
+    hp = steps.make_prefill_step(cfg)(params, {"tokens": tokens,
+                                               "frames": frames})
+    want = model._unembed_fn(params, cfg)(hp[:, -1:])
+    B, T = tokens.shape
+    state = model.init_decode_state(cfg, B, T, device=dev)
+    with torch.no_grad():
+        state["memory"] = model._run_encoder(params, cfg, frames,
+                                             plain=False)
+    step = steps.make_serve_step(cfg)
+    for t in range(T):
+        got, state = step(params, state, tokens[:, t:t + 1],
+                          torch.full((B,), t, device=dev))
+    return float((got - want).abs().max()), float(want.abs().max())
+
+
+def audio_serve_path(dev):
+    """Phase 11 (a), SeamlessM4T-medium at full width and depth -> ({dtype:
+    the flash launches by route in the kernel-path prefill}, {dtype: its
+    ms}).  The prefill at B = 1, T = PREFILL_T tokens and T / 4 frames in
+    bf16 (the main path's run) and f32: kernel path vs plain path, 36
+    launches (encoder, decoder self- and cross-attention); in f32 the
+    encoder made causal must fail the check, and a short prefill's last
+    logits are held against the decode loop with the encoder's memory;
+    serve --arch seamless-m4t-medium --scale gpu."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    base = get_config(AUDIO_ARCH)
+    launches = 2 * base.num_layers + base.encoder_layers
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(0, base.vocab_size, (1, PREFILL_T),
+                           generator=gen, device=dev)
+    frames = _stub("frames", base, PREFILL_T // base.encoder_seq_divisor,
+                   dev)
+    batch = {"tokens": tokens, "frames": frames}
+    warm = {"tokens": tokens[:, :256], "frames": frames[:, :64]}
+    by_route, ms = {}, {}
+    for dname in ("bfloat16", "float32"):
+        cfg = base.with_(dtype=getattr(torch, dname),
+                         param_dtype=getattr(torch, dname))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, init_ms = _synced_ms(lambda: model.init(0, cfg, device=dev),
+                                     dev)
+        line, by_route[dname], h_plain, scale = _prefill_pair(
+            cfg, params, batch, warm, dev, launches, dname, "seamless")
+        ms[dname] = line["ms_per_prefill"]["kernel"]
+        line.update(phase="audio_vlm", part="a", step="prefill",
+                    frames=frames.shape[1], encoder_layers=cfg.encoder_layers,
+                    init_ms=init_ms, reduced=PREFILL_CUTS[:1])
+        if dname == "float32":
+            with causal_encoder():
+                h_bad = steps.make_prefill_step(cfg)(params, batch)
+            fault = float((h_bad.float() - h_plain.float()).abs().max())
+            fails = fault > PREFILL_RTOL[dname] * scale
+            check(fails, f"seamless prefill f32: the planted fault (a causal "
+                         f"encoder) passed, rel_err {fault / scale}")
+            line["planted_fault"] = {"fault": "causal encoder",
+                                     "rel_err": fault / scale,
+                                     "fails_rtol": fails}
+            del h_bad
+            n_tok, n_frames = AUDIO_DECODE
+            lerr, lscale = _audio_prefill_vs_decode(
+                params, cfg, tokens[:, :n_tok], frames[:, :n_frames])
+            lok = lerr <= 1e-3 * lscale
+            check(lok, f"seamless prefill vs decode logits (f32): "
+                       f"max_abs_err {lerr} (max|logits| {lscale})")
+            line["prefill_vs_decode"] = {
+                "tokens": n_tok, "frames": n_frames, "max_abs_err": lerr,
+                "max_abs_logits": lscale, "rtol": 1e-3, "ok": lok}
+        emit(line)
+        del params, h_plain
+        torch.cuda.empty_cache()
+        if dname == "bfloat16":
+            emit({"phase": "audio_vlm", "part": "a", "step": "serve_gpu",
+                  **_serve_gpu(AUDIO_ARCH, base.vocab_size)})
+            torch.cuda.empty_cache()
+    return by_route, ms
+
+
+def vlm_serve_path(dev):
+    """Phase 11 (c), InternVL2-26B at full width -> ({dtype: the flash
+    launches by route in the kernel-path prefill}, {dtype: its ms}).  The
+    bf16 prefill at B = 1, 256 patches + 7936 tokens at full depth (48
+    launches; the main path's run), kernel vs plain; the same in f32 at
+    VLM_F32_LAYERS layers; serve --arch internvl2-26b --scale gpu."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    base = get_config(VLM_ARCH)
+    P = base.num_patches
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(0, base.vocab_size, (1, PREFILL_T - P),
+                           generator=gen, device=dev)
+    patches = _stub("patches", base, P, dev)
+    batch = {"tokens": tokens, "patches": patches}
+    warm = {"tokens": tokens[:, :256], "patches": patches}
+    by_route, ms = {}, {}
+    for dname, layers, cuts in (
+            ("bfloat16", base.num_layers, PREFILL_CUTS[:1]),
+            ("float32", VLM_F32_LAYERS, PREFILL_CUTS[:1] + VLM_F32_CUTS)):
+        cfg = base.with_(num_layers=layers, dtype=getattr(torch, dname),
+                         param_dtype=getattr(torch, dname))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, init_ms = _synced_ms(lambda: model.init(0, cfg, device=dev),
+                                     dev)
+        line, by_route[dname], h_plain, _ = _prefill_pair(
+            cfg, params, batch, warm, dev, layers, dname, "internvl2")
+        ms[dname] = line["ms_per_prefill"]["kernel"]
+        line.update(phase="audio_vlm", part="c", step="prefill",
+                    patches=P, positions=P + tokens.shape[1],
+                    init_ms=init_ms, reduced=cuts)
+        emit(line)
+        del params, h_plain
+        torch.cuda.empty_cache()
+        if dname == "bfloat16":
+            emit({"phase": "audio_vlm", "part": "c", "step": "serve_gpu",
+                  **_serve_gpu(VLM_ARCH, base.vocab_size)})
+            torch.cuda.empty_cache()
+    return by_route, ms
+
+
+def audio_vlm_path(dev, hbm, flops, smi):
+    """Phase 11 -> (round-kernel launches, flash launches by dtype and
+    route, the round kernel's timing at SeamlessM4T's (8, 8, P))."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev) / 1e9
+    audio_routes, audio_ms = audio_serve_path(dev)
+    launches, timing = train_at_depth(
+        dev, hbm, flops, smi, arch=AUDIO_ARCH, cuts=AUDIO_TRAIN_CUTS,
+        phase="audio_vlm", part="b")
+    vlm_routes, vlm_ms = vlm_serve_path(dev)
+    launches += refused_card_train(dev, VLM_ARCH, phase="audio_vlm",
+                                   part="c")
+    routes = {d: {r: audio_routes[d][r] + vlm_routes[d][r]
+                  for r in audio_routes[d]} for d in audio_routes}
+    emit({"phase": "audio_vlm", "seconds": time.perf_counter() - t0,
+          "gb_held_before": held, "round_kernel_launches": launches,
+          "flash_launches_by_route": routes,
+          "prefill_ms": {"seamless": audio_ms, "internvl2": vlm_ms}})
+    return launches, routes, timing
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3402,6 +3715,10 @@ def main() -> int:
                                                           smi)
     main_launches += rec_launches
 
+    # -- 11 audio and VLM: SeamlessM4T and InternVL2 --------------------------
+    av_launches, av_routes, av_timing = audio_vlm_path(dev, hbm, flops, smi)
+    main_launches += av_launches
+
     # -- 7 the kernel line --------------------------------------------------
     csrc = "src/repro_torch/kernels/"
     rows = (("round_aggregate", "geomed/csrc/round_aggregate.cu",
@@ -3432,11 +3749,11 @@ def main() -> int:
              timing[("weiszfeld_loop", GEOMED_TILES)], GEOMED_TILES),
             ("flash_attention", "attention/csrc/flash_attention_tc.cuh",
              "src/repro/kernels/attention/flash.py:124",
-             attn_routes["bfloat16"]["tensor_core"]
-             + moe_routes["bfloat16"]["tensor_core"]
-             + rec_routes["bfloat16"]["tensor_core"],
+             sum(r["bfloat16"]["tensor_core"] for r in (
+                 attn_routes, moe_routes, rec_routes, av_routes)),
              attn_err[(ATTN_MAIN, "bfloat16")], timing[ATTN_MAIN],
              ATTN_MAIN))
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     line = [{
         "name": kname, "route": "cuda", "source": csrc + source,
@@ -3451,10 +3768,11 @@ def main() -> int:
     for row in line[2:4]:
         row["launches_shape"] = list(GEOMED_STEP)
     # the round kernel at the train paths' (8, 8, P): H2O's, phase 8,
-    # Granite's, phase 9, and Zamba2's, phase 10
+    # Granite's, phase 9, Zamba2's, phase 10, and SeamlessM4T's, phase 11
     for key, t in (("train_shape", train_timing),
                    ("granite_train_shape", moe_timing),
-                   ("zamba2_train_shape", rec_timing)):
+                   ("zamba2_train_shape", rec_timing),
+                   ("seamless_train_shape", av_timing)):
         line[0][key] = {"shape": list(t["shape"]), **{k: t[k] for k in (
             "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err", "iters", "iters_plain")}}
@@ -3462,12 +3780,12 @@ def main() -> int:
     line[1].update(kernel_route="one_pass", launches_by_route=linreg_routes)
     # flash attention's row is its tensor-core route at ATTN_MAIN (bf16);
     # the f32 prefills' launches went to the CUDA-core route; its launches
-    # are H2O's prefills (phase 4b), Granite's (phase 9) and Zamba2's
-    # (phase 10); Granite's and Zamba2's prefill shapes are timed beside
-    # ATTN_MAIN
+    # are H2O's prefills (phase 4b), Granite's (phase 9), Zamba2's (phase
+    # 10), SeamlessM4T's and InternVL2's (phase 11); the other models'
+    # prefill shapes are timed beside ATTN_MAIN
     line[-1].update(kernel_route="tensor_core", launches_by_route={
-        route: attn_routes[dname][route] + moe_routes[dname][route]
-        + rec_routes[dname][route]
+        route: sum(r[dname][route] for r in (attn_routes, moe_routes,
+                                             rec_routes, av_routes))
         for dname, route in (("bfloat16", "tensor_core"),
                              ("float32", "cuda_core"))}, **{
         key: {"shape": list(case), **{
@@ -3476,7 +3794,10 @@ def main() -> int:
                 "bound_by")},
             "max_abs_err": attn_err[(case, "bfloat16")]}
         for key, case in (("granite_shape", ATTN_GRANITE),
-                          ("zamba2_shape", ATTN_ZAMBA))})
+                          ("zamba2_shape", ATTN_ZAMBA),
+                          ("audio_enc_shape", ATTN_AUDIO_ENC),
+                          ("audio_cross_shape", ATTN_AUDIO_CROSS),
+                          ("vlm_shape", ATTN_VLM))})
     emit({"kernels": line})
 
     if FAILURES:

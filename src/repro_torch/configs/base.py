@@ -1,15 +1,15 @@
 """Model and run configuration (port of ``repro.configs.base``).
 
-The fields of the dense, MoE, SSM (RWKV6) and hybrid (Zamba2) families,
-the ones ported so far, and the training knobs ``remat`` (activation
+The fields of all six families (dense, MoE, SSM (RWKV6), hybrid
+(Zamba2), audio (SeamlessM4T's encoder-decoder) and vlm (InternVL2's
+patch prefix)), and the training knobs ``remat`` (activation
 rematerialization of each block, ``models.blocks.maybe_remat``) and
-``loss_chunk`` (the sequence chunk of ``models.layers.cross_entropy_loss``);
-the other families' fields (encoder, frontend) come with their model code
-(ROADMAP Queue 1 item 16).  ``dtype`` and ``param_dtype`` are torch
-dtypes.  ``reduced()`` is the CPU-smoke variant (<= 2 layers, d_model <=
-256, <= 4 experts of top-2, a shared block every 2 layers, SSM chunks of
-16, state <= 16, head width <= 32, float32, no remat, the loss's default
-chunk), the same cut as the reference's.
+``loss_chunk`` (the sequence chunk of ``models.layers.cross_entropy_loss``).
+``dtype`` and ``param_dtype`` are torch dtypes.  ``reduced()`` is the
+CPU-smoke variant (<= 2 layers and <= 2 encoder layers, d_model <= 256,
+<= 4 experts of top-2, a shared block every 2 layers, <= 16 patches, SSM
+chunks of 16, state <= 16, head width <= 32, float32, no remat, the
+loss's default chunk), the same cut as the reference's.
 """
 
 from __future__ import annotations
@@ -18,8 +18,9 @@ import dataclasses
 
 import torch
 
-# the families whose config fields, param counts and blocks the port has
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the families whose config fields, param counts and blocks the port has:
+# every family of the reference
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +51,12 @@ class ModelConfig:
     ssm_chunk: int = 128
     # --- hybrid (zamba2): one shared attn+mlp block every N mamba blocks ---
     shared_attn_every: int = 0
+    # --- enc-dec (seamless) ---
+    encoder_layers: int = 0
+    encoder_seq_divisor: int = 4   # encoder frames = seq_len // divisor
+    # --- modality frontend stubs ---
+    frontend: str | None = None    # None | "audio" | "vision"
+    num_patches: int = 256         # vision prefix length
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.bfloat16
     remat: bool = True
@@ -82,7 +89,9 @@ class ModelConfig:
             experts_per_token=min(self.experts_per_token, 2),
             sliding_window=(min(self.sliding_window, 64)
                             if self.sliding_window else None),
+            encoder_layers=min(self.encoder_layers, 2),
             shared_attn_every=(2 if self.shared_attn_every else 0),
+            num_patches=min(self.num_patches, 16),
             ssm_chunk=16,
             ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
             ssm_head_dim=min(self.ssm_head_dim, 32),
@@ -102,14 +111,15 @@ class ModelConfig:
 
     def _require_counted(self):
         if self.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"param_count of the {self.family!r} family comes with its "
-                "model code (ROADMAP Queue 1 item 16)")
+            raise ValueError(f"unknown family {self.family!r}")
 
     def param_count(self) -> int:
         """Parameters (the reference's approximate count: no norms, token
-        shift mixes or SSM scalars; the router counted; RWKV6's decay LoRA
-        at rank 64; Zamba2's one shared block counted once)."""
+        shift mixes, SSM scalars or biases; the router counted; RWKV6's
+        decay LoRA at rank 64; Zamba2's one shared block counted once; an
+        audio decoder layer's self- and cross-attention both counted, and
+        an encoder layer's GELU MLP counted as 3 D F, as the reference
+        counts it, where its leaves hold 2 D F + F + D)."""
         self._require_counted()
         D, F, L = self.d_model, self.d_ff, self.num_layers
         if self.family == "ssm":
@@ -122,7 +132,12 @@ class ModelConfig:
                          + din // self.ssm_head_dim) + din * D
             shared = self._attn_params() + 3 * D * F
             return self._embed_params() + L * mamba + shared
-        if self.family == "dense":
+        if self.family == "audio":
+            attn, mlp = self._attn_params(), 3 * D * F
+            encoder = self.encoder_layers * (attn + mlp)
+            decoder = L * (2 * attn + mlp)
+            return self._embed_params() + encoder + decoder
+        if self.family in ("dense", "vlm"):
             ffn = 3 * D * F
         else:
             ffn = self.num_experts * 3 * D * F + D * self.num_experts

@@ -130,6 +130,17 @@ def _param_shapes(cfg: ModelConfig, tree):
     else:
         want.update(w_gate=(L, D, cfg.d_ff))
         got.update(w_gate=at("layers", "mlp", "w_gate"))
+    if cfg.family == "audio":
+        Le, H, hd = cfg.encoder_layers, cfg.num_heads, cfg.head_dim
+        want.update(cross_wq=(L, D, H, hd), ln_cross=(L, D),
+                    enc_wq=(Le, D, H, hd), enc_w_in=(Le, D, cfg.d_ff),
+                    enc_b_in=(Le, cfg.d_ff), enc_ln=(D,))
+        got.update(cross_wq=at("layers", "cross", "wq"),
+                   ln_cross=at("layers", "ln_cross", "scale"),
+                   enc_wq=at("encoder", "attn", "wq"),
+                   enc_w_in=at("encoder", "mlp", "w_in"),
+                   enc_b_in=at("encoder", "mlp", "b_in"),
+                   enc_ln=at("enc_ln", "scale"))
     return want, got
 
 
@@ -138,11 +149,13 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device=None):
     the port's params on ``device`` (``None``: the CUDA card), leaf for
     leaf (the same keys and layouts, stacked layers included), each leaf
     in its own dtype (in a bf16 config the MoE router and Mamba2's
-    ``A_log``, ``dt_bias`` and ``D`` stay float32).  The dense layout has
-    ``layers.mlp``; the MoE layout ``layers.moe`` with (L, E, d_in, d_out)
-    experts and an (L, D, E) router; RWKV6 ``layers.time_mix`` and
-    ``layers.channel_mix``; Zamba2 ``mamba`` stacked (groups, per) and an
-    unstacked ``shared`` decoder block."""
+    ``A_log``, ``dt_bias`` and ``D`` stay float32).  The dense (and vlm)
+    layout has ``layers.mlp``; the audio layout adds ``layers.ln_cross``,
+    ``layers.cross``, the stacked ``encoder`` (LayerNorms, attention, GELU
+    MLP with biases) and ``enc_ln``; the MoE layout ``layers.moe`` with
+    (L, E, d_in, d_out) experts and an (L, D, E) router; RWKV6
+    ``layers.time_mix`` and ``layers.channel_mix``; Zamba2 ``mamba``
+    stacked (groups, per) and an unstacked ``shared`` decoder block."""
     dev = _device.resolve_device(device)
     want, got = _param_shapes(cfg, tree)
     if got != want:
@@ -153,9 +166,10 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device=None):
 
 def decode_state_from_numpy(cfg: ModelConfig, tree, device=None):
     """The reference's ``init_decode_state`` (or a stepped state) with numpy
-    leaves -> the port's decode state on ``device``: the KV caches, token
-    shifts and conv states in ``cfg.dtype``, RWKV6's WKV states and
-    Mamba2's SSM states in float32."""
+    leaves -> the port's decode state on ``device``: the KV caches, the
+    audio encoder's ``memory``, token shifts and conv states in
+    ``cfg.dtype``, RWKV6's WKV states and Mamba2's SSM states in
+    float32."""
     dev = _device.resolve_device(device)
     if cfg.family == "ssm":
         prev_tm, wkv, prev_cm = tree["states"]
@@ -168,5 +182,8 @@ def decode_state_from_numpy(cfg: ModelConfig, tree, device=None):
                 "attn": {k: _tree(tree["attn"][k], dev, cfg.dtype)
                          for k in ("k", "v")}}
     cache = tree["cache"]["self"]
-    return {"cache": {"self": {
+    state = {"cache": {"self": {
         k: _tree(cache[k], dev, cfg.dtype) for k in ("k", "v")}}}
+    if cfg.family == "audio":
+        state["memory"] = _tree(tree["memory"], dev, cfg.dtype)
+    return state

@@ -1,5 +1,5 @@
-"""Synthetic deterministic LM token stream (port of
-``repro.data.tokens.TokenStream``).
+"""Synthetic deterministic LM token stream and the audio and VLM
+frontend stubs (port of ``repro.data.tokens``).
 
 Reproducible synthetic tokens whose shapes and types match a real
 corpus's: a Zipf-like unigram draw mixed with a deterministic affine
@@ -10,8 +10,11 @@ the one float step, f32 ``u ** -0.7``, may differ from XLA's by ulps,
 which the integer cast and the clip to the vocabulary absorb unless a
 value sits on an integer boundary.
 
-The audio and VLM stubs (``frame_embeddings``, ``patch_embeddings``) come
-with their families (ROADMAP Queue 1 item 16).
+``frame_embeddings`` and ``patch_embeddings`` stand in for the audio
+frontend's frames and the vision encoder's patches (the reference's
+carve-out): standard normals from the port's ``random.normal`` on an
+explicit key, which match ``jax.random.normal`` up to ulps (torch's
+``erfinv`` is not XLA's).
 """
 
 from __future__ import annotations
@@ -63,3 +66,22 @@ class TokenStream:
         tokens = torch.where(mix, zipf, bigram).to(torch.int32)
         labels = torch.roll(tokens, -1, dims=-1)
         return {"tokens": tokens, "labels": labels}
+
+
+def frame_embeddings(key, *, num_workers: int, per_worker: int,
+                     num_frames: int, d_model: int,
+                     dtype=torch.bfloat16):
+    """[audio] stub: precomputed mel + conv frontend output, shaped like
+    SeamlessM4T's speech encoder input after feature extraction: (m, B/m,
+    num_frames, d_model) on ``key``'s device."""
+    x = prng.normal(key, (num_workers, per_worker, num_frames, d_model))
+    return x.to(dtype)
+
+
+def patch_embeddings(key, *, num_workers: int, per_worker: int,
+                     num_patches: int, d_model: int,
+                     dtype=torch.bfloat16):
+    """[vlm] stub: precomputed InternViT patch embeddings after the MLP
+    projector: (m, B/m, num_patches, d_model) on ``key``'s device."""
+    x = prng.normal(key, (num_workers, per_worker, num_patches, d_model))
+    return x.to(dtype)

@@ -7,17 +7,24 @@
   it.
 
 Both prefill the prompts through decode steps (the reference's path) and
-then decode greedily.  Prompts are drawn from ``--seed`` too, on a
-generator of their own (seeded with ``--seed`` XOR ``PROMPT_SEED``), so
-their stream differs from the params', as the reference folds its key
-for them.  The reference's ``--scale pod`` (a dry-run lowering on the
-production mesh) is ROADMAP Queue 1 item 17 and is not ported, nor are
-its ``--shape`` and ``--multi-pod`` flags, which are refused.
+then decode greedily.  The audio family decodes against the zero encoder
+memory of ``model.init_decode_state``, as the reference's ``serve_cpu``
+does, so its cross-attention adds exactly 0; the vlm family decodes text
+tokens alone, with no patch prefix, as the reference's does.  Prompts
+are drawn from ``--seed`` too, on a generator of their own (seeded with
+``--seed`` XOR ``PROMPT_SEED``), so their stream differs from the
+params', as the reference folds its key for them.  The reference's
+``--scale pod`` (a dry-run lowering on the production mesh) is ROADMAP
+Queue 1 item 17 and is not ported, nor are its ``--shape`` and
+``--multi-pod`` flags, which are refused.
 
     PYTHONPATH=src python -m repro_torch.launch.serve          # the card
     PYTHONPATH=src python -m repro_torch.launch.serve --scale cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-medium
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b
 """
 
 from __future__ import annotations

@@ -71,7 +71,8 @@ def make_group_train_step(cfg: ModelConfig, rc: RobustConfig, optimizer, *,
     leaves are (k, B/k, ...), and the attack mask has k entries with
     ``rc.num_byzantine`` contaminated groups.  Each group's loss and
     gradient come from ``model.loss_fn`` on plain autograd, one group at a
-    time; with ``microbatches`` > 1 a group's batch is split and its
+    time; with ``microbatches`` > 1 a group's batch (every leaf: tokens,
+    labels, and vlm's patches or audio's frames) is split and its
     gradients summed in float32, then averaged (the grads are then
     float32, as in the reference).  ``shard_spec`` reaches
     ``aggregate_reported``.
@@ -180,9 +181,11 @@ def make_mean_train_step(cfg: ModelConfig, optimizer, *,
 
 
 def make_prefill_step(cfg: ModelConfig, *, plain: bool = False):
-    """(params, {"tokens": (B, T)}) -> hidden states (B, T, D).  On CUDA
-    the attention core is the flash kernel; ``plain=True`` keeps the
-    reference's plain path (``attention_core_blocked`` above 2048)."""
+    """(params, {"tokens": (B, T)} + vlm's "patches" (B, P, D) or audio's
+    "frames" (B, S, D), which the model casts to ``cfg.dtype``) -> hidden
+    states (B, T, D) of the text positions.  On CUDA the attention core is
+    the flash kernel; ``plain=True`` keeps the reference's plain path
+    (``attention_core_blocked`` above 2048 for self-attention)."""
     def prefill_step(params, batch):
         _device.set_precision()
         with torch.no_grad():

@@ -23,6 +23,8 @@ Usage:
         --seq-len 512 --arch granite-moe-1b-a400m     # 8 layers
     PYTHONPATH=src python -m repro_torch.launch.train --steps 4 \\
         --seq-len 512 --arch zamba2-2.7b              # 6 layers
+    PYTHONPATH=src python -m repro_torch.launch.train --steps 4 \\
+        --seq-len 512 --arch seamless-m4t-medium      # 1 + 1 layers
 """
 
 from __future__ import annotations
@@ -37,13 +39,13 @@ from torch.utils._pytree import tree_map
 from repro_torch import _device, checkpoint, optim
 from repro_torch import random as prng
 from repro_torch.configs import ARCHITECTURES, get_config
-from repro_torch.configs.base import PORTED_FAMILIES
 from repro_torch.core import (RobustConfig, aggregators, byzantine,
                               init_train_state, make_run_rounds,
                               restore_train_state, save_train_state,
                               schedule_from_config, staleness)
 from repro_torch.core.train_state import advance, history_rows
-from repro_torch.data.tokens import TokenStream
+from repro_torch.data.tokens import (TokenStream, frame_embeddings,
+                                     patch_embeddings)
 from repro_torch.models import model as model_lib
 
 # --scale gpu keeps the published widths and cuts the depth to the most
@@ -64,17 +66,32 @@ GPU_TRAIN_BUDGET_BYTES = 64e9
 DEFAULT_ARCH = {"cpu": "minitron-4b", "gpu": "h2o-danube-3-4b"}
 
 
+def _at_depth(cfg, layers: int):
+    """``cfg`` cut to ``layers`` layers: for the audio family the encoder
+    and the decoder both, to the one count."""
+    if cfg.family == "audio":
+        return cfg.with_(num_layers=layers, encoder_layers=layers)
+    return cfg.with_(num_layers=layers)
+
+
 def gpu_train_layers(cfg) -> int:
     """The most layers (up to ``cfg.num_layers``; for the hybrid family a
-    multiple of ``shared_attn_every``, whole groups) at which
-    ``GPU_TRAIN_BYTES_PER_PARAM`` bytes a parameter fit
+    multiple of ``shared_attn_every``, whole groups; for the audio family
+    one count for the encoder and the decoder, up to the smaller of the
+    two) at which ``GPU_TRAIN_BYTES_PER_PARAM`` bytes a parameter fit
     ``GPU_TRAIN_BUDGET_BYTES``; raises when not even the least depth
-    fits."""
+    fits.  The count is the reference's ``param_count``, which reckons
+    SeamlessM4T at one encoder and one decoder layer at 62.43 GB (two:
+    66.62 GB), so the card's scale trains it at 1 + 1 layers, 558 279 680
+    real parameters: that cut is this scale's own, not the reference's."""
     step = (cfg.shared_attn_every or 1) if cfg.family == "hybrid" else 1
+    deepest = cfg.num_layers
+    if cfg.family == "audio":
+        deepest = min(deepest, cfg.encoder_layers)
 
     def reckoned(layers):
         return (GPU_TRAIN_BYTES_PER_PARAM
-                * cfg.with_(num_layers=layers).param_count())
+                * _at_depth(cfg, layers).param_count())
 
     if reckoned(step) > GPU_TRAIN_BUDGET_BYTES:
         raise NotImplementedError(
@@ -83,35 +100,47 @@ def gpu_train_layers(cfg) -> int:
             f"{GPU_TRAIN_BUDGET_BYTES / 1e9:.0f} GB budget: it needs its "
             "params and gradients sharded over a model mesh (ROADMAP Queue 1 "
             "item 16.10)")
-    return max(layers for layers in range(step, cfg.num_layers + 1, step)
+    return max(layers for layers in range(step, deepest + 1, step)
                if reckoned(layers) <= GPU_TRAIN_BUDGET_BYTES)
 
 
 def train_config(arch: str, scale: str):
     """The config ``train`` runs at ``scale``: reduced on the CPU; the
-    published widths at ``gpu_train_layers`` layers on the card, remat as
-    the config has it."""
+    published widths at ``gpu_train_layers`` layers on the card (the audio
+    encoder cut with the decoder), remat as the config has it."""
     if scale == "cpu":
         return get_config(arch).reduced()
     if scale == "gpu":
         cfg = get_config(arch)
-        return cfg.with_(num_layers=gpu_train_layers(cfg))
+        return _at_depth(cfg, gpu_train_layers(cfg))
     raise NotImplementedError(
         f"--scale {scale}: the reference lowers the production job in a "
         "dry run, which needs the dry-run tooling (ROADMAP Queue 1 item 17)")
 
 
 def build_cpu_batch(cfg, stream: TokenStream, step: int, key):
-    """The step's worker batches, (m, B/m, T) tokens and labels (the dense,
-    MoE, SSM and hybrid families need only tokens).  The audio and VLM
-    families add their frame and patch stubs in the reference; they come
-    with those families (ROADMAP Queue 1 item 16)."""
-    del key    # the ported families draw nothing beyond the stream
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"train batches of the {cfg.family!r} family come with its "
-            "model code (ROADMAP Queue 1 item 16)")
-    return stream.batch(step)
+    """The step's worker batches, (m, B/m, T) tokens and labels.  vlm:
+    tokens and labels cut to T - num_patches, and (m, B/m, num_patches, D)
+    patches drawn on ``key``; audio: (m, B/m, max(T // divisor, 1), D)
+    frames drawn on ``key``; both in ``cfg.dtype``, drawn in float32 and
+    cast (the reference draws in ``cfg.dtype``: the same values in a
+    float32 config).  The other families need only the stream."""
+    batch = stream.batch(step)
+    m, bw, t = batch["tokens"].shape
+    if cfg.family == "vlm":
+        keep = t - cfg.num_patches
+        return {"tokens": batch["tokens"][..., :keep],
+                "labels": batch["labels"][..., :keep],
+                "patches": patch_embeddings(
+                    key, num_workers=m, per_worker=bw,
+                    num_patches=cfg.num_patches, d_model=cfg.d_model,
+                    dtype=cfg.dtype)}
+    if cfg.family == "audio":
+        return dict(batch, frames=frame_embeddings(
+            key, num_workers=m, per_worker=bw,
+            num_frames=max(t // cfg.encoder_seq_divisor, 1),
+            d_model=cfg.d_model, dtype=cfg.dtype))
+    return batch
 
 
 def resume_train_state(ckpt_dir, params, opt_state, schedule, step_key,

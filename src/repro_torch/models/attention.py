@@ -2,20 +2,23 @@
 
 GQA (num_kv_heads <= num_heads), optional QKV bias (Qwen2), optional q/k
 RMSNorm (Qwen3), RoPE, causal masking, sliding-window attention (H2O
-Danube3) and a single-token decode path against a KV cache.
+Danube3), bidirectional attention (the audio encoder), cross-attention
+over an encoder memory (SeamlessM4T's decoder: no RoPE, no mask, no
+window) and a single-token decode path against a KV cache.
 
 The score/softmax/value computation is ``attention_core``, the flash
 kernel's oracle (``kernels/attention/ref.py``).  ``apply`` on CPU tensors
-follows the reference line for line (``attention_core``, or
-``attention_core_blocked`` above ``BLOCKED_ATTENTION_THRESHOLD`` query
-positions); on CUDA tensors the self-attention goes through the CUDA
-kernel (``kernels.attention.ops.attention``), unless the caller asks for
-the plain path with ``plain=True``.  The decode step has no kernel in the
-reference and stays plain PyTorch.
+follows the reference line for line (``attention_core``, or, for
+self-attention, ``attention_core_blocked`` above
+``BLOCKED_ATTENTION_THRESHOLD`` query positions); on CUDA tensors the
+core goes through the CUDA kernel (``kernels.attention.ops.attention``;
+causal or not, Tq = Tk or not), unless the caller asks for the plain path
+with ``plain=True``.  The decode step has no kernel in the reference and
+stays plain PyTorch; its cross-attention projects K and V from the memory
+at every step, as the reference's does, and caches nothing.
 
-Not ported: cross-attention and ``apply_sequence_parallel`` (a dense
-decoder needs neither; they come with the audio family and with the port
-of ``models/meshctx.py`` and a model mesh, ROADMAP Queue 1 item 16).
+Not ported: ``apply_sequence_parallel``, which needs ``models/meshctx.py``
+and a model mesh (ROADMAP Queue 1 item 16.10).
 """
 
 from __future__ import annotations
@@ -46,13 +49,6 @@ class AttentionSpec:
     @property
     def group_size(self) -> int:
         return self.num_heads // self.num_kv_heads
-
-
-def _no_cross(spec: AttentionSpec):
-    if spec.cross:
-        raise NotImplementedError(
-            "cross-attention comes with the audio family (ROADMAP Queue 1 "
-            "item 16)")
 
 
 def init(gen, spec: AttentionSpec, *, dtype, stack: tuple = ()):
@@ -188,28 +184,39 @@ BLOCKED_ATTENTION_THRESHOLD = 2048
 def apply_sequence_parallel(*args, **kwargs):
     raise NotImplementedError(
         "sequence-parallel attention needs models/meshctx.py and a model "
-        "mesh: ROADMAP Queue 1 item 16")
+        "mesh: ROADMAP Queue 1 item 16.10")
 
 
-def apply(params, spec: AttentionSpec, x, *, plain: bool = False):
-    """Full-sequence self-attention (train / prefill) at positions
-    0..T-1.  x: (B, T, D) -> (B, T, D).  On CUDA the core is the CUDA
-    kernel; ``plain=True`` keeps the reference's plain path there."""
-    _no_cross(spec)
+def apply(params, spec: AttentionSpec, x, *, memory=None,
+          plain: bool = False):
+    """Full-sequence attention (train / prefill), queries at positions
+    0..T-1.  x: (B, T, D) -> (B, T, D); ``memory`` (B, S, D) supplies k
+    and v for cross-attention (``spec.cross``: no RoPE, no mask, no
+    window).  On CUDA the core is the CUDA kernel; ``plain=True`` keeps the
+    reference's plain path there, whose blocked core serves self-attention
+    only (cross-attention above the threshold takes the unblocked core, as
+    in the reference)."""
     B, T, _ = x.shape
     positions = _arange(T, B, x.device)
+    # a view of the memory for this layer alone: autograd sums this
+    # layer's k and v gradients in it before adding them to the other
+    # layers', the order a remat'd block (which returns them summed) gives
+    kv_src = memory.view_as(memory) if spec.cross else x
+    kv_pos = (_arange(kv_src.shape[1], B, x.device) if spec.cross
+              else positions)
     q = _project_q(params, spec, x, positions)
-    k, v = _project_kv(params, spec, x, positions)
-    causal, window = spec.causal, spec.sliding_window
+    k, v = _project_kv(params, spec, kv_src, kv_pos)
+    causal = spec.causal and not spec.cross
+    window = None if spec.cross else spec.sliding_window
     if x.device.type == "cuda" and not plain:
         from repro_torch.kernels.attention import ops
         out = ops.attention(q, k, v, causal=causal, sliding_window=window)
-    elif T > BLOCKED_ATTENTION_THRESHOLD:
+    elif not spec.cross and T > BLOCKED_ATTENTION_THRESHOLD:
         out = attention_core_blocked(q, k, v, causal=causal,
                                      sliding_window=window)
     else:
         out = attention_core(q, k, v, causal=causal, sliding_window=window,
-                             q_positions=positions, kv_positions=positions)
+                             q_positions=positions, kv_positions=kv_pos)
     out = out.reshape(B, T, spec.num_heads * spec.head_dim)
     return out @ params["wo"]
 
@@ -232,14 +239,23 @@ def init_cache(spec: AttentionSpec, batch: int, max_len: int, *, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def decode_step(params, spec: AttentionSpec, x, cache, position):
+def decode_step(params, spec: AttentionSpec, x, cache, position, *,
+                memory=None):
     """One-token decode.  x: (B, 1, D); position: (B,) int — the absolute
     position of this token.  Returns (out (B, 1, D), cache).  Unlike the
     reference's functional update, the cache tensors are written in place
     (one slot per row), so a step moves no more than the new token's k and
-    v; the returned cache is the one passed in."""
-    _no_cross(spec)
+    v; the returned cache is the one passed in.  Cross-attention
+    (``spec.cross``) reads k and v from ``memory`` (B, S, D), projected
+    again at every step, and leaves ``cache`` as it is."""
     B = x.shape[0]
+    if spec.cross:
+        k, v = _project_kv(params, spec, memory, None)
+        q = _project_q(params, spec, x, position[:, None])
+        out = attention_core(q, k, v, causal=False, sliding_window=None,
+                             q_positions=position[:, None])
+        out = out.reshape(B, 1, spec.num_heads * spec.head_dim)
+        return out @ params["wo"], cache
     q = _project_q(params, spec, x, position[:, None])
     k_new, v_new = _project_kv(params, spec, x, position[:, None])
 

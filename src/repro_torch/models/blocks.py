@@ -1,13 +1,14 @@
 """Per-family blocks and their stack helpers (port of
-``repro.models.blocks``: the decoder block of the dense and MoE families
-and of Zamba2's shared block, the RWKV6 block, the Mamba2 block).
+``repro.models.blocks``: the decoder block of the dense, MoE and vlm
+families and of Zamba2's shared block, with cross-attention in the audio
+family's decoder; the audio encoder block; the RWKV6 block; the Mamba2
+block).
 
 Stacked params carry a leading L axis; the reference scans the block over
 it, the port loops over it in Python (``unstack``).  ``maybe_remat`` is the
 reference's activation rematerialization (``jax.checkpoint``) as a
 ``torch.autograd.Function`` that recomputes the block in its backward
-and batches under ``torch.func``.  The encoder block comes with the
-audio family (ROADMAP Queue 1 item 16).
+and batches under ``torch.func``.
 """
 
 from __future__ import annotations
@@ -19,8 +20,12 @@ from repro_torch.configs.base import PORTED_FAMILIES, ModelConfig
 from repro_torch.models import attention, layers, mamba, moe, rwkv
 
 
-def attn_spec(cfg: ModelConfig) -> attention.AttentionSpec:
-    """The causal self-attention of a decoder block."""
+def attn_spec(cfg: ModelConfig, *, causal=True, cross=False,
+              sliding_window="cfg") -> attention.AttentionSpec:
+    """A block's attention: by default the decoder's causal
+    self-attention with the config's window; ``cross=True`` the audio
+    decoder's cross-attention; ``causal=False, sliding_window=None`` the
+    encoder's bidirectional self-attention."""
     return attention.AttentionSpec(
         d_model=cfg.d_model,
         num_heads=cfg.num_heads,
@@ -28,8 +33,11 @@ def attn_spec(cfg: ModelConfig) -> attention.AttentionSpec:
         head_dim=cfg.head_dim,
         qkv_bias=cfg.qkv_bias,
         qk_norm=cfg.qk_norm,
-        sliding_window=cfg.sliding_window,
+        causal=causal,
+        sliding_window=(cfg.sliding_window if sliding_window == "cfg"
+                        else sliding_window),
         rope_theta=cfg.rope_theta,
+        cross=cross,
     )
 
 
@@ -52,20 +60,20 @@ def mamba_spec(cfg: ModelConfig) -> mamba.MambaSpec:
 
 
 def require_ported(cfg: ModelConfig):
-    """Raise for a family whose blocks are not ported yet."""
+    """Raise for a family the reference does not have."""
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family's blocks come with ROADMAP Queue 1 "
-            f"item 16; the port has the {', '.join(PORTED_FAMILIES)} "
-            "families")
+        raise ValueError(f"unknown family {cfg.family!r}; the families are "
+                         f"{', '.join(PORTED_FAMILIES)}")
 
 
 # ---------------------------------------------------------------------------
-# decoder block (dense / moe / hybrid's shared block): pre-norm GQA +
-# (SwiGLU | MoE)
+# decoder block (dense / moe / vlm / audio / hybrid's shared block):
+# pre-norm GQA (+ cross-attention) + (SwiGLU | MoE)
 
-def init_decoder_block(gen, cfg: ModelConfig, *, stack: tuple = ()):
-    """One block's params, or ``stack=(L,)`` blocks stacked leaf by leaf."""
+def init_decoder_block(gen, cfg: ModelConfig, *, stack: tuple = (),
+                       cross: bool = False):
+    """One block's params, or ``stack=(L,)`` blocks stacked leaf by leaf;
+    ``cross=True`` adds ``ln_cross`` and the cross-attention ``cross``."""
     require_ported(cfg)
     dt, dev = cfg.param_dtype, gen.device
     p = {
@@ -80,16 +88,29 @@ def init_decoder_block(gen, cfg: ModelConfig, *, stack: tuple = ()):
     else:
         p["mlp"] = layers.swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype=dt,
                                       stack=stack)
+    if cross:
+        p["ln_cross"] = layers.rmsnorm_init(cfg.d_model, dtype=dt,
+                                            device=dev, stack=stack)
+        p["cross"] = attention.init(gen, attn_spec(cfg, cross=True),
+                                    dtype=dt, stack=stack)
     return p
 
 
-def decoder_block(p, cfg: ModelConfig, x, *, plain: bool = False):
+def decoder_block(p, cfg: ModelConfig, x, *, memory=None,
+                  plain: bool = False):
     """Full-sequence (train/prefill) block: (x (B, T, D)) -> (x, aux): the
-    MoE router's loss, or 0.0 for a SwiGLU block."""
+    MoE router's loss, or 0.0 for a SwiGLU block.  A block with ``cross``
+    attends to ``memory`` (B, S, D) after its self-attention."""
     h = attention.apply(p["attn"], attn_spec(cfg),
                         layers.rmsnorm(p["ln_attn"], x, eps=cfg.norm_eps),
                         plain=plain)
     x = x + h
+    if "cross" in p:
+        h = attention.apply(p["cross"], attn_spec(cfg, cross=True),
+                            layers.rmsnorm(p["ln_cross"], x,
+                                           eps=cfg.norm_eps),
+                            memory=memory, plain=plain)
+        x = x + h
     normed = layers.rmsnorm(p["ln_mlp"], x, eps=cfg.norm_eps)
     if cfg.family == "moe":
         h, aux = moe.apply(p["moe"], moe_spec(cfg), normed)
@@ -97,20 +118,59 @@ def decoder_block(p, cfg: ModelConfig, x, *, plain: bool = False):
     return x + layers.swiglu(p["mlp"], normed), 0.0
 
 
-def decoder_block_decode(p, cfg: ModelConfig, x, cache, position):
+def decoder_block_decode(p, cfg: ModelConfig, x, cache, position, *,
+                         memory=None):
     """One-token decode through a block.  cache: {"self": attention cache},
-    updated in place (``attention.decode_step``)."""
+    updated in place (``attention.decode_step``); a block with ``cross``
+    attends to ``memory``, which it does not change."""
     h, new_cache = attention.decode_step(
         p["attn"], attn_spec(cfg),
         layers.rmsnorm(p["ln_attn"], x, eps=cfg.norm_eps),
         cache["self"], position)
     x = x + h
+    if "cross" in p:
+        h, _ = attention.decode_step(
+            p["cross"], attn_spec(cfg, cross=True),
+            layers.rmsnorm(p["ln_cross"], x, eps=cfg.norm_eps),
+            None, position, memory=memory)
+        x = x + h
     normed = layers.rmsnorm(p["ln_mlp"], x, eps=cfg.norm_eps)
     if cfg.family == "moe":
         h, _ = moe.apply(p["moe"], moe_spec(cfg), normed)
     else:
         h = layers.swiglu(p["mlp"], normed)
     return x + h, {"self": new_cache}
+
+
+# ---------------------------------------------------------------------------
+# encoder block (audio): pre-LayerNorm bidirectional self-attention (RoPE,
+# no window) + GELU MLP
+
+def encoder_attn_spec(cfg: ModelConfig) -> attention.AttentionSpec:
+    return attn_spec(cfg, causal=False, sliding_window=None)
+
+
+def init_encoder_block(gen, cfg: ModelConfig, *, stack: tuple = ()):
+    dt, dev = cfg.param_dtype, gen.device
+    return {
+        "ln_attn": layers.layernorm_init(cfg.d_model, dtype=dt, device=dev,
+                                         stack=stack),
+        "attn": attention.init(gen, encoder_attn_spec(cfg), dtype=dt,
+                               stack=stack),
+        "ln_mlp": layers.layernorm_init(cfg.d_model, dtype=dt, device=dev,
+                                        stack=stack),
+        "mlp": layers.gelu_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype=dt,
+                                    stack=stack),
+    }
+
+
+def encoder_block(p, cfg: ModelConfig, x, *, plain: bool = False):
+    """(x (B, S, D)) -> x: every frame attends to every frame."""
+    x = x + attention.apply(
+        p["attn"], encoder_attn_spec(cfg),
+        layers.layernorm(p["ln_attn"], x, eps=cfg.norm_eps), plain=plain)
+    return x + layers.gelu_mlp(
+        p["mlp"], layers.layernorm(p["ln_mlp"], x, eps=cfg.norm_eps))
 
 
 # ---------------------------------------------------------------------------

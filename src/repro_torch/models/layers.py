@@ -8,7 +8,7 @@ generator's device: the values follow the reference's distributions, not
 its bits (tests hand the JAX params across instead).
 
 Not ported: the shard_map sequence-parallel SwiGLU region (ROADMAP Queue 1
-items 13 and 17) and the GELU MLP (the audio family).
+items 13 and 17).
 """
 
 from __future__ import annotations
@@ -118,6 +118,26 @@ def swiglu(params, x):
     up = x @ params["w_up"]
     hidden = F.silu(gate.to(torch.float32)).to(x.dtype) * up
     return hidden @ params["w_down"]
+
+
+def gelu_mlp_init(gen, d_model: int, d_ff: int, *, dtype, stack: tuple = ()):
+    """The encoder's GELU MLP: two matrices with fan-in scaling and zero
+    biases."""
+    return {
+        "w_in": dense_init(gen, d_model, d_ff, dtype=dtype, stack=stack),
+        "b_in": torch.zeros((*stack, d_ff), dtype=dtype, device=gen.device),
+        "w_out": dense_init(gen, d_ff, d_model, dtype=dtype, stack=stack),
+        "b_out": torch.zeros((*stack, d_model), dtype=dtype,
+                             device=gen.device),
+    }
+
+
+def gelu_mlp(params, x):
+    """GELU MLP: the tanh form of GELU (``jax.nn.gelu``'s default) in
+    float32, rounded to the activation type."""
+    h = x @ params["w_in"] + params["b_in"]
+    h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
+    return h @ params["w_out"] + params["b_out"]
 
 
 # ---------------------------------------------------------------------------

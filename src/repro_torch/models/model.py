@@ -1,12 +1,16 @@
 """The language model: init / forward / prefill / decode (port of
-``repro.models.model``: the dense and MoE decoders, the RWKV6 stack
-(ssm) and Zamba2 (hybrid: groups of Mamba2 blocks, each group after one
-application of a shared attention block)).
+``repro.models.model``: the dense and MoE decoders, the vlm decoder (the
+patch embeddings ahead of the tokens), the audio encoder-decoder (an
+encoder over the frame embeddings, its output the memory of every decoder
+layer's cross-attention), the RWKV6 stack (ssm) and Zamba2 (hybrid:
+groups of Mamba2 blocks, each group after one application of a shared
+attention block)).
 
 Batch formats (one worker's shard, as in the reference):
 
   train:   {"tokens": (B, T) int, "labels": (B, T) int}
-  prefill: {"tokens": (B, T) int}
+           + vlm: {"patches": (B, P, D)}   + audio: {"frames": (B, S, D)}
+  prefill: the same without "labels"
   decode:  tokens (B, 1) int, positions (B,) int, state dict
 
 The reference scans the layer stack; here a Python loop walks the stacked
@@ -18,9 +22,6 @@ backward.  ``forward`` sums the blocks' aux losses (the MoE router's,
 float32) in layer order, and ``loss_fn`` returns ``ce + aux``.  ``init``
 and ``init_decode_state`` are entry points: ``device=None`` means the
 CUDA card and raises without one.  Decode states are updated in place.
-The vlm and audio families raise
-``NotImplementedError`` until their code is ported (ROADMAP Queue 1
-item 16).
 """
 
 from __future__ import annotations
@@ -41,9 +42,11 @@ def init(seed: int, cfg: ModelConfig, *, device=None):
     float32 scratch of the largest leaf at a time) and stored in
     ``cfg.param_dtype`` (the MoE router and Mamba2's ``A_log``,
     ``dt_bias`` and ``D`` in float32).  The layouts are the reference's:
-    ``layers`` stacked (L, ...) for the decoders and RWKV6; for Zamba2
-    ``mamba`` stacked (groups, per, ...) and one unstacked ``shared``
-    decoder block."""
+    ``layers`` stacked (L, ...) for the decoders and RWKV6 (the audio
+    decoder's with ``ln_cross`` and ``cross``, beside ``encoder`` stacked
+    (encoder_layers, ...) and the encoder's final LayerNorm ``enc_ln``);
+    for Zamba2 ``mamba`` stacked (groups, per, ...) and one unstacked
+    ``shared`` decoder block."""
     blocks.require_ported(cfg)
     dev = _device.enter(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -65,6 +68,13 @@ def init(seed: int, cfg: ModelConfig, *, device=None):
         params["mamba"] = blocks.init_mamba_block(
             gen, cfg, stack=_hybrid_shape(cfg))
         params["shared"] = blocks.init_decoder_block(gen, cfg)
+    elif cfg.family == "audio":
+        params["layers"] = blocks.init_decoder_block(
+            gen, cfg, stack=(cfg.num_layers,), cross=True)
+        params["encoder"] = blocks.init_encoder_block(
+            gen, cfg, stack=(cfg.encoder_layers,))
+        params["enc_ln"] = layers.layernorm_init(cfg.d_model, dtype=dt,
+                                                 device=dev)
     else:
         params["layers"] = blocks.init_decoder_block(
             gen, cfg, stack=(cfg.num_layers,))
@@ -97,12 +107,28 @@ def _unembed_fn(params, cfg: ModelConfig):
     return lambda h: h @ w
 
 
-def _run_decoder_stack(params_stack, cfg: ModelConfig, x, *, plain):
+def _run_encoder(params, cfg: ModelConfig, frames, *, plain):
+    """The audio encoder over ``frames`` (B, S, D), then its LayerNorm:
+    the decoder's memory (B, S, D) in ``cfg.dtype``."""
+    x = frames.to(cfg.dtype)
     block = blocks.maybe_remat(
-        lambda p, h: blocks.decoder_block(p, cfg, h, plain=plain), cfg)
+        lambda p, h: blocks.encoder_block(p, cfg, h, plain=plain), cfg)
+    for p in blocks.unstack(params["encoder"]):
+        x = block(p, x)
+    return layers.layernorm(params["enc_ln"], x, eps=cfg.norm_eps)
+
+
+def _run_decoder_stack(params_stack, cfg: ModelConfig, x, *, plain,
+                       memory=None):
+    """The decoder stack -> (x, the blocks' aux summed).  ``memory`` is an
+    argument of the remat'd block, not closed over, so its gradient
+    reaches the encoder."""
+    block = blocks.maybe_remat(
+        lambda p, h, mem: blocks.decoder_block(p, cfg, h, memory=mem,
+                                               plain=plain), cfg)
     aux = 0.0
     for p in blocks.unstack(params_stack):
-        x, a = block(p, x)
+        x, a = block(p, x, memory)
         aux = aux + a
     return x, aux
 
@@ -145,21 +171,30 @@ def _run_hybrid_stack(params, cfg: ModelConfig, x, *, plain, states=None):
 
 
 def forward(params, cfg: ModelConfig, batch, *, plain: bool = False):
-    """Full-sequence hidden states (B, T, D) + aux loss (a float32 scalar
-    for MoE, 0.0 for the others).  ``plain=True`` keeps the attention core
-    off the CUDA kernel.  Under remat the block returns its aux beside h,
-    so the router's loss survives rematerialization."""
+    """Full-sequence hidden states (B, T, D) of the text positions + aux
+    loss (a float32 scalar for MoE, 0.0 for the others).  ``plain=True``
+    keeps the attention core off the CUDA kernel.  Under remat the block
+    returns its aux beside h, so the router's loss survives
+    rematerialization."""
     blocks.require_ported(cfg)
     x = _embed(params, cfg, batch["tokens"])
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(cfg.dtype), x], dim=1)
     if cfg.family == "ssm":
         x, _ = _run_rwkv_stack(params["layers"], cfg, x)
         aux = 0.0
     elif cfg.family == "hybrid":
         x, _ = _run_hybrid_stack(params, cfg, x, plain=plain)
         aux = 0.0
+    elif cfg.family == "audio":
+        memory = _run_encoder(params, cfg, batch["frames"], plain=plain)
+        x, aux = _run_decoder_stack(params["layers"], cfg, x, plain=plain,
+                                    memory=memory)
     else:
         x, aux = _run_decoder_stack(params["layers"], cfg, x, plain=plain)
     h = layers.rmsnorm(params["ln_f"], x, eps=cfg.norm_eps)
+    if cfg.family == "vlm":
+        h = h[:, batch["patches"].shape[1]:]      # the text positions
     return h, aux
 
 
@@ -219,9 +254,14 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
             "k": torch.zeros(full, dtype=cfg.dtype, device=dev),
             "v": torch.zeros(full, dtype=cfg.dtype, device=dev)}}
     full = (cfg.num_layers, *shape)
-    return {"cache": {"self": {
+    state = {"cache": {"self": {
         "k": torch.zeros(full, dtype=cfg.dtype, device=dev),
         "v": torch.zeros(full, dtype=cfg.dtype, device=dev)}}}
+    if cfg.family == "audio":
+        enc_len = min(max(max_len // cfg.encoder_seq_divisor, 1), 8192)
+        state["memory"] = torch.zeros((batch, enc_len, cfg.d_model),
+                                      dtype=cfg.dtype, device=dev)
+    return state
 
 
 def _write(dst, src):
@@ -260,8 +300,10 @@ def decode_step(params, cfg: ModelConfig, state, tokens, positions):
                 _write(conv_g[j], new_conv)
                 ssm.copy_(new_ssm)
     else:
+        memory = state.get("memory")
         for p, cache in zip(blocks.unstack(params["layers"]),
                             blocks.unstack(state["cache"])):
-            x, _ = blocks.decoder_block_decode(p, cfg, x, cache, positions)
+            x, _ = blocks.decoder_block_decode(p, cfg, x, cache, positions,
+                                               memory=memory)
     h = layers.rmsnorm(params["ln_f"], x, eps=cfg.norm_eps)
     return _unembed_fn(params, cfg)(h), state

@@ -1508,3 +1508,73 @@ def test_recurrent_serve_on_the_card_matches_the_cpu(cuda, arch):
     tok_cpu, logits_cpu, _ = serve.generate(params, cfg, tokens[:, :16], 4)
     torch.testing.assert_close(logits.cpu(), logits_cpu, atol=1e-4,
                                rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 333, 84, 4, 2, 64, False, None),
+                                  (1, 1024, 256, 16, 16, 64, False, None),
+                                  (1, 256, 256, 16, 16, 64, False, None)])
+def test_flash_non_causal_with_more_queries_than_keys(cuda, case, dtype):
+    """SeamlessM4T's shapes scaled down: the decoder's cross-attention
+    (Tq > Tk, ragged and not) and the encoder's bidirectional
+    self-attention, on the dtype's route, against the plain version."""
+    from repro_torch.kernels.attention import flash, ops, ref
+    q, k, v = _qkv(case, dtype, cuda, seed=case[1])
+    route = flash.route(dtype, case[5])
+    by_route = dict(flash.flash_attention.route_launches)
+    a = ops.attention(q, k, v, causal=False)
+    b = ops.attention(q, k, v, causal=False)
+    assert flash.flash_attention.route_launches == {
+        r: n + 2 * (r == route) for r, n in by_route.items()}
+    assert torch.equal(a, b)
+    want = ref.flash_attention_ref(q, k, v, causal=False, sliding_window=None)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(a.float(), want.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        want32, allowed = _restated_bound(q, k, v, False, None)
+        assert bool(((a.float() - want32).abs() <= allowed).all())
+    # the causal kernel on the same inputs is another function
+    assert not torch.allclose(ops.attention(q, k, v, causal=True).float(),
+                              want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-26b"])
+def test_audio_and_vlm_prefill_on_the_card_matches_the_cpu(cuda, arch):
+    """Reduced SeamlessM4T (2 encoder, 2 decoder layers: 6 flash launches
+    a prefill, the encoder's and the cross-attention's non-causal) and
+    InternVL2 (2 layers behind 16 patches: 2 launches): the kernel path on
+    the card against the CPU; then decode on the card against the CPU."""
+    from torch.utils._pytree import tree_map
+    from repro_torch import configs
+    from repro_torch.kernels.attention import flash
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import model
+    cfg = configs.get_config(arch).reduced()
+    params = model.init(0, cfg, device="cpu")
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (2, 64)))}
+    if cfg.family == "audio":
+        batch["frames"] = torch.as_tensor(
+            rng.normal(size=(2, 16, cfg.d_model)).astype(np.float32))
+    else:
+        batch["patches"] = torch.as_tensor(
+            rng.normal(size=(2, 16, cfg.d_model)).astype(np.float32))
+    flash.reset_launches()
+    h = steps.make_prefill_step(cfg)(
+        on_card, {n: x.to(cuda) for n, x in batch.items()})
+    want_launches = 3 * cfg.num_layers if cfg.family == "audio" \
+        else cfg.num_layers
+    assert flash.flash_attention.launches == want_launches
+    h_cpu = steps.make_prefill_step(cfg)(params, batch)
+    assert float((h.cpu() - h_cpu).abs().max()) <= \
+        1e-4 * float(h_cpu.abs().max())
+    tok, logits, _ = serve.generate(on_card, cfg,
+                                    batch["tokens"][:, :16].to(cuda), 4)
+    _, logits_cpu, _ = serve.generate(params, cfg, batch["tokens"][:, :16],
+                                      4)
+    torch.testing.assert_close(logits.cpu(), logits_cpu, atol=1e-4,
+                               rtol=1e-4)

@@ -1,5 +1,6 @@
-"""The port stands alone: nothing under src/repro_torch/ and neither chip
-script imports jax or the JAX package (repro), at any nesting level."""
+"""The port stands alone: nothing under src/repro_torch/, neither chip
+script and none of the port's example scripts (examples/torch_*.py)
+imports jax or the JAX package (repro), at any nesting level."""
 
 import ast
 import os
@@ -14,6 +15,9 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def _files():
     out = [os.path.join(REPO, "chip_smoke.py"),
            os.path.join(REPO, "chip_profile.py")]
+    examples = os.path.join(REPO, "examples")
+    out += [os.path.join(examples, f) for f in os.listdir(examples)
+            if f.startswith("torch_") and f.endswith(".py")]
     for dirpath, dirnames, filenames in os.walk(PORT):
         dirnames[:] = [d for d in dirnames if d != "__pycache__"]
         out += [os.path.join(dirpath, f) for f in filenames
@@ -48,6 +52,8 @@ def test_port_has_modules():
                    "configs/qwen3_14b.py", "configs/qwen2_72b.py",
                    "configs/granite_moe_1b.py", "configs/kimi_k2_1t.py",
                    "configs/rwkv6_7b.py", "configs/zamba2_2p7b.py",
+                   "configs/seamless_m4t_medium.py",
+                   "configs/internvl2_26b.py",
                    "models/layers.py", "models/moe.py", "models/attention.py",
                    "models/rwkv.py", "models/mamba.py",
                    "models/blocks.py", "models/model.py",

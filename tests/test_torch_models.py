@@ -52,9 +52,6 @@ def _close(got, want, rtol=RTOL):
 # ---------------------------------------------------------------------------
 # configs
 
-UNPORTED_FIELDS = {"encoder_layers", "encoder_seq_divisor", "frontend",
-                   "num_patches"}
-
 @pytest.mark.parametrize("arch", DENSE)
 def test_dense_configs_equal_the_reference(arch):
     mine, ref = configs.get_config(arch), jconfigs.get_config(arch)
@@ -63,22 +60,26 @@ def test_dense_configs_equal_the_reference(arch):
         for key in ("dtype", "param_dtype"):
             assert str(a.pop(key)).split(".")[-1] == \
                 jnp.dtype(b.pop(key)).name
-        # the port has every field the dense, MoE, SSM and hybrid
-        # families read; the others come with their families' model code
-        assert set(b) - set(a) == UNPORTED_FIELDS
+        # the port has every field of the reference, the audio and vlm
+        # families' included
+        assert set(a) == set(b)
         assert a == {key: b[key] for key in a}
         assert cfg.param_count() == jcfg.param_count()
 
 
 def test_registry_and_shapes():
+    """Every architecture of the reference resolves, to a config of the
+    same name and family."""
     assert configs.ARCHITECTURES == jconfigs.ARCHITECTURES
     assert {k: dataclasses.asdict(v) for k, v in shapes.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in jconfigs.SHAPES.items()}
     assert configs.get_shape("prefill_32k").seq_len == 32_768
-    for arch in (set(configs.ARCHITECTURES) - set(DENSE) - set(MOE)
-                 - {"rwkv6-7b", "zamba2-2.7b"}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-            configs.get_config(arch)
+    for arch in configs.ARCHITECTURES:
+        cfg, jcfg = configs.get_config(arch), jconfigs.get_config(arch)
+        assert (cfg.name, cfg.family) == (jcfg.name, jcfg.family) == \
+            (arch, jcfg.family)
+    assert {configs.get_config(a).family for a in configs.ARCHITECTURES} \
+        == {"dense", "moe", "ssm", "hybrid", "audio", "vlm"}
     with pytest.raises(KeyError):
         configs.get_config("gpt-5")
 
@@ -100,7 +101,7 @@ def test_moe_configs_equal_the_reference(arch):
         for key in ("dtype", "param_dtype"):
             assert str(a.pop(key)).split(".")[-1] == \
                 jnp.dtype(b.pop(key)).name
-        assert set(b) - set(a) == UNPORTED_FIELDS
+        assert set(a) == set(b)
         assert a == {key: b[key] for key in a}
         assert cfg.param_count() == jcfg.param_count()
         assert cfg.active_param_count() == jcfg.active_param_count()
@@ -304,18 +305,27 @@ def test_entry_points_want_the_card_by_default():
 
 
 def test_unported_families_raise():
-    for family in ("audio", "vlm"):
-        cfg = configs.get_config("h2o-danube-3-4b").reduced().with_(
-            family=family)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-            model.init(0, cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-            cfg.param_count()
-    spec = dataclasses.replace(
-        blocks.attn_spec(configs.get_config("h2o-danube-3-4b")), cross=True)
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        attention.apply({}, spec, torch.zeros(1, 2, 3840))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+    """The audio and vlm families, once unported, now init, count and
+    (audio) cross-attend; an unknown family raises; sequence-parallel
+    attention still waits for a model mesh (item 16.10)."""
+    for arch in ("seamless-m4t-medium", "internvl2-26b"):
+        cfg = configs.get_config(arch).reduced()
+        params = model.init(0, cfg, device="cpu")
+        assert cfg.param_count() == jconfigs.get_config(arch).reduced() \
+            .param_count()
+        assert ("encoder" in params) == ("cross" in params["layers"]) == \
+            (cfg.family == "audio")
+    cfg = configs.get_config("seamless-m4t-medium").reduced()
+    spec = blocks.attn_spec(cfg, cross=True)
+    p = attention.init(torch.Generator().manual_seed(0), spec,
+                       dtype=torch.float32)
+    x, mem = torch.randn(2, 5, cfg.d_model), torch.randn(2, 3, cfg.d_model)
+    assert attention.apply(p, spec, x, memory=mem).shape == (2, 5, 256)
+    with pytest.raises(ValueError, match="unknown family"):
+        model.init(0, cfg.with_(family="speech"), device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        cfg.with_(family="speech").param_count()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 16.10"):
         attention.apply_sequence_parallel()
 
 

@@ -83,6 +83,29 @@ def test_recurrent_greedy_tokens_equal_jax_serve_cpu(arch):
     assert out.shape == (4, 32)
 
 
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-26b"])
+def test_audio_and_vlm_greedy_tokens_equal_jax_serve_cpu(arch):
+    """SeamlessM4T and InternVL2 reduced at the reference's defaults:
+    SeamlessM4T decodes against the zero encoder memory of
+    init_decode_state, InternVL2 decodes text alone, as both serve_cpu's
+    do."""
+    args = _args(arch=arch)
+    want = np.asarray(jserve.serve_cpu(args))
+    jcfg = jconfigs.get_config(arch).reduced()
+    cfg = configs.get_config(arch).reduced()
+    jparams = jmodel.init(jax.random.PRNGKey(args.seed), jcfg)
+    prompt_key = jax.random.fold_in(jax.random.PRNGKey(args.seed), 1)
+    prompts = np.array(jax.random.randint(
+        prompt_key, (args.batch, args.prompt_len), 0, jcfg.vocab_size))
+    params = convert.lm_params_from_numpy(
+        cfg, jax.tree.map(np.asarray, jparams), "cpu")
+    tokens, _, _ = serve.generate(params, cfg, torch.as_tensor(prompts),
+                                  args.new_tokens)
+    np.testing.assert_array_equal(tokens.numpy(), want)
+    out, _ = serve.main(["--scale", "cpu", "--arch", arch])
+    assert out.shape == (4, 32)
+
+
 def test_serve_cpu_from_the_command_line(capsys):
     tokens, stats = serve.main(["--scale", "cpu", "--seed", "3"])
     assert tokens.shape == (4, 32)

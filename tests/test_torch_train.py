@@ -615,20 +615,40 @@ def test_train_scales(monkeypatch):
 
 def test_build_cpu_batch_is_dense_only():
     """The dense, MoE, SSM and hybrid families' batches are the stream's
-    (they need only tokens); the families with frame or patch stubs still
-    raise."""
+    (they need only tokens); the vlm batch (tokens cut to T - 16 patches,
+    the patches) and the audio batch (T // 4 frames) are the reference's
+    ``build_cpu_batch`` on the same stream and key: tokens exactly, the
+    float32 stubs up to the ulps of torch's erfinv."""
     cfg = configs.get_config("minitron-4b").reduced()
-    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=8,
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=40,
                          global_batch=4, num_workers=2, device="cpu")
     assert train_lib.build_cpu_batch(cfg, stream, 0, None)["tokens"].shape \
-        == (2, 2, 8)
+        == (2, 2, 40)
     for arch in ("granite-moe-1b-a400m", "rwkv6-7b", "zamba2-2.7b"):
         other = configs.get_config(arch).reduced()
         batch = train_lib.build_cpu_batch(other, stream, 0, None)
         for name, leaf in stream.batch(0).items():
             assert torch.equal(batch[name], leaf)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        train_lib.build_cpu_batch(cfg.with_(family="vlm"), stream, 0, None)
+    from repro.launch import train as jtrain
+    jstream = JTokenStream(vocab_size=cfg.vocab_size, seq_len=40,
+                           global_batch=4, num_workers=2)
+    for arch, stub, shape in (("internvl2-26b", "patches", (2, 2, 16, 256)),
+                              ("seamless-m4t-medium", "frames",
+                               (2, 2, 10, 256))):
+        other = configs.get_config(arch).reduced()
+        key = jax.random.fold_in(jax.random.PRNGKey(0), 3)
+        want = jtrain.build_cpu_batch(jconfigs.get_config(arch).reduced(),
+                                      jstream, 3, key)
+        got = train_lib.build_cpu_batch(
+            other, stream, 3, prng.fold_in(prng.PRNGKey(0, device="cpu"), 3))
+        assert set(got) == set(want) == {"tokens", "labels", stub}
+        for name in ("tokens", "labels"):
+            np.testing.assert_array_equal(got[name].numpy(),
+                                          np.asarray(want[name]))
+        assert got["tokens"].shape[-1] == (24 if stub == "patches" else 40)
+        assert got[stub].shape == shape and got[stub].dtype == torch.float32
+        np.testing.assert_allclose(got[stub].numpy(), np.asarray(want[stub]),
+                                   rtol=1e-5, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
