@@ -18,8 +18,11 @@ width (Zamba2's shared attention through the flash kernel at head width
 80) and trains Zamba2 (6 layers) under attack through the round kernel,
 serves SeamlessM4T-medium (its encoder and cross-attention through the
 flash kernel's non-causal calls) and InternVL2-26B (a patch prefix) at
-full width, and trains SeamlessM4T (1 + 1 layers) under attack through
-the round kernel.
+full width, trains SeamlessM4T (1 + 1 layers) under attack through
+the round kernel, and prefills H2O-Danube3-4B and Granite-3.0-1B-A400M at
+full width on a model mesh of 4 rank processes of the card (sequence-
+parallel attention through the flash kernel at a query offset, the SP+TP
+SwiGLU, expert parallelism).
 Every phase prints JSON lines; the last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every check
 passed.  Exits non-zero without it on any failure, when CUDA is
@@ -177,7 +180,7 @@ Phases:
                  resumed to 4 bit-identical, s per step and peak GB; the
                  round kernel timed at (8, 8, P) on a block of real Zamba2
                  gradients; (d) train --arch rwkv6-7b --scale gpu refused
-                 (item 16.10), the reduced config's 4 rounds on the card
+                 (item 16.13), the reduced config's 4 rounds on the card
                  through the round kernel vs plain; (e) per_worker_grads
                  with remat torch.equal to without at Granite and Zamba2
                  reduced, and at m = 8 at H2O's, Granite's and Zamba2's
@@ -204,19 +207,41 @@ Phases:
                  the bf16 prefill of 256 patches + 7936 tokens at full
                  depth (48 launches) and the f32 prefill at 8 layers,
                  kernel vs plain; serve --arch internvl2-26b --scale gpu;
-                 train --scale gpu refused (item 16.10), the reduced
+                 train --scale gpu refused (item 16.13), the reduced
                  config's rounds on the card through the round kernel vs
                  plain
+ 12 mesh         the model mesh on 4 rank processes of the card over gloo
+                 (collectives staged through the host): (a) the flash
+                 kernel's q_offset at H2O's sequence-parallel shape (2048
+                 queries a rank against 8192 keys, offsets 2048 r, and a
+                 ragged block) on both routes: the rows of the full launch
+                 bit for bit, its plain twins at ATTN_TOL, offset 0 the
+                 launch without it; timed per rank beside the plain
+                 version and SDPA with the offset's bias; (b) H2O-Danube3-
+                 4B's bf16 prefill at full width (B = 1, T = 8192) on a (1,
+                 4) mesh, each rank's 24 flash launches counted by route,
+                 the gathered hidden states within PREFILL_RTOL of the
+                 single-process kernel prefill, f32 at 4 layers; (c)
+                 Granite-3.0-1B-A400M's bf16 prefill at full width, B = 2,
+                 on (2, 2) through SP attention and expert parallelism,
+                 held to each sequence's single-process prefill with its
+                 expert choices replayed, the free-routing flips recorded;
+                 (d) the WKV region at RWKV6-7B's heads against
+                 wkv_chunked; (e) the reduced minitron-4b's and granite's
+                 loss and gradients against one process; wall ms on the
+                 mesh against one process, the collectives' host-staged
+                 ms and share, a profiled prefill's device ms by family
   7 kernel line  one JSON object, a row per kernel (the round kernel's
                  launches include phase 6 (c)'s, phase 8's, phase 9's,
                  phase 10's and phase 11's; its row carries the (8, 8, P)
                  timings as train_shape (H2O), granite_train_shape
                  (Granite), zamba2_train_shape (Zamba2) and
                  seamless_train_shape (SeamlessM4T); the flash row's
-                 launches include phase 9's, 10's and 11's prefills and it
-                 carries Granite's, Zamba2's, SeamlessM4T's and
+                 launches include phase 9's, 10's, 11's and 12's prefills
+                 and it carries Granite's, Zamba2's, SeamlessM4T's and
                  InternVL2's shapes as granite_shape, zamba2_shape,
-                 audio_enc_shape, audio_cross_shape and vlm_shape)
+                 audio_enc_shape, audio_cross_shape and vlm_shape, and
+                 phase 12 (a)'s offset shape as sp_offset_shape)
 """
 
 from __future__ import annotations
@@ -509,7 +534,7 @@ FLIP_MARGIN_FACTOR = 4.0
 # patches): the bf16 prefill at B = 1, 256 patches + 7936 tokens, kernel vs
 # plain (48 launches), f32 kernel vs plain at VLM_F32_LAYERS of 48 layers
 # (17.0 GB; the whole model in f32 is 79.4 GB), serve --arch internvl2-26b
-# --scale gpu, train --scale gpu refused (item 16.10) and the reduced
+# --scale gpu, train --scale gpu refused (item 16.13) and the reduced
 # config's rounds on the card.
 AUDIO_ARCH = "seamless-m4t-medium"
 VLM_ARCH = "internvl2-26b"
@@ -1300,10 +1325,11 @@ def attn_inputs(case, dtype, dev, seed=0):
                                (B, Tk, KV, hd)))
 
 
-def live_pairs(Tq, Tk, causal, window):
-    """(q, k) pairs that the masks leave live, with default positions."""
+def live_pairs(Tq, Tk, causal, window, offset=0):
+    """(q, k) pairs that the masks leave live, queries at positions
+    offset..offset + Tq - 1, keys at their index."""
     total = 0
-    for q in range(Tq):
+    for q in range(offset, offset + Tq):
         hi = min(q, Tk - 1) if causal else Tk - 1
         lo = max(0, q - window + 1) if window else 0
         total += max(0, hi - lo + 1)
@@ -1548,7 +1574,7 @@ def serve_path(dev):
     return by_route
 
 
-def cuda_core_call(q, k, v, causal, window):
+def cuda_core_call(q, k, v, causal, window, q_offset=0):
     """One launch of the CUDA-core kernel on bf16 inputs through the
     library's C entry (route 0), bypassing ``flash.route``: the kernel the
     tensor-core route replaced, timed beside it.  Counts nothing."""
@@ -1560,7 +1586,7 @@ def cuda_core_call(q, k, v, causal, window):
     rc = flash._library().flash_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         flash._DTYPES[q.dtype], B, Tq, Tk, H, KV, hd, int(causal),
-        int(window or 0), hd ** -0.5, flash.ROUTES["cuda_core"],
+        int(window or 0), q_offset, hd ** -0.5, flash.ROUTES["cuda_core"],
         torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA-core flash kernel: CUDA error {rc}")
@@ -3112,7 +3138,8 @@ def reduced_rounds(dev, arch, backend, seed=0):
 
 def refused_card_train(dev, arch=RWKV_ARCH, phase="recurrent", part="d"):
     """Phase 10 (d), phase 11 (c): ``train --arch <arch> --scale gpu`` is
-    refused, naming item 16.10; the reduced config's rounds on the card
+    refused, naming item 16.13 (several cards); the reduced config's
+    rounds on the card
     through the round kernel, kernel vs plain histories within
     compare_traces.  -> round-kernel launches."""
     from repro_torch.launch import train as train_lib
@@ -3123,7 +3150,7 @@ def refused_card_train(dev, arch=RWKV_ARCH, phase="recurrent", part="d"):
         refusal = None
     except NotImplementedError as exc:
         refusal = str(exc)
-    refused = refusal is not None and "16.10" in refusal
+    refused = refusal is not None and "16.13" in refusal
     check(refused, f"train --arch {arch} --scale gpu: {refusal}")
     runs = {b: reduced_rounds(dev, arch, b)
             for b in ("auto", "fused_interpret")}
@@ -3457,6 +3484,549 @@ def audio_vlm_path(dev, hbm, flops, smi):
     return launches, routes, timing
 
 
+# -- phase 12: the model mesh -------------------------------------------------
+
+# rank processes of the one card over gloo (NCCL refuses two ranks of one
+# card); H2O-Danube3-4B prefills on a (1, 4) ("data", "model") mesh,
+# Granite-3.0-1B-A400M on (2, 2)
+MESH_RANKS = 4
+# H2O's sequence-parallel attention core on 4 ranks: each rank's 2048
+# queries (32 heads, 8 kv heads of 120, window 4096) against all 8192
+# keys, at query offset 2048 r; and a block whose length and offset are
+# no multiple of a tile
+SP_SHAPE = (1, PREFILL_T // MESH_RANKS, PREFILL_T, 32, 8, 120, True, 4096)
+SP_RAGGED = (1000, 3000)                # (Tq, q_offset)
+MESH_F32_LAYERS = 4
+MESH_F32_CUTS = ["24 layers cut to 4 in f32"]
+MESH_GRANITE_B = 2
+# the WKV region at RWKV6-7B's heads: (B, T, H, hd)
+MESH_WKV = (2, 2048, 64, 64)
+# loss and gradients of reduced configs on (2, 2), (B, T) = (8, 64);
+# Granite without drops (a capacity buffer a data shard drops other
+# assignments than one for the whole batch)
+MESH_REDUCED = ("minitron-4b", "granite-moe-1b-a400m")
+MESH_REDUCED_OVERRIDES = {"granite-moe-1b-a400m":
+                          {"moe_capacity_factor": 8.0}}
+MESH_GRAD_RTOL = 1e-4
+
+
+def sp_offset_kernel(dev, hbm, smi):
+    """Phase 12 (a): the flash kernel's q_offset on both routes at H2O's
+    sequence-parallel shape -> the flash row's ``sp_offset_shape``.  With
+    identical q, k and v each rank's launch at offset 2048 r equals the
+    matching rows of the one launch over all 8192 queries (torch.equal),
+    as does a ragged block (SP_RAGGED); each is held to its route's plain
+    twin (f32: ``flash_attention_ref``, bf16: ``flash_attention_tiled_ref``)
+    at ATTN_TOL; a launch at offset 0 equals the launch without the
+    argument.  bf16 timed per rank beside the plain version and one
+    library call (``scaled_dot_product_attention`` with the offset's
+    mask as a bias on the memory-efficient backend, kv repeated)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.attention import flash, ops, ref
+    B, Tq, Tk, H, KV, hd, causal, window = SP_SHAPE
+    n = Tk // Tq
+    tc = PEAK_BF16[next((p for p in ("PCIe", "NVL")
+                         if p in torch.cuda.get_device_name(0)), "SXM")]
+    kw = dict(causal=causal, sliding_window=window)
+    offsets = [r * Tq for r in range(n)]
+    result, worst = {}, 0.0
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        route = flash.route(dtype, hd)
+        q, k, v = attn_inputs((B, Tk, Tk, H, KV, hd), dtype, dev, seed=13)
+        full = ops.attention(q, k, v, **kw)
+        zero = torch.equal(flash.flash_attention(q, k, v, q_offset=0, **kw),
+                           full)
+        check(zero, f"flash {dname}: offset 0 differs from the launch "
+                    "without an offset")
+        blocks = [(Tq, off) for off in offsets] + [SP_RAGGED]
+        rows = []
+        for tq, off in blocks:
+            qr = q[:, off:off + tq]
+            got = ops.attention(qr, k, v, q_offset=off, **kw)
+            equal = bool(torch.equal(got, full[:, off:off + tq]))
+            twin = (ref.flash_attention_ref if dname == "float32"
+                    else ref.flash_attention_tiled_ref)
+            want = twin(qr, k, v, q_offset=off, **kw)
+            err = float((got.float() - want.float()).abs().max())
+            ok = err <= ATTN_TOL[dname]
+            check(equal, f"flash {dname} at q_offset {off} (Tq {tq}): not "
+                         "the full launch's rows")
+            check(ok, f"flash {dname} at q_offset {off} (Tq {tq}): "
+                      f"max_abs_err {err} vs its twin")
+            rows.append({"q_offset": off, "Tq": tq, "equal_full_rows": equal,
+                         "max_abs_err_twin": err, "ok": ok})
+            if dname == "bfloat16" and tq == Tq:
+                worst = max(worst, err)
+            del got, want
+            torch.cuda.empty_cache()
+        emit({"phase": "mesh", "part": "a", "dtype": dname, "route": route,
+              "shape": list(SP_SHAPE), "offset_zero_equal": zero,
+              "blocks": rows, "tol": ATTN_TOL[dname]})
+        if dname == "bfloat16":
+            pairs_full = live_pairs(Tk, Tk, causal, window)
+            ms, bounds, shares = [], [], []
+            for off in offsets:
+                qr = q[:, off:off + Tq]
+                ms.append(timed(lambda: ops.attention(qr, k, v, q_offset=off,
+                                                      **kw)))
+                pairs = live_pairs(Tq, Tk, causal, window, off)
+                nbytes = 2 * (2 * B * Tq * H * hd + 2 * B * Tk * KV * hd)
+                bounds.append(bound(nbytes, pairs * 4 * H * hd, hbm, tc))
+                shares.append(pairs / pairs_full)
+            full_ms = timed(lambda: ops.attention(q, k, v, **kw))
+            # the heaviest rank (the last) carries the row's numbers
+            off = offsets[-1]
+            qr = q[:, off:off + Tq]
+            plain_ms = timed(lambda: ref.flash_attention_ref(
+                qr, k, v, q_offset=off, **kw), repeats=5, warmup=1)
+            qt = qr.transpose(1, 2).contiguous()
+            kt, vt = (x.transpose(1, 2).repeat_interleave(H // KV, dim=1)
+                      .contiguous() for x in (k, v))
+            qp = torch.arange(off, off + Tq, device=dev)[:, None]
+            kp = torch.arange(Tk, device=dev)[None, :]
+            live = (kp <= qp) & (kp > qp - window)
+            bias = torch.zeros((Tq, Tk), dtype=q.dtype, device=dev)
+            bias.masked_fill_(~live, float("-inf"))
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                         attn_mask=bias)
+                library_ms = timed(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=bias))
+            lib_err = float((lib_out.transpose(1, 2).float()
+                             - full[:, off:off + Tq].float()).abs().max())
+            del qt, kt, vt, bias, live, lib_out
+            result = {
+                "shape": list(SP_SHAPE), "q_offsets": offsets,
+                "kernel_ms": ms[-1], "kernel_ms_by_rank": ms,
+                "full_launch_ms": full_ms, "plain_ms": plain_ms,
+                "plain": "flash_attention_ref at the offset (bf16)",
+                "library_ms": library_ms,
+                "library": "efficient (offset bias, kv repeated to H heads)",
+                "library_max_abs_diff": lib_err,
+                "bound_ms": bounds[-1][0], "bound_by": bounds[-1][1],
+                "bound_ms_by_rank": [b[0] for b in bounds],
+                "live_pair_share_by_rank": shares, "route": route}
+            emit({"phase": "timing", "kernel": "flash_attention",
+                  "part": "sp_offset", **result, "card": smi})
+        del q, k, v, full
+        torch.cuda.empty_cache()
+    result["max_abs_err"] = worst
+    return result
+
+
+def _mesh_cfg(arch, dname=None, layers=None, reduced=False):
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced().with_(**MESH_REDUCED_OVERRIDES.get(arch, {}))
+    if dname is not None:
+        cfg = cfg.with_(dtype=getattr(torch, dname),
+                        param_dtype=getattr(torch, dname))
+    if layers is not None:
+        cfg = cfg.with_(num_layers=layers)
+    return cfg
+
+
+def _mesh_tokens(cfg, batch, seq, dev, seed=7):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                         device=dev)
+
+
+def _wkv_inputs(dev, seed=21):
+    import torch
+    B, T, H, hd = MESH_WKV
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v, w0 = (torch.randn((B, T, H, hd), generator=gen, device=dev)
+                   for _ in range(4))
+    u = torch.randn((H, hd), generator=gen, device=dev) * 0.1
+    s = torch.randn((B, H, hd, hd), generator=gen, device=dev)
+    return r, k, v, torch.exp(-torch.exp(w0)), u, s
+
+
+def _flat_grads(params):
+    out = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            else:
+                out["/".join(path + (k,))] = v.grad.detach().cpu()
+    walk(params, ())
+    return out
+
+
+def _mesh_prefill(step, params, batch, dev, profile=False):
+    """One timed prefill on the mesh (counts zeroed before it) -> (h on
+    the CPU, wall ms, the flash launches by route, the collectives'
+    {calls, bytes, ms}, and with ``profile`` a second, profiled prefill's
+    device ms by family)."""
+    import torch
+    from repro_torch.kernels.attention import flash
+    from repro_torch.models import meshctx
+    mesh = meshctx.current_mesh()
+    flash.reset_launches()
+    mesh.reset_stats()
+    h, ms = _synced_ms(lambda: step(params, batch), dev)
+    routes = dict(flash.flash_attention.route_launches)
+    stats = dict(mesh.stats)
+    fam = None
+    if profile:
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            step(params, batch)
+            torch.cuda.synchronize(dev)
+        fam = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            t = ev.time_range.elapsed_us() / 1e3
+            name = ev.name.lower()
+            if "flash_attention" in name:
+                fam["flash_attention"] += t
+            elif any(s in name for s in ("gemm", "nvjet", "cutlass",
+                                         "sm90_xmma", "matmul")):
+                fam["matmul"] += t
+            else:
+                fam["other"] += t
+    return h.cpu(), ms, routes, stats, fam
+
+
+def _mesh_rank(rank, world, device, job):
+    """Phase 12 (b)-(e) on one rank of the card: H2O's prefills on the
+    (1, 4) mesh, Granite's on (2, 2) with the expert choices replayed and
+    free, the WKV region, the reduced models' loss and gradients."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models import meshctx, model, rwkv
+    dev = torch.device(device)
+    torch.set_float32_matmul_precision("highest")
+    line = mesh_lib.make_mesh((1, world), ("data", "model"))
+    square = mesh_lib.make_mesh((2, world // 2), ("data", "model"))
+    out = {}
+    # (b) H2O-Danube3-4B
+    for dname, layers in (("bfloat16", None), ("float32", MESH_F32_LAYERS)):
+        cfg = _mesh_cfg(SERVE_ARCH, dname, layers)
+        params = model.init(0, cfg, device=dev)
+        local = sharding.local_params(params, line, cfg)
+        del params
+        torch.cuda.empty_cache()
+        tokens = _mesh_tokens(cfg, 1, PREFILL_T, dev)
+        with meshctx.set_mesh(line):
+            batch = sharding.local_batch({"tokens": tokens}, line, cfg)
+            warm = sharding.local_batch({"tokens": tokens[:, :512]}, line,
+                                        cfg)
+            step = steps.make_prefill_step(cfg)
+            step(local, warm)
+            out[("h2o", dname)] = _mesh_prefill(
+                step, local, batch, dev, profile=dname == "bfloat16")
+        out[("h2o", dname, "peak_gb")] = \
+            torch.cuda.max_memory_allocated(dev) / 1e9
+        del local
+        torch.cuda.empty_cache()
+    # (c) Granite-3.0-1B-A400M, B = 2: replayed, then free routing
+    cfg = _mesh_cfg(MOE_ARCH, "bfloat16")
+    params = model.init(0, cfg, device=dev)
+    local = sharding.local_params(params, square, cfg)
+    del params
+    torch.cuda.empty_cache()
+    tokens = _mesh_tokens(cfg, MESH_GRANITE_B, PREFILL_T, dev)
+    d = square.index(("data",))
+    step = steps.make_prefill_step(cfg)
+    with meshctx.set_mesh(square):
+        batch = sharding.local_batch({"tokens": tokens}, square, cfg)
+        warm = sharding.local_batch({"tokens": tokens[:, :512]}, square, cfg)
+        step(local, warm)
+        replay = [ids.to(dev) for ids in job["granite_ids"][d]]
+        with RouteTape(replay=replay).installed():
+            out[("granite", "replayed")] = _mesh_prefill(step, local, batch,
+                                                         dev)
+        tape = RouteTape()
+        with tape.installed():
+            out[("granite", "free")] = _mesh_prefill(step, local, batch, dev)
+        out[("granite", "free_ids")] = [i.cpu() for i in tape.ids]
+    del local
+    torch.cuda.empty_cache()
+    # (d) the WKV region at RWKV6-7B's heads
+    r, k, v, w, u, s = _wkv_inputs(dev)
+    d = square.index(("data",))
+    with meshctx.set_mesh(square):
+        square.reset_stats()
+        (y, st), ms = _synced_ms(lambda: rwkv._wkv_dispatch(
+            r[d:d + 1], k[d:d + 1], v[d:d + 1], w[d:d + 1], u,
+            s[d:d + 1]), dev)
+    out["wkv"] = (y.cpu(), st.cpu(), ms, dict(square.stats))
+    del r, k, v, w, s, y, st
+    torch.cuda.empty_cache()
+    # (e) loss and gradients of the reduced configs
+    for arch in MESH_REDUCED:
+        cfg = _mesh_cfg(arch, reduced=True)
+        params = model.init(3, cfg, device=dev)
+        local = _requiring_grad(
+            sharding.local_params(params, square, cfg))
+        tokens = _mesh_tokens(cfg, 8, 64, dev, seed=5)
+        with meshctx.set_mesh(square):
+            batch = sharding.local_batch(
+                {"tokens": tokens, "labels": tokens.roll(-1, -1)}, square,
+                cfg)
+            loss = model.loss_fn(local, batch, cfg)
+            loss.backward()
+        out[("reduced", arch)] = (float(loss.detach()), _flat_grads(local))
+    out["coords"] = {"line": dict(line.coords), "square": dict(square.coords)}
+    return out
+
+
+def _requiring_grad(params):
+    """A copy of ``params`` whose leaves require grad."""
+    return {k: (_requiring_grad(v) if isinstance(v, dict)
+                else v.detach().clone().requires_grad_())
+            for k, v in params.items()}
+
+
+def _mesh_assemble_grads(per_rank, key, cfg):
+    """The (2, 2) mesh's gradients assembled to the full params' shapes
+    (ranks row-major: rank 2 d + m)."""
+    import torch
+    from repro_torch.models import blocks, moe
+
+    class _Mesh:
+        shape = {"data": 2, "model": 2}
+        axis_names = ("data", "model")
+
+    out = {}
+    for name in per_rank[0][key][1]:
+        parts = [[per_rank[2 * d + m][key][1][name] for m in range(2)]
+                 for d in range(2)]
+        path = name.split("/")
+        if "moe" in path and path[-1] != "router":
+            gate_ax, down_ax, fsdp_ok = moe.fsdp_layout(
+                blocks.moe_spec(cfg), _Mesh)
+            ax = 1 + (down_ax if path[-1] == "w_down" else gate_ax)
+            rows = [torch.cat(p, 1) for p in parts]
+            out[name] = torch.cat(rows, ax) if fsdp_ok else rows[0]
+        elif "mlp" in path and cfg.d_ff % 2 == 0:
+            out[name] = torch.cat(parts[0], -2 if path[-1] == "w_down"
+                                  else -1)
+        else:
+            out[name] = parts[0][0]
+    return out
+
+
+def mesh_path(dev, hbm, smi):
+    """Phase 12: the model mesh on 4 rank processes of the card.  (a) the
+    kernel's q_offset (``sp_offset_kernel``); then, with every single-
+    process reference computed first and freed: (b) H2O-Danube3-4B's bf16
+    prefill at full width (B = 1, T = 8192, 24 layers) on a (1, 4) mesh
+    through sequence-parallel attention (one flash launch a layer a rank
+    at query offset 2048 r) and the SP+TP SwiGLU, the gathered hidden
+    states held to the single-process kernel prefill within PREFILL_RTOL,
+    and f32 at 4 layers; (c) Granite-3.0-1B-A400M's bf16 prefill at full
+    width, B = 2, T = 8192, on (2, 2) through SP attention and expert
+    parallelism, held to the single-process prefill of each data shard's
+    sequence (the capacity buffer is a data shard's) with its expert
+    choices replayed (``RouteTape``), the free-routing flips recorded;
+    (d) the WKV region at RWKV6-7B's heads on (2, 2) against
+    ``wkv_chunked`` in one process; (e) the reduced minitron-4b's and
+    granite's loss and gradients on (2, 2) against one process.  ->
+    ({dtype: flash launches by route of the mesh prefills}, the flash
+    row's ``sp_offset_shape``)."""
+    import torch
+    from repro_torch.launch import ranks, steps
+    from repro_torch.models import model, rwkv
+    from repro_torch.kernels.attention import flash
+    t0 = time.perf_counter()
+    sp_row = sp_offset_kernel(dev, hbm, smi)
+    # single-process references
+    refs = {}
+    for dname, layers in (("bfloat16", None), ("float32", MESH_F32_LAYERS)):
+        cfg = _mesh_cfg(SERVE_ARCH, dname, layers)
+        params = model.init(0, cfg, device=dev)
+        step = steps.make_prefill_step(cfg)
+        tokens = _mesh_tokens(cfg, 1, PREFILL_T, dev)
+        step(params, {"tokens": tokens[:, :512]})
+        h, ms = _prefill_ms(step, params, {"tokens": tokens}, dev)
+        refs[("h2o", dname)] = (h.cpu(), ms)
+        del params, h
+        torch.cuda.empty_cache()
+    cfg = _mesh_cfg(MOE_ARCH, "bfloat16")
+    params = model.init(0, cfg, device=dev)
+    step = steps.make_prefill_step(cfg)
+    tokens = _mesh_tokens(cfg, MESH_GRANITE_B, PREFILL_T, dev)
+    step(params, {"tokens": tokens[:1, :512]})
+    g_h, g_tapes, g_ms = [], [], []
+    for b in range(MESH_GRANITE_B):
+        tape = RouteTape(keep_probs=True)
+        with tape.installed():
+            h, ms = _prefill_ms(step, params, {"tokens": tokens[b:b + 1]},
+                                dev)
+        g_h.append(h.cpu())
+        g_ms.append(ms)
+        g_tapes.append(tape)
+    granite_ids = [[i.cpu() for i in t.ids] for t in g_tapes]
+    del params, h
+    torch.cuda.empty_cache()
+    r, k, v, w, u, s = _wkv_inputs(dev)
+    y_ref, s_ref = rwkv.wkv_chunked(r, k, v, w, u, s)
+    wkv_ref = (y_ref.cpu(), s_ref.cpu())
+    del r, k, v, w, s, y_ref, s_ref
+    reduced_ref = {}
+    for arch in MESH_REDUCED:
+        rcfg = _mesh_cfg(arch, reduced=True)
+        params = _requiring_grad(model.init(3, rcfg, device=dev))
+        tok = _mesh_tokens(rcfg, 8, 64, dev, seed=5)
+        loss = model.loss_fn(params, {"tokens": tok,
+                                      "labels": tok.roll(-1, -1)}, rcfg)
+        loss.backward()
+        reduced_ref[arch] = (float(loss.detach()), _flat_grads(params))
+        del params
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    per_rank = ranks.run(_mesh_rank, MESH_RANKS, dev.type,
+                         {"granite_ids": granite_ids}, timeout=900.0)
+    spawn_s = time.perf_counter() - t1
+    by_route = {"bfloat16": {r: 0 for r in flash.ROUTES},
+                "float32": {r: 0 for r in flash.ROUTES}}
+
+    # (b) H2O on (1, 4): rank r holds positions 2048 r ..
+    for dname in ("bfloat16", "float32"):
+        cfg = _mesh_cfg(SERVE_ARCH, dname, None if dname == "bfloat16"
+                        else MESH_F32_LAYERS)
+        h_ref, ms_ref = refs[("h2o", dname)]
+        res = [pr[("h2o", dname)] for pr in per_rank]
+        h = torch.cat([x[0] for x in res], 1)
+        scale = float(h_ref.float().abs().max())
+        err = float((h.float() - h_ref.float()).abs().max())
+        ok = err <= PREFILL_RTOL[dname] * scale and bool(
+            torch.isfinite(h).all()) and h.shape == h_ref.shape
+        want_route = flash.route(cfg.dtype, cfg.head_dim)
+        L = cfg.num_layers
+        launches_ok = all(x[2] == {r: L * (r == want_route)
+                                   for r in flash.ROUTES} for x in res)
+        for x in res:
+            for rt, n in x[2].items():
+                by_route[dname][rt] += n
+        check(ok, f"mesh (b) H2O {dname}: max_abs_err {err} (max|h| "
+                  f"{scale}, rtol {PREFILL_RTOL[dname]})")
+        check(launches_ok, f"mesh (b) H2O {dname}: launches by rank "
+                           f"{[x[2] for x in res]}, want {L} on {want_route}")
+        line = {"phase": "mesh", "part": "b", "arch": SERVE_ARCH,
+                "dtype": dname, "mesh": {"data": 1, "model": MESH_RANKS},
+                "batch": 1, "seq_len": PREFILL_T, "num_layers": L,
+                "reduced": [] if dname == "bfloat16" else MESH_F32_CUTS,
+                "launches_by_rank": [x[2] for x in res],
+                "ms_per_prefill_mesh_by_rank": [x[1] for x in res],
+                "ms_per_prefill_one_process": ms_ref,
+                "collectives_by_rank": [x[3] for x in res],
+                "staged_share_by_rank": [x[3]["ms"] / x[1] for x in res],
+                "max_abs_err": err, "max_abs_h": scale,
+                "rel_err": err / scale, "rtol": PREFILL_RTOL[dname],
+                "peak_gb_by_rank": [pr[("h2o", dname, "peak_gb")]
+                                    for pr in per_rank],
+                "ok": ok, "card": smi}
+        if dname == "bfloat16":
+            line["device_ms_by_family_by_rank"] = [x[4] for x in res]
+        emit(line)
+
+    # (c) Granite on (2, 2): rank 2 d + m holds sequence d's block m
+    cfg = _mesh_cfg(MOE_ARCH, "bfloat16")
+    L = cfg.num_layers
+    for mode in ("replayed", "free"):
+        res = [pr[("granite", mode)] for pr in per_rank]
+        rows = [torch.cat([res[2 * d + m][0] for m in range(2)], 1)
+                for d in range(2)]
+        errs = [float((rows[d].float() - g_h[d].float()).abs().max())
+                for d in range(2)]
+        scale = max(float(x.float().abs().max()) for x in g_h)
+        launches_ok = all(x[2] == {r: L * (r == "tensor_core")
+                                   for r in flash.ROUTES} for x in res)
+        line = {"phase": "mesh", "part": "c", "arch": MOE_ARCH,
+                "routing": mode, "dtype": "bfloat16",
+                "mesh": {"data": 2, "model": 2},
+                "batch": MESH_GRANITE_B, "seq_len": PREFILL_T,
+                "launches_by_rank": [x[2] for x in res],
+                "ms_per_prefill_mesh_by_rank": [x[1] for x in res],
+                "ms_per_prefill_one_process_by_sequence": g_ms,
+                "collectives_by_rank": [x[3] for x in res],
+                "max_abs_err_by_sequence": errs, "max_abs_h": scale,
+                "rtol": PREFILL_RTOL["bfloat16"], "card": smi}
+        if mode == "replayed":
+            ok = max(errs) <= PREFILL_RTOL["bfloat16"] * scale
+            check(ok, f"mesh (c) Granite replayed: max_abs_err {errs} "
+                      f"(max|h| {scale})")
+            check(launches_ok, f"mesh (c) Granite: launches by rank "
+                               f"{[x[2] for x in res]}")
+            line["ok"] = ok
+            for x in res:
+                for rt, n in x[2].items():
+                    by_route["bfloat16"][rt] += n
+        else:
+            flips = []
+            for d in range(2):
+                other = RouteTape()
+                other.ids = [i.to(dev) for i in per_rank[2 * d][
+                    ("granite", "free_ids")]]
+                flips.append(route_flips(g_tapes[d], other,
+                                         cfg.num_experts))
+            same = all(torch.equal(a, b) for d in range(2) for a, b in zip(
+                per_rank[2 * d][("granite", "free_ids")],
+                per_rank[2 * d + 1][("granite", "free_ids")]))
+            check(same, "mesh (c) Granite: the model ranks of a data shard "
+                        "routed its tokens differently")
+            line.update(route_flips_by_sequence=flips,
+                        model_ranks_route_alike=same)
+        emit(line)
+    del g_tapes
+
+    # (d) the WKV region: rank 2 d + m holds sequence d, all heads
+    y = torch.cat([per_rank[2 * d]["wkv"][0] for d in range(2)], 0)
+    st = torch.cat([per_rank[2 * d]["wkv"][1] for d in range(2)], 0)
+    y_err = float((y - wkv_ref[0]).abs().max())
+    s_err = float((st - wkv_ref[1]).abs().max())
+    equal = bool(torch.equal(y, wkv_ref[0]) and torch.equal(st, wkv_ref[1]))
+    wkv_ok = y_err <= 1e-3 and s_err <= 1e-3
+    check(wkv_ok, f"mesh (d) WKV: max_abs_err y {y_err}, state {s_err}")
+    emit({"phase": "mesh", "part": "d", "shape": list(MESH_WKV),
+          "mesh": {"data": 2, "model": 2}, "max_abs_err_y": y_err,
+          "max_abs_err_state": s_err, "equal_one_process": equal,
+          "ms_by_rank": [pr["wkv"][2] for pr in per_rank],
+          "collectives_by_rank": [pr["wkv"][3] for pr in per_rank],
+          "ok": wkv_ok, "card": smi})
+
+    # (e) the reduced configs' loss and gradients
+    for arch in MESH_REDUCED:
+        rcfg = _mesh_cfg(arch, reduced=True)
+        losses = [pr[("reduced", arch)][0] for pr in per_rank]
+        want_loss, want_grads = reduced_ref[arch]
+        grads = _mesh_assemble_grads(per_rank, ("reduced", arch), rcfg)
+        worst = max(float((grads[n] - g).abs().max())
+                    / (float(g.abs().max()) + 1e-12)
+                    for n, g in want_grads.items())
+        loss_err = max(abs(x - want_loss) for x in losses)
+        ok = loss_err <= 1e-5 * abs(want_loss) and worst <= MESH_GRAD_RTOL \
+            and len(set(losses)) == 1
+        check(ok, f"mesh (e) {arch}: loss {losses} vs {want_loss}, worst "
+                  f"gradient rel err {worst}")
+        emit({"phase": "mesh", "part": "e", "arch": arch + "-reduced",
+              "overrides": MESH_REDUCED_OVERRIDES.get(arch, {}),
+              "mesh": {"data": 2, "model": 2}, "tokens": [8, 64],
+              "loss_one_process": want_loss, "loss_by_rank": losses,
+              "worst_grad_rel_err": worst, "rtol": MESH_GRAD_RTOL,
+              "ok": ok})
+    emit({"phase": "mesh", "seconds": time.perf_counter() - t0,
+          "references_s": ref_s, "ranks_wall_s": spawn_s, "card": smi})
+    return by_route, sp_row
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3719,6 +4289,10 @@ def main() -> int:
     av_launches, av_routes, av_timing = audio_vlm_path(dev, hbm, flops, smi)
     main_launches += av_launches
 
+    # -- 12 mesh: the model mesh on rank processes of the card ---------------
+    torch.cuda.empty_cache()
+    mesh_routes, sp_row = mesh_path(dev, hbm, smi)
+
     # -- 7 the kernel line --------------------------------------------------
     csrc = "src/repro_torch/kernels/"
     rows = (("round_aggregate", "geomed/csrc/round_aggregate.cu",
@@ -3750,7 +4324,8 @@ def main() -> int:
             ("flash_attention", "attention/csrc/flash_attention_tc.cuh",
              "src/repro/kernels/attention/flash.py:124",
              sum(r["bfloat16"]["tensor_core"] for r in (
-                 attn_routes, moe_routes, rec_routes, av_routes)),
+                 attn_routes, moe_routes, rec_routes, av_routes,
+                 mesh_routes)),
              attn_err[(ATTN_MAIN, "bfloat16")], timing[ATTN_MAIN],
              ATTN_MAIN))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
@@ -3783,9 +4358,11 @@ def main() -> int:
     # are H2O's prefills (phase 4b), Granite's (phase 9), Zamba2's (phase
     # 10), SeamlessM4T's and InternVL2's (phase 11); the other models'
     # prefill shapes are timed beside ATTN_MAIN
-    line[-1].update(kernel_route="tensor_core", launches_by_route={
+    line[-1].update(kernel_route="tensor_core", sp_offset_shape=sp_row,
+                    launches_by_route={
         route: sum(r[dname][route] for r in (attn_routes, moe_routes,
-                                             rec_routes, av_routes))
+                                             rec_routes, av_routes,
+                                             mesh_routes))
         for dname, route in (("bfloat16", "tensor_core"),
                              ("float32", "cuda_core"))}, **{
         key: {"shape": list(case), **{

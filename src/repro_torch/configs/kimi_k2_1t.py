@@ -1,7 +1,9 @@
 """Kimi K2 1T-A32B [arXiv:2501.kimi2]: trillion-parameter MoE, 384
 experts top-8 (the reference's paper-table scale).  No single card holds
-it: one layer's experts are 16.9 G parameters; its expert-parallel path
-waits for a model mesh (ROADMAP Queue 1 item 16.10)."""
+it: one layer's experts are 16.9 G parameters, and the expert-parallel
+path (``models.moe._apply_expert_parallel``) shares one card's memory
+among its ranks; it waits for several cards (ROADMAP Queue 1 item
+16.13)."""
 
 from repro_torch.configs.base import ModelConfig
 

@@ -21,8 +21,10 @@ which mode combines the partials:
 * ``"shard_map"`` — code running on one rank of a ``torch.distributed``
   group that holds its slice: per-shard partials are all-gathered in rank
   order and combined by an unrolled, ordered sum.  ``ShardSpec.axis`` names
-  the group through :func:`axis_group`; an unbound axis is the default
-  (WORLD) group.
+  the group: the ambient model mesh's (``models.meshctx.set_mesh``) where
+  it has the axis, else the one bound by :func:`axis_group`; an unbound
+  axis is the default (WORLD) group.  The mesh holds the one registry of
+  axis groups (``models.meshctx.axis_group_of``).
 * ``"virtual"``   — the single-process oracle of ``"shard_map"``: the
   leaves are whole, but every reduction is taken as per-shard partials of
   contiguous slices, stacked shard-major, then the same ordered sum.  Each
@@ -37,18 +39,14 @@ scalar, shape ``(m,)``) is replicated and its partial belongs to shard 0.
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
 import dataclasses
 
 import torch
 import torch.distributed as dist
 
-_MODES = ("gspmd", "shard_map", "virtual")
+from repro_torch.models import meshctx
 
-# ShardSpec.axis -> the torch.distributed group carrying it
-_AXIS_GROUPS: contextvars.ContextVar[dict] = contextvars.ContextVar(
-    "shard_axis_groups", default={})
+_MODES = ("gspmd", "shard_map", "virtual")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,21 +97,18 @@ def is_partitioned(spec: ShardSpec | None) -> bool:
     return spec is not None and spec.partitioned
 
 
-@contextlib.contextmanager
 def axis_group(axis: str, group):
     """Bind ``axis`` to the ``torch.distributed`` group ``group`` for the
-    ``shard_map``-mode collectives run inside the block."""
-    token = _AXIS_GROUPS.set({**_AXIS_GROUPS.get(), axis: group})
-    try:
-        yield
-    finally:
-        _AXIS_GROUPS.reset(token)
+    ``shard_map``-mode collectives run inside a ``with`` block; under a
+    model mesh that has ``axis``, the mesh's group carries it and
+    ``group`` must be None or that group (``meshctx.bind_axis``)."""
+    return meshctx.bind_axis(axis, group)
 
 
 def shard_group(spec: ShardSpec):
-    """The group bound to ``spec.axis`` (None: the default group), checked
-    to have ``spec.num_shards`` ranks."""
-    group = _AXIS_GROUPS.get().get(spec.axis)
+    """The group carrying ``spec.axis`` (``meshctx.axis_group_of``; None:
+    the default group), checked to have ``spec.num_shards`` ranks."""
+    group = meshctx.axis_group_of(spec.axis)
     world = dist.get_world_size(group)
     if world != spec.num_shards:
         raise ValueError(f"ShardSpec.num_shards={spec.num_shards} but the "

@@ -36,7 +36,9 @@
 //   scales after the dot; masks: causal k <= q, window k > q - window, and
 //   k < Tk (the reference pads k/v with zeros and masks only by causality,
 //   so it lets padded keys in when causal is false; here the edge is
-//   masked);
+//   masked); query row i sits at position q_offset + i (0 but for a
+//   sequence-parallel rank's block of a longer sequence, whose keys are
+//   all of it), keys at their index;
 // * the mask sentinel is the finite -1e30, never -inf: a row whose first
 //   tile lies wholly outside its window then adds finite junk that the
 //   first live tile wipes (alpha = exp(-1e30 - m) = 0), where -inf would
@@ -80,7 +82,7 @@ __global__ void __launch_bounds__(THREADS, NJ <= 8 ? 2 : 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Tq,
                        int Tk, int H, int KV, int hd, int causal, int window,
-                       float scale) {
+                       int q_offset, float scale) {
   extern __shared__ float smem[];
   constexpr int DP = NJ * 16;  // padded width of the value tile
   const int QSTR = hd + 1;
@@ -109,9 +111,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // live kv tiles: below the diagonal of the last row, inside the window of
-  // the first row
-  const int kv_end = causal ? min(Tk, q1) : Tk;
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  // the first row (rows at positions q_offset + row)
+  const int kv_end = causal ? min(Tk, q_offset + q1) : Tk;
+  const int kv_begin = window > 0 ? max(0, q_offset + q0 - window + 1) : 0;
   const int tile_end = (kv_end + BK - 1) / BK;
 
   float m[4], l[4], acc[4][NJ];
@@ -157,7 +159,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
+      const int qp = q_offset + q0 + ty + 16 * i;
       float mx = NEG;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -223,7 +225,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int NJ>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Tq, int Tk, int H, int KV, int hd, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   int window, int q_offset, float scale,
+                   cudaStream_t stream) {
   const size_t bytes = sizeof(float) * smem_floats(hd, NJ);
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<T, NJ>,
@@ -233,30 +236,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_attention_kernel<T, NJ><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Tq, Tk, H, KV, hd,
-      causal, window, scale);
+      causal, window, q_offset, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      int B, int Tq, int Tk, int H, int KV, int hd,
-                     int causal, int window, float scale,
+                     int causal, int window, int q_offset, float scale,
                      cudaStream_t stream) {
   if (hd <= 64)
     return launch<T, 4>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window,
-                        scale, stream);
+                        q_offset, scale, stream);
   if (hd <= 128)
     return launch<T, 8>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window,
-                        scale, stream);
+                        q_offset, scale, stream);
   return launch<T, 16>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window,
-                       scale, stream);
+                       q_offset, scale, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16.  window <= 0: no sliding window.  route: 0
+// dtype: 0 float32, 1 bfloat16.  window <= 0: no sliding window.  q_offset
+// (>= 0): the position of query row 0 (the causal and window masks compare
+// q_offset + row with the key's index).  route: 0
 // the CUDA-core kernel, 1 the tensor-core kernel (bf16, hd % 8 == 0, hd <=
 // 256, else cudaErrorInvalidValue).  The caller checks shapes (hd in [1,
 // 256], H a multiple of KV, Tq, Tk >= 1, contiguous tensors, 16-byte
@@ -264,21 +269,23 @@ extern "C" {
 int flash_attention_forward(const void* q, const void* k, const void* v,
                             void* o, int dtype, int B, int Tq, int Tk, int H,
                             int KV, int hd, int causal, int window,
-                            float scale, int route, void* stream) {
+                            int q_offset, float scale, int route,
+                            void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_offset < 0) return (int)cudaErrorInvalidValue;
   if (route == 1) {
     if (dtype != 1 || hd % 8 != 0 || hd < 8 || hd > 256)
       return (int)cudaErrorInvalidValue;
     return flash_tc::forward(q, k, v, o, B, Tq, Tk, H, KV, hd, causal,
-                             window, scale, s);
+                             window, q_offset, scale, s);
   }
   if (route != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)dispatch<float>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal,
-                                window, scale, s);
+                                window, q_offset, scale, s);
   if (dtype == 1)
     return (int)dispatch<__nv_bfloat16>(q, k, v, o, B, Tq, Tk, H, KV, hd,
-                                        causal, window, scale, s);
+                                        causal, window, q_offset, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

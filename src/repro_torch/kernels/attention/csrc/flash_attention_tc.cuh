@@ -5,7 +5,9 @@
 // src/repro/kernels/attention/flash.py, and computes what its oracle
 // `flash_attention_ref` computes: q (B, Tq, H, hd), k and v (B, Tk, KV, hd)
 // read in place, query head h reads kv head h / (H / KV), masks causal
-// k <= q, window k > q - window and k < Tk, scores dot(q, k) * hd^-0.5, an
+// k <= q, window k > q - window and k < Tk (query row i at position
+// q_offset + i: a sequence-parallel rank's block of a longer sequence;
+// keys at their index), scores dot(q, k) * hd^-0.5, an
 // online softmax in float32 with the finite -1e30 as the mask value, and
 // the output acc / max(l, 1e-30) in bfloat16.  float32 (and bf16 of any
 // other width) stays on the CUDA-core kernel of flash_attention.cu; the
@@ -338,7 +340,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_v,
                              __nv_bfloat16* __restrict__ o, int Tq, int Tk,
                              int H, int KV, int hd, int causal, int window,
-                             float scale_log2) {
+                             int q_offset, float scale_log2) {
   using T = Tile<D>;
   constexpr int BK = T::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -357,9 +359,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int kvh = h / (H / KV);
   const int q_last = min(q0 + BQ, Tq) - 1;
   // live kv tiles: below the diagonal of the last row, inside the window of
-  // the first row
-  const int kv_end = causal ? min(Tk, q_last + 1) : Tk;
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  // the first row (row r sits at position q_offset + r)
+  const int kv_end = causal ? min(Tk, q_offset + q_last + 1) : Tk;
+  const int kv_begin = window > 0 ? max(0, q_offset + q0 - window + 1) : 0;
   const int t_begin = kv_begin / BK;
   const int t_end = (kv_end + BK - 1) / BK;
   const int wg = threadIdx.x >> 7;
@@ -403,6 +405,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
     const int row0 = q0 + wg * 64;                   // warpgroup's first row
     const int r_lo = row0 + warp * 16 + (lane >> 2);  // rows r_lo, r_lo + 8
+    const int pos0 = q_offset + row0;                // row0's position
     const uint32_t q_addr = sQ + wg * 64 * 128;
 
     float acc[D / 2];
@@ -417,8 +420,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int k0 = t * BK;
       // a tile wholly above this warpgroup's diagonal or before its window
       // adds p = 0 with alpha = 1 (or junk the first live tile wipes)
-      const bool skip = (causal && k0 > row0 + 63) ||
-                        (window > 0 && k0 + BK - 1 <= row0 - window);
+      const bool skip = (causal && k0 > pos0 + 63) ||
+                        (window > 0 && k0 + BK - 1 <= pos0 - window);
       if (!skip) {
         const uint32_t k_addr = sKV + s * 2 * T::KV_BYTES;
         const uint32_t v_addr = k_addr + T::KV_BYTES;
@@ -442,14 +445,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
         // scale (log2 units) and mask; fragment 4j + e holds row r_lo (e <
         // 2) or r_lo + 8, key k0 + 8j + 2 (lane % 4) + e % 2
-        const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > row0) ||
-                          (window > 0 && k0 <= row0 + 63 - window);
+        const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > pos0) ||
+                          (window > 0 && k0 <= pos0 + 63 - window);
         if (edge) {
 #pragma unroll
           for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              const int qp = r_lo + (e >> 1) * 8;
+              const int qp = q_offset + r_lo + (e >> 1) * 8;
               const int kp = k0 + 8 * j + 2 * (lane & 3) + (e & 1);
               bool live = kp < Tk;
               if (causal) live = live && kp <= qp;
@@ -595,7 +598,7 @@ inline int encode_map(EncodeTiled enc, CUtensorMap* map, const void* base,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Tq, int Tk, int H, int KV, int hd, int causal, int window,
-           float scale, cudaStream_t stream) {
+           int q_offset, float scale, cudaStream_t stream) {
   using T = Tile<D>;
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return TMAP_ERROR + CUDA_ERROR_NOT_FOUND;
@@ -611,7 +614,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(H, B, (Tq + BQ - 1) / BQ);
   flash_attention_wgmma_kernel<D><<<grid, THREADS, T::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), Tq, Tk, H, KV, hd, causal,
-      window, scale * 1.4426950408889634f);
+      window, q_offset, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -619,15 +622,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // width D is 64, 128 or 256
 inline int forward(const void* q, const void* k, const void* v, void* o,
                    int B, int Tq, int Tk, int H, int KV, int hd, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   int window, int q_offset, float scale,
+                   cudaStream_t stream) {
   if (hd <= 64)
     return launch<64>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window,
-                      scale, stream);
+                      q_offset, scale, stream);
   if (hd <= 128)
     return launch<128>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window,
-                       scale, stream);
+                       q_offset, scale, stream);
   return launch<256>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window,
-                     scale, stream);
+                     q_offset, scale, stream);
 }
 
 }  // namespace flash_tc

@@ -7,7 +7,11 @@ KV, hd) in float32 or bfloat16, the output in q's type.  The kernels
 read these layouts in place: the TPU wrapper's head-major copies and
 block padding are layout steps, not part of the function; ragged edges
 are masked in the kernel, including keys at ``k_pos >= Tk`` (which the
-TPU kernel lets in when ``causal=False``).
+TPU kernel lets in when ``causal=False``).  ``q_offset`` places query row
+i at position ``q_offset + i`` for the causal and window masks (keys stay
+at their index): a sequence-parallel rank's queries against the whole
+sequence's keys (``models.attention.apply_sequence_parallel``).  The TPU
+kernel has no offset; at 0 the launch is the one without it.
 
 Two routes, chosen by ``route`` from the type and the head width alone,
 with no fallback between them (both live in one library,
@@ -64,14 +68,14 @@ def _library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_forward.argtypes = [
         ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32,
-        ctypes.c_float, i32, ptr]
+        i32, ctypes.c_float, i32, ptr]
     lib.flash_attention_forward.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(q, k, v, sliding_window):
+def _check(q, k, v, sliding_window, q_offset=0):
     if not (q.device.type == k.device.type == v.device.type == "cuda"
             and q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v must lie on one CUDA "
@@ -93,6 +97,8 @@ def _check(q, k, v, sliding_window):
                          f"of one type, got {q.dtype}, {k.dtype}, {v.dtype}")
     if sliding_window is not None and sliding_window < 1:
         raise ValueError(f"sliding_window {sliding_window} must be >= 1")
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} must be >= 0")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise RuntimeError("flash_attention is forward only (the TPU kernel "
@@ -107,10 +113,12 @@ def _aligned(x):
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    sliding_window: int | None = None):
+                    sliding_window: int | None = None, q_offset: int = 0):
     """q: (B, Tq, H, hd); k, v: (B, Tk, KV, hd) -> (B, Tq, H, hd), one
-    launch of the route's CUDA kernel on q's current stream."""
-    _check(q, k, v, sliding_window)
+    launch of the route's CUDA kernel on q's current stream; query row i
+    at position ``q_offset + i``."""
+    q_offset = int(q_offset)
+    _check(q, k, v, sliding_window, q_offset)
     B, Tq, H, hd = q.shape
     Tk, KV = k.shape[1], k.shape[2]
     name = route(q.dtype, hd)
@@ -120,7 +128,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     rc = lib.flash_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _DTYPES[q.dtype], B, Tq, Tk, H, KV, hd, int(bool(causal)),
-        int(sliding_window or 0), hd ** -0.5, ROUTES[name],
+        int(sliding_window or 0), q_offset, hd ** -0.5, ROUTES[name],
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(

@@ -13,10 +13,13 @@ from repro_torch.kernels.attention import flash, ref
 
 
 def attention(q, k, v, *, causal: bool = True,
-              sliding_window: int | None = None):
-    """q: (B, Tq, H, hd); k, v: (B, Tk, KV, hd) -> (B, Tq, H, hd)."""
+              sliding_window: int | None = None, q_offset: int = 0):
+    """q: (B, Tq, H, hd); k, v: (B, Tk, KV, hd) -> (B, Tq, H, hd); query
+    row i at position ``q_offset + i``, keys at their index."""
     if q.device.type == k.device.type == v.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
-                                       sliding_window=sliding_window)
+                                       sliding_window=sliding_window,
+                                       q_offset=q_offset)
     return flash.flash_attention(q, k, v, causal=causal,
-                                 sliding_window=sliding_window)
+                                 sliding_window=sliding_window,
+                                 q_offset=q_offset)

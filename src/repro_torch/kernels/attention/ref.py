@@ -11,34 +11,39 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.attention import attention_core
+from repro_torch.models.attention import _arange, attention_core
 
 NEG = -1e30
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        sliding_window: int | None = None):
-    """q: (B, Tq, H, hd); k, v: (B, Tk, KV, hd) -> (B, Tq, H, hd)."""
+                        sliding_window: int | None = None,
+                        q_offset: int = 0):
+    """q: (B, Tq, H, hd); k, v: (B, Tk, KV, hd) -> (B, Tq, H, hd); query
+    row i at position ``q_offset + i``, keys at their index."""
+    B, Tq = q.shape[:2]
     return attention_core(q, k, v, causal=causal,
-                          sliding_window=sliding_window)
+                          sliding_window=sliding_window,
+                          q_positions=_arange(Tq, B, q.device, q_offset))
 
 
 def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
                               sliding_window: int | None = None,
-                              block_k: int | None = None):
+                              block_k: int | None = None,
+                              q_offset: int = 0):
     """The tensor-core kernel's arithmetic: products of the (bf16) inputs
     summed in f32, an online softmax in f32 over kv tiles of ``block_k``
     keys in order (the kernel's BK: 128 up to hd 128, else 64), P rounded
     to q's type before P V with f32 sums, l summed from the unrounded p,
     and acc / max(l, 1e-30) in q's type.  q: (B, Tq, H, hd); k, v: (B, Tk,
-    KV, hd) -> (B, Tq, H, hd)."""
+    KV, hd) -> (B, Tq, H, hd); query row i at position ``q_offset + i``."""
     B, Tq, H, hd = q.shape
     Tk, KV = k.shape[1], k.shape[2]
     G = H // KV
     bk = block_k or (128 if hd <= 128 else 64)
     qf = q.float().reshape(B, Tq, KV, G, hd)
     kf, vf = k.float(), v.float()
-    qpos = torch.arange(Tq, device=q.device)[:, None]
+    qpos = torch.arange(q_offset, q_offset + Tq, device=q.device)[:, None]
     m = torch.full((B, KV, G, Tq), NEG, device=q.device)
     l = torch.zeros((B, KV, G, Tq), device=q.device)
     acc = torch.zeros((B, KV, G, Tq, hd), device=q.device)

@@ -81,11 +81,14 @@ def make_group_train_step(cfg: ModelConfig, rc: RobustConfig, optimizer, *,
     round_index) -> (params, opt_state, metrics)``; with one, the step also
     takes and returns the adversary's carried ``attack_state``.  Metrics:
     ``loss_mean``, ``loss_median``, ``agg_grad_norm``, ``byz_count``.
-    ``grad_shardings`` needs a model mesh (ROADMAP Queue 1 item 16.10)."""
+    ``grad_shardings`` (the stacked gradients model-sharded on the mesh,
+    ``launch.sharding.stacked_grad_shardings``) is ROADMAP Queue 1 item
+    16.11."""
     if grad_shardings is not None:
         raise NotImplementedError(
-            "grad_shardings lays the stacked gradients out on a model mesh, "
-            "which the port does not have yet (ROADMAP Queue 1 item 16.10)")
+            "grad_shardings lays the stacked gradients out over the mesh's "
+            "model axis and aggregates them shard-local: ROADMAP Queue 1 "
+            "item 16.11")
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     k = rc.num_workers

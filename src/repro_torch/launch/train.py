@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 
 import torch
@@ -94,12 +95,17 @@ def gpu_train_layers(cfg) -> int:
                 * _at_depth(cfg, layers).param_count())
 
     if reckoned(step) > GPU_TRAIN_BUDGET_BYTES:
+        # a mesh of one card's ranks shares its memory: only more cards
+        # add room
+        cards = math.ceil(reckoned(deepest) / GPU_TRAIN_BUDGET_BYTES)
         raise NotImplementedError(
             f"{cfg.name} at {step} layer(s) reckons "
             f"{reckoned(step) / 1e9:.1f} GB a round, past the card's "
-            f"{GPU_TRAIN_BUDGET_BYTES / 1e9:.0f} GB budget: it needs its "
-            "params and gradients sharded over a model mesh (ROADMAP Queue 1 "
-            "item 16.10)")
+            f"{GPU_TRAIN_BUDGET_BYTES / 1e9:.0f} GB budget; at its "
+            f"{deepest} layers it needs {cards} cards of "
+            f"{GPU_TRAIN_BUDGET_BYTES / 1e9:.0f} GB, its params and "
+            "gradients sharded over a mesh of several cards (ROADMAP Queue "
+            "1 item 16.13, which waits for a 4-chip cell)")
     return max(layers for layers in range(step, deepest + 1, step)
                if reckoned(layers) <= GPU_TRAIN_BUDGET_BYTES)
 

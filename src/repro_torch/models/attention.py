@@ -17,8 +17,12 @@ with ``plain=True``.  The decode step has no kernel in the reference and
 stays plain PyTorch; its cross-attention projects K and V from the memory
 at every step, as the reference's does, and caches nothing.
 
-Not ported: ``apply_sequence_parallel``, which needs ``models/meshctx.py``
-and a model mesh (ROADMAP Queue 1 item 16.10).
+Under a model mesh (``meshctx.set_mesh``) ``apply`` runs
+``apply_sequence_parallel`` on the rank's block of the sequence: its
+queries at their global positions, k and v projected from its block and
+all-gathered over ``model``, the core through the flash kernel at that
+query offset on CUDA (one launch), the plain online softmax over kv
+blocks on the CPU and with ``plain=True``.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.models import layers
+from repro_torch.models import layers, meshctx
 
 # sentinel position of an empty cache slot (never inside a window)
 EMPTY_SLOT = 1 << 30
@@ -181,10 +185,89 @@ def attention_core_blocked(q, k, v, *, causal: bool,
 BLOCKED_ATTENTION_THRESHOLD = 2048
 
 
-def apply_sequence_parallel(*args, **kwargs):
-    raise NotImplementedError(
-        "sequence-parallel attention needs models/meshctx.py and a model "
-        "mesh: ROADMAP Queue 1 item 16.10")
+def _online_softmax_attention(q, k, v, *, causal, window, q_pos, kv_block):
+    """Flash-style online softmax over kv blocks of ``kv_block`` keys in
+    order (the reference's, line for line; its ``kv_len`` mask, which no
+    caller sets, is left out).  q: (B, Tq, H, hd) a query block; k, v:
+    (B, Tk, KV, hd) whole; q_pos: (B, Tq) absolute positions.  Returns
+    (B, Tq, H, hd) float32."""
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Tq, KV, G, hd)
+    scale = hd ** -0.5
+    dev = q.device
+    m = torch.full((B, KV, G, Tq), -1e30, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KV, G, Tq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Tq, KV, G, hd), dtype=torch.float32, device=dev)
+    qp = q_pos[:, None, None, :, None]
+    for ks_ in range(0, Tk, kv_block):
+        ke_ = min(ks_ + kv_block, Tk)
+        kb, vb = k[:, ks_:ke_], v[:, ks_:ke_]
+        s = torch.einsum("bqkgh,bskh->bkgqs", qg, kb).to(torch.float32)
+        s = s * scale
+        kp = torch.arange(ks_, ke_, device=dev)[None, None, None, None, :]
+        mask = torch.ones((B, 1, 1, Tq, ke_ - ks_), dtype=torch.bool,
+                          device=dev)
+        if causal:
+            mask = mask & (kp <= qp)
+        if window is not None:
+            mask = mask & (kp > qp - window)
+        s = s.masked_fill(~mask, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1)
+        pv = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), vb)
+        acc = acc * torch.movedim(alpha, 3, 1)[..., None] \
+            + pv.to(torch.float32)
+        m = m_new
+    denom = torch.clamp(torch.movedim(l, 3, 1), min=1e-30)[..., None]
+    return (acc / denom).reshape(B, Tq, H, hd)
+
+
+def apply_sequence_parallel(params, spec: AttentionSpec, x, *, memory=None,
+                            q_block: int = 256, kv_block: int = 1024,
+                            plain: bool = False):
+    """Sequence-parallel attention on this rank's block (the reference's
+    shard_map body).  x: (B/data, T/model, D), the rank's batch shard and
+    its model-axis block of the sequence -> (B/data, T/model, D).
+
+    The queries sit at positions r T/model + i (r the rank's model
+    coordinate); k and v are projected from the block and all-gathered
+    over ``model`` (the region's one collective); cross-attention takes k
+    and v from ``memory`` (B/data, S, D), the batch shard, not gathered.
+    On CUDA (``plain=False``) the core is one launch of the flash kernel
+    at query offset r T/model; otherwise the reference's plain online
+    softmax over kv blocks, in query blocks of ``q_block``."""
+    mesh = meshctx.current_mesh()
+    B, t_loc, _ = x.shape
+    offset = meshctx.axis_index("model") * t_loc
+    causal = spec.causal and not spec.cross
+    window = None if spec.cross else spec.sliding_window
+    pos = _arange(t_loc, B, x.device, offset)
+    q = _project_q(params, spec, x, pos)
+    if spec.cross:
+        k, v = _project_kv(params, spec, memory, None)
+    else:
+        k_loc, v_loc = _project_kv(params, spec, x, pos)
+        k = meshctx.all_gather(k_loc, "model", 1, mesh=mesh)
+        v = meshctx.all_gather(v_loc, "model", 1, mesh=mesh)
+    if x.device.type == "cuda" and not plain:
+        from repro_torch.kernels.attention import ops
+        out = ops.attention(q, k, v, causal=causal, sliding_window=window,
+                            q_offset=offset)
+    else:
+        outs = []
+        for qs in range(0, t_loc, q_block):
+            qe = min(qs + q_block, t_loc)
+            outs.append(_online_softmax_attention(
+                q[:, qs:qe], k, v, causal=causal, window=window,
+                q_pos=_arange(qe - qs, B, x.device, offset + qs),
+                kv_block=kv_block))
+        out = torch.cat(outs, dim=1).to(x.dtype)
+    out = out.reshape(B, t_loc, spec.num_heads * spec.head_dim)
+    return out @ params["wo"]
 
 
 def apply(params, spec: AttentionSpec, x, *, memory=None,
@@ -195,7 +278,20 @@ def apply(params, spec: AttentionSpec, x, *, memory=None,
     window).  On CUDA the core is the CUDA kernel; ``plain=True`` keeps the
     reference's plain path there, whose blocked core serves self-attention
     only (cross-attention above the threshold takes the unblocked core, as
-    in the reference)."""
+    in the reference).  Under a model mesh x is the rank's block
+    (B/data, T/model, D) and the sequence-parallel path runs; the global
+    (B, T) must pass ``meshctx.sp_applicable``."""
+    mesh = meshctx.current_mesh()
+    if mesh is not None:
+        B = x.shape[0] * meshctx.data_size(mesh)
+        T = x.shape[1] * meshctx.model_size(mesh)
+        if not meshctx.sp_applicable(mesh, B, T):
+            raise NotImplementedError(
+                f"attention under the mesh {mesh.shape} at (B, T) = "
+                f"{(B, T)}: only the sequence-parallel layout is ported "
+                "(T >= 16 model ranks; ROADMAP Queue 1 item 16.12)")
+        return apply_sequence_parallel(params, spec, x, memory=memory,
+                                       plain=plain)
     B, T, _ = x.shape
     positions = _arange(T, B, x.device)
     # a view of the memory for this layer alone: autograd sums this

@@ -115,7 +115,7 @@ def decoder_block(p, cfg: ModelConfig, x, *, memory=None,
     if cfg.family == "moe":
         h, aux = moe.apply(p["moe"], moe_spec(cfg), normed)
         return x + h, aux
-    return x + layers.swiglu(p["mlp"], normed), 0.0
+    return x + layers.swiglu(p["mlp"], normed, d_ff=cfg.d_ff), 0.0
 
 
 def decoder_block_decode(p, cfg: ModelConfig, x, cache, position, *,

@@ -7,8 +7,9 @@ does.  Initialisers draw from an explicit ``torch.Generator`` on the
 generator's device: the values follow the reference's distributions, not
 its bits (tests hand the JAX params across instead).
 
-Not ported: the shard_map sequence-parallel SwiGLU region (ROADMAP Queue 1
-items 13 and 17).
+Under a model mesh (``meshctx.set_mesh``) ``swiglu`` runs the
+reference's Megatron SP+TP region on the rank's block, with its
+hand-written backward (``_SwigluRegion``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models import meshctx
 
 # erf(-2/sqrt 2), erf(2/sqrt 2): the uniform range whose erfinv is a
 # standard normal truncated to [-2, 2]
@@ -111,13 +114,100 @@ def swiglu_init(gen, d_model: int, d_ff: int, *, dtype, stack: tuple = ()):
     }
 
 
-def swiglu(params, x):
+def _swiglu_local(w_gate, w_up, w_down, x):
     """SwiGLU MLP: silu in float32, rounded to the activation type, times
-    the up projection (the reference's ``_swiglu_local``)."""
-    gate = x @ params["w_gate"]
-    up = x @ params["w_up"]
+    the up projection."""
+    gate = x @ w_gate
+    up = x @ w_up
     hidden = F.silu(gate.to(torch.float32)).to(x.dtype) * up
-    return hidden @ params["w_down"]
+    return hidden @ w_down
+
+
+def _rows(t):
+    """(..., n) -> (rows, n): every leading dim is a contracted one."""
+    return t.reshape(-1, t.shape[-1])
+
+
+class _SwigluRegion(torch.autograd.Function):
+    """The Megatron SP+TP SwiGLU on one rank (the reference's
+    ``_make_swiglu_sp_region``): all-gather the T-sharded block over
+    ``model``, the SwiGLU against the rank's F-slices of the weights, and
+    psum_scatter the partial output back to the block, in the block's
+    type.  Its backward is the reference's hand-written one: the gathered
+    activations re-gathered, not saved; the gather's transpose an explicit
+    psum_scatter of the input gradient; the weight gradients psum'd over
+    the data axes; every collective in the block's type."""
+
+    @staticmethod
+    def forward(ctx, w_gate, w_up, w_down, x_blk, mesh, data_axes):
+        ctx.mesh, ctx.data_axes = mesh, data_axes
+        ctx.save_for_backward(w_gate, w_up, w_down, x_blk)
+        g = meshctx._all_gather(x_blk, mesh, ("model",), 1)
+        out = _swiglu_local(w_gate, w_up, w_down, g)
+        return meshctx._psum_scatter(out.to(x_blk.dtype), mesh, ("model",),
+                                     1)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        w_gate, w_up, w_down, x_blk = ctx.saved_tensors
+        mesh = ctx.mesh
+        g = meshctx._all_gather(x_blk, mesh, ("model",), 1)
+        go = meshctx._all_gather(grad_out, mesh, ("model",), 1)
+        gate = g @ w_gate
+        up = g @ w_up
+        gate32 = gate.to(torch.float32)
+        sg = F.silu(gate32)
+        h = sg.to(g.dtype) * up
+
+        grad_h = go @ w_down.T
+        grad_wd = _rows(h).T @ _rows(go)
+        grad_up = grad_h * sg.to(grad_h.dtype)
+        sig = torch.sigmoid(gate32)
+        dsilu = sig * (1 + gate32 * (1 - sig))
+        grad_gate = (grad_h.to(torch.float32) * up.to(torch.float32)
+                     * dsilu).to(g.dtype)
+        grad_g = grad_gate @ w_gate.T + grad_up @ w_up.T
+        grad_x = meshctx._psum_scatter(grad_g.to(x_blk.dtype), mesh,
+                                       ("model",), 1)
+        grad_wg = _rows(g).T @ _rows(grad_gate)
+        grad_wu = _rows(g).T @ _rows(grad_up)
+        if ctx.data_axes:
+            # the data-parallel weight-gradient sum
+            grad_wg, grad_wu, grad_wd = (
+                meshctx._psum(t, mesh, ctx.data_axes)
+                for t in (grad_wg, grad_wu, grad_wd))
+        return grad_wg, grad_wu, grad_wd, grad_x, None, None
+
+
+def swiglu_region_applies(mesh, batch: int, seq: int, d_ff: int) -> bool:
+    """The reference's test for the SP+TP region at global (B, T, F)."""
+    return meshctx.sp_applicable(mesh, batch, seq) \
+        and d_ff % meshctx.model_size(mesh) == 0
+
+
+def swiglu(params, x, *, d_ff: int | None = None):
+    """SwiGLU MLP (the reference's ``swiglu``).  Without a mesh,
+    ``_swiglu_local``.  Under a model mesh x is the rank's block
+    (B/data, T/model, D) and ``d_ff`` the global hidden width: where
+    ``swiglu_region_applies``, the weights are the rank's F-slices
+    (``w_gate``/``w_up`` (D, F/model), ``w_down`` (F/model, D)) and the
+    SP+TP region runs; elsewhere the whole weights act on the block."""
+    mesh = meshctx.current_mesh()
+    w_gate, w_up, w_down = params["w_gate"], params["w_up"], \
+        params["w_down"]
+    if x.ndim == 3 and mesh is not None:
+        if d_ff is None:
+            raise ValueError("swiglu under a mesh needs the global d_ff")
+        B = x.shape[0] * meshctx.data_size(mesh)
+        T = x.shape[1] * meshctx.model_size(mesh)
+        if swiglu_region_applies(mesh, B, T, d_ff):
+            if w_gate.shape[-1] * meshctx.model_size(mesh) != d_ff:
+                raise ValueError(
+                    f"swiglu region: w_gate {tuple(w_gate.shape)} is not a "
+                    f"model-axis slice of d_ff {d_ff}")
+            return _SwigluRegion.apply(w_gate, w_up, w_down, x, mesh,
+                                       meshctx.data_axes(mesh))
+    return _swiglu_local(w_gate, w_up, w_down, x)
 
 
 def gelu_mlp_init(gen, d_model: int, d_ff: int, *, dtype, stack: tuple = ()):
@@ -154,6 +244,16 @@ def cross_entropy_loss(logits_fn, hidden, labels, *, vocab_chunk: int = 0,
 
     hidden: (B, T, D); labels: (B, T) int with ``ignore_index`` masked out.
     Returns the mean loss over unmasked positions."""
+    total, count = cross_entropy_sums(logits_fn, hidden, labels,
+                                      vocab_chunk=vocab_chunk,
+                                      ignore_index=ignore_index)
+    return total / torch.clamp(count, min=1.0)
+
+
+def cross_entropy_sums(logits_fn, hidden, labels, *, vocab_chunk: int = 0,
+                       ignore_index: int = -1):
+    """``cross_entropy_loss``'s float32 (sum of the unmasked positions'
+    losses, their count), before the division: a mesh rank's share."""
     B, T = labels.shape
     chunk = vocab_chunk if vocab_chunk > 0 else min(T, 512)
     if T % chunk != 0:
@@ -170,4 +270,4 @@ def cross_entropy_loss(logits_fn, hidden, labels, *, vocab_chunk: int = 0,
         nll = torch.where(mask, lse - picked, torch.zeros_like(lse))
         total = total + torch.sum(nll)
         count = count + torch.sum(mask.to(torch.float32))
-    return total / torch.clamp(count, min=1.0)
+    return total, count

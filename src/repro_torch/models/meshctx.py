@@ -1,0 +1,388 @@
+"""The ambient model mesh and its collectives (port of
+``repro.models.meshctx``).
+
+The reference builds a ``jax.sharding.Mesh`` of devices, installs it with
+``jax.set_mesh`` and lets model code pick the sharded path when one is
+ambient; inside ``shard_map`` each device sees its block of the global
+arrays and the body's ``jax.lax`` collectives name mesh axes.  Here a
+``Mesh`` is a grid of ``torch.distributed`` ranks (the default group,
+ranks in row-major order over the axes, as ``jax.make_mesh`` lays out
+devices); each rank already holds its block, and a region is a plain
+function on local tensors that makes the same collectives as the
+reference's shard_map body:
+
+* ``all_gather(x, axes, dim)``: the tiled ``jax.lax.all_gather``; its
+  gradient is ``psum_scatter`` of the cotangent;
+* ``psum_scatter(x, axes, dim)``: the tiled ``jax.lax.psum_scatter``; its
+  gradient is ``all_gather``;
+* ``psum(x, axes)``: ``jax.lax.psum`` of a varying value to an invariant
+  one; its gradient is the cotangent itself on every rank;
+* ``pvary(x, axes)``: a value the same on every rank of ``axes`` (a
+  replicated input of a shard_map region) entering varying code: the
+  identity, whose gradient is summed over ``axes``, the transpose
+  shard_map takes at the boundary of a replicated input.
+
+Every cross-rank sum is taken in rank order: the parts are exchanged
+(``all_gather``, or ``all_to_all_single`` for ``psum_scatter``) and added
+left to right, as ``core.shard_aggregation.chain_sum`` does, never by
+``dist.all_reduce``'s unspecified order, so two runs give the same bits.
+Tensors travel as raw bytes over the group's backend; over gloo a CUDA
+tensor is staged through the host and back (NCCL refuses two ranks of
+one card).  ``Mesh.stats`` counts a mesh's collectives, their bytes and
+their milliseconds (the staging included); ``Mesh.reset_stats`` zeroes
+it.
+
+The mesh also carries the one registry of axis groups:
+``core.shard_aggregation`` reads an axis's group through
+``axis_group_of`` (the ambient mesh's, where it has the axis).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import itertools
+import math
+import time
+
+import torch
+import torch.distributed as dist
+
+_MESH: contextvars.ContextVar = contextvars.ContextVar("model_mesh",
+                                                      default=None)
+# axis -> group bound outside a mesh (core.shard_aggregation.axis_group)
+_BOUND: contextvars.ContextVar[dict] = contextvars.ContextVar(
+    "bound_axis_groups", default={})
+
+
+class Mesh:
+    """A grid of the default group's ranks: ``shape`` ranks over
+    ``axis_names``, rank r at the row-major coordinates of r.
+
+    Building one creates a process group for every non-empty set of axes
+    (each axis, the data axes together, all of them, ...): every rank
+    calls ``dist.new_group`` for every group, in one order, the groups it
+    is not in included, as ``torch.distributed`` requires.  A group's
+    ranks are in ascending order, which is row-major over its axes in
+    mesh order: a tiled gather over ("pod", "data") is pod-major, as in
+    the reference."""
+
+    def __init__(self, shape, axis_names):
+        shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+        if len(shape) != len(axis_names) or len(set(axis_names)) != len(
+                axis_names):
+            raise ValueError(f"mesh shape {shape} and axes {axis_names} "
+                             "must pair one size with each distinct name")
+        if not dist.is_initialized():
+            raise RuntimeError("a Mesh is a grid of torch.distributed ranks: "
+                               "initialise the default group first")
+        world = dist.get_world_size()
+        if math.prod(shape) != world:
+            raise ValueError(f"mesh {dict(zip(axis_names, shape))} holds "
+                             f"{math.prod(shape)} ranks, the default group "
+                             f"{world}")
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, shape))
+        self.stats = {}
+        self.reset_stats()
+        self.rank = dist.get_rank()
+        coords, r = [], self.rank
+        for size in reversed(shape):
+            coords.append(r % size)
+            r //= size
+        self.coords = dict(zip(axis_names, reversed(coords)))
+        self._groups = {}
+        all_coords = list(itertools.product(*(range(s) for s in shape)))
+        for n in range(1, len(axis_names) + 1):
+            for axes in itertools.combinations(axis_names, n):
+                others = [i for i, a in enumerate(axis_names)
+                          if a not in axes]
+                members = {}
+                for rank, c in enumerate(all_coords):
+                    members.setdefault(tuple(c[i] for i in others),
+                                       []).append(rank)
+                for ranks in members.values():
+                    if len(ranks) == world:
+                        group = None                        # the default
+                    elif len(ranks) == 1:
+                        group = None                        # never used
+                    else:
+                        group = dist.new_group(ranks)
+                    if self.rank in ranks:
+                        self._groups[axes] = (group, tuple(ranks))
+
+    def reset_stats(self) -> None:
+        """Zero the count of collectives, their bytes and milliseconds."""
+        self.stats.update(calls=0, bytes=0, ms=0.0)
+
+    def axes(self, axes) -> tuple:
+        """``axes`` (a name or a tuple of names) in mesh order."""
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        unknown = [a for a in names if a not in self.axis_names]
+        if unknown or not names:
+            raise ValueError(f"axes {axes!r} are not a non-empty set of the "
+                             f"mesh's {self.axis_names}")
+        return tuple(a for a in self.axis_names if a in names)
+
+    def group(self, axes):
+        """This rank's group over ``axes`` and its ranks, in order."""
+        return self._groups[self.axes(axes)]
+
+    def size(self, axes) -> int:
+        return len(self.group(axes)[1])
+
+    def index(self, axes) -> int:
+        """This rank's place in its group over ``axes``."""
+        return self.group(axes)[1].index(self.rank)
+
+    def __repr__(self):
+        return f"Mesh({self.shape}, rank {self.rank} at {self.coords})"
+
+
+@contextlib.contextmanager
+def set_mesh(mesh: Mesh):
+    """Install ``mesh`` as the ambient mesh for a ``with`` block."""
+    token = _MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH.reset(token)
+
+
+def current_mesh() -> Mesh | None:
+    return _MESH.get()
+
+
+def axis_group_of(axis: str):
+    """The group carrying ``axis``: the ambient mesh's where it has the
+    axis, else the one bound by ``bind_axis`` (None: the default
+    group)."""
+    mesh = current_mesh()
+    if mesh is not None and axis in mesh.axis_names:
+        return mesh.group(axis)[0]
+    return _BOUND.get().get(axis)
+
+
+@contextlib.contextmanager
+def bind_axis(axis: str, group):
+    """Bind ``axis`` to ``group`` for a ``with`` block.  Under a mesh that
+    has ``axis`` the mesh's group carries it: ``group`` must be None or
+    that group."""
+    mesh = current_mesh()
+    if mesh is not None and axis in mesh.axis_names:
+        if group is not None and group is not mesh.group(axis)[0]:
+            raise ValueError(f"axis {axis!r} is the ambient mesh's; bind "
+                             "no other group to it")
+        yield
+        return
+    token = _BOUND.set({**_BOUND.get(), axis: group})
+    try:
+        yield
+    finally:
+        _BOUND.reset(token)
+
+
+def axis_index(axis: str) -> int:
+    """This rank's coordinate on ``axis`` of the ambient mesh."""
+    return current_mesh().coords[axis]
+
+
+def data_axes(mesh) -> tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def data_size(mesh) -> int:
+    n = 1
+    for a in data_axes(mesh):
+        n *= mesh.shape[a]
+    return n
+
+
+def model_size(mesh) -> int:
+    return mesh.shape.get("model", 1) if "model" in mesh.axis_names else 1
+
+
+def all_axes(mesh) -> tuple[str, ...]:
+    """The data axes and ``model``: every rank of the mesh."""
+    return data_axes(mesh) + (("model",) if "model" in mesh.axis_names
+                              else ())
+
+
+def dspec(mesh):
+    ax = data_axes(mesh)
+    return ax if len(ax) > 1 else (ax[0] if ax else None)
+
+
+def sp_applicable(mesh, batch: int, seq: int) -> bool:
+    """Sequence-parallel attention needs batch % data == 0 and
+    seq % model == 0 (global sizes), and seq >= 16 model ranks."""
+    if mesh is None or "model" not in mesh.axis_names or not data_axes(mesh):
+        return False
+    return batch % data_size(mesh) == 0 and seq % model_size(mesh) == 0 \
+        and seq >= model_size(mesh) * 16
+
+
+def constrain(x, spec_tuple):
+    """The reference's sharding constraint; on a rank's local block there
+    is nothing to constrain."""
+    return x
+
+
+# ---------------------------------------------------------------------------
+# transport: parts in rank order, sums left to right
+
+def _as_bytes(x):
+    return x.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _transfer(x, mesh, fn):
+    """Run ``fn(local_bytes) -> received bytes`` on ``x``'s bytes, staged
+    through the host when ``x`` lies on the card; counted in
+    ``mesh.stats``."""
+    t0 = time.perf_counter()
+    local = _as_bytes(x.detach().cpu() if x.is_cuda else x.detach())
+    out = fn(local)
+    if x.is_cuda:
+        out = out.to(x.device)
+    mesh.stats["calls"] += 1
+    mesh.stats["bytes"] += local.numel()
+    mesh.stats["ms"] += (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def _parts(x, mesh, axes):
+    """Every rank's ``x`` over ``axes``, in group order: (n, *x.shape)."""
+    group, ranks = mesh.group(axes)
+    if len(ranks) == 1:
+        return x[None]
+
+    def gather(local):
+        out = torch.empty((len(ranks), local.numel()), dtype=torch.uint8)
+        dist.all_gather(list(out.unbind(0)), local, group=group)
+        return out
+
+    return _transfer(x, mesh, gather).view(x.dtype).reshape(len(ranks),
+                                                             *x.shape)
+
+
+def _chain(parts):
+    acc = parts[0]
+    for i in range(1, parts.shape[0]):
+        acc = acc + parts[i]
+    return acc
+
+
+def _all_gather(x, mesh, axes, dim):
+    parts = _parts(x, mesh, axes)
+    return torch.cat(list(parts.unbind(0)), dim=dim)
+
+
+def _psum(x, mesh, axes):
+    return _chain(_parts(x, mesh, axes))
+
+
+def _psum_scatter(x, mesh, axes, dim):
+    group, ranks = mesh.group(axes)
+    n = len(ranks)
+    if x.shape[dim] % n != 0:
+        raise ValueError(f"psum_scatter: dim {dim} of {tuple(x.shape)} does "
+                         f"not split into {n} ranks")
+    if n == 1:
+        return x
+    chunks = torch.stack(x.chunk(n, dim))          # (n, *chunk) to rank j
+
+    def exchange(local):
+        out = torch.empty_like(local)
+        dist.all_to_all_single(out, local, group=group)
+        return out
+
+    mine = _transfer(chunks, mesh, exchange).view(x.dtype).reshape(
+        chunks.shape)
+    return _chain(mine)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _all_gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum_scatter(g, ctx.mesh, ctx.axes, ctx.dim), None, None, \
+            None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _psum_scatter(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _psum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Pvary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, ctx.mesh, ctx.axes), None, None
+
+
+def _mesh_for(mesh):
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None:
+        raise RuntimeError("a mesh collective needs a mesh: call it under "
+                           "set_mesh or pass mesh=")
+    return mesh
+
+
+def _dim(x, dim):
+    return dim % x.ndim
+
+
+def all_gather(x, axes, dim: int, *, mesh=None):
+    """Every rank's ``x`` over ``axes`` concatenated along ``dim`` in rank
+    order (``jax.lax.all_gather(..., tiled=True)``)."""
+    mesh = _mesh_for(mesh)
+    return _AllGather.apply(x, mesh, mesh.axes(axes), _dim(x, dim))
+
+
+def psum_scatter(x, axes, dim: int, *, mesh=None):
+    """The sum over ``axes`` in rank order, split along ``dim``: this
+    rank's piece (``jax.lax.psum_scatter(..., tiled=True)``)."""
+    mesh = _mesh_for(mesh)
+    return _PsumScatter.apply(x, mesh, mesh.axes(axes), _dim(x, dim))
+
+
+def psum(x, axes, *, mesh=None):
+    """The sum of ``x`` over ``axes`` in rank order, on every rank."""
+    mesh = _mesh_for(mesh)
+    return _Psum.apply(x, mesh, mesh.axes(axes))
+
+
+def pvary(x, axes, *, mesh=None):
+    """``x``, the same on every rank of ``axes``, entering code whose
+    values differ by rank: the identity, with its gradient summed over
+    ``axes``."""
+    mesh = _mesh_for(mesh)
+    axes = mesh.axes(axes)
+    if mesh.size(axes) == 1:
+        return x
+    return _Pvary.apply(x, mesh, axes)

@@ -22,6 +22,21 @@ backward.  ``forward`` sums the blocks' aux losses (the MoE router's,
 float32) in layer order, and ``loss_fn`` returns ``ce + aux``.  ``init``
 and ``init_decode_state`` are entry points: ``device=None`` means the
 CUDA card and raises without one.  Decode states are updated in place.
+
+Under a model mesh (``meshctx.set_mesh``) ``forward``, ``loss_fn`` and
+``prefill`` take the rank's block: for the dense and MoE families tokens
+(B/data, T/model), the residual stream staying (B/data, T/model, D)
+between the sequence-parallel regions; for RWKV6 (ssm) tokens
+(B/data, T), the same on every model rank, the WKV head-sharded inside
+its region.  Params are the rank's layout (``launch.sharding.
+local_params``); each leaf enters through ``meshctx.pvary`` over the axes
+it is replicated on, so its gradient comes back summed over them (the
+transpose shard_map takes at a replicated input), but where a region
+sums it itself (the SwiGLU region's data-axis psum, the expert weights'
+FSDP gather).  ``loss_fn`` psums its token sums and counts over every
+axis in rank order: every rank returns the global mean.  The hybrid,
+audio and vlm families and decode under a mesh are ROADMAP Queue 1 item
+16.12.
 """
 
 from __future__ import annotations
@@ -31,7 +46,7 @@ import torch.nn.functional as F
 
 from repro_torch import _device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, blocks, layers, mamba
+from repro_torch.models import attention, blocks, layers, mamba, meshctx, moe
 
 
 # ---------------------------------------------------------------------------
@@ -170,13 +185,66 @@ def _run_hybrid_stack(params, cfg: ModelConfig, x, *, plain, states=None):
     return x, None
 
 
+MESH_FAMILIES = ("dense", "moe", "ssm")
+
+
+def _grad_sum_axes(path, cfg: ModelConfig, mesh, batch: int, seq: int):
+    """The axes a leaf's gradient is summed over on entering the mesh
+    path: those it is replicated on, less those a region sums over."""
+    every = meshctx.all_axes(mesh)
+    name = path[-1]
+    if "moe" in path and name in ("w_gate", "w_up", "w_down"):
+        # E over model; the FSDP gather's transpose sums over data
+        _, _, fsdp_ok = moe.fsdp_layout(blocks.moe_spec(cfg), mesh)
+        return () if fsdp_ok else meshctx.data_axes(mesh)
+    if "mlp" in path and layers.swiglu_region_applies(mesh, batch, seq,
+                                                      cfg.d_ff):
+        return ()            # F over model; the region psums over data
+    return every
+
+
+def _enter_mesh(params, cfg: ModelConfig, batch, mesh):
+    """Check that the mesh path takes (cfg, batch) and put every leaf
+    through ``meshctx.pvary`` over its ``_grad_sum_axes``."""
+    if cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family} family under a model mesh: only "
+            f"{', '.join(MESH_FAMILIES)} are ported (ROADMAP Queue 1 item "
+            "16.12)")
+    B = batch["tokens"].shape[0] * meshctx.data_size(mesh)
+    T = batch["tokens"].shape[1]
+    if cfg.family != "ssm":
+        T *= meshctx.model_size(mesh)
+        if not meshctx.sp_applicable(mesh, B, T):
+            raise NotImplementedError(
+                f"(B, T) = {(B, T)} under the mesh {mesh.shape}: only the "
+                "sequence-parallel layout is ported (T >= 16 model ranks; "
+                "ROADMAP Queue 1 item 16.12)")
+
+    def enter(node, path):
+        if isinstance(node, dict):
+            return {k: enter(v, path + (k,)) for k, v in node.items()}
+        axes = _grad_sum_axes(path, cfg, mesh, B, T)
+        return meshctx.pvary(node, axes, mesh=mesh) if axes else node
+
+    return enter(params, ())
+
+
 def forward(params, cfg: ModelConfig, batch, *, plain: bool = False):
     """Full-sequence hidden states (B, T, D) of the text positions + aux
     loss (a float32 scalar for MoE, 0.0 for the others).  ``plain=True``
     keeps the attention core off the CUDA kernel.  Under remat the block
     returns its aux beside h, so the router's loss survives
-    rematerialization."""
+    rematerialization.  Under a model mesh: the rank's block (module
+    docstring)."""
     blocks.require_ported(cfg)
+    mesh = meshctx.current_mesh()
+    if mesh is not None:
+        params = _enter_mesh(params, cfg, batch, mesh)
+    return _forward(params, cfg, batch, plain=plain)
+
+
+def _forward(params, cfg: ModelConfig, batch, *, plain: bool):
     x = _embed(params, cfg, batch["tokens"])
     if cfg.family == "vlm":
         x = torch.cat([batch["patches"].to(cfg.dtype), x], dim=1)
@@ -200,12 +268,26 @@ def forward(params, cfg: ModelConfig, batch, *, plain: bool = False):
 
 def loss_fn(params, batch, cfg: ModelConfig):
     """Mean next-token cross entropy + the aux loss (the MoE router's, 0
-    for dense), through the plain attention core on every device."""
-    h, aux = forward(params, cfg, batch, plain=True)
-    ce = layers.cross_entropy_loss(_unembed_fn(params, cfg), h,
-                                   batch["labels"],
-                                   vocab_chunk=cfg.loss_chunk)
-    return ce + aux
+    for dense), through the plain attention core on every device.  Under
+    a model mesh the token sums and counts are psum'd over every axis in
+    rank order, so every rank returns the global mean."""
+    blocks.require_ported(cfg)
+    mesh = meshctx.current_mesh()
+    if mesh is None:
+        h, aux = _forward(params, cfg, batch, plain=True)
+        ce = layers.cross_entropy_loss(_unembed_fn(params, cfg), h,
+                                       batch["labels"],
+                                       vocab_chunk=cfg.loss_chunk)
+        return ce + aux
+    params = _enter_mesh(params, cfg, batch, mesh)
+    h, aux = _forward(params, cfg, batch, plain=True)
+    total, count = layers.cross_entropy_sums(
+        _unembed_fn(params, cfg), h, batch["labels"],
+        vocab_chunk=cfg.loss_chunk)
+    every = meshctx.all_axes(mesh)
+    total = meshctx.psum(total, every, mesh=mesh)
+    count = meshctx.psum(count, every, mesh=mesh)
+    return total / torch.clamp(count, min=1.0) + aux
 
 
 def logits(params, cfg: ModelConfig, batch):
@@ -281,6 +363,10 @@ def decode_step(params, cfg: ModelConfig, state, tokens, positions):
     (B, 1, V), state); the state is updated in place (RWKV6's after the
     stack, from the stacked new states; the others layer by layer)."""
     blocks.require_ported(cfg)
+    if meshctx.current_mesh() is not None:
+        raise NotImplementedError(
+            "decode under a model mesh, its caches sharded over model: "
+            "ROADMAP Queue 1 item 16.12")
     x = _embed(params, cfg, tokens)
     if cfg.family == "ssm":
         x, new = _run_rwkv_stack(params["layers"], cfg, x,

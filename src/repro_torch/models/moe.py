@@ -27,10 +27,11 @@ Ties in the router's probabilities are broken as the reference's
 descending sort).
 
 The expert products are batched matmuls over E, as the reference's
-``vmap`` of einsums; no Pallas kernel computes them there.  Expert
-parallelism (``_apply_expert_parallel``) needs a model mesh, which the
-port does not have yet (ROADMAP Queue 1 item 16.10): ``apply`` runs the
-dense path.
+``vmap`` of einsums; no Pallas kernel computes them there.  Under a model
+mesh (``meshctx.set_mesh``) ``apply`` runs expert parallelism
+(``_apply_expert_parallel``, the reference's shard_map body on the
+rank's block): E/|model| experts a rank, each rank routing its data
+shard's tokens to its own experts in a capacity buffer of that shard.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import layers
+from repro_torch.models import layers, meshctx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,16 +169,104 @@ def _combine(expert_out, info, num_tokens: int):
     return weighted.reshape(num_tokens, -1, D).sum(1)
 
 
+def _ep_applicable(spec: MoESpec, x, mesh) -> bool:
+    """The reference's test.  ``x`` is the rank's block, so the batch
+    divides the data axes by construction."""
+    if mesh is None or "model" not in mesh.axis_names:
+        return False
+    if not meshctx.data_axes(mesh):
+        return False
+    model_n = mesh.shape["model"]
+    return spec.num_experts % model_n == 0 and spec.num_experts >= model_n
+
+
+def fsdp_layout(spec: MoESpec, mesh):
+    """(gate_fsdp_axis, down_fsdp_axis, fsdp_ok): the expert weights'
+    FSDP dim over the data axes, as the reference's region gathers it
+    (the larger of D and F; (E, D, F) and (E, F, D) layouts)."""
+    D_, F_ = spec.d_model, spec.d_ff
+    data_n = meshctx.data_size(mesh)
+    return (1 if D_ >= F_ else 2, 2 if D_ >= F_ else 1,
+            max(D_, F_) % data_n == 0 and max(D_, F_) >= data_n)
+
+
 def apply(params, spec: MoESpec, x):
-    """x: (B, T, D) -> (out (B, T, D), aux_loss scalar).  The dense path:
-    the port has no model mesh to run expert-parallel on."""
+    """x: (B, T, D) -> (out (B, T, D), aux_loss scalar).  Under a model
+    mesh where ``_ep_applicable`` holds, x is the rank's T-sharded block
+    and the expert-parallel region runs on the rank's experts
+    (``_apply_expert_parallel``); else the dense path."""
+    mesh = meshctx.current_mesh()
+    if _ep_applicable(spec, x, mesh):
+        return _apply_expert_parallel(params, spec, x, mesh)
     return _apply_dense(params, spec, x)
 
 
 def _apply_expert_parallel(params, spec: MoESpec, x, mesh):
-    raise NotImplementedError(
-        "expert-parallel MoE dispatches over a model mesh, which the port "
-        "does not have yet (ROADMAP Queue 1 item 16.10)")
+    """Expert parallelism on one rank (the reference's shard_map body on
+    a sequence-parallel stream).
+
+    ``x`` is (B/data, T/model, D), the rank's block of the stream.
+    ``params``: the router whole; the experts the rank's E/|model|
+    (E/model, D, F) slices, their FSDP dim (``fsdp_layout``) further
+    split over the data axes when it divides.  The region gathers the
+    expert weights over data, gathers x over ``model``, routes the data
+    shard's B/data x T tokens to its experts in a capacity buffer of
+    that shard (C from B/data x T tokens), and returns the partial
+    outputs through one psum_scatter back to the block.  The router's
+    statistics are psum'd over the data axes and ``model``, then divided
+    by |model| (every model rank saw the same tokens), so aux and z are
+    the global ones.  The top-k comes from ``route``, so a replacement of
+    it steers this path too.  (The reference's other branch, a stream
+    not T-sharded, has no caller here: the port's mesh path is
+    sequence-parallel throughout.)"""
+    B_loc, t_blk, D = x.shape
+    E, K = spec.num_experts, spec.experts_per_token
+    model_n = mesh.shape["model"]
+    data_axes = meshctx.data_axes(mesh)
+    data_n = meshctx.data_size(mesh)
+    e_loc = E // model_n
+    T = t_blk * model_n
+    n_loc = B_loc * T
+    cap = max(int(spec.capacity_factor * n_loc * K / E), K)
+    gate_ax, down_ax, fsdp_ok = fsdp_layout(spec, mesh)
+
+    w_gate, w_up, w_down = params["w_gate"], params["w_up"], \
+        params["w_down"]
+    if fsdp_ok:
+        w_gate = meshctx.all_gather(w_gate, data_axes, gate_ax, mesh=mesh)
+        w_up = meshctx.all_gather(w_up, data_axes, gate_ax, mesh=mesh)
+        w_down = meshctx.all_gather(w_down, data_axes, down_ax, mesh=mesh)
+    x = meshctx.all_gather(x, "model", 1, mesh=mesh)
+    x_flat = x.reshape(n_loc, D)
+    top_ids, top_w, _, _ = route(params, spec, x_flat)
+    logits = x_flat.to(torch.float32) @ params["router"]
+    probs = torch.softmax(logits, dim=-1)
+
+    expert_lo = mesh.coords["model"] * e_loc
+    expert_in, info = _dispatch_local(spec, x_flat, top_ids, top_w,
+                                      expert_lo=expert_lo, num_local=e_loc,
+                                      capacity=cap)
+    expert_out = _expert_ffn(w_gate, w_up, w_down, expert_in)
+    out_flat = _combine(expert_out, info, n_loc)
+    # the experts' contributions summed over the model axis, scattered
+    # back to the block
+    out = meshctx.psum_scatter(out_flat.reshape(B_loc, T, D), "model", 1,
+                               mesh=mesh)
+
+    # the global router statistics for the aux losses
+    stat_axes = data_axes + ("model",)
+    stat_norm = model_n
+    counts = _counts(top_ids.reshape(-1), E).to(torch.float32)
+    counts = meshctx.psum(counts, stat_axes, mesh=mesh) / stat_norm
+    p_sum = meshctx.psum(probs.sum(0), stat_axes, mesh=mesh) / stat_norm
+    n_tot = n_loc * data_n
+    f = counts / (n_tot * K)
+    p = p_sum / n_tot
+    aux = E * torch.sum(f * p)
+    z = meshctx.psum(torch.sum(torch.square(torch.logsumexp(logits, -1))),
+                     stat_axes, mesh=mesh) / stat_norm / n_tot
+    return (out.to(x.dtype),
+            spec.router_aux_weight * aux + spec.router_z_weight * z)
 
 
 def _apply_dense(params, spec: MoESpec, x):

@@ -22,9 +22,9 @@ the reference scans, the port loops in Python.  Every contraction of
 more than two operands is written as pairwise products and matmuls in
 one fixed order, so the order does not depend on the installation's
 einsum planner.  No Pallas kernel computes the recurrence in the
-reference, so it stays plain PyTorch.  The reference's shard_map WKV
-(``_wkv_dispatch`` under a model mesh) waits for ROADMAP Queue 1 item
-16.10: ``time_mix`` runs ``wkv_chunked``.
+reference, so it stays plain PyTorch.  ``time_mix`` runs it through
+``_wkv_dispatch``: under a model mesh, the reference's shard_map WKV
+(batch over the data axes, heads over ``model``, no collective inside).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import layers
+from repro_torch.models import layers, meshctx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,6 +169,26 @@ def wkv_chunked(r, k, v, w, u, state, *, chunk: int = 64):
     return torch.cat(ys, dim=1), S
 
 
+def _wkv_dispatch(r, k, v, w, u, state):
+    """``wkv_chunked``, or under a model mesh the reference's shard_map
+    region: r, k, v, w (B/data, T, H, hd) and state (B/data, H, hd, hd)
+    are the rank's batch shard with every head (the stream is the same
+    on every model rank); the rank runs ``wkv_chunked`` on its H/|model|
+    heads, and the heads are all-gathered over ``model`` where the
+    region's output leaves it."""
+    mesh = meshctx.current_mesh()
+    H = r.shape[2]
+    if mesh is not None and "model" in mesh.axis_names \
+            and meshctx.data_axes(mesh) and H % meshctx.model_size(mesh) == 0:
+        hs = H // meshctx.model_size(mesh)
+        lo = mesh.coords["model"] * hs
+        y, s = wkv_chunked(*(t[:, :, lo:lo + hs] for t in (r, k, v, w)),
+                           u[lo:lo + hs], state[:, lo:lo + hs])
+        return (meshctx.all_gather(y, "model", 2, mesh=mesh),
+                meshctx.all_gather(s, "model", 1, mesh=mesh))
+    return wkv_chunked(r, k, v, w, u, state)
+
+
 def time_mix(params, spec: RWKVSpec, x, *, prev_token=None, wkv_state=None):
     """RWKV6's attention replacement.  x: (B, T, D).  Returns (out,
     (x[:, -1], the new WKV state)): the carried token is the block's
@@ -200,7 +220,7 @@ def time_mix(params, spec: RWKVSpec, x, *, prev_token=None, wkv_state=None):
     w = torch.exp(-torch.exp((p["w0"] + lora).to(torch.float32)))
 
     if T > 1:
-        y, new_state = wkv_chunked(r, k, v, w, p["u"], wkv_state)
+        y, new_state = _wkv_dispatch(r, k, v, w, p["u"], wkv_state)
     else:
         y, new_state = wkv_scan(r, k, v, w, p["u"], wkv_state)
     y = y.reshape(B, T, H * hd).to(x.dtype)

@@ -888,6 +888,44 @@ def test_flash_kernel_matches_plain_and_is_deterministic(cuda, case, dtype):
         assert bool(((a.float() - want32).abs() <= allowed).all())
 
 
+# (B, T, H, KV, hd, window, block): a rank's block of queries at offsets
+# block r against all T keys; the last has a block and offsets that are no
+# multiple of a tile
+OFFSET_CASES = [(1, 512, 4, 2, 64, None, 128), (2, 640, 8, 2, 120, 100, 160),
+                (1, 700, 4, 1, 32, 64, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", OFFSET_CASES)
+def test_flash_q_offset_rows_are_the_full_launch_rows(cuda, case, dtype):
+    """A launch at query offset o on q[:, o:o + n] equals rows o..o + n of
+    the launch over all queries (every row is owned by one CTA and walks
+    its live kv tiles in one order; a masked tile adds exact zeros, or
+    junk the first live tile multiplies by 0), on both routes, and is
+    held to the route's plain twin; offset 0 is the launch without it."""
+    from repro_torch.kernels.attention import flash, ops, ref
+    B, T, H, KV, hd, window, n = case
+    q, k, v = _qkv((B, T, T, H, KV, hd), dtype, cuda, seed=3)
+    full = ops.attention(q, k, v, causal=True, sliding_window=window)
+    assert torch.equal(flash.flash_attention(
+        q, k, v, causal=True, sliding_window=window, q_offset=0), full)
+    twin = (ref.flash_attention_ref if dtype == torch.float32
+            else ref.flash_attention_tiled_ref)
+    for o in range(0, T, n):
+        qo = q[:, o:o + n]
+        got = ops.attention(qo, k, v, causal=True, sliding_window=window,
+                            q_offset=o)
+        assert torch.equal(got, full[:, o:o + n]), o
+        want = twin(qo, k, v, causal=True, sliding_window=window,
+                    q_offset=o)
+        tol = ATTN_TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.attention(q, k, v, q_offset=-1)
+
+
 @pytest.mark.cuda
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     from repro_torch.kernels.attention import flash, ops
@@ -948,7 +986,7 @@ def test_flash_routes_refuse_each_others_inputs(cuda):
         out = torch.empty_like(q)
         rc = lib.flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            flash._DTYPES[dtype], 1, 16, 16, 2, 1, hd, 1, 0, hd ** -0.5,
+            flash._DTYPES[dtype], 1, 16, 16, 2, 1, hd, 1, 0, 0, hd ** -0.5,
             flash.ROUTES["tensor_core"], stream)
         assert rc == 1                   # cudaErrorInvalidValue
 

@@ -1,6 +1,8 @@
 """The port stands alone: nothing under src/repro_torch/, neither chip
-script and none of the port's example scripts (examples/torch_*.py)
-imports jax or the JAX package (repro), at any nesting level."""
+script, none of the port's example scripts (examples/torch_*.py) and
+neither rank-body module of the tests (tests/torch_*_ranks.py, which
+rank processes import) imports jax or the JAX package (repro), at any
+nesting level."""
 
 import ast
 import os
@@ -18,6 +20,9 @@ def _files():
     examples = os.path.join(REPO, "examples")
     out += [os.path.join(examples, f) for f in os.listdir(examples)
             if f.startswith("torch_") and f.endswith(".py")]
+    tests = os.path.join(REPO, "tests")
+    out += [os.path.join(tests, f) for f in os.listdir(tests)
+            if f.startswith("torch_") and f.endswith("_ranks.py")]
     for dirpath, dirnames, filenames in os.walk(PORT):
         dirnames[:] = [d for d in dirnames if d != "__pycache__"]
         out += [os.path.join(dirpath, f) for f in filenames
@@ -56,8 +61,9 @@ def test_port_has_modules():
                    "configs/internvl2_26b.py",
                    "models/layers.py", "models/moe.py", "models/attention.py",
                    "models/rwkv.py", "models/mamba.py",
-                   "models/blocks.py", "models/model.py",
+                   "models/blocks.py", "models/model.py", "models/meshctx.py",
                    "launch/steps.py", "launch/serve.py", "launch/train.py",
+                   "launch/mesh.py", "launch/sharding.py", "launch/ranks.py",
                    "data/tokens.py"):
         assert os.path.join("src", "repro_torch", *module.split("/")) \
             in names

@@ -28,6 +28,8 @@ from repro_torch.configs import shapes
 from repro_torch.launch import steps
 from repro_torch.models import attention, blocks, layers, model
 
+import torch_mesh_ranks
+
 DENSE = ("h2o-danube-3-4b", "minitron-4b", "qwen3-14b", "qwen2-72b")
 MOE = ("granite-moe-1b-a400m", "kimi-k2-1t-a32b")
 RTOL = 1e-4
@@ -306,8 +308,8 @@ def test_entry_points_want_the_card_by_default():
 
 def test_unported_families_raise():
     """The audio and vlm families, once unported, now init, count and
-    (audio) cross-attend; an unknown family raises; sequence-parallel
-    attention still waits for a model mesh (item 16.10)."""
+    (audio) cross-attend; an unknown family raises; under a model mesh
+    the hybrid, audio and vlm families raise, naming item 16.12."""
     for arch in ("seamless-m4t-medium", "internvl2-26b"):
         cfg = configs.get_config(arch).reduced()
         params = model.init(0, cfg, device="cpu")
@@ -325,8 +327,13 @@ def test_unported_families_raise():
         model.init(0, cfg.with_(family="speech"), device="cpu")
     with pytest.raises(ValueError, match="unknown family"):
         cfg.with_(family="speech").param_count()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16.10"):
-        attention.apply_sequence_parallel()
+    tok = torch.zeros((1, 32), dtype=torch.long)
+    with torch_mesh_ranks.one_rank_mesh():
+        for arch in ("zamba2-2.7b", "seamless-m4t-medium", "internvl2-26b"):
+            cfg = configs.get_config(arch).reduced()
+            with pytest.raises(NotImplementedError, match="item 16.12"):
+                model.loss_fn(model.init(0, cfg, device="cpu"),
+                              {"tokens": tok, "labels": tok}, cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -39,6 +39,8 @@ from repro_torch.core import robust_train as trt
 from repro_torch.data.tokens import TokenStream
 from repro_torch.models import blocks, model, moe
 
+import torch_mesh_ranks
+
 TIE_ULPS = 4
 # (E, K, N, D): the reference unit tests' (4 experts of top-2), reduced
 # Granite's, Granite's own 32 of top-8, and a wider router
@@ -220,10 +222,20 @@ def test_apply_dense_gradients_match_jax(factor):
         assert err <= 1e-5 * float(np.abs(want).max()), (name, err)
 
 
-def test_expert_parallel_waits_for_a_model_mesh():
-    _, spec = _specs()
-    with pytest.raises(NotImplementedError, match="item 16.10"):
-        moe._apply_expert_parallel({}, spec, torch.zeros(1, 2, 16), None)
+def test_expert_parallel_on_one_rank_is_the_dense_layer():
+    """On a (1, 1) mesh every collective is the identity and the rank
+    holds every expert: ``apply`` takes the expert-parallel path, whose
+    output is the dense layer's bit for bit and whose aux (global sums
+    over the token count, against the dense means) is within 1e-6."""
+    jspec, spec = _specs()
+    _, p = _params(jspec)
+    x = torch.tensor(_x((2, 24, 16), 3))
+    want, waux = moe._apply_dense(p, spec, x)
+    with torch_mesh_ranks.one_rank_mesh() as mesh:
+        assert moe._ep_applicable(spec, x, mesh)
+        got, aux = moe.apply(p, spec, x)
+    assert torch.equal(got, want)
+    assert float(aux) == pytest.approx(float(waux), rel=1e-6)
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "kimi-k2-1t-a32b"])

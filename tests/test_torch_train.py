@@ -503,7 +503,7 @@ def test_mean_train_step_matches_jax():
 
 def test_group_step_refuses_grad_shardings():
     cfg = configs.get_config("minitron-4b").reduced()
-    with pytest.raises(NotImplementedError, match="item 16.10"):
+    with pytest.raises(NotImplementedError, match="item 16.11"):
         steps.make_group_train_step(cfg, trt.RobustConfig(num_workers=2),
                                     optim.sgd(0.1), grad_shardings={})
 
@@ -830,7 +830,7 @@ def test_moe_train_config_fits_the_card():
     assert train_lib.GPU_TRAIN_BYTES_PER_PARAM * nine \
         > train_lib.GPU_TRAIN_BUDGET_BYTES
     for arch in ("minitron-4b", "qwen3-14b", "qwen2-72b", "kimi-k2-1t-a32b"):
-        with pytest.raises(NotImplementedError, match="item 16.10"):
+        with pytest.raises(NotImplementedError, match="item 16.13"):
             train_lib.train_config(arch, "gpu")
 
 
@@ -857,7 +857,7 @@ def test_gpu_train_layers_keeps_whole_hybrid_groups():
     per = train_lib.GPU_TRAIN_BYTES_PER_PARAM
     assert per * full.with_(num_layers=12).param_count() \
         > train_lib.GPU_TRAIN_BUDGET_BYTES
-    with pytest.raises(NotImplementedError, match="item 16.10"):
+    with pytest.raises(NotImplementedError, match="item 16.13"):
         train_lib.train_config("rwkv6-7b", "gpu")
 
 

@@ -86,12 +86,12 @@ def test_config_and_param_count_equal_the_reference():
 
 def test_gpu_train_layers_refuses_naming_the_model_mesh():
     """One layer of InternVL2 reckons 169.5 GB a round: --scale gpu
-    raises, naming item 16.10, as RWKV6's does."""
+    raises, naming item 16.13 (several cards), as RWKV6's does."""
     full = configs.get_config(ARCH)
     one = full.with_(num_layers=1).param_count()
     assert train_lib.GPU_TRAIN_BYTES_PER_PARAM * one / 1e9 == \
         pytest.approx(169.5, abs=0.05)
-    with pytest.raises(NotImplementedError, match="item 16.10"):
+    with pytest.raises(NotImplementedError, match="item 16.13"):
         train_lib.gpu_train_layers(full)
     with pytest.raises(NotImplementedError, match="169.5 GB"):
         train_lib.train_config(ARCH, "gpu")
