@@ -4027,6 +4027,490 @@ def mesh_path(dev, hbm, smi):
     return by_route, sp_row
 
 
+# -- phase 13: the group train step on the model mesh -------------------------
+
+# (a) H2O-Danube3-4B at its train depth and full width (2 layers, bf16,
+# remat) on a (2, 2) ("data", "model") mesh of 4 rank processes of the
+# card: params and AdamW state as FSDP storage blocks, k = 4 groups of 2
+# sequences of 512 (one a group a data rank), q = 1, gmom under
+# sign_flip, one microbatch; 2 shard-local steps (the reference's
+# partitioned spec: the reference round on the 2D layout) and 1 gathered
+# step (the stacked gradients gathered whole, the round kernel on every
+# rank, the ranks taking turns on the card for its (k, P) f32 block and
+# scratch); (b) the reduced granite-moe-1b-a400m (capacity factor 8.0)
+# and rwkv6-7b on (2, 2), f32, SGD, 2 steps of each variant.  Each is
+# held to one process on the card at the same settings, computed first.
+MESH_TRAIN = {"k": 4, "q": 1, "batch": 8, "microbatches": 1, "lr": 1e-3}
+MESH_TRAIN_STEPS = {"shard_local": 2, "gathered": 1}
+MESH_TRAIN_CUTS = ["24 layers cut to 2 (launch/train.py gpu_train_layers)",
+                   "seq_len 512, one sequence a group a data rank"]
+MESH_TRAIN_SEED = 0
+# the first step's aggregate against one process's, each leaf's
+# ||mesh - one|| over ||one||: both round bf16 gradients summed in
+# another order (about 2**-8 of a coordinate), and GMoM moves with its
+# inputs; a missing, flipped or misplaced aggregate is off by 1 or more
+MESH_TRAIN_AGG_RTOL = 2.0 ** -5
+MESH_TRAIN_REDUCED = ("granite-moe-1b-a400m", "rwkv6-7b")
+MESH_TRAIN_REDUCED_RC = {"k": 4, "q": 1, "batch": 8, "seq": 64,
+                         "lr": 0.1, "steps": 2}
+MESH_TRAIN_REDUCED_RTOL = 1e-4
+
+
+def _mesh_train_rc(k, q, backend):
+    from repro_torch.core import RobustConfig
+    return RobustConfig(num_workers=k, num_byzantine=q, num_batches=k,
+                        aggregator="gmom", attack="sign_flip",
+                        round_backend=backend)
+
+
+def _mesh_train_stream(cfg, dev):
+    from repro_torch.data.tokens import TokenStream
+    return TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                       global_batch=MESH_TRAIN["batch"],
+                       num_workers=MESH_TRAIN["k"], seed=MESH_TRAIN_SEED,
+                       device=dev)
+
+
+def _mesh_train_key(dev):
+    from repro_torch import random as prng
+    return prng.fold_in(prng.PRNGKey(MESH_TRAIN_SEED, device=dev), 10_000)
+
+
+def mesh_train_reference(dev, backend, steps_n):
+    """One process, phase 13 (a)'s settings: (rows, s per step, peak GB,
+    the first step's aggregate on the CPU)."""
+    import torch
+    from torch.utils._pytree import tree_map
+    from repro_torch import optim
+    from repro_torch import random as prng
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model
+    g = MESH_TRAIN
+    cfg = train_lib.train_config(TRAIN_ARCH, "gpu").with_(remat=True)
+    opt = optim.adamw(g["lr"])
+    step = steps.make_group_train_step(
+        cfg, _mesh_train_rc(g["k"], g["q"], backend), opt,
+        microbatches=g["microbatches"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(MESH_TRAIN_SEED, cfg, device=dev)
+    opt_state = opt.init(params)
+    stream, key = _mesh_train_stream(cfg, dev), _mesh_train_key(dev)
+    rows, held = [], []
+    real_agg = steps.aggregate_reported
+
+    def agg_hook(*a, **kw):
+        out = real_agg(*a, **kw)
+        if not held:
+            held.append(tree_map(lambda x: x.cpu(), out))
+        return out
+    steps.aggregate_reported = agg_hook
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(steps_n):
+            params, opt_state, met = step(params, opt_state,
+                                          stream.batch(t),
+                                          prng.fold_in(key, t), t)
+            rows.append({name: float(v) for name, v in met.items()})
+        torch.cuda.synchronize()
+    finally:
+        steps.aggregate_reported = real_agg
+    seconds = (time.perf_counter() - t0) / steps_n
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return rows, seconds, peak, held[0]
+
+
+def _digest(tree) -> str:
+    """The sha256 of every leaf's bytes, in leaf order."""
+    import hashlib
+
+    import torch
+    from torch.utils._pytree import tree_leaves
+    h = hashlib.sha256()
+    for t in tree_leaves(tree):
+        h.update(t.detach().contiguous().view(-1).view(
+            torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _update_exact(opt, p0, agg, p1) -> bool:
+    """Whether ``p1`` is ``p0`` after ``opt``'s first update with the
+    aggregate ``agg``, bit for bit, as the step applies it (whole leaves,
+    one at a time)."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+    ok = True
+    for p, g, q in zip(tree_leaves(p0), tree_leaves(agg), tree_leaves(p1)):
+        u, _ = opt.update([g], opt.init([p]), [p])
+        ok = ok and torch.equal((p + u[0]).to(p.dtype), q)
+    return ok
+
+
+def _mesh_train_variant(cfg, mesh, variant, full, specs, dev, steps_n,
+                        rc, opt, batches, keys, check_first=False):
+    """``steps_n`` mesh steps of one variant from ``full``'s storage
+    blocks -> a dict of this rank's rows, s, stage s and staged
+    collectives a step, round-kernel launches and the kernel's ms, peak
+    GB, the gathered variant's aggregates' digests, and
+    (``check_first``) on rank 0 the first step's aggregate whole on the
+    CPU and whether the whole params after that step are ``full`` after
+    ``opt``'s update with it, bit for bit: the aggregate cut back into
+    the storage blocks and applied there.  The stages are timed with the
+    card synchronised at their edges: the gradients (the model's own
+    collectives included), the storage-to-compute gather (and the
+    gathered variant's stacked gather), the reduce-scatter, the
+    aggregation (the gathered variant's turns included) and AdamW; the
+    rest is the attack, the stacking and the update."""
+    import dataclasses
+
+    import torch
+    from torch.utils._pytree import tree_map
+    from repro_torch.kernels.geomed import round as rk
+    from repro_torch.launch import sharding, steps
+    spec = sharding.grad_shard_spec(mesh, cfg)
+    if variant == "gathered":
+        gshard = sharding.gathered_grad_shardings(full, mesh)
+        spec = dataclasses.replace(spec, num_shards=1)
+    else:
+        gshard = sharding.stacked_grad_shardings(full, mesh, cfg)
+    stage = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize(dev)
+            stage[name] = stage.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    step = steps.make_group_train_step(
+        cfg, rc, dataclasses.replace(opt, update=timed("adamw", opt.update)),
+        microbatches=MESH_TRAIN["microbatches"], grad_shardings=gshard,
+        shard_spec=spec)
+    storage = sharding.cut_tree(full, specs, mesh)
+    opt_state = opt.init(storage)
+    held, kernel_ms = [], []
+    real_kernel = rk.round_aggregate_kernel
+    real_agg = steps.aggregate_reported
+
+    def agg_hook(*a, **kw):
+        out = real_agg(*a, **kw)
+        held.append(out)
+        return out
+
+    def kernel_hook(*a, **kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = real_kernel(*a, **kw)
+        torch.cuda.synchronize(dev)
+        kernel_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    # the wrapper counts its launches on the name it is called by
+    kernel_hook.launches = start = real_kernel.launches
+    patched = [(steps, "_value_and_grad", "grads"),
+               (sharding, "compute_params", "gather"),
+               (sharding, "gather_tree", "gather"),
+               (sharding, "storage_grads", "scatter")]
+    real = [getattr(mod, name) for mod, name, _ in patched]
+    for (mod, name, label), fn in zip(patched, real):
+        setattr(mod, name, timed(label, fn))
+    steps.aggregate_reported = timed("aggregate", agg_hook)
+    rk.round_aggregate_kernel = kernel_hook
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows, secs, stages, staged, digests, first = [], [], [], [], [], {}
+    try:
+        for t in range(steps_n):
+            batch = sharding.local_train_batch(batches(t), mesh, cfg)
+            mesh.reset_stats()
+            stage.clear()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            storage, opt_state, met = step(storage, opt_state, batch,
+                                           keys(t), t)
+            torch.cuda.synchronize(dev)
+            secs.append(time.perf_counter() - t0)
+            stages.append(dict(stage, rest=secs[-1] - sum(stage.values())))
+            staged.append(dict(mesh.stats))
+            rows.append({name: float(v) for name, v in met.items()})
+            if variant == "gathered":
+                digests.extend(_digest(agg) for agg in held)
+            if check_first and t == 0:
+                untimed_gather = real[2]
+                agg = held[0] if variant == "gathered" \
+                    else untimed_gather(held[0], specs, mesh)
+                whole = untimed_gather(storage, specs, mesh)
+                if mesh.rank == 0:
+                    first = {"agg": tree_map(lambda x: x.cpu(), agg),
+                             "update_exact": _update_exact(opt, full, agg,
+                                                           whole)}
+                del agg, whole
+            held.clear()
+    finally:
+        for (mod, name, _), fn in zip(patched, real):
+            setattr(mod, name, fn)
+        real_kernel.launches = rk.round_aggregate_kernel.launches
+        steps.aggregate_reported, rk.round_aggregate_kernel = \
+            real_agg, real_kernel
+    out = {"rows": rows, "s_per_step": secs, "stages": stages,
+           "staged": staged, "launches": real_kernel.launches - start,
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "digests": digests, "kernel_ms": kernel_ms, "whole": None,
+           "first": first}
+    if not check_first:
+        whole = sharding.gather_tree(storage, specs, mesh)
+        if mesh.rank == 0:
+            out["whole"] = tree_map(lambda x: x.cpu(), whole)
+        del whole
+    del storage, opt_state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_train_rank(rank, world, device):
+    """Phase 13 (a) and (b) on one rank of the card."""
+    import torch
+    from repro_torch import optim
+    from repro_torch import random as prng
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import meshctx, model
+    dev = torch.device(device)
+    torch.set_float32_matmul_precision("highest")
+    square = mesh_lib.make_mesh((2, world // 2), ("data", "model"))
+    out = {"coords": dict(square.coords)}
+    g = MESH_TRAIN
+    # (a) H2O-Danube3-4B at full width, 2 layers
+    cfg = train_lib.train_config(TRAIN_ARCH, "gpu").with_(remat=True)
+    full = model.init(MESH_TRAIN_SEED, cfg, device=dev)
+    specs = sharding.param_shardings(full, square, cfg)
+    stream, key = _mesh_train_stream(cfg, dev), _mesh_train_key(dev)
+    with meshctx.set_mesh(square):
+        for variant, n in MESH_TRAIN_STEPS.items():
+            out[("h2o", variant)] = _mesh_train_variant(
+                cfg, square, variant, full, specs, dev, n,
+                _mesh_train_rc(g["k"], g["q"], "auto"),
+                optim.adamw(g["lr"]), stream.batch,
+                lambda t: prng.fold_in(key, t), check_first=True)
+    del full
+    torch.cuda.empty_cache()
+    # (b) the reduced MoE and ssm families, f32, SGD
+    r = MESH_TRAIN_REDUCED_RC
+    for arch in MESH_TRAIN_REDUCED:
+        rcfg = _mesh_cfg(arch, reduced=True)
+        full = model.init(3, rcfg, device=dev)
+        rspecs = sharding.param_shardings(full, square, rcfg)
+        tokens = [_mesh_tokens(rcfg, r["batch"], r["seq"], dev, seed=5 + t)
+                  for t in range(r["steps"])]
+
+        def batches(t, tokens=tokens):
+            tok = tokens[t].reshape(r["k"], -1, r["seq"])
+            return {"tokens": tok, "labels": tok.roll(-1, -1)}
+        with meshctx.set_mesh(square):
+            for variant in ("shard_local", "gathered"):
+                out[(arch, variant)] = _mesh_train_variant(
+                    rcfg, square, variant, full, rspecs, dev, r["steps"],
+                    _mesh_train_rc(r["k"], r["q"], "auto"),
+                    optim.sgd(r["lr"]), batches,
+                    lambda t: prng.PRNGKey(11 + t, device=dev))
+        del full
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_reduced_reference(dev, arch, backend):
+    """One process, phase 13 (b): (rows, the params after the steps on
+    the CPU)."""
+    import torch
+    from torch.utils._pytree import tree_map
+    from repro_torch import optim
+    from repro_torch import random as prng
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    r = MESH_TRAIN_REDUCED_RC
+    rcfg = _mesh_cfg(arch, reduced=True)
+    opt = optim.sgd(r["lr"])
+    step = steps.make_group_train_step(
+        rcfg, _mesh_train_rc(r["k"], r["q"], backend), opt)
+    params = model.init(3, rcfg, device=dev)
+    state = opt.init(params)
+    rows = []
+    for t in range(r["steps"]):
+        tok = _mesh_tokens(rcfg, r["batch"], r["seq"], dev,
+                           seed=5 + t).reshape(r["k"], -1, r["seq"])
+        params, state, met = step(params, state,
+                                  {"tokens": tok, "labels": tok.roll(-1, -1)},
+                                  prng.PRNGKey(11 + t, device=dev), t)
+        rows.append({name: float(v) for name, v in met.items()})
+    return rows, tree_map(lambda x: x.cpu(), params)
+
+
+def _leaves_close(got, want, rtol, atol):
+    """(ok, worst error over the leaf's max|want|) of two param trees."""
+    from torch.utils._pytree import tree_leaves
+    worst, ok = 0.0, True
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = a.float(), b.float()
+        err = float((a - b).abs().max())
+        top = float(b.abs().max())
+        ok = ok and a.shape == b.shape and bool(a.isfinite().all()) \
+            and err <= rtol * top + atol
+        worst = max(worst, err / (top + 1e-12))
+    return ok, worst
+
+
+def _worst_rel_norm(got, want, dev=None) -> float:
+    """The largest ||got - want|| / ||want|| over the leaves of two trees,
+    each pair taken to ``dev`` (inf where a shape differs or a value is
+    not finite)."""
+    from torch.utils._pytree import tree_leaves
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        a, b = a.to(dev).float(), b.to(dev).float()
+        if a.shape != b.shape or not bool(a.isfinite().all()):
+            return float("inf")
+        worst = max(worst, float((a - b).norm() / b.norm().clamp_min(1e-30)))
+    return worst
+
+
+def mesh_train_path(dev, smi):
+    """Phase 13: the group train step on the mesh, 4 rank processes of the
+    card -> (round-kernel launches, the round row's ``mesh_train_shape``)."""
+    import torch
+    from repro_torch.launch import ranks
+    from repro_torch.launch import train as train_lib
+    from repro_torch.sim.goldens import compare_traces
+    t0 = time.perf_counter()
+    refs = {b: mesh_train_reference(dev, b, MESH_TRAIN_STEPS["shard_local"])
+            for b in ("auto", "reference")}
+    reduced_refs = {(arch, b): mesh_train_reduced_reference(dev, arch, b)
+                    for arch in MESH_TRAIN_REDUCED
+                    for b in ("reference", "auto")}
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    per_rank = ranks.run(_mesh_train_rank, MESH_RANKS, dev.type,
+                         timeout=900.0)
+    ranks_s = time.perf_counter() - t1
+    cfg = train_lib.train_config(TRAIN_ARCH, "gpu")
+    P = cfg_param_leaves(cfg)
+    launches = gathered_launches = 0
+    kernel_ms = []
+    # (a) H2O at full width
+    for variant, n in MESH_TRAIN_STEPS.items():
+        res = [pr[("h2o", variant)] for pr in per_rank]
+        backend = "auto" if variant == "gathered" else "reference"
+        want_rows = refs[backend][0][:n]
+        vs = [compare_traces(_compared(x["rows"]), _compared(want_rows))
+              for x in res]
+        same_rows = all(x["rows"] == res[0]["rows"] for x in res)
+        want_launches = n if variant == "gathered" else 0
+        n_launch = [x["launches"] for x in res]
+        launches += sum(n_launch)
+        check(not any(vs), f"mesh train (a) {variant}: vs one process "
+                           f"{vs[0][:3]}")
+        check(same_rows, f"mesh train (a) {variant}: ranks' metrics differ")
+        check(all(x == want_launches for x in n_launch),
+              f"mesh train (a) {variant}: round-kernel launches by rank "
+              f"{n_launch}, want {want_launches}")
+        line = {"phase": "mesh_train", "part": "a", "arch": TRAIN_ARCH,
+                "variant": variant, "mesh": {"data": 2, "model": 2},
+                "num_layers": cfg.num_layers, "param_leaves": P,
+                "reduced": MESH_TRAIN_CUTS, **MESH_TRAIN, "steps": n,
+                "history_by_rank0": res[0]["rows"],
+                "history_one_process": want_rows,
+                "one_process_backend": backend,
+                "launches_by_rank": n_launch,
+                "s_per_step_by_rank": [x["s_per_step"] for x in res],
+                "s_per_step_one_process": refs[backend][1],
+                "staged_by_rank": [x["staged"] for x in res],
+                "stage_s_by_rank": [x["stages"] for x in res],
+                "staged_gb_per_step_by_rank": [
+                    [st["bytes"] / 1e9 for st in x["staged"]] for x in res],
+                "staged_share_by_rank": [
+                    [st["ms"] / 1e3 / s for st, s in zip(x["staged"],
+                                                        x["s_per_step"])]
+                    for x in res],
+                "peak_gb_by_rank": [x["peak_gb"] for x in res],
+                "peak_gb_one_process": refs[backend][2],
+                "ok": not any(vs) and same_rows, "card": smi}
+        first = res[0]["first"]
+        agg_err = _worst_rel_norm(first["agg"], refs[backend][3], dev)
+        agg_ok = agg_err <= MESH_TRAIN_AGG_RTOL
+        check(agg_ok, f"mesh train (a) {variant}: the first step's aggregate "
+                      f"{agg_err} from one process's (relative norm)")
+        check(first["update_exact"], f"mesh train (a) {variant}: the params "
+                                     "after one step are not the update "
+                                     "of the aggregate")
+        line.update(agg_worst_rel_norm_err=agg_err,
+                    agg_rtol=MESH_TRAIN_AGG_RTOL,
+                    update_of_aggregate_exact=first["update_exact"])
+        line["ok"] = line["ok"] and agg_ok and first["update_exact"]
+        if variant == "gathered":
+            gathered_launches = sum(n_launch)
+            digests = [x["digests"] for x in res]
+            equal = all(d == digests[0] and len(d) == n for d in digests)
+            check(equal, f"mesh train (a) gathered: aggregates differ "
+                         f"across ranks {digests}")
+            kernel_ms = [ms for x in res for ms in x["kernel_ms"]]
+            line.update(aggregate_equal_across_ranks=equal,
+                        kernel_ms_by_rank=[x["kernel_ms"] for x in res])
+        emit(line)
+    # (b) the reduced MoE and ssm families
+    r = MESH_TRAIN_REDUCED_RC
+    for arch in MESH_TRAIN_REDUCED:
+        for variant in ("shard_local", "gathered"):
+            res = [pr[(arch, variant)] for pr in per_rank]
+            backend = "auto" if variant == "gathered" else "reference"
+            want_rows, want_params = reduced_refs[(arch, backend)]
+            bad = [name for t, row in enumerate(res[0]["rows"])
+                   for name, v in row.items()
+                   if abs(v - want_rows[t][name]) > MESH_TRAIN_REDUCED_RTOL
+                   * abs(want_rows[t][name]) + 1e-7]
+            ok_p, worst = _leaves_close(res[0]["whole"], want_params,
+                                        MESH_TRAIN_REDUCED_RTOL, 1e-7)
+            same_rows = all(x["rows"] == res[0]["rows"] for x in res)
+            want_launches = r["steps"] if variant == "gathered" else 0
+            n_launch = [x["launches"] for x in res]
+            launches += sum(n_launch)
+            ok = not bad and ok_p and same_rows and all(
+                x == want_launches for x in n_launch)
+            check(ok, f"mesh train (b) {arch} {variant}: metrics off {bad}, "
+                      f"params worst {worst}, launches {n_launch}")
+            emit({"phase": "mesh_train", "part": "b",
+                  "arch": arch + "-reduced", "variant": variant,
+                  "overrides": MESH_REDUCED_OVERRIDES.get(arch, {}),
+                  "mesh": {"data": 2, "model": 2}, **r,
+                  "history_by_rank0": res[0]["rows"],
+                  "history_one_process": want_rows,
+                  "params_worst_rel_err": worst,
+                  "rtol": MESH_TRAIN_REDUCED_RTOL,
+                  "launches_by_rank": n_launch,
+                  "s_per_step_by_rank0": res[0]["s_per_step"], "ok": ok})
+    emit({"phase": "mesh_train", "seconds": time.perf_counter() - t0,
+          "references_s": ref_s, "ranks_wall_s": ranks_s, "card": smi})
+    return launches, {"shape": [MESH_TRAIN["k"], MESH_TRAIN["k"], P],
+                      "kernel_ms": (sorted(kernel_ms)[len(kernel_ms) // 2]
+                                    if kernel_ms else None),
+                      "kernel_ms_by_rank": kernel_ms,
+                      "launches": gathered_launches}
+
+
+def cfg_param_leaves(cfg) -> int:
+    """The number of parameters in ``cfg``'s leaves (the round's d)."""
+    import math
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.launch import sharding
+    return sum(math.prod(x.shape) for x in tree_leaves(
+        sharding.param_shapes(cfg), is_leaf=lambda x: hasattr(x, "shape")))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4293,6 +4777,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_routes, sp_row = mesh_path(dev, hbm, smi)
 
+    # -- 13 mesh train: the group step on the model mesh ---------------------
+    torch.cuda.empty_cache()
+    mt_launches, mt_row = mesh_train_path(dev, smi)
+    main_launches += mt_launches
+
     # -- 7 the kernel line --------------------------------------------------
     csrc = "src/repro_torch/kernels/"
     rows = (("round_aggregate", "geomed/csrc/round_aggregate.cu",
@@ -4351,6 +4840,8 @@ def main() -> int:
         line[0][key] = {"shape": list(t["shape"]), **{k: t[k] for k in (
             "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err", "iters", "iters_plain")}}
+    # and phase 13's gathered mesh steps: one launch a rank at (k, k, P)
+    line[0]["mesh_train_shape"] = mt_row
     # the linreg round's row is its one-pass route at LINREG_MAIN
     line[1].update(kernel_route="one_pass", launches_by_route=linreg_routes)
     # flash attention's row is its tensor-core route at ATTN_MAIN (bf16);

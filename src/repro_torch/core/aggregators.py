@@ -47,7 +47,8 @@ from typing import Callable
 
 import numpy as np
 import torch
-from torch.utils._pytree import tree_leaves, tree_map
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_map, \
+    tree_unflatten
 
 from repro_torch import random as prng
 from repro_torch.core import shard_aggregation as sa
@@ -584,11 +585,12 @@ def gmom_per_leaf_aggregator(stacked_grads, *, num_batches: int | None = None,
     means = batch_means(stacked_grads, num_batches, scheme=grouping_scheme)
 
     if shard_spec is not None and shard_spec.blocked:
-        def leaf_blocked(z):
-            return geometric_median_pytree(
+        leaves, tspec = tree_flatten(means)
+        return tree_unflatten(
+            [geometric_median_pytree(
                 {"x": z}, max_iters=max_iters, tol=tol,
-                shard_spec=shard_spec)["x"]
-        return tree_map(leaf_blocked, means)
+                shard_spec=sa.leaf_spec(shard_spec, i))["x"]
+             for i, z in enumerate(leaves)], tspec)
 
     def leaf(z):
         flat = z.reshape(z.shape[0], -1).to(torch.float32)

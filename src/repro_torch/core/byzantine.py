@@ -17,6 +17,13 @@ The reference rolls rounds into ``lax.scan`` and branches with
 ``lax.cond``; here rounds are a Python loop, ``round_index`` is a Python
 int, and a branch on a device flag (``stealth_then_strike``) reads one
 scalar back per round.
+
+On the 2D layout (``shard_aggregation.use_layout``, the mesh train step)
+the stacked leaves are a rank's blocks: the coordinate-wise attacks run
+as they are; the global norms (``norm_stealth``, ``colluding_mimic``,
+``stealth_then_strike``) are the layout's blocked sums;
+``anti_aggregation`` passes the layout to GMoM; and the random draws
+take each leaf whole from the unsharded key and keep the rank's block.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from torch.utils._pytree import tree_flatten, tree_leaves, tree_map, \
 
 from repro_torch import random as prng
 from repro_torch import tree as jtree
+from repro_torch.core import shard_aggregation as sa
 from repro_torch.core.geometric_median import batch_mean_norms, median
 
 AttackFn = Callable[..., object]
@@ -169,12 +177,14 @@ def norm_stealth_attack(stacked_grads, byz_mask, key, *,
                         trim_multiplier: float = 3.0, safety: float = 0.9,
                         **_kw):
     del key
-    norms = batch_mean_norms(stacked_grads)          # (m,) honest pre-attack
+    layout = sa.current_layout()
+    norms = batch_mean_norms(stacked_grads,           # (m,) honest
+                             shard_spec=layout)       # pre-attack
     tau = safety * trim_multiplier * median(norms)
     leaves, spec = tree_flatten(stacked_grads)
     mu = [torch.mean(leaf.to(torch.float32), dim=0, keepdim=True)
           for leaf in leaves]
-    mu_norm = torch.sqrt(sum(torch.sum(torch.square(x)) for x in mu))
+    mu_norm = torch.sqrt(sa.sq_norm(layout, mu, lead_axes=1))
     scale = tau / torch.clamp(mu_norm, min=1e-12)
     malicious = tree_unflatten(
         [(-scale * x).expand(leaf.shape).to(leaf.dtype)
@@ -195,12 +205,25 @@ def _per_leaf_keys(stacked_grads, key):
     return leaves, prng.split(key, len(leaves))
 
 
+def _layout_specs(stacked_grads):
+    """Each leaf's own spec of the ambient layout (None without one), in
+    JAX's leaf order."""
+    layout = sa.current_layout()
+    leaves, spec = tree_flatten(stacked_grads)
+    order = jtree.leaves(tree_unflatten(list(range(len(leaves))), spec))
+    return [sa.leaf_spec(layout, i) for i in order] if layout is not None \
+        else [None] * len(leaves)
+
+
 @register("random_noise", "report large gaussian noise")
 def random_noise_attack(stacked_grads, byz_mask, key, *,
                         scale: float = 100.0, **_kw):
     leaves, keys = _per_leaf_keys(stacked_grads, key)
-    noisy = [(scale * prng.normal(k, leaf.shape)).to(leaf.dtype)
-             for k, leaf in zip(keys, leaves)]
+    noisy = [(scale * sa.draw_block(s, leaf,
+                                    lambda shape, k=k: prng.normal(k, shape))
+              ).to(leaf.dtype)
+             for k, leaf, s in zip(keys, leaves,
+                                   _layout_specs(stacked_grads))]
     return _where_byz(byz_mask, jtree.unflatten(stacked_grads, noisy),
                       stacked_grads)
 
@@ -227,16 +250,21 @@ def mean_shift_attack(stacked_grads, byz_mask, key, *, scale: float = 1e3,
           "point far away, forming a fake cluster to drag the median")
 def colluding_mimic_attack(stacked_grads, byz_mask, key, *,
                            scale: float = 50.0, **_kw):
-    def mal(g, k):
+    def norm(x, s):
+        if s is None:
+            return torch.linalg.norm(x)
+        return torch.sqrt(sa.sq_norm(s, [x], lead_axes=1))
+
+    def mal(g, k, s):
         mu = torch.mean(g, dim=0, keepdim=True)
-        direction = prng.normal(k, mu.shape)
-        direction = direction / torch.clamp(torch.linalg.norm(direction),
-                                            min=1e-12)
-        point = mu + scale * torch.linalg.norm(mu) * direction.to(g.dtype)
+        direction = sa.draw_block(s, mu, lambda shape: prng.normal(k, shape))
+        direction = direction / torch.clamp(norm(direction, s), min=1e-12)
+        point = mu + scale * norm(mu, s) * direction.to(g.dtype)
         return point.expand(g.shape).to(g.dtype)
     leaves, keys = _per_leaf_keys(stacked_grads, key)
-    malicious = jtree.unflatten(stacked_grads,
-                                [mal(g, k) for g, k in zip(leaves, keys)])
+    malicious = jtree.unflatten(
+        stacked_grads, [mal(g, k, s) for g, k, s in zip(
+            leaves, keys, _layout_specs(stacked_grads))])
     return _where_byz(byz_mask, malicious, stacked_grads)
 
 
@@ -252,7 +280,8 @@ def anti_aggregation_attack(stacked_grads, byz_mask, key, *,
     while m % nb != 0:
         nb -= 1
     honest_est = agg.gmom_aggregator(stacked_grads, num_batches=nb,
-                                     trim_multiplier=None, max_iters=8)
+                                     trim_multiplier=None, max_iters=8,
+                                     shard_spec=sa.current_layout())
     malicious = tree_map(
         lambda e, g: (-scale * e[None]).expand(g.shape).to(g.dtype),
         honest_est, stacked_grads)
@@ -470,9 +499,9 @@ def stealth_then_strike_schedule(*, num_workers, num_byzantine,
 
     def apply(stacked, key, round_index, state):
         del round_index
-        norm = torch.sqrt(sum(
-            torch.sum(torch.square(torch.mean(leaf, dim=0).to(torch.float32)))
-            for leaf in tree_leaves(stacked)))
+        norm = torch.sqrt(sa.sq_norm(sa.current_layout(), [
+            torch.mean(leaf, dim=0).to(torch.float32)
+            for leaf in tree_leaves(stacked)]))
         first = state["init_norm"] < 0.0
         init_norm = torch.where(first, norm, state["init_norm"])
         ema = torch.where(first, norm,

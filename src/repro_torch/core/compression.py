@@ -189,6 +189,10 @@ def _int8_encode(stacked, *, key=None, shard_spec=None):
         raise ValueError(
             "int8_stochastic requires a PRNG key for stochastic rounding "
             "(aggregate_reported threads a per-round key automatically)")
+    if shard_spec is not None and shard_spec.layout is not None:
+        raise NotImplementedError(
+            "the int8_stochastic wire on the 2D layout (per-block keys and "
+            "scales): ROADMAP Queue 1 item 16.14")
     blocked = shard_spec is not None and shard_spec.blocked
     q_leaves, s_leaves = [], []
     for i, g in enumerate(jtree.leaves(stacked)):

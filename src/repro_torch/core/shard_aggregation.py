@@ -35,11 +35,28 @@ Partitioning convention (both blocked modes): a stacked leaf with at least
 one parameter dim (``ndim > lead_axes``) is split on its LAST dim, which
 must divide by ``num_shards``; a leaf with no parameter dims (a stacked
 scalar, shape ``(m,)``) is replicated and its partial belongs to shard 0.
+
+The 2D layout (:func:`layout_spec`): a ``ShardSpec`` with ``layout``
+carries each stacked leaf's spec tuple (``launch.sharding.
+stacked_grad_shardings``, in ``tree_leaves`` order) over a model mesh of
+``mesh_shape``, so a leaf may be cut on any dims, over ``data``,
+``model`` or both.  Each rank's partial is over its own blocks; a block
+replicated over some axes is counted only by the rank at coordinate 0 on
+them; the partials are gathered over the whole mesh in rank order and
+chain-summed.  The ``virtual`` oracle cuts the whole leaves by the same
+specs, rank by rank (``meshctx.cut``), so the two give the same bits.
+Code that reduces a stacked tree without a ``shard_spec`` argument (the
+attacks and schedules, the optimizer's clip norm) reads the layout
+installed by :func:`use_layout`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
+import itertools
+import math
 
 import torch
 import torch.distributed as dist
@@ -68,6 +85,8 @@ class ShardSpec:
     mode: str = "gspmd"
     axis: str = "model"
     target_backend: str | None = None
+    layout: tuple | None = None
+    mesh_shape: tuple = ()
 
     def __post_init__(self):
         if self.mode not in _MODES:
@@ -76,10 +95,21 @@ class ShardSpec:
         if self.num_shards < 1:
             raise ValueError(f"num_shards must be >= 1, got "
                              f"{self.num_shards}")
+        if self.layout is not None:
+            if self.mode == "gspmd":
+                raise ValueError("a layout ShardSpec runs blocked "
+                                 "reductions: mode 'shard_map' or 'virtual'")
+            names = {a for a, _ in self.mesh_shape}
+            for s in self.layout:
+                if not meshctx.spec_axes(s) <= names:
+                    raise ValueError(f"layout spec {s} names an axis not in "
+                                     f"the mesh {self.mesh_shape}")
 
     @property
     def partitioned(self) -> bool:
         """Stacked gradients arrive as per-shard slices (any mode)."""
+        if self.layout is not None:
+            return any(meshctx.spec_axes(s) for s in self.layout)
         return self.num_shards > 1
 
     @property
@@ -87,6 +117,75 @@ class ShardSpec:
         """Reductions take the canonical blocked order (``shard_map`` or
         its ``virtual`` oracle)."""
         return self.partitioned and self.mode in ("shard_map", "virtual")
+
+
+def layout_spec(layout, mesh_shape, *, mode: str = "shard_map",
+                target_backend: str | None = None) -> ShardSpec:
+    """The 2D layout's spec: ``layout`` the stacked leaves' spec tuples in
+    ``tree_leaves`` order, ``mesh_shape`` the mesh's ((axis, size), ...)
+    in mesh order."""
+    mesh_shape = tuple((str(a), int(n)) for a, n in mesh_shape)
+    return ShardSpec(num_shards=math.prod(n for _, n in mesh_shape),
+                     mode=mode, axis="mesh", target_backend=target_backend,
+                     layout=tuple(tuple(s) for s in layout),
+                     mesh_shape=mesh_shape)
+
+
+_LAYOUT: contextvars.ContextVar = contextvars.ContextVar("shard_layout",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def use_layout(spec: ShardSpec | None):
+    """Install ``spec`` (a layout spec, or None) as the layout that code
+    reducing a stacked tree without a ``shard_spec`` argument reads."""
+    token = _LAYOUT.set(spec)
+    try:
+        yield spec
+    finally:
+        _LAYOUT.reset(token)
+
+
+def current_layout() -> ShardSpec | None:
+    return _LAYOUT.get()
+
+
+def leaf_spec(spec: ShardSpec | None, i: int) -> ShardSpec | None:
+    """The spec of leaf ``i`` alone: a layout spec cut to its one entry;
+    any other spec as it is."""
+    if spec is None or spec.layout is None:
+        return spec
+    return dataclasses.replace(spec, layout=(spec.layout[i],))
+
+
+def sq_norm(spec: ShardSpec | None, arrays, *, lead_axes: int = 0):
+    """The f32 sum of squares of every array, as one blocked sum where
+    ``spec`` is blocked."""
+    return blocked_partial_sum(
+        spec, list(arrays),
+        lambda x: torch.sum(torch.square(x.to(torch.float32))),
+        shape=(), lead_axes=lead_axes)
+
+
+def draw_block(spec: ShardSpec | None, block, draw):
+    """``draw(shape)`` of the whole leaf whose block is ``block`` (``spec``
+    that leaf's own, ``leaf_spec``), cut to this rank's block under a
+    ``shard_map`` layout, whole otherwise: each rank draws the unsharded
+    bits and keeps its own."""
+    if spec is None or spec.layout is None or spec.mode != "shard_map":
+        return draw(tuple(block.shape))
+    mesh = _layout_mesh(spec)
+    s = spec.layout[0][1:]
+    whole = draw(meshctx.whole_shape(tuple(block.shape), s, mesh.shape))
+    return meshctx.cut(whole, s, mesh.coords, mesh.shape)
+
+
+def _layout_mesh(spec: ShardSpec):
+    mesh = meshctx.current_mesh()
+    if mesh is None or tuple(mesh.shape.items()) != spec.mesh_shape:
+        raise ValueError(f"a shard_map layout over {spec.mesh_shape} runs "
+                         "under that model mesh (meshctx.set_mesh)")
+    return mesh
 
 
 def target_backend_of(spec: ShardSpec | None) -> str | None:
@@ -180,6 +279,8 @@ def blocked_partial_sum(spec: ShardSpec | None, items, partial_fn, *,
         for it in items:
             acc = acc + partial_fn(*it)
         return acc
+    if spec.layout is not None:
+        return _layout_partial_sum(spec, items, partial_fn, shape, lead_axes)
 
     s = spec.num_shards
 
@@ -218,3 +319,45 @@ def blocked_partial_sum(spec: ShardSpec | None, items, partial_fn, *,
         elif on_shard0:
             acc = acc + partial_fn(*it)
     return chain_sum(all_gather(acc, shard_group(spec)))
+
+
+def _owns(pspec, coords) -> bool:
+    """A block is counted by the rank at coordinate 0 on every axis it is
+    replicated over."""
+    used = meshctx.spec_axes(pspec)
+    return all(c == 0 for a, c in coords.items() if a not in used)
+
+
+def _layout_partial_sum(spec: ShardSpec, items, partial_fn, shape,
+                        lead_axes):
+    if len(items) != len(spec.layout):
+        raise ValueError(f"{len(items)} items for a layout of "
+                         f"{len(spec.layout)} leaves")
+    pspecs = []
+    for it, s in zip(items, spec.layout):
+        if it[0].ndim - lead_axes != len(s) - 1:
+            raise ValueError(f"leaf {tuple(it[0].shape)} (lead axes "
+                             f"{lead_axes}) does not match its stacked "
+                             f"spec {s}")
+        pspecs.append(s[1:])
+    device = items[0][0].device
+
+    def rank_partial(coords, block_of):
+        acc = torch.zeros(shape, dtype=torch.float32, device=device)
+        for it, ps in zip(items, pspecs):
+            if _owns(ps, coords):
+                acc = acc + partial_fn(*[block_of(a, ps) for a in it])
+        return acc
+
+    if spec.mode == "virtual":
+        sizes = dict(spec.mesh_shape)
+        names = [a for a, _ in spec.mesh_shape]
+        parts = []
+        for c in itertools.product(*(range(n) for _, n in spec.mesh_shape)):
+            coords = dict(zip(names, c))
+            parts.append(rank_partial(
+                coords, lambda a, ps: meshctx.cut(a, ps, coords, sizes)))
+        return chain_sum(torch.stack(parts))
+    mesh = _layout_mesh(spec)
+    acc = rank_partial(mesh.coords, lambda a, ps: a.contiguous())
+    return chain_sum(all_gather(acc, mesh.group(mesh.axis_names)[0]))

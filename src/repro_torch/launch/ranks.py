@@ -8,6 +8,11 @@ through a ``file://`` rendezvous in a fresh temporary directory (no TCP
 port to clash with another run), calls ``fn(rank, world_size, *args)`` in
 each and returns the results in rank order, loaded on the CPU.
 
+The arguments reach the ranks through one file in that directory, not
+through the spawn pipe: the parent would block on each child's pipe
+until the child had imported its modules, so large arguments would start
+the ranks one after another.
+
 ``fn`` must be importable by its module path (a top-level function).  Each
 rank runs with the caller's ``torch.get_num_threads()``, so its CPU
 reductions split as the caller's do, and gloo binds the loopback device
@@ -29,8 +34,9 @@ import torch.distributed as dist
 
 
 def _rank_main(fn, rank: int, world_size: int, rendezvous: str, out: str,
-               threads: int, args) -> None:
+               threads: int, args_file: str) -> None:
     torch.set_num_threads(threads)
+    args = torch.load(args_file, weights_only=False)
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
                             rank=rank, world_size=world_size)
@@ -47,10 +53,12 @@ def run(fn, world_size: int, *args, timeout: float = 600.0) -> list:
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(world_size)]
+        args_file = os.path.join(tmp, "args.pt")
+        torch.save(args, args_file)
         procs = [ctx.Process(
             target=_rank_main,
             args=(fn, r, world_size, os.path.join(tmp, "rendezvous"),
-                  outs[r], torch.get_num_threads(), args))
+                  outs[r], torch.get_num_threads(), args_file))
             for r in range(world_size)]
         try:
             for p in procs:

@@ -19,19 +19,32 @@ is anything with ``shape`` (axis -> size) and ``axis_names``.
   or channel dim -> model.
 * Stacked leading dims (layers, groups) are never sharded.
 
-What a rank computes with is ``local_params``: the regions' layout (the
-SwiGLU's F and the experts' E over ``model``, the experts' FSDP dim over
-the data axes where the region gathers it, everything else whole);
-storage-only FSDP belongs to the trainer (ROADMAP Queue 1 item 16.11).
-``local_batch`` cuts a global batch to the rank's block.
+What a rank computes with is ``local_params``: the regions' layout
+(``compute_spec``: the SwiGLU's F and the experts' E over ``model``, the
+experts' FSDP dim over the data axes where the region gathers it,
+everything else whole).  What the trainer stores is ``storage_params``:
+``param_partition_spec``'s blocks, FSDP dim and all (``gather_params``
+joins them back).  ``compute_params`` takes the storage blocks to the
+compute layout: it all-gathers each leaf over every axis its storage
+cuts and its compute layout does not.  ``storage_grads`` is its
+transpose: each leaf's gradient summed once over the axes whose ranks
+saw other tokens (``model._grad_sum_axes``) and reduce-scattered to the
+storage blocks.  ``compute_plans`` says how, leaf by leaf.  The step
+gathers once a step and reduce-scatters once a group.  ``local_batch`` cuts a
+prefill's (B, T) batch to the rank's block, ``local_train_batch`` a
+train step's (k, B/k, T).
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import types
+from typing import NamedTuple
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import meshctx
 
 _STACK_DIMS = {"layers": 1, "mamba": 2, "encoder": 1}
 
@@ -153,14 +166,34 @@ def param_partition_spec(path, leaf, mesh, cfg: ModelConfig | None = None,
 
 
 def _map_with_path(fn, tree, path=()):
-    """``fn(path, leaf)`` over a tree of dicts, tuples and lists."""
+    """``fn(path, leaf)`` over a tree of dicts, named tuples, tuples and
+    lists."""
     if isinstance(tree, dict):
         return {k: _map_with_path(fn, v, path + (k,))
                 for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_map_with_path(fn, v, path + (f,))
+                            for f, v in zip(tree._fields, tree)])
     if isinstance(tree, (tuple, list)):
         return type(tree)(_map_with_path(fn, v, path + (i,))
                           for i, v in enumerate(tree))
     return fn(path, tree)
+
+
+def map_specs(fn, tree, specs, path=()):
+    """``fn(path, leaf, spec)`` over a tree of dicts beside its tree of
+    specs (the spec tuples are its leaves)."""
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v, specs[k], path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree, specs)
+
+
+def spec_leaves(tree, specs) -> list:
+    """The spec of every leaf of ``tree`` in ``tree_leaves`` order."""
+    out = []
+    map_specs(lambda _, __, s: out.append(tuple(s)), tree, specs)
+    return out
 
 
 def param_shardings(params, mesh, cfg: ModelConfig | None = None, *,
@@ -178,12 +211,67 @@ def stacked_grad_shardings(params, mesh, cfg: ModelConfig | None = None, *,
         p, leaf, mesh, cfg, fsdp=fsdp), params)
 
 
+def replicated(mesh) -> tuple:
+    """The spec of a value every rank holds whole (``P()``)."""
+    del mesh
+    return ()
+
+
+def gathered_grad_shardings(params, mesh):
+    """Every stacked gradient replicated: the gathered variant, whose
+    stacked gradients are gathered whole before the attack and the
+    aggregation (the round kernel's input on the card)."""
+    return _map_with_path(lambda _, __: replicated(mesh), params)
+
+
+def opt_state_shardings(opt_state, params, mesh,
+                        cfg: ModelConfig | None = None, *,
+                        fsdp: bool = True):
+    """The optimizer state's specs: a subtree shaped as ``params`` (AdamW's
+    ``mu`` and ``nu``, SGD's momentum) takes the params' specs, every
+    other leaf (the step count) is replicated.  (The reference looks a
+    leaf's spec up by its shape, the first param of that shape deciding;
+    where two params of one shape have different specs, RWKV6's
+    ``channel_mix/wr`` and ``time_mix/wo``, it gives the second one's
+    moments the first one's spec.  Here the moments keep their own
+    param's, the layout the elementwise update needs.)"""
+    pspecs = param_shardings(params, mesh, cfg, fsdp=fsdp)
+
+    def same(a, b) -> bool:
+        if isinstance(a, dict) or isinstance(b, dict):
+            return isinstance(a, dict) and isinstance(b, dict) \
+                and a.keys() == b.keys() and all(same(a[k], b[k])
+                                                 for k in a)
+        return True
+
+    def walk(node):
+        if isinstance(node, dict):
+            if not same(node, params):
+                raise ValueError("an optimizer-state dict that is not "
+                                 "shaped as the params")
+            return pspecs
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*[walk(v) for v in node])
+        if isinstance(node, (tuple, list)):
+            return type(node)(walk(v) for v in node)
+        return replicated(mesh)
+
+    return walk(opt_state)
+
+
 # ---------------------------------------------------------------------------
 # activations / batches / decode state
 
 def train_batch_spec(mesh) -> tuple:
     ax = mesh_lib.data_axes(mesh)
     return (None, ax if len(ax) > 1 else ax[0])
+
+
+def batch_shardings(batch, mesh):
+    """A train batch's (k, B/k, ...) leaves: B/k over the data axes."""
+    spec = train_batch_spec(mesh)
+    return _map_with_path(
+        lambda _, x: spec + (None,) * (len(x.shape) - 2), batch)
 
 
 def serve_batch_spec(mesh, batch_size: int) -> tuple:
@@ -243,61 +331,249 @@ def grad_shard_spec(mesh, cfg: ModelConfig | None = None, *,
 # ---------------------------------------------------------------------------
 # what a rank holds
 
-def _block(t, dim: int, index: int, n: int):
-    size = t.shape[dim]
-    if size % n != 0:
-        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
-                         f"into {n}")
-    c = size // n
-    return t.narrow(dim, index * c, c).contiguous()
+def block_shape(shape, spec, mesh) -> tuple:
+    """The shape of a rank's block of a ``shape`` tensor under ``spec``."""
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        n = _axes_size(mesh, meshctx.entry_axes(entry)) if entry else 1
+        if out[d] % n != 0:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                             f"into {n}")
+        out[d] //= n
+    return tuple(out)
+
+
+def cut_tree(tree, specs, mesh):
+    """Every leaf of ``tree`` (whole, the same on every rank) cut to this
+    rank's block of its spec."""
+    return map_specs(lambda _, t, s: meshctx.cut(t, s, mesh.coords,
+                                                 mesh.shape), tree, specs)
+
+
+def gather_tree(tree, specs, mesh):
+    """Every leaf of ``tree`` (this rank's blocks) gathered whole, in rank
+    order: a tiled gather over each cut dim's axes, the leaves with the
+    same gathers batched into one collective a bucket
+    (``BUCKET_BYTES``)."""
+    def plan(_, t, s):
+        lead, ops = t.ndim - len(s), []
+        for d, entry in enumerate(s):
+            axes = meshctx.entry_axes(entry)
+            if axes:
+                if mesh.axes(axes) != axes:
+                    raise ValueError(f"spec entry {entry!r} is not in the "
+                                     f"mesh's axis order {mesh.axis_names}")
+                ops.append(("gather", axes, lead + d, False))
+        return LeafPlan(tuple(ops), ())
+
+    return _map_many(tree, map_specs(plan, tree, specs), mesh,
+                     transpose=False)
+
+
+@functools.lru_cache(maxsize=16)
+def param_shapes(cfg: ModelConfig):
+    """The params' shapes and dtypes, without their memory: ``model.init``
+    traced under a fake-tensor mode (namespaces with ``shape`` and
+    ``dtype``, which ``param_partition_spec`` reads)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models import model
+    with FakeTensorMode():
+        fake = model.init(0, cfg, device="cpu")
+    return _map_with_path(lambda _, t: types.SimpleNamespace(
+        shape=tuple(t.shape), dtype=t.dtype), fake)
+
+
+def storage_params(params, mesh, cfg: ModelConfig, *, fsdp: bool = True):
+    """The rank's storage blocks of the full ``params`` (every rank the
+    same): ``param_partition_spec``'s layout, the reference's
+    ``param_shardings``, FSDP dim and all."""
+    return cut_tree(params, param_shardings(params, mesh, cfg, fsdp=fsdp),
+                    mesh)
+
+
+def gather_params(storage, mesh, cfg: ModelConfig, *, fsdp: bool = True):
+    """The full params from every rank's storage blocks (the inverse of
+    ``storage_params``), on every rank."""
+    return gather_tree(storage, param_shardings(param_shapes(cfg), mesh, cfg,
+                                                fsdp=fsdp), mesh)
+
+
+def compute_spec(path, shape, mesh, cfg: ModelConfig) -> tuple:
+    """The regions' layout of the param at ``path`` with the full
+    ``shape``: the SwiGLU's F over ``model`` where d_ff % |model| == 0,
+    the experts' E over ``model`` and their FSDP dim
+    (``moe.fsdp_layout``) over the data axes where it divides; every
+    other leaf whole."""
+    from repro_torch.models import blocks, moe
+    names = _names(path)
+    name = names[-1]
+    skip = _STACK_DIMS.get(names[0], 0)
+    spec = [None] * len(shape)
+    if "moe" in names and name in ("w_gate", "w_up", "w_down"):
+        gate_ax, down_ax, fsdp_ok = moe.fsdp_layout(blocks.moe_spec(cfg),
+                                                    mesh)
+        spec[skip] = "model"
+        if fsdp_ok:
+            ax = gate_ax if name != "w_down" else down_ax
+            spec[skip + ax] = _fsdp_entry(mesh_lib.data_axes(mesh))
+    elif "mlp" in names and cfg.d_ff % mesh_lib.model_size(mesh) == 0 \
+            and name in ("w_gate", "w_up", "w_down"):
+        spec[-1 if name != "w_down" else -2] = "model"
+    return tuple(spec)
 
 
 def local_params(params, mesh, cfg: ModelConfig):
-    """The rank's params in the regions' layout, from the full ``params``
-    (every rank the same): the SwiGLU's F over ``model`` where the
-    region takes it (d_ff % |model| == 0), the experts' E over ``model``
-    and their FSDP dim (``moe.fsdp_layout``) over the data axes where it
-    divides; every other leaf whole."""
-    from repro_torch.models import blocks, moe
-    model_n = mesh_lib.model_size(mesh)
-    m_idx = mesh.coords["model"]
-    daxes = mesh_lib.data_axes(mesh)
-    d_idx, data_n = mesh.index(daxes), mesh_lib.data_size(mesh)
-    if cfg.family == "moe":
-        gate_ax, down_ax, fsdp_ok = moe.fsdp_layout(blocks.moe_spec(cfg),
-                                                    mesh)
-    swiglu_tp = cfg.d_ff % model_n == 0
-
-    def cut(path, leaf):
-        names = _names(path)
-        name = names[-1]
-        skip = _STACK_DIMS.get(names[0], 0)
-        if "moe" in names and name in ("w_gate", "w_up", "w_down"):
-            leaf = _block(leaf, skip, m_idx, model_n)
-            if fsdp_ok:
-                ax = gate_ax if name != "w_down" else down_ax
-                leaf = _block(leaf, skip + ax, d_idx, data_n)
-            return leaf
-        if "mlp" in names and swiglu_tp and name in ("w_gate", "w_up",
-                                                     "w_down"):
-            return _block(leaf, -1 if name != "w_down" else -2, m_idx,
-                          model_n)
-        return leaf
-
-    return _map_with_path(cut, params)
+    """The rank's params in the regions' layout (``compute_spec``), from
+    the full ``params`` (every rank the same)."""
+    return _map_with_path(lambda p, t: meshctx.cut(
+        t, compute_spec(p, t.shape, mesh, cfg), mesh.coords, mesh.shape),
+        params)
 
 
 def local_batch(batch, mesh, cfg: ModelConfig):
     """The rank's block of a global batch: rows over the data axes and,
     for the sequence-parallel families, columns over ``model``; RWKV6's
     (ssm) whole sequence on every model rank."""
-    daxes = mesh_lib.data_axes(mesh)
-    d_idx, data_n = mesh.index(daxes), mesh_lib.data_size(mesh)
+    spec = (_fsdp_entry(mesh_lib.data_axes(mesh)),
+            "model" if cfg.family != "ssm" else None)
+    return _map_with_path(lambda _, t: meshctx.cut(
+        t, spec + (None,) * (t.ndim - 2), mesh.coords, mesh.shape), batch)
 
-    def cut(_, t):
-        t = _block(t, 0, d_idx, data_n)
-        if cfg.family != "ssm":
-            t = _block(t, 1, mesh.coords["model"], mesh_lib.model_size(mesh))
-        return t
 
-    return _map_with_path(cut, batch)
+def local_train_batch(batch, mesh, cfg: ModelConfig):
+    """The rank's block of a train step's (k, B/k, T) batch: B/k over the
+    data axes (``train_batch_spec``) and, for the sequence-parallel
+    families, T over ``model``."""
+    spec = train_batch_spec(mesh) + ("model" if cfg.family != "ssm"
+                                     else None,)
+    return _map_with_path(lambda _, t: meshctx.cut(
+        t, spec + (None,) * (t.ndim - 3), mesh.coords, mesh.shape), batch)
+
+
+# ---------------------------------------------------------------------------
+# storage to compute and back
+
+class LeafPlan(NamedTuple):
+    """How one leaf goes from its storage block to its compute block:
+    ``ops`` in order, each ("gather", axes, dim, summed) or ("slice",
+    axes, dim), and ``rest``, the axes its gradient is summed over beyond
+    the gathers' transposes.  A gather's transpose is a reduce-scatter
+    where the gradient is summed over its axes (``summed``), else the
+    rank's slice: a region already summed it there."""
+    ops: tuple
+    rest: tuple
+
+
+def _leaf_plan(sspec, cspec, sum_axes, mesh) -> LeafPlan:
+    ops, summed = [], set()
+    for d, (se, ce) in enumerate(zip(sspec, cspec)):
+        s_ax, c_ax = meshctx.entry_axes(se), meshctx.entry_axes(ce)
+        if s_ax == c_ax:
+            continue
+        if s_ax:
+            hit = set(s_ax) & set(sum_axes)
+            if hit and hit != set(s_ax):
+                raise NotImplementedError(
+                    f"a storage dim over {s_ax} of which only "
+                    f"{sorted(hit)} sum the gradient")
+            ops.append(("gather", mesh.axes(s_ax), d, bool(hit)))
+            summed |= hit
+        if c_ax:
+            if set(c_ax) & set(sum_axes):
+                raise ValueError(f"a compute layout cut over {c_ax} whose "
+                                 "gradient is summed over them")
+            ops.append(("slice", mesh.axes(c_ax), d))
+    rest = tuple(a for a in mesh.axis_names
+                 if a in sum_axes and a not in summed)
+    return LeafPlan(tuple(ops), rest)
+
+
+def compute_plans(storage, specs, mesh, cfg: ModelConfig, *, batch: int,
+                  seq: int):
+    """The ``LeafPlan`` of every storage leaf (``specs`` its storage
+    specs) for a group of global (``batch``, ``seq``) tokens."""
+    from repro_torch.models import model
+
+    def plan(path, t, s):
+        whole = meshctx.whole_shape(tuple(t.shape), s, mesh.shape)
+        return _leaf_plan(s, compute_spec(path, whole, mesh, cfg),
+                          set(model._grad_sum_axes(path, cfg, mesh, batch,
+                                                   seq)), mesh)
+
+    return map_specs(plan, storage, specs)
+
+
+def _narrow(t, axes, dim, mesh):
+    spec = [None] * t.ndim
+    spec[dim] = axes
+    return meshctx.cut(t, tuple(spec), mesh.coords, mesh.shape)
+
+
+# the bytes of one batched collective, at most (a leaf above it alone)
+BUCKET_BYTES = 1 << 28
+
+
+def _buckets(ts, plans):
+    """Index lists of leaves whose plans make the same collectives (the
+    dims aside), each list at most ``BUCKET_BYTES`` but for one leaf."""
+    groups = {}
+    for i, p in enumerate(plans):
+        sig = (tuple(op[:2] + op[3:] for op in p.ops), p.rest)
+        groups.setdefault(sig, []).append(i)
+    for idx in groups.values():
+        bucket, size = [], 0
+        for i in idx:
+            nb = ts[i].numel() * ts[i].element_size()
+            if bucket and size + nb > BUCKET_BYTES:
+                yield bucket
+                bucket, size = [], 0
+            bucket.append(i)
+            size += nb
+        yield bucket
+
+
+def _many(ts, plans, mesh, transpose: bool) -> list:
+    """Every storage block taken to its compute block by its plan (or,
+    ``transpose``, every compute gradient to its storage block), the
+    leaves with the same collectives batched into one call a bucket."""
+    out = list(ts)
+    for idx in _buckets(ts, plans):
+        xs = [ts[i] for i in idx]
+        ops = plans[idx[0]].ops
+        order = range(len(ops) - 1, -1, -1) if transpose else range(len(ops))
+        for j in order:
+            kind, axes = ops[j][:2]
+            dims = [plans[i].ops[j][2] for i in idx]
+            if kind == "gather" and not transpose or kind == "slice" \
+                    and transpose:
+                xs = meshctx._all_gather_many(xs, mesh, axes, dims)
+            elif kind == "gather" and ops[j][3]:
+                xs = meshctx._psum_scatter_many(xs, mesh, axes, dims)
+            else:
+                xs = [_narrow(x, axes, d, mesh) for x, d in zip(xs, dims)]
+        if transpose and plans[idx[0]].rest:
+            xs = meshctx._psum_many(xs, mesh, plans[idx[0]].rest)
+        for i, x in zip(idx, xs):
+            out[i] = x
+    return out
+
+
+def _map_many(tree, plans, mesh, transpose: bool):
+    ts, ps = [], []
+    map_specs(lambda _, t, p: (ts.append(t), ps.append(p)), tree, plans)
+    it = iter(_many(ts, ps, mesh, transpose))
+    return map_specs(lambda *_: next(it), tree, plans)
+
+
+def compute_params(storage, plans, mesh):
+    """The compute layout from the storage blocks (no autograd): the
+    step's one gather a step, batched (``BUCKET_BYTES``)."""
+    return _map_many(storage, plans, mesh, transpose=False)
+
+
+def storage_grads(grads, plans, mesh):
+    """The compute layout's gradients (this rank's partials, as model code
+    returns them under ``meshctx.param_sums_deferred``) summed and
+    reduce-scattered to the storage blocks, batched (``BUCKET_BYTES``)."""
+    return _map_many(grads, plans, mesh, transpose=True)

@@ -251,8 +251,8 @@ def apply_sequence_parallel(params, spec: AttentionSpec, x, *, memory=None,
         k, v = _project_kv(params, spec, memory, None)
     else:
         k_loc, v_loc = _project_kv(params, spec, x, pos)
-        k = meshctx.all_gather(k_loc, "model", 1, mesh=mesh)
-        v = meshctx.all_gather(v_loc, "model", 1, mesh=mesh)
+        k, v = meshctx.all_gather_many([k_loc, v_loc], "model", 1,
+                                       mesh=mesh)
     if x.device.type == "cuda" and not plain:
         from repro_torch.kernels.attention import ops
         out = ops.attention(q, k, v, causal=causal, sliding_window=window,

@@ -13,6 +13,8 @@ and batches under ``torch.func``.
 
 from __future__ import annotations
 
+import contextvars
+
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
@@ -340,6 +342,8 @@ class _RematCall:
     """The block and the structure of its arguments and outputs: the
     tensor leaves pass through ``_Remat``, every other leaf (``None``
     states, a dense block's ``0.0`` aux) is kept here as it was.  The
+    block runs in a copy of the context it was called in, the recompute
+    too.  The
     output structure is recorded from the forward without its tensors:
     the Function's context keeps this object until the whole backward
     ends, and the backward's recomputed outputs, held here, would keep
@@ -348,6 +352,10 @@ class _RematCall:
     def __init__(self, fn, args):
         leaves, self.in_spec = tree_flatten(args)
         self.fn = fn
+        # the ambient context of the forward (the model mesh, deferred
+        # entry sums): the backward's recompute may run on the autograd
+        # engine's device thread, which sees none of it
+        self.context = contextvars.copy_context()
         self.in_leaves = leaves
         self.in_slots = [i for i, x in enumerate(leaves)
                          if isinstance(x, torch.Tensor)]
@@ -360,8 +368,8 @@ class _RematCall:
         leaves = list(self.in_leaves)
         for i, t in zip(self.in_slots, tensors):
             leaves[i] = t
-        out_leaves, spec = tree_flatten(
-            self.fn(*tree_unflatten(leaves, self.in_spec)))
+        out_leaves, spec = tree_flatten(self.context.run(
+            self.fn, *tree_unflatten(leaves, self.in_spec)))
         slots = [i for i, x in enumerate(out_leaves)
                  if isinstance(x, torch.Tensor)]
         if self.out_spec is None:

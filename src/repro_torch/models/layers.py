@@ -172,10 +172,9 @@ class _SwigluRegion(torch.autograd.Function):
         grad_wg = _rows(g).T @ _rows(grad_gate)
         grad_wu = _rows(g).T @ _rows(grad_up)
         if ctx.data_axes:
-            # the data-parallel weight-gradient sum
-            grad_wg, grad_wu, grad_wd = (
-                meshctx._psum(t, mesh, ctx.data_axes)
-                for t in (grad_wg, grad_wu, grad_wd))
+            # the data-parallel weight-gradient sum, one collective
+            grad_wg, grad_wu, grad_wd = meshctx._psum_many(
+                [grad_wg, grad_wu, grad_wd], mesh, ctx.data_axes)
         return grad_wg, grad_wu, grad_wd, grad_x, None, None
 
 

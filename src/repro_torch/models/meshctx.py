@@ -35,6 +35,13 @@ it.
 The mesh also carries the one registry of axis groups:
 ``core.shard_aggregation`` reads an axis's group through
 ``axis_group_of`` (the ambient mesh's, where it has the axis).
+
+Layouts: a spec tuple (one entry a dim: None, an axis, or a tuple of axes
+in mesh order) cuts a whole tensor into the blocks ``cut`` gives each
+rank; ``launch.sharding.gather_tree`` joins the blocks back.
+``param_sums_deferred`` hands the gradient sums that model code takes at
+a leaf's entry (``pvary``) to a caller that takes them itself: the
+trainer's storage layout reduce-scatters them (``launch.sharding``).
 """
 
 from __future__ import annotations
@@ -53,6 +60,8 @@ _MESH: contextvars.ContextVar = contextvars.ContextVar("model_mesh",
 # axis -> group bound outside a mesh (core.shard_aggregation.axis_group)
 _BOUND: contextvars.ContextVar[dict] = contextvars.ContextVar(
     "bound_axis_groups", default={})
+_DEFERRED: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "param_sums_deferred", default=False)
 
 
 class Mesh:
@@ -182,6 +191,23 @@ def bind_axis(axis: str, group):
         _BOUND.reset(token)
 
 
+@contextlib.contextmanager
+def param_sums_deferred():
+    """For a ``with`` block, model code under the mesh leaves its params'
+    entry sums (``pvary`` over the axes a leaf is replicated on) to the
+    caller: each leaf's gradient comes back as this rank's partial, but
+    where a region sums it itself."""
+    token = _DEFERRED.set(True)
+    try:
+        yield
+    finally:
+        _DEFERRED.reset(token)
+
+
+def param_sums_are_deferred() -> bool:
+    return _DEFERRED.get()
+
+
 def axis_index(axis: str) -> int:
     """This rank's coordinate on ``axis`` of the ambient mesh."""
     return current_mesh().coords[axis]
@@ -301,6 +327,68 @@ def _psum_scatter(x, mesh, axes, dim):
     return _chain(mine)
 
 
+def _parts_many(xs, mesh, axes):
+    """``_parts`` of every tensor of ``xs`` in one gather: their bytes side
+    by side."""
+    n = len(mesh.group(axes)[1])
+    if n == 1 or len(xs) == 1:
+        return [_parts(x, mesh, axes) for x in xs]
+    flat = torch.cat([_as_bytes(x) for x in xs])
+    rows = _parts(flat, mesh, axes)                # (n, bytes)
+    out, off = [], 0
+    for x in xs:
+        nb = x.numel() * x.element_size()
+        out.append(rows[:, off:off + nb].contiguous().view(x.dtype)
+                   .reshape(n, *x.shape))
+        off += nb
+    return out
+
+
+def _all_gather_many(xs, mesh, axes, dims):
+    """``_all_gather`` of each tensor along its dim, in one collective
+    (no autograd)."""
+    return [torch.cat(list(p.unbind(0)), dim=d)
+            for p, d in zip(_parts_many(xs, mesh, axes), dims)]
+
+
+def _psum_many(xs, mesh, axes):
+    """``_psum`` of each tensor, in one collective (no autograd)."""
+    return [_chain(p) for p in _parts_many(xs, mesh, axes)]
+
+
+def _psum_scatter_many(xs, mesh, axes, dims):
+    """``_psum_scatter`` of each tensor along its dim, in one exchange (no
+    autograd)."""
+    group, ranks = mesh.group(axes)
+    n = len(ranks)
+    if n == 1:
+        return list(xs)
+    if len(xs) == 1:
+        return [_psum_scatter(xs[0], mesh, axes, dims[0])]
+    chunks = []
+    for x, d in zip(xs, dims):
+        if x.shape[d] % n != 0:
+            raise ValueError(f"psum_scatter: dim {d} of {tuple(x.shape)} "
+                             f"does not split into {n} ranks")
+        chunks.append(torch.stack(x.chunk(n, d)))
+    rows = torch.cat([c.reshape(n, -1).view(torch.uint8) for c in chunks],
+                     dim=1)                        # (n, bytes): row j to j
+
+    def exchange(local):
+        out = torch.empty_like(local)
+        dist.all_to_all_single(out, local, group=group)
+        return out
+
+    got = _transfer(rows, mesh, exchange).reshape(n, -1)
+    out, off = [], 0
+    for c in chunks:
+        nb = c[0].numel() * c.element_size()
+        out.append(_chain(got[:, off:off + nb].contiguous().view(c.dtype)
+                          .reshape(c.shape)))
+        off += nb
+    return out
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes, dim):
@@ -322,6 +410,18 @@ class _PsumScatter(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _all_gather(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+class _AllGatherMany(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, dims, *xs):
+        ctx.mesh, ctx.axes, ctx.dims = mesh, axes, dims
+        return tuple(_all_gather_many(list(xs), mesh, axes, dims))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, None, *_psum_scatter_many(
+            list(gs), ctx.mesh, ctx.axes, ctx.dims))
 
 
 class _Psum(torch.autograd.Function):
@@ -364,6 +464,14 @@ def all_gather(x, axes, dim: int, *, mesh=None):
     return _AllGather.apply(x, mesh, mesh.axes(axes), _dim(x, dim))
 
 
+def all_gather_many(xs, axes, dim: int, *, mesh=None):
+    """``all_gather`` of each tensor of ``xs`` along ``dim``, in one
+    collective (their bytes side by side)."""
+    mesh = _mesh_for(mesh)
+    return list(_AllGatherMany.apply(mesh, mesh.axes(axes),
+                                     tuple(_dim(x, dim) for x in xs), *xs))
+
+
 def psum_scatter(x, axes, dim: int, *, mesh=None):
     """The sum over ``axes`` in rank order, split along ``dim``: this
     rank's piece (``jax.lax.psum_scatter(..., tiled=True)``)."""
@@ -386,3 +494,80 @@ def pvary(x, axes, *, mesh=None):
     if mesh.size(axes) == 1:
         return x
     return _Pvary.apply(x, mesh, axes)
+
+
+# ---------------------------------------------------------------------------
+# layouts: spec tuples over a mesh's shape
+
+def entry_axes(entry) -> tuple:
+    """A spec entry as a tuple of axis names (None: no axis)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(spec) -> set:
+    """Every axis a spec tuple cuts over."""
+    return {a for e in spec for a in entry_axes(e)}
+
+
+def block_index(axes, coords, sizes) -> tuple[int, int]:
+    """(this block's index, the number of blocks) of a dim cut over
+    ``axes``: row-major over them, as a tiled gather over them orders
+    the ranks."""
+    idx, n = 0, 1
+    for a in axes:
+        idx, n = idx * sizes[a] + coords[a], n * sizes[a]
+    return idx, n
+
+
+def cut(t, spec, coords, sizes):
+    """The block of the whole tensor ``t`` that the rank at ``coords``
+    holds under ``spec`` (which lays out ``t``'s trailing dims), as a
+    contiguous tensor."""
+    lead = t.ndim - len(spec)
+    if lead < 0:
+        raise ValueError(f"spec {spec} has more dims than {tuple(t.shape)}")
+    for d, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        if not axes:
+            continue
+        idx, n = block_index(axes, coords, sizes)
+        size = t.shape[lead + d]
+        if size % n != 0:
+            raise ValueError(f"dim {lead + d} of {tuple(t.shape)} does not "
+                             f"split into {n} blocks over {axes}")
+        c = size // n
+        t = t.narrow(lead + d, idx * c, c)
+    return t.contiguous()
+
+
+def whole_shape(block_shape, spec, sizes) -> tuple:
+    """The whole tensor's shape from a block's under ``spec``."""
+    lead = len(block_shape) - len(spec)
+    out = list(block_shape)
+    for d, entry in enumerate(spec):
+        for a in entry_axes(entry):
+            out[lead + d] *= sizes[a]
+    return tuple(out)
+
+
+def one_card_turns(mesh, fn, device):
+    """``fn()`` on every rank; where the mesh's ranks share one card, one
+    rank at a time in rank order, each emptying its allocator's cache
+    before and after its turn, so that one rank's scratch at a time holds
+    the card (a barrier over the mesh between turns)."""
+    world = math.prod(mesh.shape.values())
+    dev = torch.device(device)
+    if dev.type != "cuda" or torch.cuda.device_count() >= world:
+        return fn()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    out = None
+    for r in range(world):
+        if r == mesh.rank:
+            out = fn()
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out

@@ -33,8 +33,12 @@ local_params``); each leaf enters through ``meshctx.pvary`` over the axes
 it is replicated on, so its gradient comes back summed over them (the
 transpose shard_map takes at a replicated input), but where a region
 sums it itself (the SwiGLU region's data-axis psum, the expert weights'
-FSDP gather).  ``loss_fn`` psums its token sums and counts over every
-axis in rank order: every rank returns the global mean.  The hybrid,
+FSDP gather).  Under ``meshctx.param_sums_deferred`` the leaves enter as
+they are, and their gradients come back as the rank's partials: the
+trainer's storage layout takes those sums (``launch.sharding``,
+``_grad_sum_axes`` naming them).  ``loss_fn`` psums its token sums and
+counts over every axis in rank order: every rank returns the global
+mean.  The hybrid,
 audio and vlm families and decode under a mesh are ROADMAP Queue 1 item
 16.12.
 """
@@ -227,6 +231,8 @@ def _enter_mesh(params, cfg: ModelConfig, batch, mesh):
         axes = _grad_sum_axes(path, cfg, mesh, B, T)
         return meshctx.pvary(node, axes, mesh=mesh) if axes else node
 
+    if meshctx.param_sums_are_deferred():
+        return params
     return enter(params, ())
 
 
@@ -284,9 +290,9 @@ def loss_fn(params, batch, cfg: ModelConfig):
     total, count = layers.cross_entropy_sums(
         _unembed_fn(params, cfg), h, batch["labels"],
         vocab_chunk=cfg.loss_chunk)
-    every = meshctx.all_axes(mesh)
-    total = meshctx.psum(total, every, mesh=mesh)
-    count = meshctx.psum(count, every, mesh=mesh)
+    # the token sum and count in one collective
+    total, count = meshctx.psum(torch.stack([total, count.to(total.dtype)]),
+                                meshctx.all_axes(mesh), mesh=mesh).unbind(0)
     return total / torch.clamp(count, min=1.0) + aux
 
 

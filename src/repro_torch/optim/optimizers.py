@@ -7,6 +7,10 @@ Interface (optax-like, as in ``repro.optim``):
     state = opt.init(params)
     updates, state = opt.update(grads, state, params)
     params = tree_map(lambda p, u: p + u, params, updates)
+
+Both update elementwise, so they run as they are on a rank's storage
+blocks; under a layout (``shard_aggregation.use_layout``) AdamW's
+global clip norm is the layout's blocked sum.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 from torch.utils._pytree import tree_leaves, tree_map
+
+from repro_torch.core import shard_aggregation as sa
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]   # step -> lr
 
@@ -95,8 +101,8 @@ def adamw(learning_rate, *, b1: float = 0.9, b2: float = 0.95,
     def update(grads, state: AdamState, params):
         grads = tree_map(lambda g: g.to(f32), grads)
         if grad_clip_norm is not None:
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g))
-                                   for g in tree_leaves(grads)))
+            gnorm = torch.sqrt(sa.sq_norm(sa.current_layout(),
+                                          tree_leaves(grads)))
             scale = torch.clamp(grad_clip_norm / (gnorm + 1e-9), max=1.0)
             grads = tree_map(lambda g: g * scale, grads)
         count = state.step + 1

@@ -1267,6 +1267,65 @@ def test_shardmap_aggregate_launches_the_round_kernel_once_per_rank(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the group train step on the model mesh: 4 gloo ranks of the card
+
+@pytest.mark.cuda
+def test_mesh_train_step_on_four_ranks_of_the_card(cuda):
+    """make_group_train_step on a (2, 2) mesh of 4 ranks holding CUDA
+    tensors (reduced minitron-4b, k = 4, gmom under sign_flip, SGD, two
+    steps): shard-local never launches the round kernel, the gathered
+    variant once a rank a step; every rank gathers the same params, both
+    within 1e-4 of the unsharded step on the card (the gathered one through
+    the kernel, the shard-local one on the reference round)."""
+    import torch_mesh_train_ranks as mtr
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    from repro_torch import configs, convert, optim
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    cfg = configs.get_config("minitron-4b").reduced()
+    params = tree_map(lambda t: t.numpy(), model.init(7, cfg, device="cpu"))
+    rng = np.random.default_rng(0)
+    toks = [rng.integers(0, cfg.vocab_size, (4, 2, 64)) for _ in range(2)]
+    rc = dict(num_workers=4, num_byzantine=1, num_batches=4,
+              aggregator="gmom", attack="sign_flip")
+    base = dict(kind="step", arch="minitron-4b", params=params,
+                batches=toks, seed=10, opt="sgd", lr=0.1, microbatches=1,
+                rc=rc, min_fsdp_elems=1 << 12, target_backend="cuda",
+                device="cuda", mesh="2x2")
+    cases = {v: dict(base, variant=v) for v in ("shard_local", "gathered")}
+    per_rank = ranks.run(mtr.run_cases, 4, cases,
+                         {"2x2": ((2, 2), ("data", "model"))},
+                         timeout=600.0)
+    for variant, backend, launches in (("shard_local", "reference", 0),
+                                       ("gathered", "auto", 2)):
+        step = steps.make_group_train_step(
+            cfg, robust_train.RobustConfig(**dict(rc, round_backend=backend)),
+            optim.sgd(0.1))
+        p = convert.lm_params_from_numpy(cfg, params, cuda)
+        s = optim.sgd(0.1).init(p)
+        rows = []
+        for t, tok in enumerate(toks):
+            tok = torch.as_tensor(tok, device=cuda).long()
+            p, s, m = step(p, s, {"tokens": tok,
+                                  "labels": torch.roll(tok, -1, -1)},
+                           prng.PRNGKey(10 + t, device=cuda), t)
+            rows.append({k: float(v) for k, v in m.items()})
+        got = per_rank[0][variant]
+        assert all(res[variant]["launches"] == launches for res in per_rank)
+        assert all(res[variant]["same_everywhere"] for res in per_rank)
+        assert all(res[variant]["repeat_equal"] for res in per_rank)
+        for t, row in enumerate(rows):
+            for k, v in row.items():
+                assert float(got["metrics"][t][k]) == pytest.approx(
+                    v, rel=1e-4), (variant, t, k)
+        for a, b in zip(tree_leaves(got["params"]), tree_leaves(p)):
+            b = b.cpu()
+            assert float((a - b).abs().max()) <= \
+                1e-4 * float(b.abs().max()) + 1e-7, variant
+
+
+# ---------------------------------------------------------------------------
 # Byzantine-robust LM training on the card (reduced config)
 
 def _train_rows(metrics):

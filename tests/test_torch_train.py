@@ -502,8 +502,10 @@ def test_mean_train_step_matches_jax():
 
 
 def test_group_step_refuses_grad_shardings():
+    """grad_shardings lays the stacked gradients out on a model mesh: the
+    step refuses it outside one."""
     cfg = configs.get_config("minitron-4b").reduced()
-    with pytest.raises(NotImplementedError, match="item 16.11"):
+    with pytest.raises(ValueError, match="meshctx.set_mesh"):
         steps.make_group_train_step(cfg, trt.RobustConfig(num_workers=2),
                                     optim.sgd(0.1), grad_shardings={})
 
