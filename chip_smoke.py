@@ -3510,111 +3510,152 @@ MESH_REDUCED_OVERRIDES = {"granite-moe-1b-a400m":
 MESH_GRAD_RTOL = 1e-4
 
 
-def sp_offset_kernel(dev, hbm, smi):
-    """Phase 12 (a): the flash kernel's q_offset on both routes at H2O's
-    sequence-parallel shape -> the flash row's ``sp_offset_shape``.  With
-    identical q, k and v each rank's launch at offset 2048 r equals the
-    matching rows of the one launch over all 8192 queries (torch.equal),
-    as does a ragged block (SP_RAGGED); each is held to its route's plain
-    twin (f32: ``flash_attention_ref``, bf16: ``flash_attention_tiled_ref``)
-    at ATTN_TOL; a launch at offset 0 equals the launch without the
-    argument.  bf16 timed per rank beside the plain version and one
-    library call (``scaled_dot_product_attention`` with the offset's
-    mask as a bias on the memory-efficient backend, kv repeated)."""
+def _library_offset(q, k, v, H, KV, off, causal, window, dev):
+    """One library call on a rank's block in its (B, H, T, hd) layout, kv
+    repeated to H heads -> ({backend: ms, None where it refuses}, the
+    fastest backend's name, its output (B, Tq, H, hd)).  With a mask (causal or a
+    window, at the block's offset) the mask is a bias on the
+    memory-efficient backend; without one every backend takes the call
+    unmasked, each pinned with ``sdpa_kernel``."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
+    Tq, Tk = q.shape[1], k.shape[1]
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.transpose(1, 2).repeat_interleave(H // KV, dim=1)
+              .contiguous() for x in (k, v))
+    bias = None
+    if causal or window is not None:
+        qp = torch.arange(off, off + Tq, device=dev)[:, None]
+        kp = torch.arange(Tk, device=dev)[None, :]
+        live = (kp <= qp) | (not causal)
+        if window is not None:
+            live = live & (kp > qp - window)
+        bias = torch.zeros((Tq, Tk), dtype=q.dtype, device=dev)
+        bias.masked_fill_(~live, float("-inf"))
+        backends = {"efficient": SDPBackend.EFFICIENT_ATTENTION}
+    else:
+        backends = {"cudnn": SDPBackend.CUDNN_ATTENTION,
+                    "flash": SDPBackend.FLASH_ATTENTION,
+                    "efficient": SDPBackend.EFFICIENT_ATTENTION}
+    ms, outs = {}, {}
+    for name, backend in backends.items():
+        with sdpa_kernel([backend]):
+            try:
+                outs[name] = F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=bias)
+            except RuntimeError:
+                ms[name] = None
+                continue
+            ms[name] = timed(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=bias))
+    best = min((n for n in ms if ms[n] is not None), key=ms.get)
+    label = f"{best} (kv repeated to H heads, " + (
+        "the offset's mask as a bias)" if bias is not None else "unmasked)")
+    return ms, label, outs[best].transpose(1, 2)
+
+
+def sp_offset_kernel(dev, hbm, smi, shapes, phase, seed):
+    """Part (a) of phases 12 and 14: the flash kernel's q_offset on both
+    routes at each sequence-parallel shape of ``shapes``, {name: ((B, Tq a
+    rank, Tk, H, KV, hd, causal, window), |model|, extra (Tq, q_offset)
+    blocks)}: |model| ranks' blocks of queries at offsets Tq r against all
+    Tk keys, as the mesh the model runs on cuts them.  With identical q,
+    k and v each rank's launch equals the matching rows of the one launch
+    over all Tq |model| queries (torch.equal), as does each extra (ragged)
+    block; each is held to its route's plain twin (f32:
+    ``flash_attention_ref``, bf16: ``flash_attention_tiled_ref``) at
+    ATTN_TOL; a launch at offset 0 equals the launch without the argument.
+    bf16 timed per rank beside, for the heaviest rank (the last), the
+    plain version and the fastest library call (``_library_offset``) ->
+    ({name: the flash row's numbers at that shape}, the worst bf16 error
+    of the ranks' blocks)."""
+    import torch
     from repro_torch.kernels.attention import flash, ops, ref
-    B, Tq, Tk, H, KV, hd, causal, window = SP_SHAPE
-    n = Tk // Tq
     tc = PEAK_BF16[next((p for p in ("PCIe", "NVL")
                          if p in torch.cuda.get_device_name(0)), "SXM")]
-    kw = dict(causal=causal, sliding_window=window)
-    offsets = [r * Tq for r in range(n)]
-    result, worst = {}, 0.0
-    for dname in ("bfloat16", "float32"):
-        dtype = getattr(torch, dname)
-        route = flash.route(dtype, hd)
-        q, k, v = attn_inputs((B, Tk, Tk, H, KV, hd), dtype, dev, seed=13)
-        full = ops.attention(q, k, v, **kw)
-        zero = torch.equal(flash.flash_attention(q, k, v, q_offset=0, **kw),
-                           full)
-        check(zero, f"flash {dname}: offset 0 differs from the launch "
-                    "without an offset")
-        blocks = [(Tq, off) for off in offsets] + [SP_RAGGED]
-        rows = []
-        for tq, off in blocks:
-            qr = q[:, off:off + tq]
-            got = ops.attention(qr, k, v, q_offset=off, **kw)
-            equal = bool(torch.equal(got, full[:, off:off + tq]))
+    rows, worst = {}, 0.0
+    for i, (name, (shape, n, extra)) in enumerate(shapes.items()):
+        B, Tq, Tk, H, KV, hd, causal, window = shape
+        kw = dict(causal=causal, sliding_window=window)
+        offsets = [r * Tq for r in range(n)]
+        for dname in ("bfloat16", "float32"):
+            dtype = getattr(torch, dname)
+            route = flash.route(dtype, hd)
+            q, k, v = attn_inputs((B, Tq * n, Tk, H, KV, hd), dtype, dev,
+                                  seed=seed + i)
+            full = ops.attention(q, k, v, **kw)
+            zero = torch.equal(flash.flash_attention(q, k, v, q_offset=0,
+                                                     **kw), full)
+            check(zero, f"flash {name} {dname}: offset 0 differs from the "
+                        "launch without an offset")
             twin = (ref.flash_attention_ref if dname == "float32"
                     else ref.flash_attention_tiled_ref)
-            want = twin(qr, k, v, q_offset=off, **kw)
-            err = float((got.float() - want.float()).abs().max())
-            ok = err <= ATTN_TOL[dname]
-            check(equal, f"flash {dname} at q_offset {off} (Tq {tq}): not "
-                         "the full launch's rows")
-            check(ok, f"flash {dname} at q_offset {off} (Tq {tq}): "
-                      f"max_abs_err {err} vs its twin")
-            rows.append({"q_offset": off, "Tq": tq, "equal_full_rows": equal,
-                         "max_abs_err_twin": err, "ok": ok})
-            if dname == "bfloat16" and tq == Tq:
+            blocks = []
+            for tq, off in [(Tq, off) for off in offsets] + list(extra):
+                qr = q[:, off:off + tq]
+                got = ops.attention(qr, k, v, q_offset=off, **kw)
+                equal = bool(torch.equal(got, full[:, off:off + tq]))
+                want = twin(qr, k, v, q_offset=off, **kw)
+                err = float((got.float() - want.float()).abs().max())
+                ok = err <= ATTN_TOL[dname]
+                check(equal, f"flash {name} {dname} at q_offset {off} (Tq "
+                             f"{tq}): not the full launch's rows")
+                check(ok, f"flash {name} {dname} at q_offset {off} (Tq "
+                          f"{tq}): max_abs_err {err} vs its twin")
+                blocks.append({"q_offset": off, "Tq": tq,
+                               "equal_full_rows": equal,
+                               "max_abs_err_twin": err, "ok": ok})
+                del got, want
+                torch.cuda.empty_cache()
+            emit({"phase": phase, "part": "a", "shape_name": name,
+                  "dtype": dname, "route": route, "shape": list(shape),
+                  "model_ranks": n, "offset_zero_equal": zero,
+                  "blocks": blocks, "tol": ATTN_TOL[dname]})
+            if dname == "bfloat16":
+                err = max(b["max_abs_err_twin"] for b in blocks[:n])
                 worst = max(worst, err)
-            del got, want
-            torch.cuda.empty_cache()
-        emit({"phase": "mesh", "part": "a", "dtype": dname, "route": route,
-              "shape": list(SP_SHAPE), "offset_zero_equal": zero,
-              "blocks": rows, "tol": ATTN_TOL[dname]})
-        if dname == "bfloat16":
-            pairs_full = live_pairs(Tk, Tk, causal, window)
-            ms, bounds, shares = [], [], []
-            for off in offsets:
+                pairs_full = live_pairs(Tq * n, Tk, causal, window)
+                ms, bounds, shares = [], [], []
+                for off in offsets:
+                    qr = q[:, off:off + Tq]
+                    ms.append(timed(lambda: ops.attention(
+                        qr, k, v, q_offset=off, **kw)))
+                    pairs = live_pairs(Tq, Tk, causal, window, off)
+                    nbytes = 2 * (2 * B * Tq * H * hd + 2 * B * Tk * KV * hd)
+                    bounds.append(bound(nbytes, pairs * 4 * H * hd, hbm, tc))
+                    shares.append(pairs / pairs_full)
+                full_ms = timed(lambda: ops.attention(q, k, v, **kw))
+                off = offsets[-1]
                 qr = q[:, off:off + Tq]
-                ms.append(timed(lambda: ops.attention(qr, k, v, q_offset=off,
-                                                      **kw)))
-                pairs = live_pairs(Tq, Tk, causal, window, off)
-                nbytes = 2 * (2 * B * Tq * H * hd + 2 * B * Tk * KV * hd)
-                bounds.append(bound(nbytes, pairs * 4 * H * hd, hbm, tc))
-                shares.append(pairs / pairs_full)
-            full_ms = timed(lambda: ops.attention(q, k, v, **kw))
-            # the heaviest rank (the last) carries the row's numbers
-            off = offsets[-1]
-            qr = q[:, off:off + Tq]
-            plain_ms = timed(lambda: ref.flash_attention_ref(
-                qr, k, v, q_offset=off, **kw), repeats=5, warmup=1)
-            qt = qr.transpose(1, 2).contiguous()
-            kt, vt = (x.transpose(1, 2).repeat_interleave(H // KV, dim=1)
-                      .contiguous() for x in (k, v))
-            qp = torch.arange(off, off + Tq, device=dev)[:, None]
-            kp = torch.arange(Tk, device=dev)[None, :]
-            live = (kp <= qp) & (kp > qp - window)
-            bias = torch.zeros((Tq, Tk), dtype=q.dtype, device=dev)
-            bias.masked_fill_(~live, float("-inf"))
-            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
-                lib_out = F.scaled_dot_product_attention(qt, kt, vt,
-                                                         attn_mask=bias)
-                library_ms = timed(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=bias))
-            lib_err = float((lib_out.transpose(1, 2).float()
-                             - full[:, off:off + Tq].float()).abs().max())
-            del qt, kt, vt, bias, live, lib_out
-            result = {
-                "shape": list(SP_SHAPE), "q_offsets": offsets,
-                "kernel_ms": ms[-1], "kernel_ms_by_rank": ms,
-                "full_launch_ms": full_ms, "plain_ms": plain_ms,
-                "plain": "flash_attention_ref at the offset (bf16)",
-                "library_ms": library_ms,
-                "library": "efficient (offset bias, kv repeated to H heads)",
-                "library_max_abs_diff": lib_err,
-                "bound_ms": bounds[-1][0], "bound_by": bounds[-1][1],
-                "bound_ms_by_rank": [b[0] for b in bounds],
-                "live_pair_share_by_rank": shares, "route": route}
-            emit({"phase": "timing", "kernel": "flash_attention",
-                  "part": "sp_offset", **result, "card": smi})
-        del q, k, v, full
-        torch.cuda.empty_cache()
-    result["max_abs_err"] = worst
-    return result
+                plain_ms = timed(lambda: ref.flash_attention_ref(
+                    qr, k, v, q_offset=off, **kw), repeats=5, warmup=1)
+                lib, label, lib_out = _library_offset(qr, k, v, H, KV, off,
+                                                     causal, window, dev)
+                lib_err = float((lib_out.float()
+                                 - full[:, off:off + Tq].float()).abs().max())
+                del lib_out
+                rows[name] = {
+                    "shape": list(shape), "model_ranks": n,
+                    "q_offsets": offsets, "kernel_ms": ms[-1],
+                    "kernel_ms_by_rank": ms, "full_launch_ms": full_ms,
+                    "plain_ms": plain_ms,
+                    "plain": "flash_attention_ref at the offset (bf16)",
+                    "library_ms": min(t for t in lib.values()
+                                      if t is not None),
+                    "library": label,
+                    "library_backends_ms": lib,
+                    "library_max_abs_diff": lib_err,
+                    "bound_ms": bounds[-1][0], "bound_by": bounds[-1][1],
+                    "bound_ms_by_rank": [b[0] for b in bounds],
+                    "live_pair_share_by_rank": shares,
+                    "max_abs_err": err, "route": route}
+                emit({"phase": "timing", "kernel": "flash_attention",
+                      "part": "sp_offset", "shape_name": name, **rows[name],
+                      "card": smi})
+            del q, k, v, full
+            torch.cuda.empty_cache()
+    return rows, worst
 
 
 def _mesh_cfg(arch, dname=None, layers=None, reduced=False):
@@ -3843,7 +3884,8 @@ def mesh_path(dev, hbm, smi):
     from repro_torch.models import model, rwkv
     from repro_torch.kernels.attention import flash
     t0 = time.perf_counter()
-    sp_row = sp_offset_kernel(dev, hbm, smi)
+    sp_row = sp_offset_kernel(dev, hbm, smi, {
+        "h2o": (SP_SHAPE, MESH_RANKS, [SP_RAGGED])}, "mesh", 13)[0]["h2o"]
     # single-process references
     refs = {}
     for dname, layers in (("bfloat16", None), ("float32", MESH_F32_LAYERS)):
@@ -4063,40 +4105,52 @@ def _mesh_train_rc(k, q, backend):
                         round_backend=backend)
 
 
-def _mesh_train_stream(cfg, dev):
+def _mesh_train_stream(cfg, dev, seed=MESH_TRAIN_SEED):
     from repro_torch.data.tokens import TokenStream
     return TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                        global_batch=MESH_TRAIN["batch"],
-                       num_workers=MESH_TRAIN["k"], seed=MESH_TRAIN_SEED,
-                       device=dev)
+                       num_workers=MESH_TRAIN["k"], seed=seed, device=dev)
 
 
-def _mesh_train_key(dev):
+def _mesh_train_key(dev, seed=MESH_TRAIN_SEED):
     from repro_torch import random as prng
-    return prng.fold_in(prng.PRNGKey(MESH_TRAIN_SEED, device=dev), 10_000)
+    return prng.fold_in(prng.PRNGKey(seed, device=dev), 10_000)
 
 
-def mesh_train_reference(dev, backend, steps_n):
-    """One process, phase 13 (a)'s settings: (rows, s per step, peak GB,
-    the first step's aggregate on the CPU)."""
+def mesh_train_config(arch, dname=None):
+    """Phase 13 (a)'s (and 14 (e)'s) config of ``arch``: its train depth,
+    remat, in ``dname`` (None: the config's own bf16)."""
+    import torch
+    from repro_torch.launch import train as train_lib
+    cfg = train_lib.train_config(arch, "gpu").with_(remat=True)
+    if dname is not None:
+        cfg = cfg.with_(dtype=getattr(torch, dname),
+                        param_dtype=getattr(torch, dname))
+    return cfg
+
+
+def mesh_train_reference(dev, backend, steps_n, arch=TRAIN_ARCH, dname=None,
+                         seed=MESH_TRAIN_SEED):
+    """One process, phase 13 (a)'s settings (phase 14 (e): ``arch``; the
+    model in ``dname``, params, tokens and keys from ``seed``): (rows, s
+    per step, peak GB, the first step's aggregate on the CPU)."""
     import torch
     from torch.utils._pytree import tree_map
     from repro_torch import optim
     from repro_torch import random as prng
     from repro_torch.launch import steps
-    from repro_torch.launch import train as train_lib
     from repro_torch.models import model
     g = MESH_TRAIN
-    cfg = train_lib.train_config(TRAIN_ARCH, "gpu").with_(remat=True)
+    cfg = mesh_train_config(arch, dname)
     opt = optim.adamw(g["lr"])
     step = steps.make_group_train_step(
         cfg, _mesh_train_rc(g["k"], g["q"], backend), opt,
         microbatches=g["microbatches"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    params = model.init(MESH_TRAIN_SEED, cfg, device=dev)
+    params = model.init(seed, cfg, device=dev)
     opt_state = opt.init(params)
-    stream, key = _mesh_train_stream(cfg, dev), _mesh_train_key(dev)
+    stream, key = _mesh_train_stream(cfg, dev, seed), _mesh_train_key(dev, seed)
     rows, held = [], []
     real_agg = steps.aggregate_reported
 
@@ -4224,6 +4278,7 @@ def _mesh_train_variant(cfg, mesh, variant, full, specs, dev, steps_n,
     rk.round_aggregate_kernel = kernel_hook
     torch.cuda.reset_peak_memory_stats(dev)
     rows, secs, stages, staged, digests, first = [], [], [], [], [], {}
+    first_digest = None
     try:
         for t in range(steps_n):
             batch = sharding.local_train_batch(batches(t), mesh, cfg)
@@ -4244,6 +4299,7 @@ def _mesh_train_variant(cfg, mesh, variant, full, specs, dev, steps_n,
                 untimed_gather = real[2]
                 agg = held[0] if variant == "gathered" \
                     else untimed_gather(held[0], specs, mesh)
+                first_digest = _digest(agg)
                 whole = untimed_gather(storage, specs, mesh)
                 if mesh.rank == 0:
                     first = {"agg": tree_map(lambda x: x.cpu(), agg),
@@ -4261,7 +4317,7 @@ def _mesh_train_variant(cfg, mesh, variant, full, specs, dev, steps_n,
            "staged": staged, "launches": real_kernel.launches - start,
            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
            "digests": digests, "kernel_ms": kernel_ms, "whole": None,
-           "first": first}
+           "first": first, "first_digest": first_digest}
     if not check_first:
         whole = sharding.gather_tree(storage, specs, mesh)
         if mesh.rank == 0:
@@ -4272,6 +4328,32 @@ def _mesh_train_variant(cfg, mesh, variant, full, specs, dev, steps_n,
     return out
 
 
+def _reduced_batches(rcfg, dev):
+    """Phase 13 (b)'s and 14 (e)'s batches of a reduced config: t -> the
+    step's (k, B/k, seq) tokens and labels, and the audio family's frames
+    (seq / 2 a row) or the vlm family's patches, drawn from seeds."""
+    from repro_torch import random as prng
+    from repro_torch.data import tokens as data
+    r = MESH_TRAIN_REDUCED_RC
+    k, rows = r["k"], r["batch"] // r["k"]
+
+    def batch(t):
+        tok = _mesh_tokens(rcfg, r["batch"], r["seq"], dev,
+                           seed=5 + t).reshape(k, -1, r["seq"])
+        out = {"tokens": tok, "labels": tok.roll(-1, -1)}
+        key = prng.PRNGKey(31 + t, device=dev)
+        kw = dict(num_workers=k, per_worker=rows, d_model=rcfg.d_model,
+                  dtype=rcfg.dtype)
+        if rcfg.family == "audio":
+            out["frames"] = data.frame_embeddings(
+                key, num_frames=r["seq"] // 2, **kw)
+        if rcfg.family == "vlm":
+            out["patches"] = data.patch_embeddings(
+                key, num_patches=rcfg.num_patches, **kw)
+        return out
+    return batch
+
+
 def _mesh_train_rank(rank, world, device):
     """Phase 13 (a) and (b) on one rank of the card."""
     import torch
@@ -4279,7 +4361,6 @@ def _mesh_train_rank(rank, world, device):
     from repro_torch import random as prng
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import sharding
-    from repro_torch.launch import train as train_lib
     from repro_torch.models import meshctx, model
     dev = torch.device(device)
     torch.set_float32_matmul_precision("highest")
@@ -4287,7 +4368,7 @@ def _mesh_train_rank(rank, world, device):
     out = {"coords": dict(square.coords)}
     g = MESH_TRAIN
     # (a) H2O-Danube3-4B at full width, 2 layers
-    cfg = train_lib.train_config(TRAIN_ARCH, "gpu").with_(remat=True)
+    cfg = mesh_train_config(TRAIN_ARCH)
     full = model.init(MESH_TRAIN_SEED, cfg, device=dev)
     specs = sharding.param_shardings(full, square, cfg)
     stream, key = _mesh_train_stream(cfg, dev), _mesh_train_key(dev)
@@ -4306,12 +4387,7 @@ def _mesh_train_rank(rank, world, device):
         rcfg = _mesh_cfg(arch, reduced=True)
         full = model.init(3, rcfg, device=dev)
         rspecs = sharding.param_shardings(full, square, rcfg)
-        tokens = [_mesh_tokens(rcfg, r["batch"], r["seq"], dev, seed=5 + t)
-                  for t in range(r["steps"])]
-
-        def batches(t, tokens=tokens):
-            tok = tokens[t].reshape(r["k"], -1, r["seq"])
-            return {"tokens": tok, "labels": tok.roll(-1, -1)}
+        batches = _reduced_batches(rcfg, dev)
         with meshctx.set_mesh(square):
             for variant in ("shard_local", "gathered"):
                 out[(arch, variant)] = _mesh_train_variant(
@@ -4325,8 +4401,8 @@ def _mesh_train_rank(rank, world, device):
 
 
 def mesh_train_reduced_reference(dev, arch, backend):
-    """One process, phase 13 (b): (rows, the params after the steps on
-    the CPU)."""
+    """One process, phase 13 (b) (and 14 (e)): (rows, the params after the
+    steps on the CPU)."""
     import torch
     from torch.utils._pytree import tree_map
     from repro_torch import optim
@@ -4340,12 +4416,10 @@ def mesh_train_reduced_reference(dev, arch, backend):
         rcfg, _mesh_train_rc(r["k"], r["q"], backend), opt)
     params = model.init(3, rcfg, device=dev)
     state = opt.init(params)
+    batches = _reduced_batches(rcfg, dev)
     rows = []
     for t in range(r["steps"]):
-        tok = _mesh_tokens(rcfg, r["batch"], r["seq"], dev,
-                           seed=5 + t).reshape(r["k"], -1, r["seq"])
-        params, state, met = step(params, state,
-                                  {"tokens": tok, "labels": tok.roll(-1, -1)},
+        params, state, met = step(params, state, batches(t),
                                   prng.PRNGKey(11 + t, device=dev), t)
         rows.append({name: float(v) for name, v in met.items()})
     return rows, tree_map(lambda x: x.cpu(), params)
@@ -4365,18 +4439,66 @@ def _leaves_close(got, want, rtol, atol):
     return ok, worst
 
 
-def _worst_rel_norm(got, want, dev=None) -> float:
-    """The largest ||got - want|| / ||want|| over the leaves of two trees,
+def _rel_norms(got, want, dev=None) -> dict:
+    """{leaf path: ||got - want|| / ||want||} over the leaves of two trees,
     each pair taken to ``dev`` (inf where a shape differs or a value is
     not finite)."""
+    from torch.utils._pytree import keystr, tree_flatten_with_path
     from torch.utils._pytree import tree_leaves
-    worst = 0.0
-    for a, b in zip(tree_leaves(got), tree_leaves(want), strict=True):
+    out = {}
+    for (path, b), a in zip(tree_flatten_with_path(want)[0],
+                            tree_leaves(got), strict=True):
         a, b = a.to(dev).float(), b.to(dev).float()
-        if a.shape != b.shape or not bool(a.isfinite().all()):
-            return float("inf")
-        worst = max(worst, float((a - b).norm() / b.norm().clamp_min(1e-30)))
-    return worst
+        out[keystr(path)] = (
+            float("inf") if a.shape != b.shape or not bool(a.isfinite().all())
+            else float((a - b).norm() / b.norm().clamp_min(1e-30)))
+    return out
+
+
+def _worst_leaves(rel, n=3) -> dict:
+    """The ``n`` largest of ``_rel_norms``' values, by leaf."""
+    return dict(sorted(rel.items(), key=lambda kv: -kv[1])[:n])
+
+
+def reduced_step_checks(per_rank, reduced_refs, archs, phase, part):
+    """Phase 13 (b), 14 (e): each reduced ``arch``'s mesh steps of both
+    variants (rank 0's metrics and whole params) against one process's
+    (``reduced_refs``: the reference round for shard-local, the kernel
+    for gathered) at MESH_TRAIN_REDUCED_RTOL, the same metrics on every
+    rank, the round kernel once a rank a gathered step and never
+    shard-local -> the round-kernel launches counted."""
+    r = MESH_TRAIN_REDUCED_RC
+    launches = 0
+    for arch in archs:
+        for variant in ("shard_local", "gathered"):
+            res = [pr[(arch, variant)] for pr in per_rank]
+            backend = "auto" if variant == "gathered" else "reference"
+            want_rows, want_params = reduced_refs[(arch, backend)]
+            bad = [name for t, row in enumerate(res[0]["rows"])
+                   for name, v in row.items()
+                   if abs(v - want_rows[t][name]) > MESH_TRAIN_REDUCED_RTOL
+                   * abs(want_rows[t][name]) + 1e-7]
+            ok_p, worst = _leaves_close(res[0]["whole"], want_params,
+                                        MESH_TRAIN_REDUCED_RTOL, 1e-7)
+            same_rows = all(x["rows"] == res[0]["rows"] for x in res)
+            want_launches = r["steps"] if variant == "gathered" else 0
+            n_launch = [x["launches"] for x in res]
+            launches += sum(n_launch)
+            ok = not bad and ok_p and same_rows and all(
+                x == want_launches for x in n_launch)
+            check(ok, f"{phase} ({part}) {arch} {variant}: metrics off "
+                      f"{bad}, params worst {worst}, launches {n_launch}")
+            emit({"phase": phase, "part": part,
+                  "arch": arch + "-reduced", "variant": variant,
+                  "overrides": MESH_REDUCED_OVERRIDES.get(arch, {}),
+                  "mesh": {"data": 2, "model": 2}, **r,
+                  "history_by_rank0": res[0]["rows"],
+                  "history_one_process": want_rows,
+                  "params_worst_rel_err": worst,
+                  "rtol": MESH_TRAIN_REDUCED_RTOL,
+                  "launches_by_rank": n_launch,
+                  "s_per_step_by_rank0": res[0]["s_per_step"], "ok": ok})
+    return launches
 
 
 def mesh_train_path(dev, smi):
@@ -4441,7 +4563,8 @@ def mesh_train_path(dev, smi):
                 "peak_gb_one_process": refs[backend][2],
                 "ok": not any(vs) and same_rows, "card": smi}
         first = res[0]["first"]
-        agg_err = _worst_rel_norm(first["agg"], refs[backend][3], dev)
+        rel = _rel_norms(first["agg"], refs[backend][3], dev)
+        agg_err = max(rel.values())
         agg_ok = agg_err <= MESH_TRAIN_AGG_RTOL
         check(agg_ok, f"mesh train (a) {variant}: the first step's aggregate "
                       f"{agg_err} from one process's (relative norm)")
@@ -4449,6 +4572,7 @@ def mesh_train_path(dev, smi):
                                      "after one step are not the update "
                                      "of the aggregate")
         line.update(agg_worst_rel_norm_err=agg_err,
+                    agg_worst_leaves=_worst_leaves(rel),
                     agg_rtol=MESH_TRAIN_AGG_RTOL,
                     update_of_aggregate_exact=first["update_exact"])
         line["ok"] = line["ok"] and agg_ok and first["update_exact"]
@@ -4463,36 +4587,8 @@ def mesh_train_path(dev, smi):
                         kernel_ms_by_rank=[x["kernel_ms"] for x in res])
         emit(line)
     # (b) the reduced MoE and ssm families
-    r = MESH_TRAIN_REDUCED_RC
-    for arch in MESH_TRAIN_REDUCED:
-        for variant in ("shard_local", "gathered"):
-            res = [pr[(arch, variant)] for pr in per_rank]
-            backend = "auto" if variant == "gathered" else "reference"
-            want_rows, want_params = reduced_refs[(arch, backend)]
-            bad = [name for t, row in enumerate(res[0]["rows"])
-                   for name, v in row.items()
-                   if abs(v - want_rows[t][name]) > MESH_TRAIN_REDUCED_RTOL
-                   * abs(want_rows[t][name]) + 1e-7]
-            ok_p, worst = _leaves_close(res[0]["whole"], want_params,
-                                        MESH_TRAIN_REDUCED_RTOL, 1e-7)
-            same_rows = all(x["rows"] == res[0]["rows"] for x in res)
-            want_launches = r["steps"] if variant == "gathered" else 0
-            n_launch = [x["launches"] for x in res]
-            launches += sum(n_launch)
-            ok = not bad and ok_p and same_rows and all(
-                x == want_launches for x in n_launch)
-            check(ok, f"mesh train (b) {arch} {variant}: metrics off {bad}, "
-                      f"params worst {worst}, launches {n_launch}")
-            emit({"phase": "mesh_train", "part": "b",
-                  "arch": arch + "-reduced", "variant": variant,
-                  "overrides": MESH_REDUCED_OVERRIDES.get(arch, {}),
-                  "mesh": {"data": 2, "model": 2}, **r,
-                  "history_by_rank0": res[0]["rows"],
-                  "history_one_process": want_rows,
-                  "params_worst_rel_err": worst,
-                  "rtol": MESH_TRAIN_REDUCED_RTOL,
-                  "launches_by_rank": n_launch,
-                  "s_per_step_by_rank0": res[0]["s_per_step"], "ok": ok})
+    launches += reduced_step_checks(per_rank, reduced_refs,
+                                    MESH_TRAIN_REDUCED, "mesh_train", "b")
     emit({"phase": "mesh_train", "seconds": time.perf_counter() - t0,
           "references_s": ref_s, "ranks_wall_s": ranks_s, "card": smi})
     return launches, {"shape": [MESH_TRAIN["k"], MESH_TRAIN["k"], P],
@@ -4500,6 +4596,380 @@ def mesh_train_path(dev, smi):
                                     if kernel_ms else None),
                       "kernel_ms_by_rank": kernel_ms,
                       "launches": gathered_launches}
+
+
+# -- phase 14: the hybrid, audio and vlm families on the model mesh -----------
+
+# the meshes of phase 14 (b)-(e), ("data", "model") sizes
+FAMILY_MESHES = {"line": (1, MESH_RANKS), "square": (2, MESH_RANKS // 2)}
+FAMILY_AUDIO_FRAMES = PREFILL_T // 4
+# (a) the flash kernel at these families' sequence-parallel shapes on the
+# mesh each runs on, name: ((B, Tq a rank, Tk, H, KV, hd, causal, window),
+# |model|, no extra blocks): a rank's block of queries at offset Tq r
+# against all the keys.  Zamba2's shared block and InternVL2 on (1, 4);
+# SeamlessM4T on (2, 2): its encoder over the frames, its decoder's
+# causal self-attention and its cross-attention against the memory
+_M_LINE, _M_SQUARE = FAMILY_MESHES["line"][1], FAMILY_MESHES["square"][1]
+FAMILY_SP = {
+    "zamba2_shared": ((1, PREFILL_T // _M_LINE, PREFILL_T, 32, 32, 80,
+                       True, None), _M_LINE, ()),
+    "seamless_encoder": ((1, FAMILY_AUDIO_FRAMES // _M_SQUARE,
+                          FAMILY_AUDIO_FRAMES, 16, 16, 64, False, None),
+                         _M_SQUARE, ()),
+    "seamless_decoder": ((1, PREFILL_T // _M_SQUARE, PREFILL_T, 16, 16, 64,
+                          True, None), _M_SQUARE, ()),
+    "seamless_cross": ((1, PREFILL_T // _M_SQUARE, FAMILY_AUDIO_FRAMES, 16,
+                        16, 64, False, None), _M_SQUARE, ()),
+    "internvl2": ((1, PREFILL_T // _M_LINE, PREFILL_T, 48, 8, 128, True,
+                   None), _M_LINE, ())}
+# (b) Zamba2-2.7B on (1, 4): bf16 at full depth, f32 at 12 layers
+FAMILY_ZAMBA_F32_LAYERS = 12
+FAMILY_ZAMBA_F32_CUTS = ["54 layers cut to 12 in f32 (2 groups)"]
+# (c) SeamlessM4T-medium on (2, 2): a sequence a data rank
+FAMILY_AUDIO_B = 2
+# (d) InternVL2-26B on (1, 4): each rank holds the attention weights and
+# both vocab matrices whole, 2.27 + 0.327 L GB a rank in bf16 (48 layers:
+# 72 GB for four ranks)
+FAMILY_VLM_LAYERS = 16
+FAMILY_VLM_F32_LAYERS = 8
+FAMILY_VLM_CUTS = ["48 layers cut to 16 (each rank holds 2.27 + 0.327 L "
+                   "GB of bf16 weights)"]
+FAMILY_VLM_F32_CUTS = ["48 layers cut to 8 in f32"]
+# (e) Zamba2-2.7B trained at its train depth (6 layers, one group) with
+# phase 13 (a)'s settings, shard-local; the reduced SeamlessM4T and
+# InternVL2 with phase 13 (b)'s
+FAMILY_TRAIN_STEPS = 2
+FAMILY_TRAIN_CUTS = ["54 layers cut to 6, one group of the shared block "
+                     "(launch/train.py gpu_train_layers)",
+                     "seq_len 512, one sequence a group a data rank"]
+FAMILY_TRAIN_REDUCED = (AUDIO_ARCH, VLM_ARCH)
+
+
+def _family_local(cfg, mesh, dev, seed=0):
+    """``cfg``'s params drawn from ``seed`` and cut to the mesh's compute
+    layout, the ranks of one card taking turns (a rank's whole params and
+    its cut live at once in its turn only)."""
+    from repro_torch.launch import sharding
+    from repro_torch.models import meshctx, model
+
+    def build():
+        params = model.init(seed, cfg, device=dev)
+        local = sharding.local_params(params, mesh, cfg)
+        del params
+        return local
+    return meshctx.one_card_turns(mesh, build, dev)
+
+
+def _family_inputs(cfg, dev):
+    """The prefill inputs of phase 14 (b)-(d), drawn from seeds on the
+    card (the same in either dtype): Zamba2's (1, T) tokens; SeamlessM4T's
+    (2, T) tokens and (2, T / 4, D) frames; InternVL2's 256 patches and
+    T - 256 tokens."""
+    import torch
+    if cfg.family == "hybrid":
+        return {"tokens": _mesh_tokens(cfg, 1, PREFILL_T, dev)}
+    if cfg.family == "audio":
+        return {"tokens": _mesh_tokens(cfg, FAMILY_AUDIO_B, PREFILL_T, dev),
+                "frames": torch.cat([
+                    _stub("frames", cfg, FAMILY_AUDIO_FRAMES, dev, seed=7 + b)
+                    for b in range(FAMILY_AUDIO_B)])}
+    P = cfg.num_patches
+    return {"tokens": _mesh_tokens(cfg, 1, PREFILL_T - P, dev),
+            "patches": _stub("patches", cfg, P, dev)}
+
+
+def _family_warm(batch):
+    """A short batch of the same kind (the first prefill's warm-up)."""
+    out = {"tokens": batch["tokens"][:, :512]}
+    if "frames" in batch:
+        out["frames"] = batch["frames"][:, :128]
+    if "patches" in batch:
+        out["patches"] = batch["patches"]
+    return out
+
+
+# (arch, mesh, dtype, layers (None: full depth)) of phase 14 (b)-(d)
+FAMILY_PREFILLS = (
+    (ZAMBA_ARCH, "line", "bfloat16", None),
+    (ZAMBA_ARCH, "line", "float32", FAMILY_ZAMBA_F32_LAYERS),
+    (AUDIO_ARCH, "square", "bfloat16", None),
+    (AUDIO_ARCH, "square", "float32", None),
+    (VLM_ARCH, "line", "bfloat16", FAMILY_VLM_LAYERS),
+    (VLM_ARCH, "line", "float32", FAMILY_VLM_F32_LAYERS))
+
+
+def _family_mesh_rank(rank, world, device):
+    """Phase 14 (b)-(e) on one rank of the card: the three families'
+    prefills on their meshes (SeamlessM4T's f32 once more with the
+    encoder made causal), then the group steps."""
+    import torch
+    from repro_torch import optim
+    from repro_torch import random as prng
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models import meshctx, model
+    dev = torch.device(device)
+    torch.set_float32_matmul_precision("highest")
+    meshes = {n: mesh_lib.make_mesh(sizes, ("data", "model"))
+              for n, sizes in FAMILY_MESHES.items()}
+    out = {"coords": {n: dict(m.coords) for n, m in meshes.items()}}
+    for arch, mname, dname, layers in FAMILY_PREFILLS:
+        mesh = meshes[mname]
+        cfg = _mesh_cfg(arch, dname, layers)
+        local = _family_local(cfg, mesh, dev)
+        full_batch = _family_inputs(cfg, dev)
+        with meshctx.set_mesh(mesh):
+            batch = sharding.local_batch(full_batch, mesh, cfg)
+            warm = sharding.local_batch(_family_warm(full_batch), mesh, cfg)
+            step = steps.make_prefill_step(cfg)
+            step(local, warm)
+            torch.cuda.reset_peak_memory_stats(dev)
+            res = _mesh_prefill(step, local, batch, dev)
+            out[(arch, dname)] = res + (
+                torch.cuda.max_memory_allocated(dev) / 1e9, _digest(res[0]))
+            if cfg.family == "audio" and dname == "float32":
+                with causal_encoder():
+                    out[(arch, "causal_encoder")] = _mesh_prefill(
+                        step, local, batch, dev)
+        del local, batch, warm, full_batch
+        torch.cuda.empty_cache()
+    # (e) Zamba2 at its train depth, shard-local, AdamW
+    square = meshes["square"]
+    g = MESH_TRAIN
+    cfg = mesh_train_config(ZAMBA_ARCH)
+    full = model.init(MESH_TRAIN_SEED, cfg, device=dev)
+    specs = sharding.param_shardings(full, square, cfg)
+    stream, key = _mesh_train_stream(cfg, dev), _mesh_train_key(dev)
+    with meshctx.set_mesh(square):
+        out[(ZAMBA_ARCH, "train")] = _mesh_train_variant(
+            cfg, square, "shard_local", full, specs, dev, FAMILY_TRAIN_STEPS,
+            _mesh_train_rc(g["k"], g["q"], "auto"), optim.adamw(g["lr"]),
+            stream.batch, lambda t: prng.fold_in(key, t), check_first=True)
+    del full
+    torch.cuda.empty_cache()
+    # the reduced audio and vlm families, f32, SGD, both variants
+    r = MESH_TRAIN_REDUCED_RC
+    for arch in FAMILY_TRAIN_REDUCED:
+        rcfg = _mesh_cfg(arch, reduced=True)
+        full = model.init(3, rcfg, device=dev)
+        rspecs = sharding.param_shardings(full, square, rcfg)
+        with meshctx.set_mesh(square):
+            for variant in ("shard_local", "gathered"):
+                out[(arch, variant)] = _mesh_train_variant(
+                    rcfg, square, variant, full, rspecs, dev, r["steps"],
+                    _mesh_train_rc(r["k"], r["q"], "auto"),
+                    optim.sgd(r["lr"]), _reduced_batches(rcfg, dev),
+                    lambda t: prng.PRNGKey(11 + t, device=dev))
+        del full
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family_want_launches(cfg) -> int:
+    """Flash launches a rank a prefill: Zamba2's shared block a group;
+    SeamlessM4T's encoder, decoder and cross-attention a layer each;
+    one a decoder layer for InternVL2."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_every
+    if cfg.family == "audio":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
+
+
+def _family_references(dev):
+    """The one-process prefills of phase 14 (b)-(d) on the card, kernel
+    path, each freed before the next: {(arch, dtype): (h on the host, for
+    SeamlessM4T one a sequence, ms)}."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    refs = {}
+    for arch, _, dname, layers in FAMILY_PREFILLS:
+        cfg = _mesh_cfg(arch, dname, layers)
+        params = model.init(0, cfg, device=dev)
+        step = steps.make_prefill_step(cfg)
+        batch = _family_inputs(cfg, dev)
+        seqs = [{k: v[b:b + 1] for k, v in batch.items()}
+                for b in range(batch["tokens"].shape[0])]
+        step(params, _family_warm(seqs[0]))
+        hs, ms = [], []
+        for one in seqs:
+            h, t = _prefill_ms(step, params, one, dev)
+            hs.append(h.cpu())
+            ms.append(t)
+        refs[(arch, dname)] = (hs, ms)
+        del params, h, batch, seqs
+        torch.cuda.empty_cache()
+    return refs
+
+
+def _family_rows(key, per_rank, sizes):
+    """The ranks' hidden states of the prefill ``key`` (arch, dtype)
+    joined into each sequence's (1, T, D): rank d |model| + m holds
+    sequence d's block m (the hybrid's whole T on every model rank: rank
+    0's taken, the others' digests held to it)."""
+    import torch
+    nd, nm = sizes
+    res = [pr[key] for pr in per_rank]
+    if key[0] == ZAMBA_ARCH:
+        same = all(x[6] == res[0][6] for x in res)
+        check(same, f"mesh families (b) {key}: the model ranks' hidden "
+                    "states differ")
+        return [res[0][0]]
+    return [torch.cat([res[d * nm + m][0] for m in range(nm)], 1)
+            for d in range(nd)]
+
+
+def mesh_families_path(dev, hbm, smi):
+    """Phase 14: the hybrid, audio and vlm families on the model mesh, 4
+    rank processes of the card.  (a) the flash kernel at their
+    sequence-parallel offset shapes (``sp_offset_kernel``); then,
+    with every single-process reference computed first and freed: (b)
+    Zamba2-2.7B's bf16 prefill at full width and depth on (1, 4), B = 1, T
+    = 8192 (the Mamba2 blocks channel-parallel, the shared block on the
+    rank's T block, 9 flash launches a rank at hd 80), f32 at 12 layers;
+    (c) SeamlessM4T-medium's bf16 and f32 prefills at full width and
+    depth on (2, 2), B = 2, T = 8192 and 2048 frames (the encoder
+    sequence-parallel over the frames, its output gathered into the
+    memory; 36 launches a rank), and f32 with the encoder made causal,
+    which must fail; (d) InternVL2-26B's bf16 prefill at full width cut to
+    16 layers on (1, 4), 256 patches + 7936 tokens, f32 at 8 layers; (e)
+    Zamba2 at its train depth on (2, 2), two shard-local steps with phase
+    13 (a)'s settings and checks, and the reduced SeamlessM4T and
+    InternVL2 with phase 13 (b)'s.  -> ({dtype: flash launches by route of
+    the mesh prefills}, round-kernel launches, the flash row's
+    ``family_sp_shapes``)."""
+    import torch
+    from repro_torch.kernels.attention import flash
+    from repro_torch.launch import ranks
+    from repro_torch.launch import train as train_lib
+    from repro_torch.sim.goldens import compare_traces
+    t0 = time.perf_counter()
+    sp_rows, sp_worst = sp_offset_kernel(dev, hbm, smi, FAMILY_SP,
+                                         "mesh_families", 40)
+    refs = _family_references(dev)
+    train_ref = mesh_train_reference(dev, "reference", FAMILY_TRAIN_STEPS,
+                                     arch=ZAMBA_ARCH)
+    reduced_refs = {(arch, b): mesh_train_reduced_reference(dev, arch, b)
+                    for arch in FAMILY_TRAIN_REDUCED
+                    for b in ("reference", "auto")}
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    per_rank = ranks.run(_family_mesh_rank, MESH_RANKS, dev.type,
+                         timeout=900.0)
+    ranks_s = time.perf_counter() - t1
+    sizes = FAMILY_MESHES
+    by_route = {"bfloat16": {r: 0 for r in flash.ROUTES},
+                "float32": {r: 0 for r in flash.ROUTES}}
+    part = {ZAMBA_ARCH: "b", AUDIO_ARCH: "c", VLM_ARCH: "d"}
+    for arch, mname, dname, layers in FAMILY_PREFILLS:
+        cfg = _mesh_cfg(arch, dname, layers)
+        hs_ref, ms_ref = refs[(arch, dname)]
+        rows = _family_rows((arch, dname), per_rank, sizes[mname])
+        scale = max(float(h.float().abs().max()) for h in hs_ref)
+        errs = [float((h.float() - w.float()).abs().max())
+                if h.shape == w.shape else float("inf")
+                for h, w in zip(rows, hs_ref)]
+        finite = all(bool(torch.isfinite(h).all()) for h in rows)
+        ok = max(errs) <= PREFILL_RTOL[dname] * scale and finite
+        res = [pr[(arch, dname)] for pr in per_rank]
+        L = _family_want_launches(cfg)
+        want_route = flash.route(cfg.dtype, cfg.head_dim)
+        launches_ok = all(x[2] == {r: L * (r == want_route)
+                                   for r in flash.ROUTES} for x in res)
+        for x in res:
+            for rt, n in x[2].items():
+                by_route[dname][rt] += n
+        check(ok, f"mesh families ({part[arch]}) {arch} {dname}: "
+                  f"max_abs_err {errs} (max|h| {scale}, rtol "
+                  f"{PREFILL_RTOL[dname]})")
+        check(launches_ok, f"mesh families ({part[arch]}) {arch} {dname}: "
+                           f"launches by rank {[x[2] for x in res]}, want "
+                           f"{L} on {want_route}")
+        line = {"phase": "mesh_families", "part": part[arch], "arch": arch,
+                "dtype": dname, "mesh": dict(zip(("data", "model"),
+                                                 sizes[mname])),
+                "batch": len(hs_ref), "seq_len": PREFILL_T,
+                "num_layers": cfg.num_layers,
+                "reduced": ([] if layers is None else
+                            {ZAMBA_ARCH: FAMILY_ZAMBA_F32_CUTS,
+                             VLM_ARCH: FAMILY_VLM_CUTS if dname == "bfloat16"
+                             else FAMILY_VLM_F32_CUTS}[arch]),
+                "launches_by_rank": [x[2] for x in res],
+                "ms_per_prefill_mesh_by_rank": [x[1] for x in res],
+                "ms_per_prefill_one_process_by_sequence": ms_ref,
+                "collectives_by_rank": [x[3] for x in res],
+                "staged_gb_by_rank": [x[3]["bytes"] / 1e9 for x in res],
+                "staged_share_by_rank": [x[3]["ms"] / x[1] for x in res],
+                "peak_gb_by_rank": [x[5] for x in res],
+                "max_abs_err_by_sequence": errs, "max_abs_h": scale,
+                "rel_err": max(errs) / scale, "rtol": PREFILL_RTOL[dname],
+                "ok": ok and launches_ok, "card": smi}
+        if cfg.family == "audio" and dname == "float32":
+            fault = [pr[(arch, "causal_encoder")] for pr in per_rank]
+            nd, nm = sizes[mname]
+            f_rows = [torch.cat([fault[d * nm + m][0] for m in range(nm)], 1)
+                      for d in range(nd)]
+            f_err = max(float((h.float() - w.float()).abs().max())
+                        for h, w in zip(f_rows, hs_ref))
+            caught = f_err > PREFILL_RTOL[dname] * scale
+            check(caught, f"mesh families (c) {arch}: the causal encoder's "
+                          f"max_abs_err {f_err} passes the f32 check")
+            line.update(causal_encoder_max_abs_err=f_err,
+                        causal_encoder_caught=caught)
+        emit(line)
+    # (e) Zamba2 at its train depth on (2, 2)
+    cfg = train_lib.train_config(ZAMBA_ARCH, "gpu")
+    res = [pr[(ZAMBA_ARCH, "train")] for pr in per_rank]
+    want_rows = train_ref[0]
+    vs = [compare_traces(_compared(x["rows"]), _compared(want_rows))
+          for x in res]
+    same_rows = all(x["rows"] == res[0]["rows"] for x in res)
+    n_launch = [x["launches"] for x in res]
+    first = res[0]["first"]
+    rel = _rel_norms(first["agg"], train_ref[3], dev)
+    agg_err = max(rel.values())
+    digests_equal = all(x["first_digest"] == res[0]["first_digest"]
+                        for x in res)
+    ok = (not any(vs) and same_rows and all(n == 0 for n in n_launch)
+          and agg_err <= MESH_TRAIN_AGG_RTOL and first["update_exact"]
+          and digests_equal)
+    check(ok, f"mesh families (e) {ZAMBA_ARCH}: vs one process {vs[0][:3]}, "
+              f"same rows {same_rows}, launches {n_launch}, aggregate "
+              f"{agg_err}, update exact {first['update_exact']}, digests "
+              f"equal {digests_equal}")
+    emit({"phase": "mesh_families", "part": "e", "arch": ZAMBA_ARCH,
+          "variant": "shard_local", "mesh": {"data": 2, "model": 2},
+          "num_layers": cfg.num_layers, "param_leaves": cfg_param_leaves(cfg),
+          "reduced": FAMILY_TRAIN_CUTS, **MESH_TRAIN,
+          "steps": FAMILY_TRAIN_STEPS, "history_by_rank0": res[0]["rows"],
+          "history_one_process": want_rows,
+          "launches_by_rank": n_launch,
+          "s_per_step_by_rank": [x["s_per_step"] for x in res],
+          "s_per_step_one_process": train_ref[1],
+          "stage_s_by_rank": [x["stages"] for x in res],
+          "staged_gb_per_step_by_rank": [
+              [st["bytes"] / 1e9 for st in x["staged"]] for x in res],
+          "staged_share_by_rank": [
+              [st["ms"] / 1e3 / s for st, s in zip(x["staged"],
+                                                  x["s_per_step"])]
+              for x in res],
+          "peak_gb_by_rank": [x["peak_gb"] for x in res],
+          "peak_gb_one_process": train_ref[2],
+          "agg_worst_rel_norm_err": agg_err,
+          "agg_worst_leaves": _worst_leaves(rel),
+          "agg_rtol": MESH_TRAIN_AGG_RTOL,
+          "update_of_aggregate_exact": first["update_exact"],
+          "aggregate_sha256_equal_across_ranks": digests_equal,
+          "ok": ok, "card": smi})
+    # the reduced audio and vlm families
+    launches = sum(n_launch) + reduced_step_checks(
+        per_rank, reduced_refs, FAMILY_TRAIN_REDUCED, "mesh_families", "e")
+    emit({"phase": "mesh_families", "seconds": time.perf_counter() - t0,
+          "references_s": ref_s, "ranks_wall_s": ranks_s,
+          "sp_worst_bf16_err": sp_worst, "card": smi})
+    return by_route, launches, sp_rows
 
 
 def cfg_param_leaves(cfg) -> int:
@@ -4782,6 +5252,11 @@ def main() -> int:
     mt_launches, mt_row = mesh_train_path(dev, smi)
     main_launches += mt_launches
 
+    # -- 14 mesh families: the hybrid, audio and vlm families on the mesh ---
+    torch.cuda.empty_cache()
+    fam_routes, fam_launches, fam_rows = mesh_families_path(dev, hbm, smi)
+    main_launches += fam_launches
+
     # -- 7 the kernel line --------------------------------------------------
     csrc = "src/repro_torch/kernels/"
     rows = (("round_aggregate", "geomed/csrc/round_aggregate.cu",
@@ -4814,7 +5289,7 @@ def main() -> int:
              "src/repro/kernels/attention/flash.py:124",
              sum(r["bfloat16"]["tensor_core"] for r in (
                  attn_routes, moe_routes, rec_routes, av_routes,
-                 mesh_routes)),
+                 mesh_routes, fam_routes)),
              attn_err[(ATTN_MAIN, "bfloat16")], timing[ATTN_MAIN],
              ATTN_MAIN))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
@@ -4841,19 +5316,22 @@ def main() -> int:
             "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err", "iters", "iters_plain")}}
     # and phase 13's gathered mesh steps: one launch a rank at (k, k, P)
+    # (phase 14's reduced gathered steps are counted in its launches)
     line[0]["mesh_train_shape"] = mt_row
     # the linreg round's row is its one-pass route at LINREG_MAIN
     line[1].update(kernel_route="one_pass", launches_by_route=linreg_routes)
     # flash attention's row is its tensor-core route at ATTN_MAIN (bf16);
     # the f32 prefills' launches went to the CUDA-core route; its launches
     # are H2O's prefills (phase 4b), Granite's (phase 9), Zamba2's (phase
-    # 10), SeamlessM4T's and InternVL2's (phase 11); the other models'
-    # prefill shapes are timed beside ATTN_MAIN
+    # 10), SeamlessM4T's and InternVL2's (phase 11), and the mesh
+    # prefills' of phases 12 and 14, each rank's measured; the other
+    # models' prefill shapes are timed beside ATTN_MAIN, and the mesh
+    # families' offset shapes (phase 14 (a)) as family_sp_shapes
     line[-1].update(kernel_route="tensor_core", sp_offset_shape=sp_row,
-                    launches_by_route={
+                    family_sp_shapes=fam_rows, launches_by_route={
         route: sum(r[dname][route] for r in (attn_routes, moe_routes,
                                              rec_routes, av_routes,
-                                             mesh_routes))
+                                             mesh_routes, fam_routes))
         for dname, route in (("bfloat16", "tensor_core"),
                              ("float32", "cuda_core"))}, **{
         key: {"shape": list(case), **{

@@ -32,7 +32,8 @@ saw other tokens (``model._grad_sum_axes``) and reduce-scattered to the
 storage blocks.  ``compute_plans`` says how, leaf by leaf.  The step
 gathers once a step and reduce-scatters once a group.  ``local_batch`` cuts a
 prefill's (B, T) batch to the rank's block, ``local_train_batch`` a
-train step's (k, B/k, T).
+train step's (k, B/k, T): T over ``model`` for the dense, MoE and audio
+families, whole for ssm, hybrid and vlm (``_seq_axis``).
 """
 
 from __future__ import annotations
@@ -403,9 +404,11 @@ def compute_spec(path, shape, mesh, cfg: ModelConfig) -> tuple:
     """The regions' layout of the param at ``path`` with the full
     ``shape``: the SwiGLU's F over ``model`` where d_ff % |model| == 0,
     the experts' E over ``model`` and their FSDP dim
-    (``moe.fsdp_layout``) over the data axes where it divides; every
-    other leaf whole."""
-    from repro_torch.models import blocks, moe
+    (``moe.fsdp_layout``) over the data axes where it divides, the Mamba2
+    blocks' channel-TP leaves (``mamba.TP_DIMS``, the gated norm's scale)
+    over ``model`` where |model| divides the heads; every other leaf
+    whole."""
+    from repro_torch.models import blocks, mamba, moe
     names = _names(path)
     name = names[-1]
     skip = _STACK_DIMS.get(names[0], 0)
@@ -420,6 +423,9 @@ def compute_spec(path, shape, mesh, cfg: ModelConfig) -> tuple:
     elif "mlp" in names and cfg.d_ff % mesh_lib.model_size(mesh) == 0 \
             and name in ("w_gate", "w_up", "w_down"):
         spec[-1 if name != "w_down" else -2] = "model"
+    elif names[0] == "mamba" and mamba.tp_dim(names) is not None \
+            and mamba.tp_applies(mesh, blocks.mamba_spec(cfg)):
+        spec[mamba.tp_dim(names)] = "model"
     return tuple(spec)
 
 
@@ -431,22 +437,42 @@ def local_params(params, mesh, cfg: ModelConfig):
         params)
 
 
+def _seq_axis(cfg: ModelConfig):
+    """The axis a batch's sequence dims are cut over: ``model`` for the
+    families whose stream is cut as the batch is (``model.T_CUT_FAMILIES``:
+    the dense and MoE tokens, the audio tokens and frames), else none."""
+    from repro_torch.models import model
+    return "model" if cfg.family in model.T_CUT_FAMILIES else None
+
+
+def _check_memory_rows(batch, mesh, cfg: ModelConfig, dim: int):
+    """Refuse an encoder memory whose rows the data axes do not divide
+    (the reference's condition for its sequence-parallel
+    cross-attention)."""
+    if cfg.family == "audio":
+        rows = batch["frames"].shape[dim]
+        if rows % mesh_lib.data_size(mesh) != 0:
+            raise NotImplementedError(
+                f"an encoder memory of {rows} rows on "
+                f"{mesh_lib.data_size(mesh)} data ranks: the cross-attention "
+                "takes the memory cut over the data axes (memory.shape[0] % "
+                "data == 0)")
+
+
 def local_batch(batch, mesh, cfg: ModelConfig):
-    """The rank's block of a global batch: rows over the data axes and,
-    for the sequence-parallel families, columns over ``model``; RWKV6's
-    (ssm) whole sequence on every model rank."""
-    spec = (_fsdp_entry(mesh_lib.data_axes(mesh)),
-            "model" if cfg.family != "ssm" else None)
+    """The rank's block of a global batch: rows over the data axes and
+    the sequence dim over ``_seq_axis``."""
+    _check_memory_rows(batch, mesh, cfg, 0)
+    spec = (_fsdp_entry(mesh_lib.data_axes(mesh)), _seq_axis(cfg))
     return _map_with_path(lambda _, t: meshctx.cut(
         t, spec + (None,) * (t.ndim - 2), mesh.coords, mesh.shape), batch)
 
 
 def local_train_batch(batch, mesh, cfg: ModelConfig):
     """The rank's block of a train step's (k, B/k, T) batch: B/k over the
-    data axes (``train_batch_spec``) and, for the sequence-parallel
-    families, T over ``model``."""
-    spec = train_batch_spec(mesh) + ("model" if cfg.family != "ssm"
-                                     else None,)
+    data axes (``train_batch_spec``) and T over ``_seq_axis``."""
+    _check_memory_rows(batch, mesh, cfg, 1)
+    spec = train_batch_spec(mesh) + (_seq_axis(cfg),)
     return _map_with_path(lambda _, t: meshctx.cut(
         t, spec + (None,) * (t.ndim - 3), mesh.coords, mesh.shape), batch)
 

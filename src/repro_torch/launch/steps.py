@@ -111,11 +111,6 @@ class _MeshLayout:
 
     def __init__(self, cfg, rc, mesh, grad_shardings, shard_spec,
                  param_shardings):
-        if cfg.family not in model_lib.MESH_FAMILIES:
-            raise NotImplementedError(
-                f"the {cfg.family} family's group step on a mesh: only "
-                f"{', '.join(model_lib.MESH_FAMILIES)} are ported (ROADMAP "
-                "Queue 1 item 16.12)")
         if rc.compression == "int8_stochastic":
             raise NotImplementedError(
                 "the int8_stochastic wire on the mesh step (per-block keys "
@@ -275,13 +270,11 @@ def make_group_train_step(cfg: ModelConfig, rc: RobustConfig, optimizer, *,
                 def value_and_grad(group_batch):
                     return group_value_and_grad(params, group_batch)
             else:
-                first = tree_leaves(batch)[0]
-                seq = first.shape[2] * (meshctx.model_size(lay.mesh)
-                                        if cfg.family != "ssm" else 1)
+                rows, seq = model_lib.stream_shape(
+                    cfg, tree_map(lambda x: x[0], batch), lay.mesh)
                 plans = sharding.compute_plans(
                     params, lay.specs, lay.mesh, cfg, seq=seq,
-                    batch=first.shape[1] * meshctx.data_size(lay.mesh)
-                    // microbatches)
+                    batch=rows // microbatches)
                 compute = sharding.compute_params(params, plans, lay.mesh)
 
                 def value_and_grad(group_batch):

@@ -289,7 +289,7 @@ def apply(params, spec: AttentionSpec, x, *, memory=None,
             raise NotImplementedError(
                 f"attention under the mesh {mesh.shape} at (B, T) = "
                 f"{(B, T)}: only the sequence-parallel layout is ported "
-                "(T >= 16 model ranks; ROADMAP Queue 1 item 16.12)")
+                "(T >= 16 model ranks; ROADMAP Queue 1 item 16.15)")
         return apply_sequence_parallel(params, spec, x, memory=memory,
                                        plain=plain)
     B, T, _ = x.shape

@@ -252,14 +252,18 @@ def cross_entropy_loss(logits_fn, hidden, labels, *, vocab_chunk: int = 0,
 def cross_entropy_sums(logits_fn, hidden, labels, *, vocab_chunk: int = 0,
                        ignore_index: int = -1):
     """``cross_entropy_loss``'s float32 (sum of the unmasked positions'
-    losses, their count), before the division: a mesh rank's share."""
+    losses, their count), before the division: a mesh rank's share.  At
+    T = 0 (a vlm mesh rank whose block holds only patches) both are zero,
+    still computed from ``hidden`` and ``logits_fn``'s weights, so that
+    the rank's backward runs, and makes its collectives, as every other
+    rank's does."""
     B, T = labels.shape
     chunk = vocab_chunk if vocab_chunk > 0 else min(T, 512)
-    if T % chunk != 0:
-        chunk = T
+    if chunk == 0 or T % chunk != 0:
+        chunk = max(T, 1)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     count = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for s in range(0, T, chunk):
+    for s in range(0, max(T, 1), chunk):
         logits = logits_fn(hidden[:, s:s + chunk]).to(torch.float32)
         lse = torch.logsumexp(logits, dim=-1)
         yc = labels[:, s:s + chunk]

@@ -20,6 +20,20 @@ one fixed order (the installation's einsum planner would pick its own),
 and ``softplus`` is the reference's ``logaddexp(x, 0)``.  No Pallas kernel computes the SSD in the
 reference, so it stays plain PyTorch.  Decode carries (conv states, ssm
 state (B, H, P, N)).
+
+Under a model mesh whose |model| divides the heads, ``apply`` runs the
+block channel-parallel (the reference's sharding rules): the stream
+(B/data, T, D) is the same on every model rank, the rank holds Din/|model|
+channels of ``w_z``, ``w_x``, ``conv_x``, ``conv_x_b``, ``norm`` and the
+rows of ``w_out``, H/|model| heads of ``w_dt``, ``A_log``, ``dt_bias``
+and ``D`` (``TP_DIMS``), ``w_B``, ``w_C`` and their convs whole, and runs
+the SSD on its heads.  The gated RMSNorm's sum of squares is psum'd over
+``model`` before the rsqrt, and the out-projection's partial sums are
+psum'd over ``model`` in rank order.  Each model rank then holds its own
+copy of the sum (the convention of the replicated stream: a value's
+gradient is the sum of its copies' cotangents), so both sums take the
+copies' cotangents summed in their backward.  Where |model| does not
+divide the heads the block runs whole on every rank, with no collective.
 """
 
 from __future__ import annotations
@@ -29,7 +43,12 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import layers
+from repro_torch.models import layers, meshctx
+
+# the leaves channel TP cuts over ``model``, and the dim it cuts (from the
+# end): Din columns, H heads, Din rows of the out-projection
+TP_DIMS = {"w_z": -1, "w_x": -1, "conv_x": -1, "conv_x_b": -1, "w_dt": -1,
+           "A_log": -1, "dt_bias": -1, "D": -1, "w_out": -2}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,25 +208,71 @@ def _project(params, spec: MambaSpec, x, conv_state):
     return z, xs, B_mat, C_mat, dt, {"x": cx, "B": cb, "C": cc}
 
 
-def _gate_out(p, y, z, dtype):
-    y = layers.rmsnorm(p["norm"], y.to(dtype))
+def tp_dim(names) -> int | None:
+    """The dim channel TP cuts of the block's leaf at ``names`` (its path,
+    the leaf's name last), or None for a leaf every rank holds whole (the
+    block's own ``ln`` among them)."""
+    if names[-1] == "scale":
+        return -1 if "norm" in names else None
+    return TP_DIMS.get(names[-1])
+
+
+def tp_applies(mesh, spec: MambaSpec) -> bool:
+    """Whether the block runs channel-parallel on ``mesh``: a model axis
+    whose size divides the heads (and so Din)."""
+    return mesh is not None and "model" in mesh.axis_names \
+        and spec.num_heads % meshctx.model_size(mesh) == 0
+
+
+def _gate_norm(params, y, mesh, width: int):
+    """The gated RMSNorm over all ``width`` channels of y (B, T, channels):
+    under channel TP (``mesh``) the rank's sum of squares psum'd over
+    ``model`` before the rsqrt, the sum each rank's own copy."""
+    yf = y.to(torch.float32)
+    ss = torch.sum(yf * yf, dim=-1, keepdim=True)
+    if mesh is not None:
+        ss = meshctx.pvary(meshctx.psum(ss, "model", mesh=mesh), "model",
+                           mesh=mesh)
+    normed = yf * torch.rsqrt(ss / width + 1e-5)
+    return (normed * params["scale"].to(torch.float32)).to(y.dtype)
+
+
+def _gate_out(p, y, z, dtype, width: int, *, mesh=None):
+    y = _gate_norm(p["norm"], y.to(dtype), mesh, width)
     y = y * F.silu(z.to(torch.float32)).to(dtype)
     return y @ p["w_out"]
 
 
 def apply(params, spec: MambaSpec, x, *, conv_state=None, ssm_state=None):
     """The Mamba2 block over a sequence (train / prefill).  x: (B, T, D).
-    Returns (out (B, T, D), (new conv state, new ssm state))."""
+    Returns (out (B, T, D), (new conv state, new ssm state)); under
+    channel TP (module docstring) the states are the rank's heads'."""
     p = params
     Bsz, T, _ = x.shape
-    Din, H, P = spec.d_inner, spec.num_heads, spec.head_dim
+    mesh = meshctx.current_mesh()
+    mesh = mesh if tp_applies(mesh, spec) else None
+    H = spec.num_heads // (meshctx.model_size(mesh) if mesh else 1)
+    P = spec.head_dim
+    if p["A_log"].shape[-1] != H:
+        raise ValueError(
+            f"Mamba2 block: A_log {tuple(p['A_log'].shape)} holds not the "
+            f"{H} heads of this rank's layout")
     z, xs, B_mat, C_mat, dt, new_conv = _project(p, spec, x, conv_state)
     A = torch.exp(p["A_log"])
     xh = xs.reshape(Bsz, T, H, P)
     y, new_ssm = _ssd_chunked(xh, dt, A, B_mat, C_mat, spec,
                               init_state=ssm_state)
     y = y + p["D"][:, None] * xh.to(torch.float32)
-    out = _gate_out(p, y.reshape(Bsz, T, Din), z, x.dtype)
+    out = _gate_out(p, y.reshape(Bsz, T, H * P), z, x.dtype, spec.d_inner,
+                    mesh=mesh)
+    if mesh is not None:
+        # the partial sums over the rank's heads, psum'd over model in rank
+        # order as a psum_scatter and an all_gather (the same sums, without
+        # every rank receiving every whole partial); its backward is the
+        # same pair on the copies' cotangents
+        out = meshctx.all_gather(
+            meshctx.psum_scatter(out, "model", 1, mesh=mesh), "model", 1,
+            mesh=mesh)
     return out, (new_conv, new_ssm)
 
 
@@ -227,7 +292,7 @@ def decode_step(params, spec: MambaSpec, x, conv_state, ssm_state):
     new_ssm = a[..., None, None] * ssm_state + inject         # (B, H, P, N)
     y = (new_ssm @ Cf[:, None, :, None])[..., 0]              # (B, H, P)
     y = y + p["D"][:, None] * xh
-    out = _gate_out(p, y.reshape(Bsz, 1, Din), z, x.dtype)
+    out = _gate_out(p, y.reshape(Bsz, 1, Din), z, x.dtype, Din)
     return out, (new_conv, new_ssm)
 
 

@@ -24,23 +24,39 @@ and ``init_decode_state`` are entry points: ``device=None`` means the
 CUDA card and raises without one.  Decode states are updated in place.
 
 Under a model mesh (``meshctx.set_mesh``) ``forward``, ``loss_fn`` and
-``prefill`` take the rank's block: for the dense and MoE families tokens
-(B/data, T/model), the residual stream staying (B/data, T/model, D)
-between the sequence-parallel regions; for RWKV6 (ssm) tokens
-(B/data, T), the same on every model rank, the WKV head-sharded inside
-its region.  Params are the rank's layout (``launch.sharding.
-local_params``); each leaf enters through ``meshctx.pvary`` over the axes
-it is replicated on, so its gradient comes back summed over them (the
-transpose shard_map takes at a replicated input), but where a region
-sums it itself (the SwiGLU region's data-axis psum, the expert weights'
-FSDP gather).  Under ``meshctx.param_sums_deferred`` the leaves enter as
-they are, and their gradients come back as the rank's partials: the
-trainer's storage layout takes those sums (``launch.sharding``,
+``prefill`` take the rank's block (``launch.sharding.local_batch``):
+
+* dense, MoE: tokens (B/data, T/model), the residual stream staying
+  (B/data, T/model, D) between the sequence-parallel regions;
+* audio: the same, and the frames (B/data, S/model, D) through the
+  encoder's sequence-parallel layers, its output all-gathered over
+  ``model`` once a forward into the (B/data, S, D) memory every decoder
+  layer's cross-attention reads;
+* vlm: the patches and tokens of the data shard whole, joined, and the
+  rank's block of the joined (P + T) stream cut from them; the rank's
+  labels and hidden states are the text positions in its block (none on a
+  rank whose block holds only patches);
+* RWKV6 (ssm) and Zamba2 (hybrid): tokens (B/data, T), the stream the
+  same on every model rank, the WKV head-sharded inside its region, the
+  Mamba2 blocks channel-parallel (``mamba.apply``), and Zamba2's shared
+  block on the rank's T block of the stream, gathered back after it.
+
+A stream that every model rank holds whole is its copies: the loss counts
+each rank's tokens, and a value's gradient is the sum of its copies'
+cotangents (the slice into a T block and the gather out of it, the WKV's
+heads, the Mamba2 psums keep that).  Params are the rank's layout
+(``launch.sharding.local_params``); each leaf enters through
+``meshctx.pvary`` over the axes it is replicated on, so its gradient
+comes back summed over them (the transpose shard_map takes at a
+replicated input), but where a region sums it itself (the SwiGLU
+region's data-axis psum, the expert weights' FSDP gather) or it is cut
+(Mamba2's channel TP).  Under ``meshctx.param_sums_deferred`` the leaves
+enter as they are, and their gradients come back as the rank's partials:
+the trainer's storage layout takes those sums (``launch.sharding``,
 ``_grad_sum_axes`` naming them).  ``loss_fn`` psums its token sums and
 counts over every axis in rank order: every rank returns the global
-mean.  The hybrid,
-audio and vlm families and decode under a mesh are ROADMAP Queue 1 item
-16.12.
+mean.  Decode under a mesh, and attention below the sequence-parallel
+threshold, are ROADMAP Queue 1 item 16.15.
 """
 
 from __future__ import annotations
@@ -182,48 +198,77 @@ def _run_hybrid_stack(params, cfg: ModelConfig, x, *, plain, states=None):
         lambda p, h: blocks.decoder_block(p, cfg, h, plain=plain)[0], cfg)
     mamba_fn = blocks.maybe_remat(
         lambda p, h: blocks.mamba_block(p, cfg, h)[0], cfg)
+    mesh = meshctx.current_mesh()
     for group in blocks.unstack(params["mamba"]):
-        x = shared_fn(params["shared"], x)
+        if mesh is None:
+            x = shared_fn(params["shared"], x)
+        else:
+            # the shared block sequence-parallel on the rank's T block of
+            # the stream every model rank holds whole, gathered back after
+            t = x.shape[1] // meshctx.model_size(mesh)
+            blk = x.narrow(1, meshctx.axis_index("model") * t, t)
+            x = meshctx.all_gather(shared_fn(params["shared"], blk),
+                                   "model", 1, mesh=mesh)
         for p in blocks.unstack(group):
             x = mamba_fn(p, x)
     return x, None
 
 
-MESH_FAMILIES = ("dense", "moe", "ssm")
+_SWIGLU = ("w_gate", "w_up", "w_down")
+# the families whose batch is cut over model in T as their stream is
+# (ssm and hybrid hold the whole T on every model rank, vlm cuts its block
+# from the joined patches and tokens)
+T_CUT_FAMILIES = ("dense", "moe", "audio")
+
+
+def stream_shape(cfg: ModelConfig, batch, mesh) -> tuple[int, int]:
+    """The global (B, T) of the residual stream from a rank's block of the
+    batch (``launch.sharding.local_batch``): the tokens' rows over the
+    data axes; T over ``model`` (dense, MoE, audio), whole (ssm, hybrid),
+    or the patches and tokens joined (vlm)."""
+    B = batch["tokens"].shape[0] * meshctx.data_size(mesh)
+    T = batch["tokens"].shape[1]
+    if cfg.family == "vlm":
+        T += batch["patches"].shape[1]
+    elif cfg.family in T_CUT_FAMILIES:
+        T *= meshctx.model_size(mesh)
+    return B, T
 
 
 def _grad_sum_axes(path, cfg: ModelConfig, mesh, batch: int, seq: int):
     """The axes a leaf's gradient is summed over on entering the mesh
-    path: those it is replicated on, less those a region sums over."""
+    path: those it is replicated on, less those a region sums over or
+    cuts it on."""
     every = meshctx.all_axes(mesh)
     name = path[-1]
-    if "moe" in path and name in ("w_gate", "w_up", "w_down"):
+    if "moe" in path and name in _SWIGLU:
         # E over model; the FSDP gather's transpose sums over data
         _, _, fsdp_ok = moe.fsdp_layout(blocks.moe_spec(cfg), mesh)
         return () if fsdp_ok else meshctx.data_axes(mesh)
-    if "mlp" in path and layers.swiglu_region_applies(mesh, batch, seq,
-                                                      cfg.d_ff):
+    if "mlp" in path and name in _SWIGLU and layers.swiglu_region_applies(
+            mesh, batch, seq, cfg.d_ff):
         return ()            # F over model; the region psums over data
+    if path[0] == "mamba" and mamba.tp_dim(path) is not None \
+            and mamba.tp_applies(mesh, blocks.mamba_spec(cfg)):
+        return meshctx.data_axes(mesh)         # Din or H over model
     return every
 
 
 def _enter_mesh(params, cfg: ModelConfig, batch, mesh):
     """Check that the mesh path takes (cfg, batch) and put every leaf
     through ``meshctx.pvary`` over its ``_grad_sum_axes``."""
-    if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family under a model mesh: only "
-            f"{', '.join(MESH_FAMILIES)} are ported (ROADMAP Queue 1 item "
-            "16.12)")
-    B = batch["tokens"].shape[0] * meshctx.data_size(mesh)
-    T = batch["tokens"].shape[1]
+    B, T = stream_shape(cfg, batch, mesh)
+    seqs = {"tokens": T}
+    if cfg.family == "audio":
+        seqs["frames"] = batch["frames"].shape[1] * meshctx.model_size(mesh)
     if cfg.family != "ssm":
-        T *= meshctx.model_size(mesh)
-        if not meshctx.sp_applicable(mesh, B, T):
-            raise NotImplementedError(
-                f"(B, T) = {(B, T)} under the mesh {mesh.shape}: only the "
-                "sequence-parallel layout is ported (T >= 16 model ranks; "
-                "ROADMAP Queue 1 item 16.12)")
+        for what, seq in seqs.items():
+            if not meshctx.sp_applicable(mesh, B, seq):
+                raise NotImplementedError(
+                    f"{what} (B, T) = {(B, seq)} under the mesh "
+                    f"{mesh.shape}: only the sequence-parallel layout is "
+                    "ported (T >= 16 model ranks; ROADMAP Queue 1 item "
+                    "16.15)")
 
     def enter(node, path):
         if isinstance(node, dict):
@@ -250,10 +295,33 @@ def forward(params, cfg: ModelConfig, batch, *, plain: bool = False):
     return _forward(params, cfg, batch, plain=plain)
 
 
+def _vlm_block(batch, mesh) -> tuple[slice, slice]:
+    """vlm: the patches and the text positions in the rank's block of the
+    joined (P + T) stream (all of them without a mesh)."""
+    P, T = batch["patches"].shape[1], batch["tokens"].shape[1]
+    if mesh is None:
+        return slice(0, P), slice(0, T)
+    t = (P + T) // meshctx.model_size(mesh)
+    lo = meshctx.axis_index("model") * t
+    return (slice(min(lo, P), min(lo + t, P)),
+            slice(min(max(lo - P, 0), T), min(max(lo + t - P, 0), T)))
+
+
+def _vlm_stream(params, cfg: ModelConfig, batch, mesh):
+    """vlm: the patches ahead of the token embeddings, or under a mesh the
+    rank's block of that joined stream -> (x, where its text starts)."""
+    patches, text = _vlm_block(batch, mesh)
+    x = _embed(params, cfg, batch["tokens"][:, text])
+    p = batch["patches"][:, patches].to(cfg.dtype)
+    return torch.cat([p, x], dim=1), p.shape[1]
+
+
 def _forward(params, cfg: ModelConfig, batch, *, plain: bool):
-    x = _embed(params, cfg, batch["tokens"])
+    mesh = meshctx.current_mesh()
     if cfg.family == "vlm":
-        x = torch.cat([batch["patches"].to(cfg.dtype), x], dim=1)
+        x, start = _vlm_stream(params, cfg, batch, mesh)
+    else:
+        x = _embed(params, cfg, batch["tokens"])
     if cfg.family == "ssm":
         x, _ = _run_rwkv_stack(params["layers"], cfg, x)
         aux = 0.0
@@ -262,13 +330,18 @@ def _forward(params, cfg: ModelConfig, batch, *, plain: bool):
         aux = 0.0
     elif cfg.family == "audio":
         memory = _run_encoder(params, cfg, batch["frames"], plain=plain)
+        if mesh is not None:
+            # the encoder's S blocks joined once a forward: every decoder
+            # layer's cross-attention reads the whole memory; the gather's
+            # transpose sums the layers' memory gradients over model once
+            memory = meshctx.all_gather(memory, "model", 1, mesh=mesh)
         x, aux = _run_decoder_stack(params["layers"], cfg, x, plain=plain,
                                     memory=memory)
     else:
         x, aux = _run_decoder_stack(params["layers"], cfg, x, plain=plain)
     h = layers.rmsnorm(params["ln_f"], x, eps=cfg.norm_eps)
     if cfg.family == "vlm":
-        h = h[:, batch["patches"].shape[1]:]      # the text positions
+        h = h[:, start:]                          # the text positions
     return h, aux
 
 
@@ -287,9 +360,11 @@ def loss_fn(params, batch, cfg: ModelConfig):
         return ce + aux
     params = _enter_mesh(params, cfg, batch, mesh)
     h, aux = _forward(params, cfg, batch, plain=True)
+    labels = batch["labels"]
+    if cfg.family == "vlm":
+        labels = labels[:, _vlm_block(batch, mesh)[1]]
     total, count = layers.cross_entropy_sums(
-        _unembed_fn(params, cfg), h, batch["labels"],
-        vocab_chunk=cfg.loss_chunk)
+        _unembed_fn(params, cfg), h, labels, vocab_chunk=cfg.loss_chunk)
     # the token sum and count in one collective
     total, count = meshctx.psum(torch.stack([total, count.to(total.dtype)]),
                                 meshctx.all_axes(mesh), mesh=mesh).unbind(0)
@@ -372,7 +447,7 @@ def decode_step(params, cfg: ModelConfig, state, tokens, positions):
     if meshctx.current_mesh() is not None:
         raise NotImplementedError(
             "decode under a model mesh, its caches sharded over model: "
-            "ROADMAP Queue 1 item 16.12")
+            "ROADMAP Queue 1 item 16.15")
     x = _embed(params, cfg, tokens)
     if cfg.family == "ssm":
         x, new = _run_rwkv_stack(params["layers"], cfg, x,

@@ -1326,6 +1326,70 @@ def test_mesh_train_step_on_four_ranks_of_the_card(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the hybrid, audio and vlm families on the model mesh
+
+# a rank's block of queries on the mesh each family runs on
+# (B, Tq a rank, Tk, H, KV, hd, causal, |model|): Zamba2's shared block and
+# InternVL2 on (1, 4), SeamlessM4T's encoder, decoder and cross-attention on
+# (2, 2)
+FAMILY_SP_CASES = {
+    "zamba2_shared": (1, 2048, 8192, 32, 32, 80, True, 4),
+    "seamless_encoder": (1, 1024, 2048, 16, 16, 64, False, 2),
+    "seamless_decoder": (1, 4096, 8192, 16, 16, 64, True, 2),
+    "seamless_cross": (1, 4096, 2048, 16, 16, 64, False, 2),
+    "internvl2": (1, 2048, 8192, 48, 8, 128, True, 4)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(FAMILY_SP_CASES))
+def test_flash_offset_rows_at_the_mesh_families_shapes(cuda, name, dtype):
+    """Each of |model| ranks' blocks at query offset Tq r equals the
+    matching rows of the one launch over all |model| Tq queries, on the
+    dtype's route (bf16: the tensor cores; f32: the CUDA cores), non-causal
+    ones included."""
+    from repro_torch.kernels.attention import flash, ops
+    B, Tq, Tk, H, KV, hd, causal, n = FAMILY_SP_CASES[name]
+    q, k, v = _qkv((B, n * Tq, Tk, H, KV, hd), dtype, cuda, seed=14)
+    route = flash.route(dtype, hd)
+    full = ops.attention(q, k, v, causal=causal, sliding_window=None)
+    by_route = dict(flash.flash_attention.route_launches)
+    for r in range(n):
+        o = r * Tq
+        got = ops.attention(q[:, o:o + Tq], k, v, causal=causal,
+                            sliding_window=None, q_offset=o)
+        assert torch.equal(got, full[:, o:o + Tq]), (name, o)
+    assert flash.flash_attention.route_launches == {
+        rt: c + n * (rt == route) for rt, c in by_route.items()}
+
+
+@pytest.mark.cuda
+def test_channel_parallel_mamba_block_on_two_ranks_of_the_card(cuda):
+    """One Mamba2 block at Zamba2's head width and state (d_model 256, 8
+    heads of 64, state 64, chunks of 128, T = 512) channel-parallel on a
+    (1, 2) mesh of 2 gloo ranks holding CUDA tensors, against one process
+    on the card: the output the same bits on both ranks and within 1e-5
+    of max|out| of one process, every gradient within 1e-4 of its max."""
+    import torch_mesh_family_ranks as fr
+    case = dict(kind="mamba", mesh="1x2", device="cuda",
+                **fr.mamba_inputs(dict(d_model=256, d_state=64, head_dim=64,
+                                       chunk=128), batch=2, seq=512))
+    per_rank = ranks.run(fr.run_cases, 2, {"mamba": case},
+                         {"1x2": ((1, 2), ("data", "model"))}, timeout=600.0)
+    out, x_grad, grads = fr.mamba_one_process(case, device=cuda)
+    got = per_rank[0]["mamba"]
+    assert torch.equal(per_rank[1]["mamba"]["out"], got["out"])
+
+    def close(a, b, rtol):
+        return float((a - b).abs().max()) <= rtol * float(b.abs().max())
+
+    assert close(got["out"], out, 1e-5)
+    assert close(got["x_grad"], x_grad, 1e-4)
+    for a, b in zip(jtree.leaves(got["grads"]), jtree.leaves(grads)):
+        assert a.shape == b.shape and close(a, b, 1e-4)
+
+
+# ---------------------------------------------------------------------------
 # Byzantine-robust LM training on the card (reduced config)
 
 def _train_rows(metrics):

@@ -13,8 +13,9 @@
   ``local_params`` on a one-rank mesh.
 * The mesh objects on a one-rank gloo group of this process: the groups'
   registry that ``core.shard_aggregation`` reads, the collectives, the
-  refusals of the unported families, and no unordered ``all_reduce`` in
-  the mesh code.
+  hybrid, audio and vlm families on a one-rank mesh and the refusals
+  left (ROADMAP item 16.15), and no unordered ``all_reduce`` in the mesh
+  code.
 
 The 8-rank regions and models are tests/test_torch_mesh.py."""
 
@@ -41,7 +42,8 @@ from repro_torch.core import shard_aggregation as sa
 from repro_torch.kernels.attention import ref as kref
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding
-from repro_torch.models import attention, layers, meshctx, model, moe, rwkv
+from repro_torch.models import (attention, layers, mamba, meshctx, model,
+                                moe, rwkv)
 
 import torch_mesh_ranks
 
@@ -267,19 +269,40 @@ def test_no_unordered_all_reduce_in_the_mesh_code():
     """Every cross-rank sum of the mesh path is gathered and added in rank
     order: no call of ``all_reduce`` in its modules."""
     for mod in (meshctx, mesh_lib, sharding, attention, layers, moe, rwkv,
-                model):
+                mamba, model):
         calls = [n.func.attr for n in ast.walk(ast.parse(
             inspect.getsource(mod))) if isinstance(n, ast.Call)
             and isinstance(n.func, ast.Attribute)]
         assert "all_reduce" not in calls, mod.__name__
 
 
+def _family_batch(cfg, T, extra=16):
+    batch = {"tokens": torch.zeros((1, T), dtype=torch.long)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn((1, extra, cfg.d_model))
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((1, extra, cfg.d_model))
+    return batch
+
+
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "seamless-m4t-medium",
                                   "internvl2-26b"])
 def test_unported_families_raise_under_a_mesh(arch):
+    """The hybrid, audio and vlm families, once refused under a mesh, now
+    run there (a one-rank mesh computes what one process does); decode
+    under a mesh and attention below the sequence-parallel threshold raise,
+    naming ROADMAP item 16.15."""
     cfg = configs.get_config(arch).reduced()
     params = model.init(0, cfg, device="cpu")
-    tok = torch.zeros((1, 32), dtype=torch.long)
+    batch = _family_batch(cfg, 32)
+    want, _ = model.forward(params, cfg, batch)
     with torch_mesh_ranks.one_rank_mesh():
-        with pytest.raises(NotImplementedError, match="item 16.12"):
-            model.forward(params, cfg, {"tokens": tok})
+        got, _ = model.forward(params, cfg, batch)
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+        with pytest.raises(NotImplementedError, match="item 16.15"):
+            model.forward(params, cfg, _family_batch(cfg, 4, extra=4))
+        with pytest.raises(NotImplementedError, match="item 16.15"):
+            model.decode_step(params, cfg, model.init_decode_state(
+                cfg, 1, 8, device="cpu"), batch["tokens"][:, :1],
+                torch.zeros((1,), dtype=torch.long))

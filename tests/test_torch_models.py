@@ -309,7 +309,8 @@ def test_entry_points_want_the_card_by_default():
 def test_unported_families_raise():
     """The audio and vlm families, once unported, now init, count and
     (audio) cross-attend; an unknown family raises; under a model mesh
-    the hybrid, audio and vlm families raise, naming item 16.12."""
+    the hybrid, audio and vlm families, once refused there, give one
+    process's loss on a one-rank mesh."""
     for arch in ("seamless-m4t-medium", "internvl2-26b"):
         cfg = configs.get_config(arch).reduced()
         params = model.init(0, cfg, device="cpu")
@@ -327,13 +328,19 @@ def test_unported_families_raise():
         model.init(0, cfg.with_(family="speech"), device="cpu")
     with pytest.raises(ValueError, match="unknown family"):
         cfg.with_(family="speech").param_count()
-    tok = torch.zeros((1, 32), dtype=torch.long)
-    with torch_mesh_ranks.one_rank_mesh():
-        for arch in ("zamba2-2.7b", "seamless-m4t-medium", "internvl2-26b"):
-            cfg = configs.get_config(arch).reduced()
-            with pytest.raises(NotImplementedError, match="item 16.12"):
-                model.loss_fn(model.init(0, cfg, device="cpu"),
-                              {"tokens": tok, "labels": tok}, cfg)
+    tok = torch.arange(32)[None] % 7
+    for arch in ("zamba2-2.7b", "seamless-m4t-medium", "internvl2-26b"):
+        cfg = configs.get_config(arch).reduced()
+        params = model.init(0, cfg, device="cpu")
+        batch = {"tokens": tok, "labels": tok.roll(-1, -1)}
+        if cfg.family == "vlm":
+            batch["patches"] = torch.randn((1, 16, cfg.d_model))
+        if cfg.family == "audio":
+            batch["frames"] = torch.randn((1, 16, cfg.d_model))
+        want = model.loss_fn(params, batch, cfg)
+        with torch_mesh_ranks.one_rank_mesh():
+            got = model.loss_fn(params, batch, cfg)
+        assert abs(float(got) - float(want)) <= 1e-6 * float(want), arch
 
 
 # ---------------------------------------------------------------------------
