@@ -150,10 +150,10 @@ Phases:
                  launch/train.py at Granite's widths cut to 8 layers
                  (P = 528.8 M) with phase 8's settings: one round-kernel
                  launch a round at (8, 8, P), s per step and peak GB,
-                 kernel vs plain histories at m = 4, 2 steps resumed to
-                 4 bit-identical, the checkpoint's router leaves float32;
-                 (c) the group-mode step with remat, kernel vs plain, and
-                 the loss with remat equal to the loss without; the round
+                 kernel vs plain histories at m = 4 (phase 8 (b) holds
+                 the resume on the card); (c) the group-mode step with
+                 remat, kernel vs plain, and the loss with remat equal to
+                 the loss without; the round
                  kernel timed at (8, 8, P) on a block of real Granite
                  gradients, as phase 8 times it on H2O's; (d)
                  Kimi-K2's router and dispatch (E = 384, D = 7168) on 8192
@@ -164,8 +164,8 @@ Phases:
                  recurrence at one layer's (1, 8192, 64, 64) in f32,
                  chunked vs token by token within WKV_RTOL; the bf16
                  prefill at B = 1, T = 8192; serve --arch rwkv6-7b --scale
-                 gpu (tokens/s, decode ms a step); in f32 a 512-token
-                 prefill's last logits vs 512 decode steps (1e-3 of
+                 gpu (tokens/s, decode ms a step); in f32 at 8 layers a
+                 512-token prefill's last logits vs 512 decode steps (1e-3 of
                  max|logits|); the reduced model on the card vs the CPU
                  (CARD_VS_CPU_RTOL); (b) Zamba2-2.7B at full width and depth
                  (54 Mamba2 blocks, 9 applications of the shared block of
@@ -176,8 +176,8 @@ Phases:
                  decode loop's; serve --arch zamba2-2.7b --scale gpu; (c)
                  launch/train.py at Zamba2's widths cut to 6 layers with
                  remat, phase 8's settings: one round-kernel launch a round
-                 at (8, 8, P), kernel vs plain histories at m = 4, 2 steps
-                 resumed to 4 bit-identical, s per step and peak GB; the
+                 at (8, 8, P), kernel vs plain histories at m = 4, s per
+                 step and peak GB; the
                  round kernel timed at (8, 8, P) on a block of real Zamba2
                  gradients; (d) train --arch rwkv6-7b --scale gpu refused
                  (item 16.13), the reduced config's 4 rounds on the card
@@ -200,8 +200,8 @@ Phases:
                  gpu; (b) launch/train.py at 1 encoder + 1 decoder layer
                  (558 279 680 leaves) with phase 8's settings: one
                  round-kernel launch a round at (8, 8, P), kernel vs plain
-                 histories at m = 4, 2 steps resumed to 4 bit-identical,
-                 s per step, peak GB, the round kernel timed on real
+                 histories at m = 4, s per step, peak GB, the round
+                 kernel timed on real
                  gradients; (c) InternVL2-26B at full width (48 layers,
                  6144, 48 x 8 heads of 128, 16 384, 92 553, 256 patches):
                  the bf16 prefill of 256 patches + 7936 tokens at full
@@ -210,20 +210,23 @@ Phases:
                  train --scale gpu refused (item 16.13), the reduced
                  config's rounds on the card through the round kernel vs
                  plain
- 12 mesh         the model mesh on 4 rank processes of the card over gloo
-                 (collectives staged through the host): (a) the flash
+ 12 mesh         the model mesh on 4 rank processes of the card
+                 (collectives staged through the host and a file the
+                 ranks map, meshctx._Arena): (a) the flash
                  kernel's q_offset at H2O's sequence-parallel shape (2048
                  queries a rank against 8192 keys, offsets 2048 r, and a
                  ragged block) on both routes: the rows of the full launch
                  bit for bit, its plain twins at ATTN_TOL, offset 0 the
                  launch without it; timed per rank beside the plain
                  version and SDPA with the offset's bias; (b) H2O-Danube3-
-                 4B's bf16 prefill at full width (B = 1, T = 8192) on a (1,
-                 4) mesh, each rank's 24 flash launches counted by route,
+                 4B's bf16 prefill at full width and 8 layers (B = 1, T =
+                 8192) on a (1, 4) mesh, each rank's 8 flash launches
+                 counted by route,
                  the gathered hidden states within PREFILL_RTOL of the
                  single-process kernel prefill, f32 at 4 layers; (c)
-                 Granite-3.0-1B-A400M's bf16 prefill at full width, B = 2,
-                 on (2, 2) through SP attention and expert parallelism,
+                 Granite-3.0-1B-A400M's bf16 prefill at full width and 8
+                 layers, B = 2, on (2, 2) through SP attention and expert
+                 parallelism,
                  held to each sequence's single-process prefill with its
                  expert choices replayed, the free-routing flips recorded;
                  (d) the WKV region at RWKV6-7B's heads against
@@ -231,13 +234,28 @@ Phases:
                  loss and gradients against one process; wall ms on the
                  mesh against one process, the collectives' host-staged
                  ms and share, a profiled prefill's device ms by family
+ 15 mesh decode  decode and the short prefill on 4 rank processes of the
+                 card, every one-process reference first: (a) H2O-
+                 Danube3-4B at full width and depth serves 4 x (16 + 32)
+                 through serve.generate in bf16 on (2, 2) and decodes in
+                 f32 on (1, 4), teacher-forced on the one process's greedy
+                 tokens, every step's logits within MESH_DECODE_RTOL of
+                 max|logits|; (b) the same prompts through the prefill
+                 step below the sequence-parallel threshold (T = 16): 24
+                 full flash launches a rank on the dtype's route, the f32
+                 last-position logits within MESH_DECODE_RTOL of the mesh
+                 decode loop's, a maskless kernel caught; (c) Granite,
+                 RWKV6, Zamba2, SeamlessM4T and InternVL2 served on their
+                 meshes (MESH_DECODE) with f32 checks; ms a decode step a
+                 rank and one process's, the collectives a step, peak GB
   7 kernel line  one JSON object, a row per kernel (the round kernel's
                  launches include phase 6 (c)'s, phase 8's, phase 9's,
                  phase 10's and phase 11's; its row carries the (8, 8, P)
                  timings as train_shape (H2O), granite_train_shape
                  (Granite), zamba2_train_shape (Zamba2) and
                  seamless_train_shape (SeamlessM4T); the flash row's
-                 launches include phase 9's, 10's, 11's and 12's prefills
+                 launches include phase 9's, 10's, 11's, 12's, 14's and
+                 15's prefills
                  and it carries Granite's, Zamba2's, SeamlessM4T's and
                  InternVL2's shapes as granite_shape, zamba2_shape,
                  audio_enc_shape, audio_cross_shape and vlm_shape, and
@@ -340,6 +358,7 @@ ATTN_GRID = [(2, 64, 64, 4, 2, 32, True, None),
              (1, 20, 20, 2, 1, 16, False, None),
              (1, 70, 150, 4, 1, 256, False, 50),
              (1, 1000, 1000, 32, 8, 120, True, 4096),
+             (2, 16, 16, 32, 8, 120, True, 4096),
              (1, 4097, 4097, 32, 8, 120, True, 4096),
              (1, 8192, 8192, 32, 8, 120, True, 4096),
              (1, 8192, 8192, 24, 8, 128, True, None),
@@ -482,7 +501,9 @@ KIMI_TOKENS = 8192
 # heads of 64, d_ff 14 336, vocab 65 536), bf16, prefill at B = 1, T =
 # PREFILL_T and serve with phase 4b's settings; in f32 the recurrence at
 # one layer's shape (chunked vs token by token, WKV_RTOL of max|y|) and a
-# RWKV_DECODE_T-token prefill against as many decode steps; (b)
+# RWKV_DECODE_T-token prefill against as many decode steps, at
+# RWKV_DECODE_LAYERS layers (the decode loop's 512 steps at full depth
+# took 27 s of the check's time); (b)
 # Zamba2-2.7B (arXiv:2411.15242; configs/zamba2_2p7b.py) at full width and
 # depth (54 Mamba2 blocks of state 64 and heads of 64, 9 applications of
 # one shared block of 32 x 32 heads of 80 and d_ff 10 240, vocab 32 000),
@@ -494,6 +515,7 @@ KIMI_TOKENS = 8192
 RWKV_ARCH = "rwkv6-7b"
 ZAMBA_ARCH = "zamba2-2.7b"
 RWKV_DECODE_T = 512
+RWKV_DECODE_LAYERS = 8
 # wkv_chunked vs wkv_scan (float32): the chunk's decays are exps of
 # differences of cumulative log sums, the scan's products of w; they agree
 # to float32 rounding over a chunk's 64 terms
@@ -551,7 +573,25 @@ FAILURES: list[str] = []
 
 
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t": elapsed()}
     print(json.dumps(obj), flush=True)
+
+
+def elapsed() -> float:
+    """Seconds since the script started (CHIP_SMOKE_T0, which the rank
+    processes inherit)."""
+    return round(time.time() - float(os.environ.get("CHIP_SMOKE_T0",
+                                                    time.time())), 3)
+
+
+def mark(tag: str) -> None:
+    """On rank 0 of a mesh phase: the time a part starts, on standard
+    error (where the part's time goes inside the ranks)."""
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps({"rank_mark": tag, "t": elapsed()}),
+              file=sys.stderr, flush=True)
 
 
 def check(ok: bool, what: str) -> bool:
@@ -2604,18 +2644,15 @@ def moe_train_path(dev, hbm, flops, smi):
     """Phase 9 (b), (c) -> the round-kernel launches of its runs.  (b)
     launch/train.py's train(args) for Granite at its train depth with
     phase 8's settings: m = 4 kernel vs plain histories, the main run at
-    m = 8 (one launch a round at (8, 8, P)), 2 steps checkpointed and
-    resumed to 4 bit-identical, the checkpoint's router leaves float32;
-    (c) the group-mode step with remat, kernel vs plain, and the loss with
-    remat (the block hands its aux back) equal to the loss without; then
+    m = 8 (one launch a round at (8, 8, P)) (phase 8 (b) resumes
+    train(args) from a checkpoint on the card; the CPU tests hold a Granite
+    checkpoint's router leaves float32); (c) the group-mode step with
+    remat, kernel vs plain, and the loss with remat (the block hands its
+    aux back) equal to the loss without; then
     the round kernel timed at (8, 8, P) on a block of real Granite
     gradients (``train_kernel_timing``).  -> (launches, that timing)."""
-    import shutil
-    import tempfile
-
     import torch
     from torch.utils._pytree import tree_map
-    from repro_torch import checkpoint
     from repro_torch.data.tokens import TokenStream
     from repro_torch.launch import train as train_lib
     from repro_torch.models import model
@@ -2661,35 +2698,6 @@ def moe_train_path(dev, hbm, flops, smi):
                        for b, (r, n, peak) in compared.items()},
           "kernel_vs_plain_ok": not vs_plain, "card": smi})
     del compared
-    ckpt = tempfile.mkdtemp(prefix="chip_smoke_moe_ckpt_")
-    try:
-        first, n1, _ = _train_run(_train_args(
-            arch=MOE_ARCH, steps=2, ckpt_dir=ckpt, ckpt_every=2), dev)
-        resumed, n2, _ = _train_run(_train_args(
-            arch=MOE_ARCH, ckpt_dir=ckpt, ckpt_every=2), dev)
-        leaves = checkpoint.read_manifest(ckpt, TRAIN_STEPS)["leaves"]
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
-    launches += n1 + n2
-    dtypes = {e["path"]: e["dtype"] for e in leaves
-              if e["path"].startswith(".params/")}
-    router = {p: d for p, d in dtypes.items() if "['router']" in p}
-    experts = {p: d for p, d in dtypes.items() if "['w_gate']" in p}
-    router_ok = (set(router.values()) == {"float32"}
-                 and set(experts.values()) == {"bfloat16"})
-    bitwise = (resumed["resumed_from"] == 2
-               and resumed["history"] == main_res["history"])
-    check(bitwise and n1 == 2 and n2 == 2,
-          f"granite resume: resumed_from {resumed['resumed_from']}, history "
-          f"{resumed['history']} vs {main_res['history']}; launches {n1}, "
-          f"{n2}")
-    check(router_ok, f"granite checkpoint dtypes: router {router}, experts "
-                     f"{experts}")
-    emit({"phase": "moe", "part": "b", "resumed_from":
-          resumed["resumed_from"], "bit_identical": bitwise,
-          "launches": [n1, n2], "param_dtypes": {"router": router,
-                                                 "w_gate": experts},
-          "router_f32": router_ok})
     group = {b: group_step_run(dev, b, arch=MOE_ARCH)
              for b in ("auto", "fused_interpret")}
     launches += group["auto"][1]
@@ -2833,7 +2841,8 @@ def rwkv_serve_path(dev):
     """Phase 10 (a), RWKV6-7B at full width and depth: the recurrence at
     one layer's shape in f32 (``wkv_chunked`` vs ``wkv_scan``); the bf16
     prefill step at B = 1, T = PREFILL_T; serve --arch rwkv6-7b --scale
-    gpu; in f32 a RWKV_DECODE_T-token prefill's last logits against as
+    gpu; in f32 at RWKV_DECODE_LAYERS layers a RWKV_DECODE_T-token
+    prefill's last logits against as
     many decode steps (the chunked path against the token-by-token path
     through the whole model); the reduced model on the card against the
     CPU."""
@@ -2892,7 +2901,8 @@ def rwkv_serve_path(dev):
           **_serve_gpu(RWKV_ARCH, base.vocab_size)})
     torch.cuda.empty_cache()
     # f32: the chunked prefill against the token-by-token decode
-    cfg = base.with_(dtype=torch.float32, param_dtype=torch.float32)
+    cfg = base.with_(dtype=torch.float32, param_dtype=torch.float32,
+                     num_layers=RWKV_DECODE_LAYERS)
     params = model.init(0, cfg, device=dev)
     prompts = tokens[:, :RWKV_DECODE_T]
     (lerr, lscale), pd_ms = _synced_ms(
@@ -2917,6 +2927,7 @@ def rwkv_serve_path(dev):
                f"(max|h| {cscale})")
     emit({"phase": "recurrent", "part": "a", "step": "prefill_vs_decode",
           "dtype": "float32", "prompt_len": RWKV_DECODE_T,
+          "num_layers": cfg.num_layers,
           "max_abs_err": lerr, "max_abs_logits": lscale, "rtol": 1e-3,
           "ok": lok, "ms": pd_ms,
           "card_vs_cpu": {"max_abs_err": cerr, "max_abs_h": cscale,
@@ -3021,12 +3032,10 @@ def train_at_depth(dev, hbm, flops, smi, arch=ZAMBA_ARCH,
     ``arch`` at its train depth (Zamba2: 6 layers; SeamlessM4T: 1 encoder
     and 1 decoder layer; remat as the config has it) with phase 8's
     settings: m = 4 kernel vs plain histories, the main run at m = 8 (one
-    launch a round at (8, 8, P)), 2 steps checkpointed and resumed to 4
-    bit-identical; then the round kernel timed at (8, 8, P) on a block of
-    real gradients of ``arch``.  -> (launches, that timing)."""
-    import shutil
-    import tempfile
-
+    launch a round at (8, 8, P)); then the round kernel timed at (8, 8, P)
+    on a block of real gradients of ``arch`` (phase 8 (b) resumes
+    train(args) from a checkpoint on the card).  -> (launches, that
+    timing)."""
     from repro_torch.launch import train as train_lib
     from repro_torch.sim.goldens import compare_traces
     t_phase = time.perf_counter()
@@ -3053,21 +3062,6 @@ def train_at_depth(dev, hbm, flops, smi, arch=ZAMBA_ARCH,
           and compared["fused_interpret"][1] == 0,
           f"{arch} train m=4: launches {compared['auto'][1]} (kernel), "
           f"{compared['fused_interpret'][1]} (plain)")
-    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    try:
-        _, n1, _ = _train_run(_train_args(
-            arch=arch, steps=2, ckpt_dir=ckpt, ckpt_every=2), dev)
-        resumed, n2, _ = _train_run(_train_args(
-            arch=arch, ckpt_dir=ckpt, ckpt_every=2), dev)
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
-    launches += n1 + n2
-    bitwise = (resumed["resumed_from"] == 2
-               and resumed["history"] == main_res["history"])
-    check(bitwise and n1 == 2 and n2 == 2,
-          f"{arch} resume: resumed_from {resumed['resumed_from']}, history "
-          f"{resumed['history']} vs {main_res['history']}; launches {n1}, "
-          f"{n2}")
     timing = train_kernel_timing(dev, hbm, flops, smi, arch=arch)
     m = TRAIN_MAIN["workers"]
     emit({"phase": phase, "part": part, "arch": arch,
@@ -3087,8 +3081,6 @@ def train_at_depth(dev, hbm, flops, smi, arch=ZAMBA_ARCH,
                            "loss_median": _curve(r)}
                        for b, (r, n, peak) in compared.items()},
           "kernel_vs_plain_ok": not vs_plain,
-          "resume": {"resumed_from": resumed["resumed_from"],
-                     "bit_identical": bitwise, "launches": [n1, n2]},
           "card": smi, "seconds": time.perf_counter() - t_phase})
     return launches, timing
 
@@ -3484,6 +3476,67 @@ def audio_vlm_path(dev, hbm, flops, smi):
     return launches, routes, timing
 
 
+# -- phases 12-15: the model mesh on rank processes of the card -------------
+
+def _mesh_ranks_of(body, args, t0):
+    """Inside a mesh phase (a generator that ``mesh_phases`` drives): hand
+    over the phase's rank body (its name in this module) and arguments,
+    and take back each rank's result and the body's seconds on rank 0.
+    -> (the results in rank order, those seconds, ``t0`` moved on by the
+    time the phase waited for the other phases' work, so that the phase's
+    "seconds" count its own: before, its ranks, after)."""
+    waited = time.perf_counter()
+    per_rank, body_s = yield body, args
+    return per_rank, body_s, t0 + (time.perf_counter() - waited) - body_s
+
+
+def _mesh_phase_ranks(rank, world, device, bodies):
+    """Phases 12-15 on one rank of the card: each phase's rank body in
+    turn, in this one process -> [(its result, its seconds)]."""
+    import torch
+    out = []
+    for name, args in bodies:
+        t0 = time.perf_counter()
+        res = globals()[name](rank, world, device, *args)
+        torch.cuda.empty_cache()
+        out.append((res, time.perf_counter() - t0))
+    return out
+
+
+def mesh_phases(dev, hbm, smi):
+    """Phases 12-15 on MESH_RANKS rank processes of the card, started once
+    (a start took 10-15 s, and each phase's first calls on the card as
+    many again): every phase's kernel checks and one-process references
+    first (each phase's code up to its rank body), then one
+    ``ranks.run`` that runs the four rank bodies in turn, then each
+    phase's checks.  -> the four phases' returns."""
+    import torch
+    from repro_torch.launch import ranks
+    phases = (mesh_path(dev, hbm, smi), mesh_train_path(dev, smi),
+              mesh_families_path(dev, hbm, smi), mesh_decode_path(dev, smi))
+    bodies = []
+    for phase in phases:
+        bodies.append(next(phase))
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    per_rank = ranks.run(_mesh_phase_ranks, MESH_RANKS, dev.type, bodies,
+                         timeout=1800.0)
+    emit({"phase": "mesh_ranks", "ranks": MESH_RANKS,
+          "seconds": time.perf_counter() - t0,
+          "body_s": {name: per_rank[0][i][1]
+                     for i, (name, _) in enumerate(bodies)}, "card": smi})
+    out = []
+    for i, phase in enumerate(phases):
+        try:
+            phase.send(([pr[i][0] for pr in per_rank], per_rank[0][i][1]))
+        except StopIteration as stop:
+            out.append(stop.value)
+        else:
+            raise RuntimeError(f"mesh phase {12 + i} handed over a second "
+                               "rank body")
+    return out
+
+
 # -- phase 12: the model mesh -------------------------------------------------
 
 # rank processes of the one card over gloo (NCCL refuses two ranks of one
@@ -3496,6 +3549,10 @@ MESH_RANKS = 4
 # no multiple of a tile
 SP_SHAPE = (1, PREFILL_T // MESH_RANKS, PREFILL_T, 32, 8, 120, True, 4096)
 SP_RAGGED = (1000, 3000)                # (Tq, q_offset)
+# H2O's bf16 prefill and Granite's at 8 of their 24 layers (at full depth
+# 27 s and 14 s of the chip check; phase 15 runs H2O at full depth)
+MESH_BF16_LAYERS = 8
+MESH_BF16_CUTS = ["24 layers cut to 8"]
 MESH_F32_LAYERS = 4
 MESH_F32_CUTS = ["24 layers cut to 4 in f32"]
 MESH_GRANITE_B = 2
@@ -3750,11 +3807,14 @@ def _mesh_rank(rank, world, device, job):
     from repro_torch.models import meshctx, model, rwkv
     dev = torch.device(device)
     torch.set_float32_matmul_precision("highest")
+    mark("mesh: rank started")
     line = mesh_lib.make_mesh((1, world), ("data", "model"))
     square = mesh_lib.make_mesh((2, world // 2), ("data", "model"))
     out = {}
     # (b) H2O-Danube3-4B
-    for dname, layers in (("bfloat16", None), ("float32", MESH_F32_LAYERS)):
+    for dname, layers in (("bfloat16", MESH_BF16_LAYERS),
+                          ("float32", MESH_F32_LAYERS)):
+        mark(f"mesh (b) h2o {dname}")
         cfg = _mesh_cfg(SERVE_ARCH, dname, layers)
         params = model.init(0, cfg, device=dev)
         local = sharding.local_params(params, line, cfg)
@@ -3774,7 +3834,8 @@ def _mesh_rank(rank, world, device, job):
         del local
         torch.cuda.empty_cache()
     # (c) Granite-3.0-1B-A400M, B = 2: replayed, then free routing
-    cfg = _mesh_cfg(MOE_ARCH, "bfloat16")
+    mark("mesh (c) granite")
+    cfg = _mesh_cfg(MOE_ARCH, "bfloat16", MESH_BF16_LAYERS)
     params = model.init(0, cfg, device=dev)
     local = sharding.local_params(params, square, cfg)
     del params
@@ -3797,6 +3858,7 @@ def _mesh_rank(rank, world, device, job):
     del local
     torch.cuda.empty_cache()
     # (d) the WKV region at RWKV6-7B's heads
+    mark("mesh (d) wkv")
     r, k, v, w, u, s = _wkv_inputs(dev)
     d = square.index(("data",))
     with meshctx.set_mesh(square):
@@ -3808,6 +3870,7 @@ def _mesh_rank(rank, world, device, job):
     del r, k, v, w, s, y, st
     torch.cuda.empty_cache()
     # (e) loss and gradients of the reduced configs
+    mark("mesh (e) reduced")
     for arch in MESH_REDUCED:
         cfg = _mesh_cfg(arch, reduced=True)
         params = model.init(3, cfg, device=dev)
@@ -3822,6 +3885,7 @@ def _mesh_rank(rank, world, device, job):
             loss.backward()
         out[("reduced", arch)] = (float(loss.detach()), _flat_grads(local))
     out["coords"] = {"line": dict(line.coords), "square": dict(square.coords)}
+    mark("mesh: rank done")
     return out
 
 
@@ -3862,25 +3926,28 @@ def _mesh_assemble_grads(per_rank, key, cfg):
 
 
 def mesh_path(dev, hbm, smi):
-    """Phase 12: the model mesh on 4 rank processes of the card.  (a) the
-    kernel's q_offset (``sp_offset_kernel``); then, with every single-
-    process reference computed first and freed: (b) H2O-Danube3-4B's bf16
-    prefill at full width (B = 1, T = 8192, 24 layers) on a (1, 4) mesh
+    """Phase 12 (a generator: ``mesh_phases`` runs its rank body with the
+    other mesh phases'): the model mesh on 4 rank processes of the card.
+    (a) the kernel's q_offset (``sp_offset_kernel``); then, with every
+    single-process reference computed first and freed: (b)
+    H2O-Danube3-4B's bf16 prefill at full width (B = 1, T = 8192, 8
+    layers) on a (1, 4) mesh
     through sequence-parallel attention (one flash launch a layer a rank
     at query offset 2048 r) and the SP+TP SwiGLU, the gathered hidden
     states held to the single-process kernel prefill within PREFILL_RTOL,
     and f32 at 4 layers; (c) Granite-3.0-1B-A400M's bf16 prefill at full
-    width, B = 2, T = 8192, on (2, 2) through SP attention and expert
-    parallelism, held to the single-process prefill of each data shard's
-    sequence (the capacity buffer is a data shard's) with its expert
-    choices replayed (``RouteTape``), the free-routing flips recorded;
+    width and 8 layers, B = 2, T = 8192, on (2, 2) through SP attention
+    and expert parallelism, held to the single-process prefill of each
+    data shard's sequence (the capacity buffer is a data shard's) with its
+    expert choices replayed (``RouteTape``), the free-routing flips
+    recorded;
     (d) the WKV region at RWKV6-7B's heads on (2, 2) against
     ``wkv_chunked`` in one process; (e) the reduced minitron-4b's and
     granite's loss and gradients on (2, 2) against one process.  ->
     ({dtype: flash launches by route of the mesh prefills}, the flash
     row's ``sp_offset_shape``)."""
     import torch
-    from repro_torch.launch import ranks, steps
+    from repro_torch.launch import steps
     from repro_torch.models import model, rwkv
     from repro_torch.kernels.attention import flash
     t0 = time.perf_counter()
@@ -3888,7 +3955,8 @@ def mesh_path(dev, hbm, smi):
         "h2o": (SP_SHAPE, MESH_RANKS, [SP_RAGGED])}, "mesh", 13)[0]["h2o"]
     # single-process references
     refs = {}
-    for dname, layers in (("bfloat16", None), ("float32", MESH_F32_LAYERS)):
+    for dname, layers in (("bfloat16", MESH_BF16_LAYERS),
+                          ("float32", MESH_F32_LAYERS)):
         cfg = _mesh_cfg(SERVE_ARCH, dname, layers)
         params = model.init(0, cfg, device=dev)
         step = steps.make_prefill_step(cfg)
@@ -3898,7 +3966,7 @@ def mesh_path(dev, hbm, smi):
         refs[("h2o", dname)] = (h.cpu(), ms)
         del params, h
         torch.cuda.empty_cache()
-    cfg = _mesh_cfg(MOE_ARCH, "bfloat16")
+    cfg = _mesh_cfg(MOE_ARCH, "bfloat16", MESH_BF16_LAYERS)
     params = model.init(0, cfg, device=dev)
     step = steps.make_prefill_step(cfg)
     tokens = _mesh_tokens(cfg, MESH_GRANITE_B, PREFILL_T, dev)
@@ -3932,17 +4000,15 @@ def mesh_path(dev, hbm, smi):
     torch.cuda.empty_cache()
     ref_s = time.perf_counter() - t0
 
-    t1 = time.perf_counter()
-    per_rank = ranks.run(_mesh_rank, MESH_RANKS, dev.type,
-                         {"granite_ids": granite_ids}, timeout=900.0)
-    spawn_s = time.perf_counter() - t1
+    per_rank, ranks_s, t0 = yield from _mesh_ranks_of(
+        "_mesh_rank", ({"granite_ids": granite_ids},), t0)
     by_route = {"bfloat16": {r: 0 for r in flash.ROUTES},
                 "float32": {r: 0 for r in flash.ROUTES}}
 
     # (b) H2O on (1, 4): rank r holds positions 2048 r ..
     for dname in ("bfloat16", "float32"):
-        cfg = _mesh_cfg(SERVE_ARCH, dname, None if dname == "bfloat16"
-                        else MESH_F32_LAYERS)
+        cfg = _mesh_cfg(SERVE_ARCH, dname, MESH_BF16_LAYERS
+                        if dname == "bfloat16" else MESH_F32_LAYERS)
         h_ref, ms_ref = refs[("h2o", dname)]
         res = [pr[("h2o", dname)] for pr in per_rank]
         h = torch.cat([x[0] for x in res], 1)
@@ -3964,7 +4030,8 @@ def mesh_path(dev, hbm, smi):
         line = {"phase": "mesh", "part": "b", "arch": SERVE_ARCH,
                 "dtype": dname, "mesh": {"data": 1, "model": MESH_RANKS},
                 "batch": 1, "seq_len": PREFILL_T, "num_layers": L,
-                "reduced": [] if dname == "bfloat16" else MESH_F32_CUTS,
+                "reduced": (MESH_BF16_CUTS if dname == "bfloat16"
+                            else MESH_F32_CUTS),
                 "launches_by_rank": [x[2] for x in res],
                 "ms_per_prefill_mesh_by_rank": [x[1] for x in res],
                 "ms_per_prefill_one_process": ms_ref,
@@ -3980,7 +4047,7 @@ def mesh_path(dev, hbm, smi):
         emit(line)
 
     # (c) Granite on (2, 2): rank 2 d + m holds sequence d's block m
-    cfg = _mesh_cfg(MOE_ARCH, "bfloat16")
+    cfg = _mesh_cfg(MOE_ARCH, "bfloat16", MESH_BF16_LAYERS)
     L = cfg.num_layers
     for mode in ("replayed", "free"):
         res = [pr[("granite", mode)] for pr in per_rank]
@@ -3993,7 +4060,8 @@ def mesh_path(dev, hbm, smi):
                                    for r in flash.ROUTES} for x in res)
         line = {"phase": "mesh", "part": "c", "arch": MOE_ARCH,
                 "routing": mode, "dtype": "bfloat16",
-                "mesh": {"data": 2, "model": 2},
+                "mesh": {"data": 2, "model": 2}, "num_layers": L,
+                "reduced": MESH_BF16_CUTS,
                 "batch": MESH_GRANITE_B, "seq_len": PREFILL_T,
                 "launches_by_rank": [x[2] for x in res],
                 "ms_per_prefill_mesh_by_rank": [x[1] for x in res],
@@ -4065,17 +4133,18 @@ def mesh_path(dev, hbm, smi):
               "worst_grad_rel_err": worst, "rtol": MESH_GRAD_RTOL,
               "ok": ok})
     emit({"phase": "mesh", "seconds": time.perf_counter() - t0,
-          "references_s": ref_s, "ranks_wall_s": spawn_s, "card": smi})
+          "references_s": ref_s, "ranks_s": ranks_s, "card": smi})
     return by_route, sp_row
 
 
 # -- phase 13: the group train step on the model mesh -------------------------
 
-# (a) H2O-Danube3-4B at its train depth and full width (2 layers, bf16,
-# remat) on a (2, 2) ("data", "model") mesh of 4 rank processes of the
-# card: params and AdamW state as FSDP storage blocks, k = 4 groups of 2
-# sequences of 512 (one a group a data rank), q = 1, gmom under
-# sign_flip, one microbatch; 2 shard-local steps (the reference's
+# (a) H2O-Danube3-4B at full width and 1 layer (bf16, remat; at
+# launch/train.py's depth of 2, 60 s of the chip check) on a (2, 2)
+# ("data", "model") mesh of 4 rank processes of the card: params and
+# AdamW state as FSDP storage blocks, k = 4 groups of 2 sequences of 512
+# (one a group a data rank), q = 1, gmom under
+# sign_flip, one microbatch; 1 shard-local step (the reference's
 # partitioned spec: the reference round on the 2D layout) and 1 gathered
 # step (the stacked gradients gathered whole, the round kernel on every
 # rank, the ranks taking turns on the card for its (k, P) f32 block and
@@ -4083,8 +4152,10 @@ def mesh_path(dev, hbm, smi):
 # and rwkv6-7b on (2, 2), f32, SGD, 2 steps of each variant.  Each is
 # held to one process on the card at the same settings, computed first.
 MESH_TRAIN = {"k": 4, "q": 1, "batch": 8, "microbatches": 1, "lr": 1e-3}
-MESH_TRAIN_STEPS = {"shard_local": 2, "gathered": 1}
-MESH_TRAIN_CUTS = ["24 layers cut to 2 (launch/train.py gpu_train_layers)",
+MESH_TRAIN_STEPS = {"shard_local": 1, "gathered": 1}
+MESH_TRAIN_LAYERS = {TRAIN_ARCH: 1}
+MESH_TRAIN_CUTS = ["24 layers cut to 1 (launch/train.py gpu_train_layers' "
+                   "2, cut once more for the chip check's time)",
                    "seq_len 512, one sequence a group a data rank"]
 MESH_TRAIN_SEED = 0
 # the first step's aggregate against one process's, each leaf's
@@ -4118,11 +4189,14 @@ def _mesh_train_key(dev, seed=MESH_TRAIN_SEED):
 
 
 def mesh_train_config(arch, dname=None):
-    """Phase 13 (a)'s (and 14 (e)'s) config of ``arch``: its train depth,
-    remat, in ``dname`` (None: the config's own bf16)."""
+    """Phase 13 (a)'s (and 14 (e)'s) config of ``arch``: its train depth
+    (MESH_TRAIN_LAYERS where that names it), remat, in ``dname`` (None:
+    the config's own bf16)."""
     import torch
     from repro_torch.launch import train as train_lib
     cfg = train_lib.train_config(arch, "gpu").with_(remat=True)
+    if arch in MESH_TRAIN_LAYERS:
+        cfg = cfg.with_(num_layers=MESH_TRAIN_LAYERS[arch])
     if dname is not None:
         cfg = cfg.with_(dtype=getattr(torch, dname),
                         param_dtype=getattr(torch, dname))
@@ -4364,6 +4438,7 @@ def _mesh_train_rank(rank, world, device):
     from repro_torch.models import meshctx, model
     dev = torch.device(device)
     torch.set_float32_matmul_precision("highest")
+    mark("mesh_train: rank started")
     square = mesh_lib.make_mesh((2, world // 2), ("data", "model"))
     out = {"coords": dict(square.coords)}
     g = MESH_TRAIN
@@ -4374,6 +4449,7 @@ def _mesh_train_rank(rank, world, device):
     stream, key = _mesh_train_stream(cfg, dev), _mesh_train_key(dev)
     with meshctx.set_mesh(square):
         for variant, n in MESH_TRAIN_STEPS.items():
+            mark(f"mesh_train (a) h2o {variant}")
             out[("h2o", variant)] = _mesh_train_variant(
                 cfg, square, variant, full, specs, dev, n,
                 _mesh_train_rc(g["k"], g["q"], "auto"),
@@ -4384,6 +4460,7 @@ def _mesh_train_rank(rank, world, device):
     # (b) the reduced MoE and ssm families, f32, SGD
     r = MESH_TRAIN_REDUCED_RC
     for arch in MESH_TRAIN_REDUCED:
+        mark(f"mesh_train (b) {arch}")
         rcfg = _mesh_cfg(arch, reduced=True)
         full = model.init(3, rcfg, device=dev)
         rspecs = sharding.param_shardings(full, square, rcfg)
@@ -4502,11 +4579,10 @@ def reduced_step_checks(per_rank, reduced_refs, archs, phase, part):
 
 
 def mesh_train_path(dev, smi):
-    """Phase 13: the group train step on the mesh, 4 rank processes of the
-    card -> (round-kernel launches, the round row's ``mesh_train_shape``)."""
+    """Phase 13 (a generator, as phase 12's): the group train step on the
+    mesh, 4 rank processes of the card -> (round-kernel launches, the
+    round row's ``mesh_train_shape``)."""
     import torch
-    from repro_torch.launch import ranks
-    from repro_torch.launch import train as train_lib
     from repro_torch.sim.goldens import compare_traces
     t0 = time.perf_counter()
     refs = {b: mesh_train_reference(dev, b, MESH_TRAIN_STEPS["shard_local"])
@@ -4516,11 +4592,9 @@ def mesh_train_path(dev, smi):
                     for b in ("reference", "auto")}
     torch.cuda.empty_cache()
     ref_s = time.perf_counter() - t0
-    t1 = time.perf_counter()
-    per_rank = ranks.run(_mesh_train_rank, MESH_RANKS, dev.type,
-                         timeout=900.0)
-    ranks_s = time.perf_counter() - t1
-    cfg = train_lib.train_config(TRAIN_ARCH, "gpu")
+    per_rank, ranks_s, t0 = yield from _mesh_ranks_of(
+        "_mesh_train_rank", (), t0)
+    cfg = mesh_train_config(TRAIN_ARCH)
     P = cfg_param_leaves(cfg)
     launches = gathered_launches = 0
     kernel_ms = []
@@ -4590,7 +4664,7 @@ def mesh_train_path(dev, smi):
     launches += reduced_step_checks(per_rank, reduced_refs,
                                     MESH_TRAIN_REDUCED, "mesh_train", "b")
     emit({"phase": "mesh_train", "seconds": time.perf_counter() - t0,
-          "references_s": ref_s, "ranks_wall_s": ranks_s, "card": smi})
+          "references_s": ref_s, "ranks_s": ranks_s, "card": smi})
     return launches, {"shape": [MESH_TRAIN["k"], MESH_TRAIN["k"], P],
                       "kernel_ms": (sorted(kernel_ms)[len(kernel_ms) // 2]
                                     if kernel_ms else None),
@@ -4622,9 +4696,10 @@ FAMILY_SP = {
                         16, 64, False, None), _M_SQUARE, ()),
     "internvl2": ((1, PREFILL_T // _M_LINE, PREFILL_T, 48, 8, 128, True,
                    None), _M_LINE, ())}
-# (b) Zamba2-2.7B on (1, 4): bf16 at full depth, f32 at 12 layers
-FAMILY_ZAMBA_F32_LAYERS = 12
-FAMILY_ZAMBA_F32_CUTS = ["54 layers cut to 12 in f32 (2 groups)"]
+# (b) Zamba2-2.7B on (1, 4) at 12 layers in both dtypes (the bf16 prefill
+# at full depth took 22 s of the chip check)
+FAMILY_ZAMBA_LAYERS = 12
+FAMILY_ZAMBA_CUTS = ["54 layers cut to 12 (2 groups)"]
 # (c) SeamlessM4T-medium on (2, 2): a sequence a data rank
 FAMILY_AUDIO_B = 2
 # (d) InternVL2-26B on (1, 4): each rank holds the attention weights and
@@ -4638,7 +4713,7 @@ FAMILY_VLM_F32_CUTS = ["48 layers cut to 8 in f32"]
 # (e) Zamba2-2.7B trained at its train depth (6 layers, one group) with
 # phase 13 (a)'s settings, shard-local; the reduced SeamlessM4T and
 # InternVL2 with phase 13 (b)'s
-FAMILY_TRAIN_STEPS = 2
+FAMILY_TRAIN_STEPS = 1
 FAMILY_TRAIN_CUTS = ["54 layers cut to 6, one group of the shared block "
                      "(launch/train.py gpu_train_layers)",
                      "seq_len 512, one sequence a group a data rank"]
@@ -4690,8 +4765,8 @@ def _family_warm(batch):
 
 # (arch, mesh, dtype, layers (None: full depth)) of phase 14 (b)-(d)
 FAMILY_PREFILLS = (
-    (ZAMBA_ARCH, "line", "bfloat16", None),
-    (ZAMBA_ARCH, "line", "float32", FAMILY_ZAMBA_F32_LAYERS),
+    (ZAMBA_ARCH, "line", "bfloat16", FAMILY_ZAMBA_LAYERS),
+    (ZAMBA_ARCH, "line", "float32", FAMILY_ZAMBA_LAYERS),
     (AUDIO_ARCH, "square", "bfloat16", None),
     (AUDIO_ARCH, "square", "float32", None),
     (VLM_ARCH, "line", "bfloat16", FAMILY_VLM_LAYERS),
@@ -4713,7 +4788,9 @@ def _family_mesh_rank(rank, world, device):
     meshes = {n: mesh_lib.make_mesh(sizes, ("data", "model"))
               for n, sizes in FAMILY_MESHES.items()}
     out = {"coords": {n: dict(m.coords) for n, m in meshes.items()}}
+    mark("mesh_families: meshes built")
     for arch, mname, dname, layers in FAMILY_PREFILLS:
+        mark(f"mesh_families {arch} {dname}")
         mesh = meshes[mname]
         cfg = _mesh_cfg(arch, dname, layers)
         local = _family_local(cfg, mesh, dev)
@@ -4734,6 +4811,7 @@ def _family_mesh_rank(rank, world, device):
         del local, batch, warm, full_batch
         torch.cuda.empty_cache()
     # (e) Zamba2 at its train depth, shard-local, AdamW
+    mark("mesh_families (e) zamba2 train")
     square = meshes["square"]
     g = MESH_TRAIN
     cfg = mesh_train_config(ZAMBA_ARCH)
@@ -4750,6 +4828,7 @@ def _family_mesh_rank(rank, world, device):
     # the reduced audio and vlm families, f32, SGD, both variants
     r = MESH_TRAIN_REDUCED_RC
     for arch in FAMILY_TRAIN_REDUCED:
+        mark(f"mesh_families (e) {arch}")
         rcfg = _mesh_cfg(arch, reduced=True)
         full = model.init(3, rcfg, device=dev)
         rspecs = sharding.param_shardings(full, square, rcfg)
@@ -4821,27 +4900,27 @@ def _family_rows(key, per_rank, sizes):
 
 
 def mesh_families_path(dev, hbm, smi):
-    """Phase 14: the hybrid, audio and vlm families on the model mesh, 4
-    rank processes of the card.  (a) the flash kernel at their
+    """Phase 14 (a generator, as phase 12's): the hybrid, audio and vlm
+    families on the model mesh, 4 rank processes of the card.  (a) the
+    flash kernel at their
     sequence-parallel offset shapes (``sp_offset_kernel``); then,
     with every single-process reference computed first and freed: (b)
-    Zamba2-2.7B's bf16 prefill at full width and depth on (1, 4), B = 1, T
-    = 8192 (the Mamba2 blocks channel-parallel, the shared block on the
-    rank's T block, 9 flash launches a rank at hd 80), f32 at 12 layers;
+    Zamba2-2.7B's bf16 and f32 prefills at full width and 12 layers on
+    (1, 4), B = 1, T = 8192 (the Mamba2 blocks channel-parallel, the
+    shared block on the rank's T block, 2 flash launches a rank at hd 80);
     (c) SeamlessM4T-medium's bf16 and f32 prefills at full width and
     depth on (2, 2), B = 2, T = 8192 and 2048 frames (the encoder
     sequence-parallel over the frames, its output gathered into the
     memory; 36 launches a rank), and f32 with the encoder made causal,
     which must fail; (d) InternVL2-26B's bf16 prefill at full width cut to
     16 layers on (1, 4), 256 patches + 7936 tokens, f32 at 8 layers; (e)
-    Zamba2 at its train depth on (2, 2), two shard-local steps with phase
+    Zamba2 at its train depth on (2, 2), one shard-local step with phase
     13 (a)'s settings and checks, and the reduced SeamlessM4T and
     InternVL2 with phase 13 (b)'s.  -> ({dtype: flash launches by route of
     the mesh prefills}, round-kernel launches, the flash row's
     ``family_sp_shapes``)."""
     import torch
     from repro_torch.kernels.attention import flash
-    from repro_torch.launch import ranks
     from repro_torch.launch import train as train_lib
     from repro_torch.sim.goldens import compare_traces
     t0 = time.perf_counter()
@@ -4855,10 +4934,8 @@ def mesh_families_path(dev, hbm, smi):
                     for b in ("reference", "auto")}
     torch.cuda.empty_cache()
     ref_s = time.perf_counter() - t0
-    t1 = time.perf_counter()
-    per_rank = ranks.run(_family_mesh_rank, MESH_RANKS, dev.type,
-                         timeout=900.0)
-    ranks_s = time.perf_counter() - t1
+    per_rank, ranks_s, t0 = yield from _mesh_ranks_of(
+        "_family_mesh_rank", (), t0)
     sizes = FAMILY_MESHES
     by_route = {"bfloat16": {r: 0 for r in flash.ROUTES},
                 "float32": {r: 0 for r in flash.ROUTES}}
@@ -4893,7 +4970,7 @@ def mesh_families_path(dev, hbm, smi):
                 "batch": len(hs_ref), "seq_len": PREFILL_T,
                 "num_layers": cfg.num_layers,
                 "reduced": ([] if layers is None else
-                            {ZAMBA_ARCH: FAMILY_ZAMBA_F32_CUTS,
+                            {ZAMBA_ARCH: FAMILY_ZAMBA_CUTS,
                              VLM_ARCH: FAMILY_VLM_CUTS if dname == "bfloat16"
                              else FAMILY_VLM_F32_CUTS}[arch]),
                 "launches_by_rank": [x[2] for x in res],
@@ -4967,9 +5044,512 @@ def mesh_families_path(dev, hbm, smi):
     launches = sum(n_launch) + reduced_step_checks(
         per_rank, reduced_refs, FAMILY_TRAIN_REDUCED, "mesh_families", "e")
     emit({"phase": "mesh_families", "seconds": time.perf_counter() - t0,
-          "references_s": ref_s, "ranks_wall_s": ranks_s,
+          "references_s": ref_s, "ranks_s": ranks_s,
           "sp_worst_bf16_err": sp_worst, "card": smi})
     return by_route, launches, sp_rows
+
+
+# -- phase 15: decode and short prefill on the model mesh ---------------------
+
+# the reference driver's defaults (launch/serve.py): 4 requests, prompts of
+# 16 tokens, 32 new
+DECODE_B, DECODE_PROMPT, DECODE_NEW = 4, 16, 32
+DECODE_LEN = DECODE_PROMPT + DECODE_NEW
+# Zamba2's decode makes 3 host-staged collectives a Mamba2 block and 2 a
+# shared block (180 a step at 54 layers, 4.3 ms each on 4 ranks of one
+# H100 80GB at 700 W), so it serves at 2 of its 9 groups
+MESH_DECODE_ZAMBA_LAYERS = 12
+# name: (arch, bf16 mesh, bf16 layers, f32 mesh, f32 layers, f32 steps)
+# (layers None: full depth).  H2O in bf16 on (2, 2), in f32 on (1, 4);
+# the others on their phase-12 and phase-14 meshes (Granite and RWKV6 on
+# (2, 2))
+MESH_DECODE = {
+    "h2o": (SERVE_ARCH, "square", None, "line", None, DECODE_LEN),
+    "granite": (MOE_ARCH, "square", None, "square", None, 24),
+    "rwkv6": (RWKV_ARCH, "square", None, "square", 8, 24),
+    "zamba2": (ZAMBA_ARCH, "line", MESH_DECODE_ZAMBA_LAYERS, "line",
+               MESH_DECODE_ZAMBA_LAYERS, 24),
+    "seamless": (AUDIO_ARCH, "square", None, "square", None, 24),
+    "internvl2": (VLM_ARCH, "line", FAMILY_VLM_LAYERS, "line",
+                  FAMILY_VLM_F32_LAYERS, 24)}
+MESH_DECODE_RTOL = 1e-3
+# H2O's bf16 decode on (2, 2), teacher-forced on the one process's f32
+# greedy tokens, against the one process's bf16 decode of the same tokens:
+# its worst step within this many times the one process's own bf16-vs-f32
+# worst step (the rounding of bf16 itself, measured in the same run); the
+# planted fault (the ranks' softmax parts summed unrescaled) runs its first
+# MESH_DECODE_FAULT_STEPS steps.  Both bf16 decodes are roundings of the
+# same f32 function, each about the control away from it, so their
+# difference is at most about twice the control; MESH_DECODE_TF_STEPS
+# (the prompt and 16 new tokens) fill both model ranks' halves of the
+# 48-slot cache on (2, 2)
+MESH_DECODE_BF16_FACTOR = 2.0
+MESH_DECODE_TF_STEPS = 32
+MESH_DECODE_FAULT_STEPS = 8
+MESH_DECODE_CUTS = {
+    ("rwkv6", "float32"): ["32 layers cut to 8 in f32 (every rank holds "
+                           "every weight: 30.3 GB a rank at full depth)"],
+    ("zamba2", "bfloat16"): ["54 layers cut to 12 (2 groups): 180 "
+                             "host-staged collectives a step at full depth"],
+    ("zamba2", "float32"): ["54 layers cut to 12 (2 groups)"],
+    ("internvl2", "bfloat16"): FAMILY_VLM_CUTS,
+    ("internvl2", "float32"): FAMILY_VLM_F32_CUTS}
+MESH_DECODE_F32_CUT = ("the f32 check teacher-forces the prompt and 8 of "
+                       "the one process's greedy tokens (24 steps)")
+# the ranks build whole params in turns above this many bytes a rank
+MESH_DECODE_TURNS_BYTES = 12e9
+
+
+def _decode_logits(cfg, params, state, tokens):
+    """Token t at position t through the serve step: every step's logits
+    (B, S, V), float32."""
+    import torch
+    from repro_torch.launch import steps
+    step = steps.make_serve_step(cfg)
+    out = []
+    for t in range(tokens.shape[1]):
+        pos = torch.full((tokens.shape[0],), t, dtype=torch.int64,
+                         device=tokens.device)
+        logits, state = step(params, state, tokens[:, t:t + 1], pos)
+        out.append(logits[:, 0].float())
+    return torch.stack(out, 1)
+
+
+def _decode_memory(cfg, dev, seed=17):
+    """The audio decode state's memory (B, S_enc, D), drawn from a seed
+    (``model.init_decode_state`` holds zeros, which the cross-attention
+    turns into an exact 0)."""
+    import torch
+    # model.init_decode_state's memory length
+    enc_len = min(max(DECODE_LEN // cfg.encoder_seq_divisor, 1), 8192)
+    shape = (DECODE_B, enc_len, cfg.d_model)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
+
+
+@contextlib.contextmanager
+def unrescaled_combine():
+    """The planted fault of the decode's combine: the ranks' softmax parts
+    summed as they are, each normalised by its own max."""
+    import torch
+    from repro_torch.models import meshctx
+    real = meshctx.softmax_combine
+
+    def combine(m, l, o, axes, *, mesh=None):
+        mesh = meshctx._mesh_for(mesh)
+        parts = meshctx._parts(torch.cat([l[..., None], o], -1), mesh,
+                               mesh.axes(axes))
+        total = meshctx._chain(parts)
+        return total[..., 1:] / total[..., :1]
+    meshctx.softmax_combine = combine
+    try:
+        yield
+    finally:
+        meshctx.softmax_combine = real
+
+
+@contextlib.contextmanager
+def maskless_kernel():
+    """The planted fault: every flash launch without its mask (non-causal,
+    no window).  At T = 16 H2O's window of 4096 masks nothing, so the
+    fault removes the causal mask with it."""
+    from repro_torch.kernels.attention import ops
+    real = ops.attention
+
+    def launch(q, k, v, *, causal, sliding_window=None, **kw):
+        return real(q, k, v, causal=False, sliding_window=None, **kw)
+    ops.attention = launch
+    try:
+        yield
+    finally:
+        ops.attention = real
+
+
+def _decode_local(cfg, mesh, dev):
+    """``cfg``'s params drawn from seed 0 and cut to the mesh's serve
+    layout (the experts' FSDP dim whole), built in turns where four
+    ranks' whole params would not fit the card together."""
+    import torch
+    from repro_torch.launch import sharding
+    from repro_torch.models import meshctx, model
+
+    def build():
+        params = model.init(0, cfg, device=dev)
+        local = sharding.local_params(params, mesh, cfg, expert_fsdp=False)
+        del params
+        return local
+    nbytes = cfg_param_leaves(cfg) * torch.empty(
+        (), dtype=cfg.param_dtype).element_size()
+    if nbytes > MESH_DECODE_TURNS_BYTES:
+        return meshctx.one_card_turns(mesh, build, dev)
+    return build()
+
+
+def _decode_mesh_rank(rank, world, device, job):
+    """Phase 15 on one rank of the card: each family's bf16 serve through
+    ``serve.generate`` on its mesh (H2O's also teacher-forced on the one
+    process's f32 tokens, and with the planted combine), then its f32
+    decode teacher-forced on the one process's tokens; H2O's short
+    prefill in both dtypes (and f32 with the kernel's mask removed)."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve, sharding, steps
+    from repro_torch.models import meshctx, model
+    dev = torch.device(device)
+    torch.set_float32_matmul_precision("highest")
+    meshes = {n: mesh_lib.make_mesh(sizes, ("data", "model"))
+              for n, sizes in FAMILY_MESHES.items()}
+    out = {"coords": {n: dict(m.coords) for n, m in meshes.items()}}
+    mark("mesh_decode: meshes built")
+    for name, (arch, bmesh, blayers, fmesh, flayers, fsteps) in \
+            MESH_DECODE.items():
+        for dname, mname, layers in (("bfloat16", bmesh, blayers),
+                                     ("float32", fmesh, flayers)):
+            mark(f"mesh_decode {name} {dname}")
+            cfg = _mesh_cfg(arch, dname, layers)
+            mesh = meshes[mname]
+            local = _decode_local(cfg, mesh, dev)
+            mark(f"mesh_decode {name} {dname} params cut")
+            torch.cuda.reset_peak_memory_stats(dev)
+            res = {}
+            with meshctx.set_mesh(mesh):
+                prompts = job["prompts"][name].to(dev)
+                rows = sharding.local_rows(prompts, mesh)
+                mesh.reset_stats()
+                if dname == "bfloat16":
+                    tokens, first, times = serve.generate(local, cfg, rows,
+                                                          DECODE_NEW)
+                    res.update(tokens=tokens.cpu(), times=times,
+                               steps=DECODE_LEN - 1)
+                else:
+                    seq = sharding.local_rows(
+                        job["f32_tokens"][name][:, :fsteps].to(dev), mesh)
+                    whole = model.init_decode_state(cfg, DECODE_B, DECODE_LEN,
+                                                    device=dev)
+                    if "memory" in whole:
+                        whole["memory"] = job["memory"][name].to(dev)
+                    state = sharding.local_decode_state(whole, mesh, cfg,
+                                                        DECODE_B)
+                    logits, ms = _synced_ms(
+                        lambda: _decode_logits(cfg, local, state, seq), dev)
+                    first = logits[:, DECODE_PROMPT - 1:DECODE_PROMPT]
+                    res.update(digest=_digest(logits), ms=ms, steps=fsteps,
+                               logits=(logits.cpu() if mesh.coords["model"]
+                                       == 0 else None))
+                res["stats"] = dict(mesh.stats)
+                res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+                if name == "h2o" and dname == "bfloat16":
+                    mark("mesh_decode h2o bf16 teacher-forced")
+                    res.update(_teacher_forced_bf16(cfg, local, mesh, job,
+                                                    dev))
+                if name == "h2o":
+                    # the same prompts through the prefill step below the
+                    # threshold: T = 16 whole on every model rank, one
+                    # full flash launch a layer
+                    short = steps.make_prefill_step(cfg)
+                    batch = sharding.local_batch({"tokens": prompts}, mesh,
+                                                 cfg)
+                    unembed = model._unembed_fn(local, cfg)
+                    short(local, batch)
+                    h, ms, routes, stats, _ = _mesh_prefill(short, local,
+                                                            batch, dev)
+                    last = unembed(h[:, -1:].to(dev)).float()
+                    scale = float(first.float().abs().max())
+                    res["prefill"] = dict(
+                        ms=ms, routes=routes, stats=stats,
+                        rel_err=float((last - first.float()).abs().max())
+                        / scale)
+                    if dname == "float32":
+                        with maskless_kernel():
+                            hb = _mesh_prefill(short, local, batch, dev)[0]
+                        lb = unembed(hb[:, -1:].to(dev)).float()
+                        res["prefill"]["maskless_rel_err"] = float(
+                            (lb - first.float()).abs().max()) / scale
+            out[(name, dname)] = res
+            del local
+            torch.cuda.empty_cache()
+    return out
+
+
+def _teacher_forced_bf16(cfg, local, mesh, job, dev):
+    """H2O's bf16 decode on the mesh teacher-forced on the one process's
+    f32 greedy tokens (MESH_DECODE_TF_STEPS steps' logits, on model rank
+    0), and the first MESH_DECODE_FAULT_STEPS steps with
+    ``unrescaled_combine``."""
+    import torch
+    from repro_torch.launch import sharding
+    from repro_torch.models import model
+    seq = sharding.local_rows(job["f32_tokens"]["h2o"].to(dev), mesh)
+    out = {}
+    for key, n, planted in (("tf", MESH_DECODE_TF_STEPS,
+                             contextlib.nullcontext),
+                            ("fault", MESH_DECODE_FAULT_STEPS,
+                             unrescaled_combine)):
+        state = sharding.local_decode_state(
+            model.init_decode_state(cfg, DECODE_B, DECODE_LEN, device=dev),
+            mesh, cfg, DECODE_B)
+        with planted():
+            logits = _decode_logits(cfg, local, state, seq[:, :n])
+        out[key] = logits.cpu() if mesh.coords["model"] == 0 else None
+        out[key + "_digest"] = _digest(logits)
+    return out
+
+
+def _decode_references(dev):
+    """The one process on the card, each model freed before the next:
+    H2O's bf16 serve (its tokens and decode ms a step) and its bf16 decode
+    teacher-forced on the f32 greedy tokens; every family's f32 greedy
+    decode of DECODE_NEW tokens after the prompts, every
+    step's logits on the host.  -> (job for the ranks, {name: refs})."""
+    import torch
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import model
+    job = {"prompts": {}, "f32_tokens": {}, "memory": {}}
+    refs = {}
+    for name, (arch, _, blayers, _, flayers, _) in MESH_DECODE.items():
+        bcfg = _mesh_cfg(arch, "bfloat16", blayers)
+        prompts = serve.draw_prompts(0, bcfg, DECODE_B, DECODE_PROMPT, dev)
+        job["prompts"][name] = prompts.cpu()
+        ref = {}
+        cfg = _mesh_cfg(arch, "float32", flayers)
+        params = model.init(0, cfg, device=dev)
+        state = model.init_decode_state(cfg, DECODE_B, DECODE_LEN, device=dev)
+        if "memory" in state:
+            state["memory"] = job["memory"][name] = _decode_memory(cfg, dev)
+            job["memory"][name] = job["memory"][name].cpu()
+        step = steps.make_serve_step(cfg)
+        _decode_logits(cfg, params, model.init_decode_state(
+            cfg, DECODE_B, 2, device=dev), prompts[:, :2])      # warm-up
+        seq, logits = [prompts[:, :1]], []
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for t in range(DECODE_LEN):
+            pos = torch.full((DECODE_B,), t, dtype=torch.int64, device=dev)
+            lg, state = step(params, state, seq[t], pos)
+            logits.append(lg[:, 0].float().cpu())
+            if t + 1 < DECODE_LEN:
+                seq.append(prompts[:, t + 1:t + 2] if t + 1 < DECODE_PROMPT
+                           else torch.argmax(lg, dim=-1))
+        torch.cuda.synchronize(dev)
+        ref.update(logits=torch.stack(logits, 1),
+                   ms=(time.perf_counter() - t0) * 1e3)
+        job["f32_tokens"][name] = torch.cat(seq, 1).cpu()
+        refs[name] = ref
+        del params, state
+        torch.cuda.empty_cache()
+        if name == "h2o":
+            # the bf16 serve, and the bf16 decode teacher-forced on the f32
+            # greedy tokens (the control of the mesh's bf16 check)
+            params = model.init(0, bcfg, device=dev)
+            serve.generate(params, bcfg, prompts[:, :2], 2)     # warm-up
+            tokens, _, times = serve.generate(params, bcfg, prompts,
+                                              DECODE_NEW)
+            state = model.init_decode_state(bcfg, DECODE_B, DECODE_LEN,
+                                            device=dev)
+            ref.update(tokens=tokens.cpu(), times=times,
+                       tf_logits=_decode_logits(
+                           bcfg, params, state, job["f32_tokens"][name][
+                               :, :MESH_DECODE_TF_STEPS].to(dev)).cpu())
+            del params, state
+            torch.cuda.empty_cache()
+    return job, refs
+
+
+def _bf16_tf_check(res, one, f32_logits, nd, nm, arch):
+    """H2O's bf16 mesh decode teacher-forced on the f32 greedy tokens
+    against the one process's bf16 decode of them: the worst step's
+    error (of max|logits|) within MESH_DECODE_BF16_FACTOR times the one
+    process's own bf16-vs-f32 worst step; the unrescaled combine's first
+    steps must miss that bound."""
+    import torch
+
+    def worst(got, want):
+        return max(float((got[:, t] - want[:, t]).abs().max())
+                   / float(want[:, t].abs().max())
+                   for t in range(got.shape[1]))
+    same = all(res[d * nm + m][k] == res[d * nm][k] for k in
+               ("tf_digest", "fault_digest") for d in range(nd)
+               for m in range(nm))
+    got = torch.cat([res[d * nm]["tf"] for d in range(nd)])
+    bad = torch.cat([res[d * nm]["fault"] for d in range(nd)])
+    want = one["tf_logits"]
+    f32_logits = f32_logits[:, :want.shape[1]]
+    control = worst(want, f32_logits)
+    bound = MESH_DECODE_BF16_FACTOR * control
+    err = worst(got, want)
+    fault = worst(bad, want[:, :bad.shape[1]])
+    ok = same and bool(torch.isfinite(got).all()) and err <= bound
+    caught = fault > bound
+    check(ok, f"mesh decode (a) {arch} bf16 teacher-forced: worst step "
+              f"{err} of max|logits|, bound {bound} ({MESH_DECODE_BF16_FACTOR}"
+              f" x the one process's bf16 vs f32 {control}), model ranks "
+              f"agree {same}")
+    check(caught, f"mesh decode (a) {arch} bf16: the unrescaled combine's "
+                  f"{fault} passes the bound {bound}")
+    return {"teacher_forced_steps": got.shape[1],
+            "teacher_forced_rel_err": err,
+            "teacher_forced_bound": bound,
+            "one_process_bf16_vs_f32_rel_err": control,
+            "mesh_bf16_vs_f32_rel_err": worst(got, f32_logits),
+            "teacher_forced_fault_rel_err": fault,
+            "teacher_forced_fault_caught": caught,
+            "teacher_forced_ok": ok and caught}
+
+
+def mesh_decode_path(dev, smi):
+    """Phase 15 (a generator, as phase 12's): decode and the short prefill
+    on the model mesh, 4 rank processes of the card, every one-process
+    reference computed first.
+    (a) H2O-Danube3-4B at full width and depth serves the reference
+    driver's 4 x (16 + 32) in bf16 on (2, 2) through ``serve.generate``
+    (the KV cache's slots over model, B over data), and decodes in f32 on
+    (1, 4), teacher-forced on the one process's greedy tokens: every
+    step's logits within MESH_DECODE_RTOL of max|logits| of one process;
+    its bf16 decode on (2, 2) teacher-forced on the same tokens within
+    MESH_DECODE_BF16_FACTOR times the one process's bf16-vs-f32 error of
+    the one process's bf16 logits, and an unrescaled combine missing
+    that (``_bf16_tf_check``);
+    (b) the same prompts through the prefill step below the
+    sequence-parallel threshold (T = 16 whole on every model rank): 24
+    full flash launches a rank on the dtype's route, the f32 last-position
+    logits within MESH_DECODE_RTOL of the mesh decode loop's after the
+    prompt, and with the kernel's mask removed (non-causal; the window of
+    4096 masks nothing at T = 16) missing it; (c) Granite-3.0-1B-A400M
+    (its own capacity factor: 4 tokens a step, C = K = 8, nothing can
+    overflow) and RWKV6-7B on (2, 2), Zamba2-2.7B on (1, 4), SeamlessM4T-
+    medium on (2, 2) (its f32 decode against a memory drawn from a seed)
+    and InternVL2-26B at 16 layers on (1, 4) serve the same in bf16, each
+    with its f32 check (MESH_DECODE's depths and steps).  Recorded, not
+    held: ms a decode step a rank against one process, ``Mesh.stats``
+    calls, bytes and staged ms a step, peak GB a rank, the bf16 tokens'
+    agreement with one process (H2O).  -> {dtype: flash launches by route
+    of the short prefills}."""
+    import torch
+    from repro_torch.kernels.attention import flash
+    t0 = time.perf_counter()
+    job, refs = _decode_references(dev)
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    per_rank, ranks_s, t0 = yield from _mesh_ranks_of(
+        "_decode_mesh_rank", (job,), t0)
+    by_route = {"bfloat16": {r: 0 for r in flash.ROUTES},
+                "float32": {r: 0 for r in flash.ROUTES}}
+    for name, (arch, bmesh, blayers, fmesh, flayers, fsteps) in \
+            MESH_DECODE.items():
+        part = "a" if name == "h2o" else "c"
+        for dname, mname, layers in (("bfloat16", bmesh, blayers),
+                                     ("float32", fmesh, flayers)):
+            cfg = _mesh_cfg(arch, dname, layers)
+            nd, nm = FAMILY_MESHES[mname]
+            res = [pr[(name, dname)] for pr in per_rank]
+            steps_n = res[0]["steps"]
+            line = {"phase": "mesh_decode", "part": part, "arch": arch,
+                    "dtype": dname, "mesh": {"data": nd, "model": nm},
+                    "requests": DECODE_B, "prompt_len": DECODE_PROMPT,
+                    "new_tokens": DECODE_NEW, "num_layers": cfg.num_layers,
+                    "reduced": MESH_DECODE_CUTS.get((name, dname), [])
+                    + ([MESH_DECODE_F32_CUT] if dname == "float32"
+                       and fsteps < DECODE_LEN else []),
+                    "collectives_per_step_by_rank": [
+                        {k: v / steps_n for k, v in x["stats"].items()}
+                        for x in res],
+                    "peak_gb_by_rank": [x["peak_gb"] for x in res],
+                    "card": smi}
+            if dname == "bfloat16":
+                toks = [torch.cat([res[d * nm + m]["tokens"]
+                                   for d in range(nd)]) for m in range(nm)]
+                same = all(torch.equal(t, toks[0]) for t in toks)
+                good = (same and tuple(toks[0].shape) == (DECODE_B,
+                                                          DECODE_NEW)
+                        and int(toks[0].min()) >= 0
+                        and int(toks[0].max()) < cfg.vocab_size)
+                check(good, f"mesh decode ({part}) {arch} bf16: tokens "
+                            f"{tuple(toks[0].shape)}, model ranks agree "
+                            f"{same}")
+                line.update(
+                    ok=good, model_ranks_agree=same,
+                    first_tokens=toks[0][0, :8].tolist(),
+                    ms_per_decode_step_by_rank=[
+                        x["times"]["decode_s"] * 1e3 / (DECODE_NEW - 1)
+                        for x in res],
+                    prefill_s_by_rank=[x["times"]["prefill_s"]
+                                       for x in res])
+                if "tokens" in refs[name]:
+                    one = refs[name]
+                    f32_new = job["f32_tokens"][name][:, DECODE_PROMPT:]
+                    line.update(
+                        ms_per_decode_step_one_process=one["times"][
+                            "decode_s"] * 1e3 / (DECODE_NEW - 1),
+                        tokens_equal_one_process_share=float(
+                            (toks[0] == one["tokens"]).float().mean()),
+                        one_process_bf16_f32_tokens_equal_share=float(
+                            (one["tokens"][:, :f32_new.shape[1]]
+                             == f32_new).float().mean()))
+                    tf = _bf16_tf_check(res, one, refs[name]["logits"],
+                                        nd, nm, arch)
+                    line.update(tf)
+                    line["ok"] = good and tf["teacher_forced_ok"]
+            else:
+                want = refs[name]["logits"][:, :steps_n]
+                digests = [x["digest"] for x in res]
+                same = all(digests[d * nm + m] == digests[d * nm]
+                           for d in range(nd) for m in range(nm))
+                got = torch.cat([res[d * nm]["logits"] for d in range(nd)])
+                errs = [float((got[:, t] - want[:, t]).abs().max())
+                        / float(want[:, t].abs().max())
+                        for t in range(steps_n)]
+                finite = bool(torch.isfinite(got).all())
+                ok = same and finite and max(errs) <= MESH_DECODE_RTOL
+                check(ok, f"mesh decode ({part}) {arch} f32: worst step "
+                          f"{max(errs)} of max|logits| (rtol "
+                          f"{MESH_DECODE_RTOL}), model ranks agree {same}")
+                line.update(ok=ok, model_ranks_agree=same, steps=steps_n,
+                            rel_err_by_step=errs, rel_err=max(errs),
+                            rtol=MESH_DECODE_RTOL,
+                            ms_per_step_by_rank=[x["ms"] / steps_n
+                                                 for x in res],
+                            ms_per_step_one_process=refs[name]["ms"]
+                            / DECODE_LEN)
+            emit(line)
+            if name == "h2o":
+                pre = [x["prefill"] for x in res]
+                want_route = flash.route(cfg.dtype, cfg.head_dim)
+                L = cfg.num_layers
+                launches_ok = all(x["routes"] == {r: L * (r == want_route)
+                                                  for r in flash.ROUTES}
+                                  for x in pre)
+                for x in pre:
+                    for rt, n in x["routes"].items():
+                        by_route[dname][rt] += n
+                check(launches_ok, f"mesh decode (b) {arch} {dname}: "
+                                   f"launches by rank "
+                                   f"{[x['routes'] for x in pre]}, want {L} "
+                                   f"on {want_route}")
+                err = max(x["rel_err"] for x in pre)
+                pl = {"phase": "mesh_decode", "part": "b", "arch": arch,
+                      "dtype": dname, "mesh": {"data": nd, "model": nm},
+                      "batch": DECODE_B, "seq_len": DECODE_PROMPT,
+                      "launches_by_rank": [x["routes"] for x in pre],
+                      "ms_per_prefill_by_rank": [x["ms"] for x in pre],
+                      "collectives_by_rank": [x["stats"] for x in pre],
+                      "last_logits_rel_err_vs_decode": err,
+                      "ok": launches_ok, "card": smi}
+                if dname == "float32":
+                    ok = err <= MESH_DECODE_RTOL
+                    bad = min(x["maskless_rel_err"] for x in pre)
+                    caught = bad > MESH_DECODE_RTOL
+                    check(ok, f"mesh decode (b) {arch} f32: prefill's last "
+                              f"logits {err} of max|logits| from the "
+                              "decode loop's")
+                    check(caught, f"mesh decode (b) {arch} f32: the maskless "
+                                  f"kernel's {bad} passes the check")
+                    pl.update(ok=ok and caught and launches_ok,
+                              rtol=MESH_DECODE_RTOL,
+                              maskless_rel_err=bad, maskless_caught=caught)
+                emit(pl)
+    emit({"phase": "mesh_decode", "seconds": time.perf_counter() - t0,
+          "references_s": ref_s, "ranks_s": ranks_s, "card": smi})
+    return by_route
 
 
 def cfg_param_leaves(cfg) -> int:
@@ -4983,6 +5563,7 @@ def cfg_param_leaves(cfg) -> int:
 
 def main() -> int:
     t_start = time.perf_counter()
+    os.environ["CHIP_SMOKE_T0"] = repr(time.time())
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5243,19 +5824,14 @@ def main() -> int:
     av_launches, av_routes, av_timing = audio_vlm_path(dev, hbm, flops, smi)
     main_launches += av_launches
 
-    # -- 12 mesh: the model mesh on rank processes of the card ---------------
+    # -- 12-15 the model mesh on rank processes of the card, one start:
+    # 12 the regions and prefills, 13 the group step, 14 the hybrid, audio
+    # and vlm families, 15 decode and the short prefill
     torch.cuda.empty_cache()
-    mesh_routes, sp_row = mesh_path(dev, hbm, smi)
-
-    # -- 13 mesh train: the group step on the model mesh ---------------------
-    torch.cuda.empty_cache()
-    mt_launches, mt_row = mesh_train_path(dev, smi)
-    main_launches += mt_launches
-
-    # -- 14 mesh families: the hybrid, audio and vlm families on the mesh ---
-    torch.cuda.empty_cache()
-    fam_routes, fam_launches, fam_rows = mesh_families_path(dev, hbm, smi)
-    main_launches += fam_launches
+    ((mesh_routes, sp_row), (mt_launches, mt_row),
+     (fam_routes, fam_launches, fam_rows), dec_routes) = mesh_phases(
+        dev, hbm, smi)
+    main_launches += mt_launches + fam_launches
 
     # -- 7 the kernel line --------------------------------------------------
     csrc = "src/repro_torch/kernels/"
@@ -5289,7 +5865,7 @@ def main() -> int:
              "src/repro/kernels/attention/flash.py:124",
              sum(r["bfloat16"]["tensor_core"] for r in (
                  attn_routes, moe_routes, rec_routes, av_routes,
-                 mesh_routes, fam_routes)),
+                 mesh_routes, fam_routes, dec_routes)),
              attn_err[(ATTN_MAIN, "bfloat16")], timing[ATTN_MAIN],
              ATTN_MAIN))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
@@ -5331,7 +5907,8 @@ def main() -> int:
                     family_sp_shapes=fam_rows, launches_by_route={
         route: sum(r[dname][route] for r in (attn_routes, moe_routes,
                                              rec_routes, av_routes,
-                                             mesh_routes, fam_routes))
+                                             mesh_routes, fam_routes,
+                                             dec_routes))
         for dname, route in (("bfloat16", "tensor_core"),
                              ("float32", "cuda_core"))}, **{
         key: {"shape": list(case), **{

@@ -16,7 +16,9 @@ the ranks one after another.
 ``fn`` must be importable by its module path (a top-level function).  Each
 rank runs with the caller's ``torch.get_num_threads()``, so its CPU
 reductions split as the caller's do, and gloo binds the loopback device
-unless ``GLOO_SOCKET_IFNAME`` says otherwise.  A rank that raises or exits
+unless ``GLOO_SOCKET_IFNAME`` says otherwise; a model mesh's collectives
+go through files in the temporary directory instead
+(``models.meshctx.use_local_transport``).  A rank that raises or exits
 non-zero fails the call at once, as does a call that outlives ``timeout``;
 every process is stopped before ``run`` returns or raises.
 """
@@ -32,6 +34,8 @@ import time
 import torch
 import torch.distributed as dist
 
+from repro_torch.models import meshctx
+
 
 def _rank_main(fn, rank: int, world_size: int, rendezvous: str, out: str,
                threads: int, args_file: str) -> None:
@@ -40,6 +44,7 @@ def _rank_main(fn, rank: int, world_size: int, rendezvous: str, out: str,
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
                             rank=rank, world_size=world_size)
+    meshctx.use_local_transport(os.path.dirname(rendezvous))
     try:
         result = fn(rank, world_size, *args)
     finally:

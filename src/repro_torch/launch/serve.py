@@ -36,7 +36,8 @@ import torch
 
 from repro_torch import _device
 from repro_torch.configs import ARCHITECTURES, get_config
-from repro_torch.launch import steps
+from repro_torch.launch import sharding, steps
+from repro_torch.models import meshctx
 from repro_torch.models import model as model_lib
 
 # XORed into --seed for the prompts' generator (the params' takes --seed)
@@ -52,11 +53,23 @@ def generate(params, cfg, prompts, new_tokens: int):
     """Greedy decoding.  prompts: (B, P) on the params' device.  The prompt
     goes through P decode steps, then ``new_tokens - 1`` more steps decode.
     Returns (tokens (B, new_tokens), logits after the prompt (B, 1, V),
-    {"prefill_s", "decode_s"})."""
+    {"prefill_s", "decode_s"}).  Under an ambient model mesh ``params``
+    are the rank's (``sharding.local_params``) and ``prompts`` its rows
+    (``sharding.local_rows``) of B |data| prompts; the rank decodes on its
+    block of the state (``sharding.local_decode_state``) and returns its
+    rows' tokens and logits, the same on every model rank."""
     B, P = prompts.shape
     dev = prompts.device
     step = steps.make_serve_step(cfg)
-    state = model_lib.init_decode_state(cfg, B, P + new_tokens, device=dev)
+    mesh = meshctx.current_mesh()
+    if mesh is None:
+        state = model_lib.init_decode_state(cfg, B, P + new_tokens,
+                                            device=dev)
+    else:
+        rows = B * meshctx.data_size(mesh)
+        state = sharding.local_decode_state(
+            model_lib.init_decode_state(cfg, rows, P + new_tokens,
+                                        device=dev), mesh, cfg, rows)
 
     def pos(t):
         return torch.full((B,), t, dtype=torch.int64, device=dev)

@@ -33,7 +33,10 @@ storage blocks.  ``compute_plans`` says how, leaf by leaf.  The step
 gathers once a step and reduce-scatters once a group.  ``local_batch`` cuts a
 prefill's (B, T) batch to the rank's block, ``local_train_batch`` a
 train step's (k, B/k, T): T over ``model`` for the dense, MoE and audio
-families, whole for ssm, hybrid and vlm (``_seq_axis``).
+families where the sequence is sequence-parallel, whole below the
+threshold and for ssm, hybrid and vlm (``_seq_entry``).  ``local_rows``
+cuts a serve batch's rows, ``local_decode_state`` a decode state
+(``decode_state_shardings``).
 """
 
 from __future__ import annotations
@@ -182,12 +185,22 @@ def _map_with_path(fn, tree, path=()):
 
 
 def map_specs(fn, tree, specs, path=()):
-    """``fn(path, leaf, spec)`` over a tree of dicts beside its tree of
-    specs (the spec tuples are its leaves)."""
+    """``fn(path, leaf, spec)`` over a tree of dicts (and the tuples of a
+    decode state) beside its tree of specs (the spec tuples are its
+    leaves)."""
     if isinstance(tree, dict):
         return {k: map_specs(fn, v, specs[k], path + (k,))
                 for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)) and not _is_spec(tree):
+        return type(tree)(map_specs(fn, v, sp, path + (i,))
+                          for i, (v, sp) in enumerate(zip(tree, specs)))
     return fn(path, tree, specs)
+
+
+def _is_spec(t) -> bool:
+    """Whether a tuple is a spec (entries None, an axis, or axes), not a
+    subtree of leaves."""
+    return all(e is None or isinstance(e, (str, tuple)) for e in t)
 
 
 def spec_leaves(tree, specs) -> list:
@@ -400,14 +413,16 @@ def gather_params(storage, mesh, cfg: ModelConfig, *, fsdp: bool = True):
                                                 fsdp=fsdp), mesh)
 
 
-def compute_spec(path, shape, mesh, cfg: ModelConfig) -> tuple:
+def compute_spec(path, shape, mesh, cfg: ModelConfig, *,
+                 expert_fsdp: bool = True) -> tuple:
     """The regions' layout of the param at ``path`` with the full
     ``shape``: the SwiGLU's F over ``model`` where d_ff % |model| == 0,
     the experts' E over ``model`` and their FSDP dim
-    (``moe.fsdp_layout``) over the data axes where it divides, the Mamba2
-    blocks' channel-TP leaves (``mamba.TP_DIMS``, the gated norm's scale)
-    over ``model`` where |model| divides the heads; every other leaf
-    whole."""
+    (``moe.fsdp_layout``) over the data axes where it divides (whole
+    with ``expert_fsdp=False``, the serve layout: the region then
+    gathers nothing a step), the Mamba2 blocks' channel-TP leaves
+    (``mamba.TP_DIMS``, the gated norm's scale) over ``model`` where
+    |model| divides the heads; every other leaf whole."""
     from repro_torch.models import blocks, mamba, moe
     names = _names(path)
     name = names[-1]
@@ -417,7 +432,7 @@ def compute_spec(path, shape, mesh, cfg: ModelConfig) -> tuple:
         gate_ax, down_ax, fsdp_ok = moe.fsdp_layout(blocks.moe_spec(cfg),
                                                     mesh)
         spec[skip] = "model"
-        if fsdp_ok:
+        if fsdp_ok and expert_fsdp:
             ax = gate_ax if name != "w_down" else down_ax
             spec[skip + ax] = _fsdp_entry(mesh_lib.data_axes(mesh))
     elif "mlp" in names and cfg.d_ff % mesh_lib.model_size(mesh) == 0 \
@@ -429,20 +444,28 @@ def compute_spec(path, shape, mesh, cfg: ModelConfig) -> tuple:
     return tuple(spec)
 
 
-def local_params(params, mesh, cfg: ModelConfig):
+def local_params(params, mesh, cfg: ModelConfig, *,
+                 expert_fsdp: bool = True):
     """The rank's params in the regions' layout (``compute_spec``), from
-    the full ``params`` (every rank the same)."""
+    the full ``params`` (every rank the same); ``expert_fsdp=False`` for
+    serving: the experts' FSDP dim whole."""
     return _map_with_path(lambda p, t: meshctx.cut(
-        t, compute_spec(p, t.shape, mesh, cfg), mesh.coords, mesh.shape),
-        params)
+        t, compute_spec(p, t.shape, mesh, cfg, expert_fsdp=expert_fsdp),
+        mesh.coords, mesh.shape), params)
 
 
-def _seq_axis(cfg: ModelConfig):
-    """The axis a batch's sequence dims are cut over: ``model`` for the
-    families whose stream is cut as the batch is (``model.T_CUT_FAMILIES``:
-    the dense and MoE tokens, the audio tokens and frames), else none."""
+def _seq_entry(t, rows_dim: int, mesh, cfg: ModelConfig):
+    """The axis a batch leaf's sequence dim (after its rows) is cut over:
+    ``model`` for the families whose stream is cut as the batch is
+    (``model.T_CUT_FAMILIES``: the dense and MoE tokens, the audio tokens
+    and frames) where the leaf's own (rows, length) is sequence-parallel
+    (``meshctx.sp_applicable``); below the threshold, and for ssm, hybrid
+    and vlm, none: T whole on every model rank."""
     from repro_torch.models import model
-    return "model" if cfg.family in model.T_CUT_FAMILIES else None
+    if cfg.family not in model.T_CUT_FAMILIES or t.ndim < rows_dim + 2:
+        return None
+    rows, seq = t.shape[rows_dim], t.shape[rows_dim + 1]
+    return "model" if meshctx.sp_applicable(mesh, rows, seq) else None
 
 
 def _check_memory_rows(batch, mesh, cfg: ModelConfig, dim: int):
@@ -459,22 +482,110 @@ def _check_memory_rows(batch, mesh, cfg: ModelConfig, dim: int):
                 "data == 0)")
 
 
+def _check_rows(rows: int, mesh):
+    """Refuse rows the data axes do not divide: the reference keeps them
+    whole on every data rank (``serve_batch_spec``'s ``P(None)``), a
+    layout of its pod dry-run (ROADMAP Queue 1 item 17)."""
+    if rows % mesh_lib.data_size(mesh) != 0:
+        raise NotImplementedError(
+            f"{rows} rows on {mesh_lib.data_size(mesh)} data ranks: rows "
+            "whole on every data rank are not ported (ROADMAP Queue 1 item "
+            "17)")
+
+
+def _cut_batch(batch, mesh, cfg: ModelConfig, rows_spec: tuple):
+    """The rank's ``meshctx.Block`` of ``batch``: each leaf's dims up to
+    its rows by ``rows_spec``, its sequence dim after them by
+    ``_seq_entry``, and the names of the leaves cut there recorded."""
+    out, cut = {}, []
+    for name, t in batch.items():
+        seq = _seq_entry(t, len(rows_spec) - 1, mesh, cfg)
+        spec = rows_spec + (seq,)
+        out[name] = meshctx.cut(t, spec + (None,) * (t.ndim - len(spec)),
+                                mesh.coords, mesh.shape)
+        if seq is not None:
+            cut.append(name)
+    return meshctx.Block(out, cut)
+
+
 def local_batch(batch, mesh, cfg: ModelConfig):
     """The rank's block of a global batch: rows over the data axes and
-    the sequence dim over ``_seq_axis``."""
+    each sequence dim over ``_seq_entry`` (whole below the threshold:
+    the block is (B/data, T)), a ``meshctx.Block`` that records which
+    leaves it cut in T, the layout the model reads."""
     _check_memory_rows(batch, mesh, cfg, 0)
-    spec = (_fsdp_entry(mesh_lib.data_axes(mesh)), _seq_axis(cfg))
-    return _map_with_path(lambda _, t: meshctx.cut(
-        t, spec + (None,) * (t.ndim - 2), mesh.coords, mesh.shape), batch)
+    _check_rows(batch["tokens"].shape[0], mesh)
+    return _cut_batch(batch, mesh, cfg,
+                      (_fsdp_entry(mesh_lib.data_axes(mesh)),))
 
 
 def local_train_batch(batch, mesh, cfg: ModelConfig):
     """The rank's block of a train step's (k, B/k, T) batch: B/k over the
-    data axes (``train_batch_spec``) and T over ``_seq_axis``."""
+    data axes (``train_batch_spec``) and T over ``_seq_entry``, a
+    ``meshctx.Block`` as ``local_batch``'s."""
     _check_memory_rows(batch, mesh, cfg, 1)
-    spec = train_batch_spec(mesh) + (_seq_axis(cfg),)
-    return _map_with_path(lambda _, t: meshctx.cut(
-        t, spec + (None,) * (t.ndim - 3), mesh.coords, mesh.shape), batch)
+    _check_rows(batch["tokens"].shape[1], mesh)
+    return _cut_batch(batch, mesh, cfg, train_batch_spec(mesh))
+
+
+def local_rows(t, mesh):
+    """The rank's rows of a serve batch's (B, ...) leaf
+    (``serve_batch_spec``: over the data axes)."""
+    _check_rows(t.shape[0], mesh)
+    return meshctx.cut(t, serve_batch_spec(mesh, t.shape[0])
+                       + (None,) * (t.ndim - 1), mesh.coords, mesh.shape)
+
+
+def _decode_dims(path, ndim: int) -> tuple[int, int]:
+    """(the batch dim, the dim cut over ``model``) of a decode state's
+    leaf, the layout the port's decode takes: the KV caches' slots (L or
+    groups, B, S, KV, hd), the audio memory's S (B, S, D), RWKV6's token
+    shifts' D (L, B, D) and WKV heads (L, B, H, hd, hd), Zamba2's conv
+    channels (groups, per, B, K-1, C) and SSM heads (groups, per, B, H,
+    P, N)."""
+    top = path[0]
+    if top in ("cache", "attn"):
+        return ndim - 4, ndim - 3
+    if top == "memory":
+        return 0, 1
+    if top == "states":
+        return 1, 2
+    if top == "conv":
+        return ndim - 3, ndim - 1
+    if top == "ssm":
+        return ndim - 4, ndim - 3
+    raise ValueError(f"no decode state leaf at {path}")
+
+
+def local_decode_state(state, mesh, cfg: ModelConfig, batch: int):
+    """The rank's block of a decode state (``model.init_decode_state``'s,
+    for ``batch`` rows), cut by ``decode_state_shardings`` through
+    ``meshctx.cut``.  The port's mesh decode takes the layout
+    ``_decode_dims`` names; a state the reference's rules cut otherwise
+    (rows the data axes do not divide, a cache whose slots |model| does
+    not divide, Mamba2 heads it does not divide) is refused."""
+    _check_rows(batch, mesh)
+    specs = decode_state_shardings(state, mesh, cfg, batch)
+    b_axis = serve_batch_spec(mesh, batch)[0]
+
+    def cuts(spec):
+        """The entries that cut: over axes of more than one rank."""
+        return tuple(e if e and _axes_size(mesh, meshctx.entry_axes(e)) > 1
+                     else None for e in spec)
+
+    def check(path, t, spec):
+        b, m = _decode_dims(path, t.ndim)
+        want = [None] * t.ndim
+        want[b], want[m] = b_axis, "model"
+        if cuts(spec) != cuts(want):
+            raise NotImplementedError(
+                f"decode state {'/'.join(map(str, path))} "
+                f"{tuple(t.shape)} cut as {spec} under the mesh "
+                f"{mesh.shape}: the mesh decode takes {tuple(want)} (other "
+                "layouts: ROADMAP Queue 1 item 17)")
+        return meshctx.cut(t, spec, mesh.coords, mesh.shape)
+
+    return map_specs(check, state, specs)
 
 
 # ---------------------------------------------------------------------------

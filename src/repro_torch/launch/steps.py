@@ -363,7 +363,10 @@ def make_prefill_step(cfg: ModelConfig, *, plain: bool = False):
     "frames" (B, S, D), which the model casts to ``cfg.dtype``) -> hidden
     states (B, T, D) of the text positions.  On CUDA the attention core is
     the flash kernel; ``plain=True`` keeps the reference's plain path
-    (``attention_core_blocked`` above 2048 for self-attention)."""
+    (``attention_core_blocked`` above 2048 for self-attention).  Under an
+    ambient mesh the params and the batch are the rank's
+    (``sharding.local_params``, ``local_batch``) and so are the hidden
+    states."""
     def prefill_step(params, batch):
         _device.set_precision()
         with torch.no_grad():
@@ -373,7 +376,9 @@ def make_prefill_step(cfg: ModelConfig, *, plain: bool = False):
 
 def make_serve_step(cfg: ModelConfig):
     """(params, state, tokens (B, 1), positions (B,)) -> (logits (B, 1, V),
-    state); the KV cache is updated in place."""
+    state); the KV cache is updated in place.  Under an ambient mesh the
+    params are the rank's, tokens and positions its rows and the state its
+    block (``sharding.local_rows``, ``local_decode_state``)."""
     def serve_step(params, state, tokens, positions):
         _device.set_precision()
         with torch.no_grad():

@@ -18,11 +18,16 @@ stays plain PyTorch; its cross-attention projects K and V from the memory
 at every step, as the reference's does, and caches nothing.
 
 Under a model mesh (``meshctx.set_mesh``) ``apply`` runs
-``apply_sequence_parallel`` on the rank's block of the sequence: its
-queries at their global positions, k and v projected from its block and
-all-gathered over ``model``, the core through the flash kernel at that
-query offset on CUDA (one launch), the plain online softmax over kv
-blocks on the CPU and with ``plain=True``.
+``apply_sequence_parallel`` on the rank's block of a sequence-parallel
+stream: its queries at their global positions, k and v projected from
+its block and all-gathered over ``model``, the core through the flash
+kernel at that query offset on CUDA (one launch), the plain online
+softmax over kv blocks on the CPU and with ``plain=True``.  Below the
+threshold the stream is the data shard's rows with T whole, and the
+dense path runs on them (the flash kernel's full launch on CUDA).  The
+decode step scores the rank's block of the KV cache (or of the encoder
+memory) and combines the blocks' softmax parts over ``model``
+(``meshctx.softmax_combine``).
 """
 
 from __future__ import annotations
@@ -113,6 +118,21 @@ def _arange(n: int, batch: int, device, start: int = 0):
     return torch.arange(start, start + n, device=device)[None].expand(batch, n)
 
 
+def _visible(q_positions, kv_positions, *, causal: bool,
+             sliding_window: int | None):
+    """Which keys each query sees: (B, 1, 1, Tq, Tk) bool from the
+    positions (B, Tq) and (B, Tk)."""
+    qp = q_positions[:, None, None, :, None]                 # (B,1,1,Tq,1)
+    kp = kv_positions[:, None, None, None, :]                # (B,1,1,1,Tk)
+    mask = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                      dtype=torch.bool, device=kp.device)
+    if causal:
+        mask = mask & (kp <= qp)
+    if sliding_window is not None:
+        mask = mask & (kp > qp - sliding_window)
+    return mask
+
+
 def attention_core(q, k, v, *, causal: bool, sliding_window: int | None,
                    q_positions=None, kv_positions=None, kv_valid_len=None):
     """Scores/softmax/values for GQA.
@@ -137,14 +157,8 @@ def attention_core(q, k, v, *, causal: bool, sliding_window: int | None,
         q_positions = _arange(Tq, B, q.device)
     if kv_positions is None:
         kv_positions = _arange(Tk, B, q.device)
-    qp = q_positions[:, None, None, :, None]                 # (B,1,1,Tq,1)
-    kp = kv_positions[:, None, None, None, :]                # (B,1,1,1,Tk)
-
-    mask = torch.ones((B, 1, 1, Tq, Tk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask & (kp <= qp)
-    if sliding_window is not None:
-        mask = mask & (kp > qp - sliding_window)
+    mask = _visible(q_positions, kv_positions, causal=causal,
+                    sliding_window=sliding_window)
     if kv_valid_len is not None:
         valid = kv_positions < kv_valid_len[:, None]
         mask = mask & valid[:, None, None, None, :]
@@ -278,18 +292,15 @@ def apply(params, spec: AttentionSpec, x, *, memory=None,
     window).  On CUDA the core is the CUDA kernel; ``plain=True`` keeps the
     reference's plain path there, whose blocked core serves self-attention
     only (cross-attention above the threshold takes the unblocked core, as
-    in the reference).  Under a model mesh x is the rank's block
-    (B/data, T/model, D) and the sequence-parallel path runs; the global
-    (B, T) must pass ``meshctx.sp_applicable``."""
+    in the reference).  Under a model mesh x is the rank's block: where
+    the stream is cut over ``model`` (``meshctx.stream_is_cut``), the
+    (B/data, T/model, D) block and the sequence-parallel path; else the
+    data shard's rows (B/data, T, D) with T whole on every model rank, and
+    the dense path above on them (the reference's fallback below the
+    threshold: on CUDA the flash kernel's full launch), ``memory`` the
+    same rows of the encoder's output."""
     mesh = meshctx.current_mesh()
-    if mesh is not None:
-        B = x.shape[0] * meshctx.data_size(mesh)
-        T = x.shape[1] * meshctx.model_size(mesh)
-        if not meshctx.sp_applicable(mesh, B, T):
-            raise NotImplementedError(
-                f"attention under the mesh {mesh.shape} at (B, T) = "
-                f"{(B, T)}: only the sequence-parallel layout is ported "
-                "(T >= 16 model ranks; ROADMAP Queue 1 item 16.15)")
+    if mesh is not None and meshctx.stream_is_cut():
         return apply_sequence_parallel(params, spec, x, memory=memory,
                                        plain=plain)
     B, T, _ = x.shape
@@ -335,6 +346,41 @@ def init_cache(spec: AttentionSpec, batch: int, max_len: int, *, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _block_softmax(q, k, v, *, causal: bool, sliding_window, q_positions,
+                   kv_positions):
+    """One query a row against a block of keys: (row max (B, 1, KV, G),
+    sum of exp(s - max) (B, 1, KV, G), unnormalised output (B, 1, KV, G,
+    hd)), float32.  The scores and their mask (``_visible``) are
+    ``attention_core``'s (masked to -1e30; ``kv_positions`` None: no
+    mask), the value product in the input type."""
+    B, Tq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Tq, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k).to(torch.float32)
+    s = s * hd ** -0.5                                       # (B,KV,G,1,S)
+    if kv_positions is not None:
+        s = s.masked_fill(~_visible(q_positions, kv_positions, causal=causal,
+                                    sliding_window=sliding_window), -1e30)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
+    return (torch.movedim(m, 3, 1), torch.movedim(p.sum(-1), 3, 1),
+            o.to(torch.float32))
+
+
+def _decode_softmax(q, k, v, mesh, **mask):
+    """The decode's softmax over the keys: this rank's block
+    (``_block_softmax``) divided by its sum, or under a mesh combined
+    over ``model`` (``softmax_combine``: rescaled by the global max,
+    summed in rank order) -> (B, 1, H, hd) in q's type."""
+    m, l, o = _block_softmax(q, k, v, **mask)
+    if mesh is None:
+        out = o / l[..., None]
+    else:
+        out = meshctx.softmax_combine(m, l, o, "model", mesh=mesh)
+    return out.reshape(q.shape).to(q.dtype)
+
+
 def decode_step(params, spec: AttentionSpec, x, cache, position, *,
                 memory=None):
     """One-token decode.  x: (B, 1, D); position: (B,) int — the absolute
@@ -343,39 +389,63 @@ def decode_step(params, spec: AttentionSpec, x, cache, position, *,
     (one slot per row), so a step moves no more than the new token's k and
     v; the returned cache is the one passed in.  Cross-attention
     (``spec.cross``) reads k and v from ``memory`` (B, S, D), projected
-    again at every step, and leaves ``cache`` as it is."""
+    again at every step, and leaves ``cache`` as it is.
+
+    Under a model mesh x is the data shard's rows, the same on every model
+    rank, and ``cache`` and ``memory`` are the rank's blocks
+    (``launch.sharding.local_decode_state``): rank r holds slots
+    [r S/m, (r+1) S/m) of the physical cache (S/m = the block's length; a
+    window's ring too) and the same block of the memory's S.  Only the
+    rank that holds slot ``position % S`` writes the new k and v; each
+    rank scores its block (the ring-aware positions, empty slots masked)
+    and the blocks are combined over ``model`` (``_decode_softmax``)."""
     B = x.shape[0]
+    mesh = meshctx.current_mesh()
     if spec.cross:
         k, v = _project_kv(params, spec, memory, None)
         q = _project_q(params, spec, x, position[:, None])
-        out = attention_core(q, k, v, causal=False, sliding_window=None,
-                             q_positions=position[:, None])
+        out = _decode_softmax(q, k, v, mesh, causal=False,
+                              sliding_window=None, q_positions=None,
+                              kv_positions=None)
         out = out.reshape(B, 1, spec.num_heads * spec.head_dim)
         return out @ params["wo"], cache
     q = _project_q(params, spec, x, position[:, None])
     k_new, v_new = _project_kv(params, spec, x, position[:, None])
 
-    phys = cache["k"].shape[1]
+    block = cache["k"].shape[1]
+    lo = 0 if mesh is None else meshctx.axis_index("model") * block
+    phys = block * (1 if mesh is None else meshctx.model_size(mesh))
     slot = position % phys                                    # ring for SWA
     bidx = torch.arange(B, device=x.device)
     k_cache, v_cache = cache["k"], cache["v"]
-    k_cache[bidx, slot] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[bidx, slot] = v_new[:, 0].to(v_cache.dtype)
+    if mesh is None:
+        k_cache[bidx, slot] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[bidx, slot] = v_new[:, 0].to(v_cache.dtype)
+    else:
+        # the rows whose slot lies in this rank's block write it; the
+        # others write back what the slot they index holds
+        local = slot - lo
+        mine = ((local >= 0) & (local < block))[:, None, None]
+        at = local.clamp(0, block - 1)
+        k_cache[bidx, at] = torch.where(mine, k_new[:, 0].to(k_cache.dtype),
+                                        k_cache[bidx, at])
+        v_cache[bidx, at] = torch.where(mine, v_new[:, 0].to(v_cache.dtype),
+                                        v_cache[bidx, at])
 
     # absolute position of every physical slot (ring-aware): slot s holds
     # the most recent token congruent to s mod phys that is <= position
-    slots = torch.arange(phys, device=x.device)[None, :]      # (1, phys)
+    slots = torch.arange(lo, lo + block, device=x.device)[None, :]
     pos_col = position[:, None]
     kv_positions = pos_col - torch.remainder(pos_col - slots, phys)
     valid = kv_positions >= 0
     if spec.sliding_window is not None:
         valid = valid & (kv_positions > pos_col - spec.sliding_window)
+    kv_positions = torch.where(valid, kv_positions,
+                               torch.full_like(kv_positions, EMPTY_SLOT))
 
-    out = attention_core(
-        q, k_cache, v_cache, causal=True,
-        sliding_window=spec.sliding_window,
-        q_positions=position[:, None],
-        kv_positions=torch.where(valid, kv_positions,
-                                 torch.full_like(kv_positions, EMPTY_SLOT)))
+    out = _decode_softmax(q, k_cache, v_cache, mesh, causal=True,
+                          sliding_window=spec.sliding_window,
+                          q_positions=position[:, None],
+                          kv_positions=kv_positions)
     out = out.reshape(B, 1, spec.num_heads * spec.head_dim)
     return out @ params["wo"], {"k": k_cache, "v": v_cache}

@@ -124,7 +124,11 @@ def decoder_block_decode(p, cfg: ModelConfig, x, cache, position, *,
                          memory=None):
     """One-token decode through a block.  cache: {"self": attention cache},
     updated in place (``attention.decode_step``); a block with ``cross``
-    attends to ``memory``, which it does not change."""
+    attends to ``memory``, which it does not change.  Under a model mesh
+    the cache and the memory are the rank's blocks, x the data shard's
+    rows on every model rank: the attention combines the ranks' blocks,
+    the SwiGLU psums its F-slices, the MoE runs its uncut branch (no
+    router statistics: decode discards the aux loss)."""
     h, new_cache = attention.decode_step(
         p["attn"], attn_spec(cfg),
         layers.rmsnorm(p["ln_attn"], x, eps=cfg.norm_eps),
@@ -138,9 +142,9 @@ def decoder_block_decode(p, cfg: ModelConfig, x, cache, position, *,
         x = x + h
     normed = layers.rmsnorm(p["ln_mlp"], x, eps=cfg.norm_eps)
     if cfg.family == "moe":
-        h, _ = moe.apply(p["moe"], moe_spec(cfg), normed)
+        h, _ = moe.apply(p["moe"], moe_spec(cfg), normed, aux=False)
     else:
-        h = layers.swiglu(p["mlp"], normed)
+        h = layers.swiglu(p["mlp"], normed, d_ff=cfg.d_ff)
     return x + h, {"self": new_cache}
 
 

@@ -9,7 +9,9 @@ its bits (tests hand the JAX params across instead).
 
 Under a model mesh (``meshctx.set_mesh``) ``swiglu`` runs the
 reference's Megatron SP+TP region on the rank's block, with its
-hand-written backward (``_SwigluRegion``).
+hand-written backward (``_SwigluRegion``), or, on a stream whose T is
+whole on every model rank, the rank's F-slices and a psum over
+``model``.
 """
 
 from __future__ import annotations
@@ -186,26 +188,32 @@ def swiglu_region_applies(mesh, batch: int, seq: int, d_ff: int) -> bool:
 
 def swiglu(params, x, *, d_ff: int | None = None):
     """SwiGLU MLP (the reference's ``swiglu``).  Without a mesh,
-    ``_swiglu_local``.  Under a model mesh x is the rank's block
-    (B/data, T/model, D) and ``d_ff`` the global hidden width: where
-    ``swiglu_region_applies``, the weights are the rank's F-slices
-    (``w_gate``/``w_up`` (D, F/model), ``w_down`` (F/model, D)) and the
-    SP+TP region runs; elsewhere the whole weights act on the block."""
+    ``_swiglu_local``.  Under a model mesh x is the rank's stream and
+    ``d_ff`` the global hidden width; where |model| divides it the
+    weights are the rank's F-slices (``w_gate``/``w_up`` (D, F/model),
+    ``w_down`` (F/model, D)).  On a stream cut over ``model`` in T
+    (``meshctx.stream_is_cut``) the SP+TP region runs; on the data
+    shard's whole rows the slices act on the stream and their partial
+    outputs are psum'd over ``model`` in rank order, each rank's own copy
+    of the sum (``pvary(psum(.))``: the backward sums the copies'
+    cotangents).  Whole weights act on the stream as it is."""
     mesh = meshctx.current_mesh()
     w_gate, w_up, w_down = params["w_gate"], params["w_up"], \
         params["w_down"]
     if x.ndim == 3 and mesh is not None:
         if d_ff is None:
             raise ValueError("swiglu under a mesh needs the global d_ff")
-        B = x.shape[0] * meshctx.data_size(mesh)
-        T = x.shape[1] * meshctx.model_size(mesh)
-        if swiglu_region_applies(mesh, B, T, d_ff):
+        if w_gate.shape[-1] != d_ff:
             if w_gate.shape[-1] * meshctx.model_size(mesh) != d_ff:
                 raise ValueError(
-                    f"swiglu region: w_gate {tuple(w_gate.shape)} is not a "
+                    f"swiglu: w_gate {tuple(w_gate.shape)} is not a "
                     f"model-axis slice of d_ff {d_ff}")
-            return _SwigluRegion.apply(w_gate, w_up, w_down, x, mesh,
-                                       meshctx.data_axes(mesh))
+            if meshctx.stream_is_cut():
+                return _SwigluRegion.apply(w_gate, w_up, w_down, x, mesh,
+                                           meshctx.data_axes(mesh))
+            out = meshctx.psum(_swiglu_local(w_gate, w_up, w_down, x),
+                               "model", mesh=mesh)
+            return meshctx.pvary(out, "model", mesh=mesh)
     return _swiglu_local(w_gate, w_up, w_down, x)
 
 

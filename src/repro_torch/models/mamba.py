@@ -266,22 +266,72 @@ def apply(params, spec: MambaSpec, x, *, conv_state=None, ssm_state=None):
     out = _gate_out(p, y.reshape(Bsz, T, H * P), z, x.dtype, spec.d_inner,
                     mesh=mesh)
     if mesh is not None:
-        # the partial sums over the rank's heads, psum'd over model in rank
-        # order as a psum_scatter and an all_gather (the same sums, without
-        # every rank receiving every whole partial); its backward is the
-        # same pair on the copies' cotangents
-        out = meshctx.all_gather(
-            meshctx.psum_scatter(out, "model", 1, mesh=mesh), "model", 1,
-            mesh=mesh)
+        out = _psum_copies(out, mesh)
     return out, (new_conv, new_ssm)
 
 
+def _psum_copies(out, mesh):
+    """The partial sums over the rank's heads, psum'd over model in rank
+    order, each rank's own copy of the sum: a psum_scatter and an
+    all_gather over T where |model| divides it (the same sums, without
+    every rank receiving every whole partial), else ``pvary(psum(.))``;
+    either backward sums the copies' cotangents."""
+    if out.shape[1] % meshctx.model_size(mesh) == 0:
+        return meshctx.all_gather(
+            meshctx.psum_scatter(out, "model", 1, mesh=mesh), "model", 1,
+            mesh=mesh)
+    return meshctx.pvary(meshctx.psum(out, "model", mesh=mesh), "model",
+                         mesh=mesh)
+
+
+def _gather_channels(b_blk, c_blk, mesh):
+    """The B and C conv outputs (B, 1, N/|model|) of the rank's N block,
+    all-gathered over ``model`` into every channel (one collective)."""
+    return meshctx.all_gather_many([b_blk, c_blk], "model", -1, mesh=mesh)
+
+
+def _project_tp_decode(p, spec: MambaSpec, x, conv_state, mesh):
+    """``_project`` for one token on the rank's channels: z, x, dt and the
+    x conv on its Din and heads; B and C projected whole, their convs on
+    the rank's N block of their states, then gathered
+    (``_gather_channels``)."""
+    n_blk = conv_state["B"].shape[-1]
+    lo = meshctx.axis_index("model") * n_blk
+    z = x @ p["w_z"]
+    xs, cx = _causal_conv(x @ p["w_x"], p["conv_x"], p["conv_x_b"],
+                          state=conv_state["x"])
+    bc, new = [], {"x": cx}
+    for name in ("B", "C"):
+        w = p[f"conv_{name}"][..., lo:lo + n_blk]
+        b = p[f"conv_{name}_b"][..., lo:lo + n_blk]
+        proj = (x @ p[f"w_{name}"])[..., lo:lo + n_blk]
+        y, new[name] = _causal_conv(proj, w, b, state=conv_state[name])
+        bc.append(y)
+    B_mat, C_mat = _gather_channels(*bc, mesh)
+    dt = _softplus((x @ p["w_dt"]).to(torch.float32) + p["dt_bias"])
+    return z, xs, B_mat, C_mat, dt, new
+
+
 def decode_step(params, spec: MambaSpec, x, conv_state, ssm_state):
-    """One token.  x: (B, 1, D).  The exact recurrence at T = 1."""
+    """One token.  x: (B, 1, D).  The exact recurrence at T = 1.
+
+    Under channel TP (module docstring) the states are the rank's blocks
+    (``launch.sharding.local_decode_state``): the x conv state on its
+    Din/|model| channels, the B and C conv states on N/|model|, the SSM
+    state on its heads.  B and C are gathered over ``model`` before the
+    rank's heads take them in; the gated norm's sum of squares and the
+    out-projection are psum'd as in ``apply``."""
     p = params
     Bsz = x.shape[0]
-    Din, H, P = spec.d_inner, spec.num_heads, spec.head_dim
-    z, xs, B_mat, C_mat, dt, new_conv = _project(p, spec, x, conv_state)
+    mesh = meshctx.current_mesh()
+    mesh = mesh if tp_applies(mesh, spec) else None
+    n = meshctx.model_size(mesh) if mesh is not None else 1
+    Din, H, P = spec.d_inner // n, spec.num_heads // n, spec.head_dim
+    if mesh is None:
+        z, xs, B_mat, C_mat, dt, new_conv = _project(p, spec, x, conv_state)
+    else:
+        z, xs, B_mat, C_mat, dt, new_conv = _project_tp_decode(
+            p, spec, x, conv_state, mesh)
     A = torch.exp(p["A_log"])
     dt0 = dt[:, 0]                                            # (B, H)
     a = torch.exp(-dt0 * A)
@@ -292,7 +342,10 @@ def decode_step(params, spec: MambaSpec, x, conv_state, ssm_state):
     new_ssm = a[..., None, None] * ssm_state + inject         # (B, H, P, N)
     y = (new_ssm @ Cf[:, None, :, None])[..., 0]              # (B, H, P)
     y = y + p["D"][:, None] * xh
-    out = _gate_out(p, y.reshape(Bsz, 1, Din), z, x.dtype, Din)
+    out = _gate_out(p, y.reshape(Bsz, 1, Din), z, x.dtype, spec.d_inner,
+                    mesh=mesh)
+    if mesh is not None:
+        out = _psum_copies(out, mesh)
     return out, (new_conv, new_ssm)
 
 

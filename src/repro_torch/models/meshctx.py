@@ -20,17 +20,32 @@ reference's shard_map body:
 * ``pvary(x, axes)``: a value the same on every rank of ``axes`` (a
   replicated input of a shard_map region) entering varying code: the
   identity, whose gradient is summed over ``axes``, the transpose
-  shard_map takes at the boundary of a replicated input.
+  shard_map takes at the boundary of a replicated input;
+* ``softmax_combine(m, l, o, axes)``: one softmax from the ranks' blocks
+  of keys (decode on a cache cut over ``model``): the parts rescaled by
+  the global max, summed in rank order, divided.
+
+``stream_layout`` tells the regions whether the residual stream is cut
+over ``model`` in T (sequence-parallel, and outside any layout) or whole
+on every model rank (below the threshold, and decode).  ``Block`` is a
+rank's block of a batch with the names of its leaves whose sequence dim
+is cut over ``model``, recorded where the batch is cut
+(``launch.sharding.local_batch``): the model reads the stream's layout
+from it, never from a block's shape.
 
 Every cross-rank sum is taken in rank order: the parts are exchanged
 (``all_gather``, or ``all_to_all_single`` for ``psum_scatter``) and added
 left to right, as ``core.shard_aggregation.chain_sum`` does, never by
 ``dist.all_reduce``'s unspecified order, so two runs give the same bits.
-Tensors travel as raw bytes over the group's backend; over gloo a CUDA
-tensor is staged through the host and back (NCCL refuses two ranks of
-one card).  ``Mesh.stats`` counts a mesh's collectives, their bytes and
-their milliseconds (the staging included); ``Mesh.reset_stats`` zeroes
-it.
+Tensors travel as raw bytes, a CUDA tensor staged through the host and
+back (NCCL refuses two ranks of one card): over the group's backend, or,
+where ``use_local_transport`` names a directory (``launch.ranks`` does,
+its ranks sharing one host), through a file there that the group's ranks
+map (``_Arena``: a slot a rank, counters the ranks poll), which spares
+each collective gloo's round trips through the socket layer.  The bytes
+are the same either way.  ``Mesh.stats`` counts a mesh's collectives,
+their bytes and their milliseconds (the staging included);
+``Mesh.reset_stats`` zeroes it.
 
 The mesh also carries the one registry of axis groups:
 ``core.shard_aggregation`` reads an axis's group through
@@ -50,10 +65,15 @@ import contextlib
 import contextvars
 import itertools
 import math
+import mmap
+import os
+import platform
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils import _pytree
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar("model_mesh",
                                                       default=None)
@@ -62,6 +82,9 @@ _BOUND: contextvars.ContextVar[dict] = contextvars.ContextVar(
     "bound_axis_groups", default={})
 _DEFERRED: contextvars.ContextVar[bool] = contextvars.ContextVar(
     "param_sums_deferred", default=False)
+# whether the residual stream a region runs on is cut over ``model`` in T
+_STREAM_CUT: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "stream_cut", default=True)
 
 
 class Mesh:
@@ -248,6 +271,43 @@ def sp_applicable(mesh, batch: int, seq: int) -> bool:
         and seq >= model_size(mesh) * 16
 
 
+@contextlib.contextmanager
+def stream_layout(cut: bool):
+    """For a ``with`` block, the regions run on a stream cut over ``model``
+    in T (``cut``: the sequence-parallel layout), or on the data shard's
+    rows with T whole on every model rank (the reference's dense fallback
+    below the threshold, and decode)."""
+    token = _STREAM_CUT.set(bool(cut))
+    try:
+        yield
+    finally:
+        _STREAM_CUT.reset(token)
+
+
+def stream_is_cut() -> bool:
+    """Whether a region's stream on this rank is its T block, as
+    ``stream_layout`` says (cut outside one: a region called alone runs
+    the sequence-parallel layout)."""
+    return _STREAM_CUT.get()
+
+
+class Block(dict):
+    """A rank's block of a batch (``launch.sharding.local_batch``): its
+    leaves, and ``cut``, the names of those whose sequence dim (after the
+    rows) is cut over ``model``.  A pytree node that keeps ``cut``, so
+    ``tree_map`` over the block (a group's rows, a microbatch) keeps it."""
+
+    def __init__(self, leaves=(), cut=()):
+        super().__init__(leaves)
+        self.cut = frozenset(cut)
+
+
+_pytree.register_pytree_node(
+    Block, lambda b: (list(b.values()), (tuple(b), b.cut)),
+    lambda values, ctx: Block(zip(ctx[0], values), ctx[1]),
+    serialized_type_name="repro_torch.models.meshctx.Block")
+
+
 def constrain(x, spec_tuple):
     """The reference's sharding constraint; on a rank's local block there
     is nothing to constrain."""
@@ -276,19 +336,151 @@ def _transfer(x, mesh, fn):
     return out
 
 
+# the directory of the local transport's files (None: the group's backend)
+_LOCAL_DIR: str | None = None
+_ARENAS: dict = {}
+
+
+def use_local_transport(directory: str | None) -> None:
+    """Exchange this process's mesh collectives through files mapped in
+    ``directory``, which every rank of the default group shares on one
+    host (None: over the groups' backend).  x86-64 hosts only: a rank
+    marks its slot written with a plain store after the data's, which
+    x86-64 makes visible in that order; elsewhere the groups' backend
+    stays."""
+    global _LOCAL_DIR
+    _LOCAL_DIR = directory if platform.machine() in ("x86_64",
+                                                     "AMD64") else None
+    _ARENAS.clear()
+
+
+class _Arena:
+    """The local transport of one set of ranks: a file of ``SLOT`` bytes a
+    rank, and two counters a rank, ``written`` and ``read``, the rounds it
+    has put in its slot and taken from every slot.  A round writes this
+    rank's slot once every rank has read the last round, marks it written,
+    waits for every rank's mark, reads and marks it read.  The ranks of a
+    group call its collectives in one order (as over any backend), so
+    their rounds pair up; a wait longer than ``WAIT_S`` raises."""
+
+    SLOT = 32 << 20
+    WAIT_S = 600.0
+
+    def __init__(self, directory, ranks, rank):
+        n = len(ranks)
+        path = os.path.join(directory,
+                            "mesh-" + "-".join(str(r) for r in ranks))
+        size = 4096 + n * self.SLOT
+        fd = os.open(path, os.O_RDWR | os.O_CREAT, 0o600)
+        try:
+            if os.fstat(fd).st_size < size:
+                os.ftruncate(fd, size)
+            self._map = mmap.mmap(fd, size)
+        finally:
+            os.close(fd)
+        counts = np.frombuffer(self._map, dtype=np.int64, count=2 * n)
+        self.written, self.read = counts[:n], counts[n:]
+        # numpy's copies: one thread each (torch's would start its thread
+        # pool in every rank at once for a few kilobytes)
+        self.slots = np.frombuffer(self._map, dtype=np.uint8, offset=4096,
+                                   count=n * self.SLOT).reshape(n, self.SLOT)
+        self.n, self.me, self.round = n, ranks.index(rank), 0
+
+    def _wait(self, counts, at_least):
+        spins, t0 = 0, None
+        while counts.min() < at_least:
+            spins += 1
+            if spins <= 256:
+                continue
+            if t0 is None:
+                t0 = time.monotonic()
+            if spins <= 2048:
+                os.sched_yield()
+            else:
+                time.sleep(1e-4)
+            if spins % 1024 == 0 and time.monotonic() - t0 > self.WAIT_S:
+                raise TimeoutError(
+                    f"mesh transport: ranks' counts {counts.tolist()} still "
+                    f"below round {at_least} after {self.WAIT_S} s")
+
+    def exchange(self, put, take):
+        """One round: ``put(slot)`` into this rank's slot, then
+        ``take(slots)`` from all of them."""
+        self.round += 1
+        self._wait(self.read, self.round - 1)
+        put(self.slots[self.me])
+        self.written[self.me] = self.round
+        self._wait(self.written, self.round)
+        take(self.slots)
+        self.read[self.me] = self.round
+
+    def all_gather(self, local):
+        """(n, bytes): every rank's ``local`` (of one size), in order."""
+        src = local.numpy()
+        nb = src.size
+        out = np.empty((self.n, nb), dtype=np.uint8)
+        # an empty payload makes one round too: every rank, the same rounds
+        for o in range(0, nb, self.SLOT) or [0]:
+            c = min(self.SLOT, nb - o)
+            self.exchange(lambda slot: np.copyto(slot[:c], src[o:o + c]),
+                          lambda slots: np.copyto(out[:, o:o + c],
+                                                  slots[:, :c]))
+        return torch.from_numpy(out)
+
+    def all_to_all(self, local):
+        """``local``'s n equal blocks, block j to rank j -> the blocks the
+        ranks sent this one, in order."""
+        n, me = self.n, self.me
+        rows = local.numpy().reshape(n, -1)
+        b = rows.shape[1]
+        out = np.empty_like(rows)
+        step = self.SLOT // n
+        for o in range(0, b, step) or [0]:
+            c = min(step, b - o)
+            self.exchange(
+                lambda slot: np.copyto(slot[:n * c].reshape(n, c),
+                                       rows[:, o:o + c]),
+                lambda slots: np.copyto(out[:, o:o + c],
+                                        slots[:, me * c:(me + 1) * c]))
+        return torch.from_numpy(out.reshape(-1))
+
+
+def _arena(ranks):
+    """This process's arena for ``ranks`` under the local transport, else
+    None."""
+    if _LOCAL_DIR is None:
+        return None
+    arena = _ARENAS.get(ranks)
+    if arena is None:
+        arena = _ARENAS[ranks] = _Arena(_LOCAL_DIR, ranks, dist.get_rank())
+    return arena
+
+
+def _gather_bytes(local, group, ranks):
+    arena = _arena(ranks)
+    if arena is not None:
+        return arena.all_gather(local)
+    out = torch.empty((len(ranks), local.numel()), dtype=torch.uint8)
+    dist.all_gather(list(out.unbind(0)), local, group=group)
+    return out
+
+
+def _all_to_all_bytes(local, group, ranks):
+    arena = _arena(ranks)
+    if arena is not None:
+        return arena.all_to_all(local)
+    out = torch.empty_like(local)
+    dist.all_to_all_single(out, local, group=group)
+    return out
+
+
 def _parts(x, mesh, axes):
     """Every rank's ``x`` over ``axes``, in group order: (n, *x.shape)."""
     group, ranks = mesh.group(axes)
     if len(ranks) == 1:
         return x[None]
-
-    def gather(local):
-        out = torch.empty((len(ranks), local.numel()), dtype=torch.uint8)
-        dist.all_gather(list(out.unbind(0)), local, group=group)
-        return out
-
-    return _transfer(x, mesh, gather).view(x.dtype).reshape(len(ranks),
-                                                             *x.shape)
+    return _transfer(x, mesh, lambda local: _gather_bytes(
+        local, group, ranks)).view(x.dtype).reshape(len(ranks), *x.shape)
 
 
 def _chain(parts):
@@ -307,6 +499,23 @@ def _psum(x, mesh, axes):
     return _chain(_parts(x, mesh, axes))
 
 
+def softmax_combine(m, l, o, axes, *, mesh=None):
+    """One softmax over keys split across the ranks of ``axes``, from each
+    rank's block: ``m`` (...) its row maxima, ``l`` (...) its sums of
+    exp(s - m), ``o`` (..., n) its unnormalised outputs sum exp(s - m) v,
+    all float32.  The three are exchanged in one gather; every part is
+    rescaled by exp(m_r - M), M the maximum over the ranks, summed in rank
+    order and divided: o / l of the whole softmax, on every rank.  A
+    rank whose keys are all masked (m at the mask's -1e30) adds exactly 0.
+    No gradient."""
+    mesh = _mesh_for(mesh)
+    packed = torch.cat([m[..., None], l[..., None], o], dim=-1).detach()
+    parts = _parts(packed, mesh, mesh.axes(axes))
+    ms, ls, os_ = parts[..., 0], parts[..., 1], parts[..., 2:]
+    scale = torch.exp(ms - ms.amax(0))
+    return _chain(scale[..., None] * os_) / _chain(scale * ls)[..., None]
+
+
 def _psum_scatter(x, mesh, axes, dim):
     group, ranks = mesh.group(axes)
     n = len(ranks)
@@ -316,14 +525,8 @@ def _psum_scatter(x, mesh, axes, dim):
     if n == 1:
         return x
     chunks = torch.stack(x.chunk(n, dim))          # (n, *chunk) to rank j
-
-    def exchange(local):
-        out = torch.empty_like(local)
-        dist.all_to_all_single(out, local, group=group)
-        return out
-
-    mine = _transfer(chunks, mesh, exchange).view(x.dtype).reshape(
-        chunks.shape)
+    mine = _transfer(chunks, mesh, lambda local: _all_to_all_bytes(
+        local, group, ranks)).view(x.dtype).reshape(chunks.shape)
     return _chain(mine)
 
 
@@ -373,13 +576,8 @@ def _psum_scatter_many(xs, mesh, axes, dims):
         chunks.append(torch.stack(x.chunk(n, d)))
     rows = torch.cat([c.reshape(n, -1).view(torch.uint8) for c in chunks],
                      dim=1)                        # (n, bytes): row j to j
-
-    def exchange(local):
-        out = torch.empty_like(local)
-        dist.all_to_all_single(out, local, group=group)
-        return out
-
-    got = _transfer(rows, mesh, exchange).reshape(n, -1)
+    got = _transfer(rows, mesh, lambda local: _all_to_all_bytes(
+        local, group, ranks)).reshape(n, -1)
     out, off = [], 0
     for c in chunks:
         nb = c[0].numel() * c.element_size()

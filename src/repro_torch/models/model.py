@@ -24,7 +24,9 @@ and ``init_decode_state`` are entry points: ``device=None`` means the
 CUDA card and raises without one.  Decode states are updated in place.
 
 Under a model mesh (``meshctx.set_mesh``) ``forward``, ``loss_fn`` and
-``prefill`` take the rank's block (``launch.sharding.local_batch``):
+``prefill`` take the rank's block (``launch.sharding.local_batch``, a
+``meshctx.Block`` that records which leaves it cut in T: the layout is
+read from that record, never guessed from a shape):
 
 * dense, MoE: tokens (B/data, T/model), the residual stream staying
   (B/data, T/model, D) between the sequence-parallel regions;
@@ -41,22 +43,31 @@ Under a model mesh (``meshctx.set_mesh``) ``forward``, ``loss_fn`` and
   Mamba2 blocks channel-parallel (``mamba.apply``), and Zamba2's shared
   block on the rank's T block of the stream, gathered back after it.
 
+Below the sequence-parallel threshold (``meshctx.sp_applicable`` fails:
+T < 16 |model|, or T % |model| != 0) every family's stream is the data
+shard's rows with T whole on every model rank, as the reference's dense
+fallback computes it: ``_forward`` says so to the regions through
+``meshctx.stream_layout`` (attention's dense path, on CUDA the flash
+kernel's full launch; the SwiGLU's F-slices psum'd; the MoE's uncut
+branch), and Zamba2's shared block runs on the whole stream.  Decode
+(``decode_step``) takes the rank's rows and its block of the decode state
+(``launch.sharding.local_decode_state``).
+
 A stream that every model rank holds whole is its copies: the loss counts
 each rank's tokens, and a value's gradient is the sum of its copies'
 cotangents (the slice into a T block and the gather out of it, the WKV's
-heads, the Mamba2 psums keep that).  Params are the rank's layout
-(``launch.sharding.local_params``); each leaf enters through
+heads, the Mamba2 and SwiGLU psums keep that).  Params are the rank's
+layout (``launch.sharding.local_params``); each leaf enters through
 ``meshctx.pvary`` over the axes it is replicated on, so its gradient
 comes back summed over them (the transpose shard_map takes at a
 replicated input), but where a region sums it itself (the SwiGLU
 region's data-axis psum, the expert weights' FSDP gather) or it is cut
-(Mamba2's channel TP).  Under ``meshctx.param_sums_deferred`` the leaves
-enter as they are, and their gradients come back as the rank's partials:
-the trainer's storage layout takes those sums (``launch.sharding``,
-``_grad_sum_axes`` naming them).  ``loss_fn`` psums its token sums and
-counts over every axis in rank order: every rank returns the global
-mean.  Decode under a mesh, and attention below the sequence-parallel
-threshold, are ROADMAP Queue 1 item 16.15.
+(the SwiGLU's F, Mamba2's channel TP).  Under
+``meshctx.param_sums_deferred`` the leaves enter as they are, and their
+gradients come back as the rank's partials: the trainer's storage layout
+takes those sums (``launch.sharding``, ``_grad_sum_axes`` naming them).
+``loss_fn`` psums its token sums and counts over every axis in rank
+order: every rank returns the global mean.
 """
 
 from __future__ import annotations
@@ -187,10 +198,13 @@ def _run_rwkv_stack(params_stack, cfg: ModelConfig, x, *, states=None):
     return x, tuple(torch.stack(ts) for ts in zip(*new))
 
 
-def _run_hybrid_stack(params, cfg: ModelConfig, x, *, plain, states=None):
+def _run_hybrid_stack(params, cfg: ModelConfig, x, *, plain, states=None,
+                      sp: bool = False):
     """Zamba2: [the shared block, then ``per`` Mamba2 blocks] x groups,
     each Mamba2 block from zero states.  The shared block's params are an
-    argument of its remat, so its gradient reaches them."""
+    argument of its remat, so its gradient reaches them.  Under a mesh
+    ``sp`` says whether the stream (whole on every model rank) passes the
+    sequence-parallel threshold."""
     if states is not None:
         raise NotImplementedError(
             "full-seq hybrid with states: use decode path")
@@ -202,13 +216,19 @@ def _run_hybrid_stack(params, cfg: ModelConfig, x, *, plain, states=None):
     for group in blocks.unstack(params["mamba"]):
         if mesh is None:
             x = shared_fn(params["shared"], x)
-        else:
+        elif sp:
             # the shared block sequence-parallel on the rank's T block of
             # the stream every model rank holds whole, gathered back after
             t = x.shape[1] // meshctx.model_size(mesh)
             blk = x.narrow(1, meshctx.axis_index("model") * t, t)
-            x = meshctx.all_gather(shared_fn(params["shared"], blk),
-                                   "model", 1, mesh=mesh)
+            with meshctx.stream_layout(True):
+                blk = shared_fn(params["shared"], blk)
+            x = meshctx.all_gather(blk, "model", 1, mesh=mesh)
+        else:
+            # below the threshold: on the whole stream, as every model
+            # rank holds it
+            with meshctx.stream_layout(False):
+                x = shared_fn(params["shared"], x)
         for p in blocks.unstack(group):
             x = mamba_fn(p, x)
     return x, None
@@ -224,30 +244,70 @@ T_CUT_FAMILIES = ("dense", "moe", "audio")
 def stream_shape(cfg: ModelConfig, batch, mesh) -> tuple[int, int]:
     """The global (B, T) of the residual stream from a rank's block of the
     batch (``launch.sharding.local_batch``): the tokens' rows over the
-    data axes; T over ``model`` (dense, MoE, audio), whole (ssm, hybrid),
-    or the patches and tokens joined (vlm)."""
+    data axes; T over ``model`` where the block records its tokens cut
+    (dense, MoE, audio above the threshold), else whole (below it, ssm,
+    hybrid), or the patches and tokens joined (vlm)."""
     B = batch["tokens"].shape[0] * meshctx.data_size(mesh)
-    T = batch["tokens"].shape[1]
+    t = batch["tokens"].shape[1]
     if cfg.family == "vlm":
-        T += batch["patches"].shape[1]
-    elif cfg.family in T_CUT_FAMILIES:
-        T *= meshctx.model_size(mesh)
-    return B, T
+        return B, t + batch["patches"].shape[1]
+    if _seq_cut(cfg, batch, "tokens"):
+        t *= meshctx.model_size(mesh)
+    return B, t
 
 
-def _grad_sum_axes(path, cfg: ModelConfig, mesh, batch: int, seq: int):
+def _seq_cut(cfg: ModelConfig, batch, name: str) -> bool:
+    """Whether the rank's block holds leaf ``name`` cut over ``model`` in
+    its sequence dim, as the block records it (``meshctx.Block``): a dense,
+    MoE or audio block of 16 or more positions has the same shape cut
+    (above the threshold) or whole (below it), so under a mesh their
+    batch must be a ``launch.sharding.local_batch`` block."""
+    if cfg.family not in T_CUT_FAMILIES:
+        return False
+    if not isinstance(batch, meshctx.Block):
+        raise TypeError(
+            f"under a model mesh a batch of the {cfg.family} family is the "
+            "rank's block from launch.sharding.local_batch (a "
+            "meshctx.Block, which records whether its sequence is cut over "
+            "model)")
+    return name in batch.cut
+
+
+def sequence_parallel(cfg: ModelConfig, batch, mesh) -> bool:
+    """Whether the forward is sequence-parallel: the decoder's stream cut
+    over ``model`` in T as the block records it (dense, MoE, audio), or
+    where the global stream passes the threshold (vlm, which cuts its
+    block from the whole patches and tokens; Zamba2, whose shared block
+    runs on its T block of the whole stream).  RWKV6's never is."""
+    if mesh is None or cfg.family == "ssm":
+        return False
+    if cfg.family in T_CUT_FAMILIES:
+        return _seq_cut(cfg, batch, "tokens")
+    return meshctx.sp_applicable(mesh, *stream_shape(cfg, batch, mesh))
+
+
+def _grad_sum_axes(path, cfg: ModelConfig, mesh, batch: int, seq: int,
+                   leaf=None):
     """The axes a leaf's gradient is summed over on entering the mesh
     path: those it is replicated on, less those a region sums over or
-    cuts it on."""
+    cuts it on.  ``leaf`` (the rank's block) tells an expert leaf's
+    serve layout from its compute layout (the compute layout without
+    it)."""
     every = meshctx.all_axes(mesh)
     name = path[-1]
     if "moe" in path and name in _SWIGLU:
-        # E over model; the FSDP gather's transpose sums over data
-        _, _, fsdp_ok = moe.fsdp_layout(blocks.moe_spec(cfg), mesh)
-        return () if fsdp_ok else meshctx.data_axes(mesh)
-    if "mlp" in path and name in _SWIGLU and layers.swiglu_region_applies(
-            mesh, batch, seq, cfg.d_ff):
-        return ()            # F over model; the region psums over data
+        # E over model; a cut FSDP dim's gather sums over data in its
+        # transpose
+        spec = blocks.moe_spec(cfg)
+        cut = moe.fsdp_layout(spec, mesh)[2] if leaf is None \
+            else moe.fsdp_cut(spec, leaf, name, mesh)
+        return () if cut else meshctx.data_axes(mesh)
+    if "mlp" in path and name in _SWIGLU \
+            and cfg.d_ff % meshctx.model_size(mesh) == 0:
+        # F over model: the region psums over data; off it, the slices'
+        # gradients are summed over the data axes
+        return () if layers.swiglu_region_applies(
+            mesh, batch, seq, cfg.d_ff) else meshctx.data_axes(mesh)
     if path[0] == "mamba" and mamba.tp_dim(path) is not None \
             and mamba.tp_applies(mesh, blocks.mamba_spec(cfg)):
         return meshctx.data_axes(mesh)         # Din or H over model
@@ -255,25 +315,16 @@ def _grad_sum_axes(path, cfg: ModelConfig, mesh, batch: int, seq: int):
 
 
 def _enter_mesh(params, cfg: ModelConfig, batch, mesh):
-    """Check that the mesh path takes (cfg, batch) and put every leaf
-    through ``meshctx.pvary`` over its ``_grad_sum_axes``."""
+    """Put every leaf through ``meshctx.pvary`` over its
+    ``_grad_sum_axes`` for the stream of ``batch``: sequence-parallel, or
+    below the threshold the data shard's rows with T whole (the copies on
+    the model ranks sum their cotangents through the same entries)."""
     B, T = stream_shape(cfg, batch, mesh)
-    seqs = {"tokens": T}
-    if cfg.family == "audio":
-        seqs["frames"] = batch["frames"].shape[1] * meshctx.model_size(mesh)
-    if cfg.family != "ssm":
-        for what, seq in seqs.items():
-            if not meshctx.sp_applicable(mesh, B, seq):
-                raise NotImplementedError(
-                    f"{what} (B, T) = {(B, seq)} under the mesh "
-                    f"{mesh.shape}: only the sequence-parallel layout is "
-                    "ported (T >= 16 model ranks; ROADMAP Queue 1 item "
-                    "16.15)")
 
     def enter(node, path):
         if isinstance(node, dict):
             return {k: enter(v, path + (k,)) for k, v in node.items()}
-        axes = _grad_sum_axes(path, cfg, mesh, B, T)
+        axes = _grad_sum_axes(path, cfg, mesh, B, T, node)
         return meshctx.pvary(node, axes, mesh=mesh) if axes else node
 
     if meshctx.param_sums_are_deferred():
@@ -295,11 +346,11 @@ def forward(params, cfg: ModelConfig, batch, *, plain: bool = False):
     return _forward(params, cfg, batch, plain=plain)
 
 
-def _vlm_block(batch, mesh) -> tuple[slice, slice]:
+def _vlm_block(batch, mesh, cut: bool) -> tuple[slice, slice]:
     """vlm: the patches and the text positions in the rank's block of the
-    joined (P + T) stream (all of them without a mesh)."""
+    joined (P + T) stream (all of them where the stream is not ``cut``)."""
     P, T = batch["patches"].shape[1], batch["tokens"].shape[1]
-    if mesh is None:
+    if not cut:
         return slice(0, P), slice(0, T)
     t = (P + T) // meshctx.model_size(mesh)
     lo = meshctx.axis_index("model") * t
@@ -307,10 +358,10 @@ def _vlm_block(batch, mesh) -> tuple[slice, slice]:
             slice(min(max(lo - P, 0), T), min(max(lo + t - P, 0), T)))
 
 
-def _vlm_stream(params, cfg: ModelConfig, batch, mesh):
+def _vlm_stream(params, cfg: ModelConfig, batch, mesh, cut: bool):
     """vlm: the patches ahead of the token embeddings, or under a mesh the
     rank's block of that joined stream -> (x, where its text starts)."""
-    patches, text = _vlm_block(batch, mesh)
+    patches, text = _vlm_block(batch, mesh, cut)
     x = _embed(params, cfg, batch["tokens"][:, text])
     p = batch["patches"][:, patches].to(cfg.dtype)
     return torch.cat([p, x], dim=1), p.shape[1]
@@ -318,27 +369,36 @@ def _vlm_stream(params, cfg: ModelConfig, batch, mesh):
 
 def _forward(params, cfg: ModelConfig, batch, *, plain: bool):
     mesh = meshctx.current_mesh()
+    # the decoder stream is cut over model in T (the dense, MoE, audio and
+    # vlm families, sequence-parallel), or whole (below the threshold; and
+    # Zamba2's, whose shared block cuts its own T block)
+    cut = sequence_parallel(cfg, batch, mesh)
     if cfg.family == "vlm":
-        x, start = _vlm_stream(params, cfg, batch, mesh)
+        x, start = _vlm_stream(params, cfg, batch, mesh, cut)
     else:
         x = _embed(params, cfg, batch["tokens"])
     if cfg.family == "ssm":
         x, _ = _run_rwkv_stack(params["layers"], cfg, x)
         aux = 0.0
     elif cfg.family == "hybrid":
-        x, _ = _run_hybrid_stack(params, cfg, x, plain=plain)
+        x, _ = _run_hybrid_stack(params, cfg, x, plain=plain, sp=cut)
         aux = 0.0
     elif cfg.family == "audio":
-        memory = _run_encoder(params, cfg, batch["frames"], plain=plain)
-        if mesh is not None:
+        frames_cut = mesh is not None and _seq_cut(cfg, batch, "frames")
+        with meshctx.stream_layout(frames_cut):
+            memory = _run_encoder(params, cfg, batch["frames"], plain=plain)
+        if frames_cut:
             # the encoder's S blocks joined once a forward: every decoder
             # layer's cross-attention reads the whole memory; the gather's
             # transpose sums the layers' memory gradients over model once
             memory = meshctx.all_gather(memory, "model", 1, mesh=mesh)
-        x, aux = _run_decoder_stack(params["layers"], cfg, x, plain=plain,
-                                    memory=memory)
+        with meshctx.stream_layout(cut):
+            x, aux = _run_decoder_stack(params["layers"], cfg, x,
+                                        plain=plain, memory=memory)
     else:
-        x, aux = _run_decoder_stack(params["layers"], cfg, x, plain=plain)
+        with meshctx.stream_layout(cut):
+            x, aux = _run_decoder_stack(params["layers"], cfg, x,
+                                        plain=plain)
     h = layers.rmsnorm(params["ln_f"], x, eps=cfg.norm_eps)
     if cfg.family == "vlm":
         h = h[:, start:]                          # the text positions
@@ -362,7 +422,9 @@ def loss_fn(params, batch, cfg: ModelConfig):
     h, aux = _forward(params, cfg, batch, plain=True)
     labels = batch["labels"]
     if cfg.family == "vlm":
-        labels = labels[:, _vlm_block(batch, mesh)[1]]
+        labels = labels[:, _vlm_block(batch, mesh,
+                                      sequence_parallel(cfg, batch,
+                                                        mesh))[1]]
     total, count = layers.cross_entropy_sums(
         _unembed_fn(params, cfg), h, labels, vocab_chunk=cfg.loss_chunk)
     # the token sum and count in one collective
@@ -442,16 +504,43 @@ def _write(dst, src):
 def decode_step(params, cfg: ModelConfig, state, tokens, positions):
     """One decode step.  tokens (B, 1), positions (B,).  Returns (logits
     (B, 1, V), state); the state is updated in place (RWKV6's after the
-    stack, from the stacked new states; the others layer by layer)."""
+    stack, from the stacked new states; the others layer by layer).
+
+    Under a model mesh tokens and positions are the data shard's rows,
+    ``params`` the rank's (``launch.sharding.local_params``) and ``state``
+    the rank's block of the global state (``launch.sharding
+    .local_decode_state``): the KV caches' slots and the audio memory's S
+    over ``model`` (``attention.decode_step`` combines the ranks'
+    blocks), RWKV6's token shifts on D/|model| channels (gathered whole
+    for the step, the rank's block written back) and its WKV state on its
+    heads, Zamba2's conv and SSM states on its channels and heads
+    (``mamba.decode_step``).  The stream is the rows' whole on every model
+    rank, and so are the logits."""
     blocks.require_ported(cfg)
-    if meshctx.current_mesh() is not None:
-        raise NotImplementedError(
-            "decode under a model mesh, its caches sharded over model: "
-            "ROADMAP Queue 1 item 16.15")
-    x = _embed(params, cfg, tokens)
+    mesh = meshctx.current_mesh()
+    with meshctx.stream_layout(False):
+        x = _decode_stack(params, cfg, state, positions,
+                          _embed(params, cfg, tokens), mesh)
+    h = layers.rmsnorm(params["ln_f"], x, eps=cfg.norm_eps)
+    return _unembed_fn(params, cfg)(h), state
+
+
+def _decode_stack(params, cfg: ModelConfig, state, positions, x, mesh):
+    """The decode step's blocks on the embedded tokens ``x``: the stream
+    after them; the state written in place."""
     if cfg.family == "ssm":
+        prev_tm, wkv, prev_cm = state["states"]
+        if mesh is not None:
+            # the token shifts' D blocks of every layer gathered in one
+            # collective: the lerps and projections take the whole x
+            prev_tm, prev_cm = meshctx.all_gather_many(
+                [prev_tm, prev_cm], "model", -1, mesh=mesh)
         x, new = _run_rwkv_stack(params["layers"], cfg, x,
-                                 states=state["states"])
+                                 states=(prev_tm, wkv, prev_cm))
+        if mesh is not None:
+            d = state["states"][0].shape[-1]
+            lo = meshctx.axis_index("model") * d
+            new = (new[0][..., lo:lo + d], new[1], new[2][..., lo:lo + d])
         _write(state["states"], new)
     elif cfg.family == "hybrid":
         caches = blocks.unstack(state["attn"])
@@ -472,5 +561,5 @@ def decode_step(params, cfg: ModelConfig, state, tokens, positions):
                             blocks.unstack(state["cache"])):
             x, _ = blocks.decoder_block_decode(p, cfg, x, cache, positions,
                                                memory=memory)
-    h = layers.rmsnorm(params["ln_f"], x, eps=cfg.norm_eps)
-    return _unembed_fn(params, cfg)(h), state
+    return x
+

@@ -190,53 +190,74 @@ def fsdp_layout(spec: MoESpec, mesh):
             max(D_, F_) % data_n == 0 and max(D_, F_) >= data_n)
 
 
-def apply(params, spec: MoESpec, x):
+def apply(params, spec: MoESpec, x, *, aux: bool = True):
     """x: (B, T, D) -> (out (B, T, D), aux_loss scalar).  Under a model
-    mesh where ``_ep_applicable`` holds, x is the rank's T-sharded block
-    and the expert-parallel region runs on the rank's experts
-    (``_apply_expert_parallel``); else the dense path."""
+    mesh where ``_ep_applicable`` holds, x is the rank's stream and the
+    expert-parallel region runs on the rank's experts
+    (``_apply_expert_parallel``); else the dense path.  ``aux=False``
+    (decode, which discards the aux loss): the region makes none of its
+    statistics' collectives and returns 0.0 (the reference's compiled
+    decode drops them as dead code)."""
     mesh = meshctx.current_mesh()
     if _ep_applicable(spec, x, mesh):
-        return _apply_expert_parallel(params, spec, x, mesh)
+        return _apply_expert_parallel(params, spec, x, mesh, aux=aux)
     return _apply_dense(params, spec, x)
 
 
-def _apply_expert_parallel(params, spec: MoESpec, x, mesh):
-    """Expert parallelism on one rank (the reference's shard_map body on
-    a sequence-parallel stream).
+def fsdp_cut(spec: MoESpec, leaf, name: str, mesh) -> bool:
+    """Whether an expert leaf (..., E/model, ., .) of the rank holds its
+    FSDP dim cut over the data axes (the compute layout), not whole (the
+    serve layout, ``launch.sharding.local_params(expert_fsdp=False)``)."""
+    gate_ax, down_ax, fsdp_ok = fsdp_layout(spec, mesh)
+    ax = down_ax if name == "w_down" else gate_ax
+    return fsdp_ok and leaf.shape[ax - 3] != max(spec.d_model, spec.d_ff)
 
-    ``x`` is (B/data, T/model, D), the rank's block of the stream.
+
+def _apply_expert_parallel(params, spec: MoESpec, x, mesh, *,
+                           aux: bool = True):
+    """Expert parallelism on one rank (the reference's shard_map body).
+
+    ``x`` is (B/data, T/model, D), the rank's block of a sequence-parallel
+    stream, or, where the stream is not cut over ``model``
+    (``meshctx.stream_is_cut``: decode, and prefill below the threshold),
+    the data shard's rows (B/data, T, D), the same on every model rank.
     ``params``: the router whole; the experts the rank's E/|model|
     (E/model, D, F) slices, their FSDP dim (``fsdp_layout``) further
-    split over the data axes when it divides.  The region gathers the
-    expert weights over data, gathers x over ``model``, routes the data
-    shard's B/data x T tokens to its experts in a capacity buffer of
-    that shard (C from B/data x T tokens), and returns the partial
-    outputs through one psum_scatter back to the block.  The router's
-    statistics are psum'd over the data axes and ``model``, then divided
-    by |model| (every model rank saw the same tokens), so aux and z are
-    the global ones.  The top-k comes from ``route``, so a replacement of
-    it steers this path too.  (The reference's other branch, a stream
-    not T-sharded, has no caller here: the port's mesh path is
-    sequence-parallel throughout.)"""
+    split over the data axes when it divides (``fsdp_cut``: whole in the
+    serve layout).  The region gathers a cut FSDP dim of the expert
+    weights over data, gathers a cut x over ``model``, routes the
+    data shard's B/data x T tokens to its experts in a capacity buffer of
+    that shard (C from B/data x T tokens), and sums the partial outputs
+    over ``model``: one psum_scatter back to a cut block, or a psum that
+    each rank keeps as its own copy (``pvary(psum(.))``, the copies'
+    cotangents summed in its backward).  Every model rank routed the same
+    tokens either way, so the router's statistics are psum'd (in one
+    collective) over the data axes and ``model`` and divided by |model|:
+    aux and z are the global
+    ones, and each copy's share of their gradient is 1/|model| (the
+    reference's uncut branch psums them over the data axes alone, the
+    same values).  The top-k comes from ``route``, so a replacement of it
+    steers this path too."""
     B_loc, t_blk, D = x.shape
     E, K = spec.num_experts, spec.experts_per_token
     model_n = mesh.shape["model"]
     data_axes = meshctx.data_axes(mesh)
     data_n = meshctx.data_size(mesh)
     e_loc = E // model_n
-    T = t_blk * model_n
+    t_sharded = meshctx.stream_is_cut()
+    T = t_blk * model_n if t_sharded else t_blk
     n_loc = B_loc * T
     cap = max(int(spec.capacity_factor * n_loc * K / E), K)
-    gate_ax, down_ax, fsdp_ok = fsdp_layout(spec, mesh)
+    gate_ax, down_ax, _ = fsdp_layout(spec, mesh)
 
     w_gate, w_up, w_down = params["w_gate"], params["w_up"], \
         params["w_down"]
-    if fsdp_ok:
+    if fsdp_cut(spec, w_gate, "w_gate", mesh):
         w_gate = meshctx.all_gather(w_gate, data_axes, gate_ax, mesh=mesh)
         w_up = meshctx.all_gather(w_up, data_axes, gate_ax, mesh=mesh)
         w_down = meshctx.all_gather(w_down, data_axes, down_ax, mesh=mesh)
-    x = meshctx.all_gather(x, "model", 1, mesh=mesh)
+    if t_sharded:
+        x = meshctx.all_gather(x, "model", 1, mesh=mesh)
     x_flat = x.reshape(n_loc, D)
     top_ids, top_w, _, _ = route(params, spec, x_flat)
     logits = x_flat.to(torch.float32) @ params["router"]
@@ -249,24 +270,31 @@ def _apply_expert_parallel(params, spec: MoESpec, x, mesh):
     expert_out = _expert_ffn(w_gate, w_up, w_down, expert_in)
     out_flat = _combine(expert_out, info, n_loc)
     # the experts' contributions summed over the model axis, scattered
-    # back to the block
-    out = meshctx.psum_scatter(out_flat.reshape(B_loc, T, D), "model", 1,
-                               mesh=mesh)
+    # back to a cut block, or kept whole as this rank's copy
+    out = out_flat.reshape(B_loc, T, D)
+    if t_sharded:
+        out = meshctx.psum_scatter(out, "model", 1, mesh=mesh)
+    else:
+        out = meshctx.pvary(meshctx.psum(out, "model", mesh=mesh), "model",
+                            mesh=mesh)
 
-    # the global router statistics for the aux losses
+    if not aux:
+        return out.to(x.dtype), 0.0
+    # the global router statistics for the aux losses, in one collective
     stat_axes = data_axes + ("model",)
     stat_norm = model_n
     counts = _counts(top_ids.reshape(-1), E).to(torch.float32)
-    counts = meshctx.psum(counts, stat_axes, mesh=mesh) / stat_norm
-    p_sum = meshctx.psum(probs.sum(0), stat_axes, mesh=mesh) / stat_norm
+    z_sum = torch.sum(torch.square(torch.logsumexp(logits, -1)))
+    stats = meshctx.psum(torch.cat([counts, probs.sum(0), z_sum[None]]),
+                         stat_axes, mesh=mesh) / stat_norm
+    counts, p_sum, z_sum = stats[:E], stats[E:2 * E], stats[2 * E]
     n_tot = n_loc * data_n
     f = counts / (n_tot * K)
     p = p_sum / n_tot
-    aux = E * torch.sum(f * p)
-    z = meshctx.psum(torch.sum(torch.square(torch.logsumexp(logits, -1))),
-                     stat_axes, mesh=mesh) / stat_norm / n_tot
+    aux_loss = E * torch.sum(f * p)
+    z = z_sum / n_tot
     return (out.to(x.dtype),
-            spec.router_aux_weight * aux + spec.router_z_weight * z)
+            spec.router_aux_weight * aux_loss + spec.router_z_weight * z)
 
 
 def _apply_dense(params, spec: MoESpec, x):

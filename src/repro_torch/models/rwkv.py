@@ -170,23 +170,29 @@ def wkv_chunked(r, k, v, w, u, state, *, chunk: int = 64):
 
 
 def _wkv_dispatch(r, k, v, w, u, state):
-    """``wkv_chunked``, or under a model mesh the reference's shard_map
-    region: r, k, v, w (B/data, T, H, hd) and state (B/data, H, hd, hd)
-    are the rank's batch shard with every head (the stream is the same
-    on every model rank); the rank runs ``wkv_chunked`` on its H/|model|
+    """``wkv_chunked`` (``wkv_scan`` for one token), or under a model mesh
+    the reference's shard_map region: r, k, v, w (B/data, T, H, hd) are
+    the rank's batch shard with every head (the stream is the same on
+    every model rank); the rank runs the recurrence on its H/|model|
     heads, and the heads are all-gathered over ``model`` where the
-    region's output leaves it."""
+    region's output leaves it.  ``state`` (B/data, H, hd, hd) has every
+    head, and the new state comes back gathered too, or (decode) it is
+    the rank's block of H/|model| heads
+    (``launch.sharding.local_decode_state``), and so is the new state."""
     mesh = meshctx.current_mesh()
-    H = r.shape[2]
+    T, H = r.shape[1], r.shape[2]
+    wkv = wkv_chunked if T > 1 else wkv_scan
     if mesh is not None and "model" in mesh.axis_names \
             and meshctx.data_axes(mesh) and H % meshctx.model_size(mesh) == 0:
         hs = H // meshctx.model_size(mesh)
         lo = mesh.coords["model"] * hs
-        y, s = wkv_chunked(*(t[:, :, lo:lo + hs] for t in (r, k, v, w)),
-                           u[lo:lo + hs], state[:, lo:lo + hs])
-        return (meshctx.all_gather(y, "model", 2, mesh=mesh),
-                meshctx.all_gather(s, "model", 1, mesh=mesh))
-    return wkv_chunked(r, k, v, w, u, state)
+        block = state.shape[1] != H
+        y, s = wkv(*(t[:, :, lo:lo + hs] for t in (r, k, v, w)),
+                   u[lo:lo + hs], state if block else state[:, lo:lo + hs])
+        y = meshctx.all_gather(y, "model", 2, mesh=mesh)
+        return y, s if block else meshctx.all_gather(s, "model", 1,
+                                                     mesh=mesh)
+    return wkv(r, k, v, w, u, state)
 
 
 def time_mix(params, spec: RWKVSpec, x, *, prev_token=None, wkv_state=None):
@@ -219,10 +225,7 @@ def time_mix(params, spec: RWKVSpec, x, *, prev_token=None, wkv_state=None):
     lora = (lora_in @ p["w_lora_b"].reshape(Rk, H * hd)).reshape(B, T, H, hd)
     w = torch.exp(-torch.exp((p["w0"] + lora).to(torch.float32)))
 
-    if T > 1:
-        y, new_state = _wkv_dispatch(r, k, v, w, p["u"], wkv_state)
-    else:
-        y, new_state = wkv_scan(r, k, v, w, p["u"], wkv_state)
+    y, new_state = _wkv_dispatch(r, k, v, w, p["u"], wkv_state)
     y = y.reshape(B, T, H * hd).to(x.dtype)
     y = layers.layernorm(p["ln_x"], y)
     y = y * g.reshape(B, T, H * hd)

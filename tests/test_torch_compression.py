@@ -180,7 +180,7 @@ def test_int8_zero_rows_unit_scale_and_key_required():
     assert tp["scale"][0] == 1.0 and tp["scale"][2] == 1.0
     with pytest.raises(ValueError, match="PRNG key"):
         tc.get_codec("int8_stochastic").encode(torch.as_tensor(x))
-    # shard-local encoding (ROADMAP Queue 1 item 13): a virtual spec's
+    # shard-local encoding: a virtual spec's
     # payload is the reference's, bit for bit
     tp = tc.get_codec("int8_stochastic").encode(
         torch.as_tensor(x), key=tk,

@@ -190,7 +190,7 @@ def test_out_of_guarantee_configurations_raise(rule):
                                   "norm_select", "norm_filter_gmom",
                                   "gmom_per_leaf", "int8_gmom"])
 def test_shard_spec_is_item_13(rule):
-    """Every rule that takes a ``shard_spec`` (ROADMAP Queue 1 item 13)
+    """Every rule that takes a ``shard_spec`` (shard-local aggregation)
     runs in virtual mode: equal to the reference's virtual mode (krum's
     selection exactly), and to its own unsharded path within f32
     rounding."""

@@ -13,9 +13,9 @@
   ``local_params`` on a one-rank mesh.
 * The mesh objects on a one-rank gloo group of this process: the groups'
   registry that ``core.shard_aggregation`` reads, the collectives, the
-  hybrid, audio and vlm families on a one-rank mesh and the refusals
-  left (ROADMAP item 16.15), and no unordered ``all_reduce`` in the mesh
-  code.
+  hybrid, audio and vlm families on a one-rank mesh (prefill above and
+  below the sequence-parallel threshold, decode on the state's blocks),
+  and no unordered ``all_reduce`` in the mesh code.
 
 The 8-rank regions and models are tests/test_torch_mesh.py."""
 
@@ -288,21 +288,34 @@ def _family_batch(cfg, T, extra=16):
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "seamless-m4t-medium",
                                   "internvl2-26b"])
 def test_unported_families_raise_under_a_mesh(arch):
-    """The hybrid, audio and vlm families, once refused under a mesh, now
-    run there (a one-rank mesh computes what one process does); decode
-    under a mesh and attention below the sequence-parallel threshold raise,
-    naming ROADMAP item 16.15."""
+    """The hybrid, audio and vlm families, once refused under a mesh, run
+    there: on a one-rank mesh the sequence-parallel forward, the forward
+    below the threshold (T = 4), each on its ``sharding.local_batch``
+    block, and two decode steps on the state's block
+    (``sharding.local_decode_state``) compute what one process does."""
     cfg = configs.get_config(arch).reduced()
     params = model.init(0, cfg, device="cpu")
-    batch = _family_batch(cfg, 32)
-    want, _ = model.forward(params, cfg, batch)
-    with torch_mesh_ranks.one_rank_mesh():
-        got, _ = model.forward(params, cfg, batch)
-        assert float((got - want).abs().max()) <= 1e-5 * float(
+
+    def close(got, want):
+        return float((got - want).abs().max()) <= 1e-5 * float(
             want.abs().max())
-        with pytest.raises(NotImplementedError, match="item 16.15"):
-            model.forward(params, cfg, _family_batch(cfg, 4, extra=4))
-        with pytest.raises(NotImplementedError, match="item 16.15"):
-            model.decode_step(params, cfg, model.init_decode_state(
-                cfg, 1, 8, device="cpu"), batch["tokens"][:, :1],
-                torch.zeros((1,), dtype=torch.long))
+
+    def decode(state):
+        out = []
+        for t in range(2):
+            logits, _ = model.decode_step(
+                params, cfg, state, torch.full((1, 1), 7 + t),
+                torch.full((1,), t))
+            out.append(logits)
+        return torch.cat(out, 1)
+
+    long, short = _family_batch(cfg, 32), _family_batch(cfg, 4, extra=4)
+    want = [model.forward(params, cfg, b)[0] for b in (long, short)]
+    want.append(decode(model.init_decode_state(cfg, 1, 8, device="cpu")))
+    with torch_mesh_ranks.one_rank_mesh() as mesh:
+        got = [model.forward(params, cfg,
+                             sharding.local_batch(b, mesh, cfg))[0]
+               for b in (long, short)]
+        got.append(decode(sharding.local_decode_state(
+            model.init_decode_state(cfg, 1, 8, device="cpu"), mesh, cfg, 1)))
+    assert all(close(g, w) for g, w in zip(got, want))

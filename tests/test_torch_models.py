@@ -25,7 +25,7 @@ from repro.models import layers as jlayers
 from repro.models import model as jmodel
 from repro_torch import configs, convert
 from repro_torch.configs import shapes
-from repro_torch.launch import steps
+from repro_torch.launch import sharding, steps
 from repro_torch.models import attention, blocks, layers, model
 
 import torch_mesh_ranks
@@ -310,7 +310,8 @@ def test_unported_families_raise():
     """The audio and vlm families, once unported, now init, count and
     (audio) cross-attend; an unknown family raises; under a model mesh
     the hybrid, audio and vlm families, once refused there, give one
-    process's loss on a one-rank mesh."""
+    process's loss on a one-rank mesh (the batch its
+    ``sharding.local_batch`` block)."""
     for arch in ("seamless-m4t-medium", "internvl2-26b"):
         cfg = configs.get_config(arch).reduced()
         params = model.init(0, cfg, device="cpu")
@@ -338,8 +339,9 @@ def test_unported_families_raise():
         if cfg.family == "audio":
             batch["frames"] = torch.randn((1, 16, cfg.d_model))
         want = model.loss_fn(params, batch, cfg)
-        with torch_mesh_ranks.one_rank_mesh():
-            got = model.loss_fn(params, batch, cfg)
+        with torch_mesh_ranks.one_rank_mesh() as mesh:
+            got = model.loss_fn(params, sharding.local_batch(batch, mesh, cfg),
+                                cfg)
         assert abs(float(got) - float(want)) <= 1e-6 * float(want), arch
 
 
