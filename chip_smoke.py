@@ -3504,16 +3504,17 @@ def _mesh_phase_ranks(rank, world, device, bodies):
 
 
 def mesh_phases(dev, hbm, smi):
-    """Phases 12-15 on MESH_RANKS rank processes of the card, started once
+    """Phases 12-16 on MESH_RANKS rank processes of the card, started once
     (a start took 10-15 s, and each phase's first calls on the card as
     many again): every phase's kernel checks and one-process references
     first (each phase's code up to its rank body), then one
-    ``ranks.run`` that runs the four rank bodies in turn, then each
-    phase's checks.  -> the four phases' returns."""
+    ``ranks.run`` that runs the five rank bodies in turn, then each
+    phase's checks.  -> the five phases' returns."""
     import torch
     from repro_torch.launch import ranks
     phases = (mesh_path(dev, hbm, smi), mesh_train_path(dev, smi),
-              mesh_families_path(dev, hbm, smi), mesh_decode_path(dev, smi))
+              mesh_families_path(dev, hbm, smi), mesh_decode_path(dev, smi),
+              mesh_whole_path(dev, smi))
     bodies = []
     for phase in phases:
         bodies.append(next(phase))
@@ -4204,10 +4205,11 @@ def mesh_train_config(arch, dname=None):
 
 
 def mesh_train_reference(dev, backend, steps_n, arch=TRAIN_ARCH, dname=None,
-                         seed=MESH_TRAIN_SEED):
+                         seed=MESH_TRAIN_SEED, rc=None):
     """One process, phase 13 (a)'s settings (phase 14 (e): ``arch``; the
-    model in ``dname``, params, tokens and keys from ``seed``): (rows, s
-    per step, peak GB, the first step's aggregate on the CPU)."""
+    model in ``dname``, params, tokens and keys from ``seed``; phase 16
+    (a): the ``rc`` aggregation): (rows, s per step, peak GB, the first
+    step's aggregate on the CPU)."""
     import torch
     from torch.utils._pytree import tree_map
     from repro_torch import optim
@@ -4218,7 +4220,7 @@ def mesh_train_reference(dev, backend, steps_n, arch=TRAIN_ARCH, dname=None,
     cfg = mesh_train_config(arch, dname)
     opt = optim.adamw(g["lr"])
     step = steps.make_group_train_step(
-        cfg, _mesh_train_rc(g["k"], g["q"], backend), opt,
+        cfg, rc or _mesh_train_rc(g["k"], g["q"], backend), opt,
         microbatches=g["microbatches"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -5098,6 +5100,8 @@ MESH_DECODE_F32_CUT = ("the f32 check teacher-forces the prompt and 8 of "
                        "the one process's greedy tokens (24 steps)")
 # the ranks build whole params in turns above this many bytes a rank
 MESH_DECODE_TURNS_BYTES = 12e9
+# phase 15's one-process job and references, which phase 16 (b) reuses
+DECODE_SHARED = {}
 
 
 def _decode_logits(cfg, params, state, tokens):
@@ -5344,6 +5348,10 @@ def _decode_references(dev):
             serve.generate(params, bcfg, prompts[:, :2], 2)     # warm-up
             tokens, _, times = serve.generate(params, bcfg, prompts,
                                               DECODE_NEW)
+            # phase 16 (b)'s one request, served alone
+            one, _, one_times = serve.generate(
+                params, bcfg, prompts[:MESH_WHOLE_B], DECODE_NEW)
+            ref.update(whole_tokens=one.cpu(), whole_times=one_times)
             state = model.init_decode_state(bcfg, DECODE_B, DECODE_LEN,
                                             device=dev)
             ref.update(tokens=tokens.cpu(), times=times,
@@ -5428,6 +5436,7 @@ def mesh_decode_path(dev, smi):
     from repro_torch.kernels.attention import flash
     t0 = time.perf_counter()
     job, refs = _decode_references(dev)
+    DECODE_SHARED.update(job=job, refs=refs)
     torch.cuda.empty_cache()
     ref_s = time.perf_counter() - t0
     per_rank, ranks_s, t0 = yield from _mesh_ranks_of(
@@ -5547,9 +5556,404 @@ def mesh_decode_path(dev, smi):
                               rtol=MESH_DECODE_RTOL,
                               maskless_rel_err=bad, maskless_caught=caught)
                 emit(pl)
+    DECODE_SHARED["h2o_bf16_ms_by_rank"] = [
+        pr[("h2o", "bfloat16")]["times"]["decode_s"] * 1e3 / (DECODE_NEW - 1)
+        for pr in per_rank]
     emit({"phase": "mesh_decode", "seconds": time.perf_counter() - t0,
           "references_s": ref_s, "ranks_s": ranks_s, "card": smi})
     return by_route
+
+
+# -- phase 16: the int8 wire on the mesh step, and one request on (2, 2) -----
+
+# (a) phase 13 (a)'s H2O step (1 layer, full width, (2, 2)) with int8_gmom
+# on the int8_stochastic wire: one step of each variant
+MESH_INT8_STEPS = {"shard_local": 1, "gathered": 1}
+# the shard-local payload's leaves checked against the unsharded encode:
+# the embedding (cut over both axes) and the SwiGLU's gate (data x model);
+# all twelve took 17 s of gathering and encoding on 4 ranks of one H100
+MESH_INT8_CHECKED = ("['embed']", "['layers']['mlp']['w_gate']")
+# (b) H2O-Danube3-4B serves one request on (2, 2): rows the data axes do
+# not divide, whole on every rank (the reference's serve_batch_spec
+# (None,)); its prompt is phase 15's first, its f32 check phase 15's one
+# process's greedy tokens and logits of that row
+MESH_WHOLE_B = 1
+MESH_WHOLE_PREFILL_LAYERS = 8
+MESH_WHOLE_PREFILL_CUTS = ["24 layers cut to 8"]
+MESH_WHOLE_PREFILL_SEED = 41
+
+
+def _mesh_int8_rc(backend):
+    import dataclasses
+    return dataclasses.replace(
+        _mesh_train_rc(MESH_TRAIN["k"], MESH_TRAIN["q"], backend),
+        aggregator="int8_gmom", compression="int8_stochastic")
+
+
+class _Int8Wire:
+    """Phase 16 (a)'s view of the int8_stochastic wire for a ``with``
+    block: the codec's encode keeps (its stacked input, key, payload) of
+    the shard-local step's 2D layout; every block draw
+    (``shard_aggregation.draw_block``) records the most memory it took
+    above what the card held when it began, beyond its output, and the
+    peak the card reached before it (the draw resets the peak)."""
+
+    def __init__(self, dev):
+        self.dev, self.kept, self.draw_bytes, self.peak_before = dev, [], 0, 0
+
+    def _encode(self, stacked, *, key=None, shard_spec=None):
+        payload = self.codec.encode(stacked, key=key, shard_spec=shard_spec)
+        if shard_spec is not None and shard_spec.layout is not None:
+            self.kept.append((stacked, key, payload))
+        return payload
+
+    def _draw(self, spec, block, key, dist):
+        import torch
+        torch.cuda.synchronize(self.dev)
+        self.peak_before = max(self.peak_before,
+                               torch.cuda.max_memory_allocated(self.dev))
+        start = torch.cuda.memory_allocated(self.dev)
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        out = self.real_draw(spec, block, key, dist)
+        torch.cuda.synchronize(self.dev)
+        self.draw_bytes = max(
+            self.draw_bytes, torch.cuda.max_memory_allocated(self.dev)
+            - start - out.numel() * out.element_size())
+        return out
+
+    def __enter__(self):
+        import dataclasses
+
+        from repro_torch.core import compression
+        from repro_torch.core import shard_aggregation as sa
+        self.codec = compression.get_codec("int8_stochastic")
+        compression._REGISTRY["int8_stochastic"] = dataclasses.replace(
+            self.codec, encode=self._encode)
+        self.real_draw, sa.draw_block = sa.draw_block, self._draw
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import compression
+        from repro_torch.core import shard_aggregation as sa
+        compression._REGISTRY["int8_stochastic"] = self.codec
+        sa.draw_block = self.real_draw
+
+    def check(self, stacked_specs, mesh, names):
+        """The leaves ``names`` of the kept payload against the cut of the
+        unsharded encode of the stack gathered whole, with the same key:
+        those leaves gathered, every other leaf a (k, 1, ...) stand-in
+        that keeps the leaf order (each leaf's key is its place), the
+        encode one rank at a time -> {leaf: (its spec, q block equal and
+        scales bit-equal)}."""
+        import torch
+        from torch.utils._pytree import keystr, tree_flatten_with_path
+        from torch.utils._pytree import tree_leaves, tree_unflatten
+        from repro_torch.launch import sharding
+        from repro_torch.models import meshctx
+        stacked, key, payload = self.kept[0]
+        self.kept.clear()
+        flat, treedef = tree_flatten_with_path(stacked)
+        specs = sharding.spec_leaves(stacked, stacked_specs)
+        leaves = []
+        for (path, g), spec in zip(flat, specs):
+            if keystr(path) in names:
+                leaves.append(sharding.gather_tree({"g": g}, {"g": spec},
+                                                   mesh)["g"])
+            else:
+                leaves.append(g.new_zeros((g.shape[0],) + (1,) * (g.ndim
+                                                                 - 1)))
+        del stacked, flat
+        picked = [(i, keystr(p)) for i, (p, _) in enumerate(
+            tree_flatten_with_path(payload["q"])[0]) if keystr(p) in names]
+
+        def compare():
+            plain = self.codec.encode(tree_unflatten(leaves, treedef),
+                                      key=key)
+            q, s = tree_leaves(payload["q"]), tree_leaves(payload["scale"])
+            pq, ps = tree_leaves(plain["q"]), tree_leaves(plain["scale"])
+            return {name: (specs[i], bool(
+                torch.equal(q[i], meshctx.cut(pq[i], specs[i], mesh.coords,
+                                              mesh.shape))
+                and torch.equal(s[i].view(torch.int32),
+                                ps[i].view(torch.int32))))
+                for i, name in picked}
+        try:
+            return meshctx.one_card_turns(mesh, compare, self.dev)
+        finally:
+            leaves.clear()
+
+
+def _mesh_whole_rank(rank, world, device, job):
+    """Phase 16 on one rank of the card: (a) phase 13 (a)'s H2O step on
+    the int8 wire, each variant, the shard-local payload checked against
+    the unsharded encode of the gathered stack; (b) one request served
+    on (2, 2): bf16 through ``serve.generate``, f32 teacher-forced, and
+    the B = 1 prefill at T = 8192 on the kernel and the plain path."""
+    import torch
+    from repro_torch import optim
+    from repro_torch import random as prng
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve, sharding, steps
+    from repro_torch.models import meshctx, model
+    dev = torch.device(device)
+    torch.set_float32_matmul_precision("highest")
+    square = mesh_lib.make_mesh((2, world // 2), ("data", "model"))
+    out = {"coords": dict(square.coords)}
+    g = MESH_TRAIN
+    cfg = mesh_train_config(TRAIN_ARCH)
+    full = model.init(MESH_TRAIN_SEED, cfg, device=dev)
+    specs = sharding.param_shardings(full, square, cfg)
+    stacked = sharding.stacked_grad_shardings(full, square, cfg)
+    stream, key = _mesh_train_stream(cfg, dev), _mesh_train_key(dev)
+    with meshctx.set_mesh(square):
+        for variant, n in MESH_INT8_STEPS.items():
+            mark(f"mesh_whole (a) h2o int8 {variant}")
+            with _Int8Wire(dev) as wire:
+                res = _mesh_train_variant(
+                    cfg, square, variant, full, specs, dev, n,
+                    _mesh_int8_rc("auto"), optim.adamw(g["lr"]),
+                    stream.batch, lambda t: prng.fold_in(key, t),
+                    check_first=True)
+            res["peak_gb"] = max(res["peak_gb"], wire.peak_before / 1e9)
+            res["draw_extra_gb"] = wire.draw_bytes / 1e9
+            if variant == "shard_local":
+                mark("mesh_whole (a) payload check")
+                res["payload_equal"] = wire.check(stacked, square,
+                                                  MESH_INT8_CHECKED)
+            out[("int8", variant)] = res
+            torch.cuda.empty_cache()
+    del full
+    torch.cuda.empty_cache()
+    # (b) one request on (2, 2), its rows whole on every rank
+    prompts = job["prompts"][:MESH_WHOLE_B].to(dev)
+    for dname in ("bfloat16", "float32"):
+        mark(f"mesh_whole (b) h2o {dname}")
+        cfg = _mesh_cfg(SERVE_ARCH, dname)
+        local = _decode_local(cfg, square, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with meshctx.set_mesh(square):
+            square.reset_stats()
+            if dname == "bfloat16":
+                rows = sharding.local_rows(prompts, square)
+                tokens, _, times = serve.generate(local, cfg, rows,
+                                                  DECODE_NEW,
+                                                  batch=MESH_WHOLE_B)
+                res = dict(tokens=tokens.cpu(), times=times,
+                           steps=DECODE_LEN - 1, rows=rows.shape[0])
+            else:
+                seq = sharding.local_rows(
+                    job["f32_tokens"][:MESH_WHOLE_B].to(dev), square)
+                state = sharding.local_decode_state(
+                    model.init_decode_state(cfg, MESH_WHOLE_B, DECODE_LEN,
+                                            device=dev), square, cfg,
+                    MESH_WHOLE_B)
+                logits, ms = _synced_ms(
+                    lambda: _decode_logits(cfg, local, state, seq), dev)
+                res = dict(digest=_digest(logits), ms=ms, steps=DECODE_LEN,
+                           logits=logits.cpu() if rank == 0 else None)
+            res["stats"] = dict(square.stats)
+            res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out[("whole", dname)] = res
+        del local
+        torch.cuda.empty_cache()
+    mark("mesh_whole (b) prefill")
+    cfg = _mesh_cfg(SERVE_ARCH, "bfloat16", MESH_WHOLE_PREFILL_LAYERS)
+    local = _decode_local(cfg, square, dev)
+    with meshctx.set_mesh(square):
+        batch = sharding.local_batch({"tokens": job["prefill"].to(dev)},
+                                     square, cfg)
+        kernel = steps.make_prefill_step(cfg)
+        plain = steps.make_prefill_step(cfg, plain=True)
+        kernel(local, batch)                                  # warm-up
+        h, ms, routes, stats, _ = _mesh_prefill(kernel, local, batch, dev)
+        hp, plain_ms, plain_routes, _, _ = _mesh_prefill(plain, local,
+                                                         batch, dev)
+    out["prefill"] = dict(
+        rows_whole=batch.rows_whole, shape=list(h.shape), ms=ms,
+        plain_ms=plain_ms, routes=routes, plain_routes=plain_routes,
+        stats=stats, digest=_digest(h),
+        finite=bool(torch.isfinite(h.float()).all()),
+        rel_err=float((h.float() - hp.float()).abs().max())
+        / float(hp.float().abs().max()))
+    del local
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_whole_path(dev, smi):
+    """Phase 16 (a generator, as phase 12's), on the 4 rank processes of
+    the card.
+    (a) Phase 13 (a)'s H2O-Danube3-4B step (full width, 1 layer, (2, 2),
+    k = 4, q = 1, sign_flip, AdamW) with int8_gmom on the int8_stochastic
+    wire, 1 shard-local and 1 gathered step: in the shard-local step
+    each rank's ``q`` block and the scales of MESH_INT8_CHECKED's leaves
+    (the embedding and the SwiGLU's gate, each cut over both axes)
+    bit-equal to the cut of the unsharded encode of the stack gathered
+    whole, with the step's key; the round kernel once a rank in the
+    gathered step, never shard-local;
+    the metrics within ``compare_traces`` and the first aggregate within
+    MESH_TRAIN_AGG_RTOL (each leaf's relative norm) of one process's int8
+    step; the params after it its AdamW update, bit for bit; the same
+    metrics on every rank.  Recorded: s a step, peak GB a rank and the
+    block draw's most memory beyond its output.
+    (b) H2O at full width and depth serves one request (phase 15's first
+    prompt, 16 + 32 tokens) on (2, 2): the rows the data axes do not
+    divide whole on every rank; bf16 through ``serve.generate``, every
+    rank's tokens the same bits; f32 teacher-forced on the one process's
+    greedy tokens of that row, every step within MESH_DECODE_RTOL of
+    max|logits| of its logits (phase 15's references); the B = 1 prefill
+    at T = 8192 and 8 layers in bf16, whole on every rank (below the
+    sequence-parallel threshold: B % data != 0), its flash kernel's full
+    launch (one a layer a rank on the tensor cores) against the plain
+    path within PREFILL_RTOL.  Recorded: ms a decode step a rank against
+    B = 4's (phase 15) and one process's B = 1.
+    -> (round-kernel launches, {dtype: flash launches by route})."""
+    import torch
+    from repro_torch.kernels.attention import flash
+    from repro_torch.sim.goldens import compare_traces
+    t0 = time.perf_counter()
+    ref = mesh_train_reference(dev, "auto", 1, rc=_mesh_int8_rc("auto"))
+    torch.cuda.empty_cache()
+    pcfg = _mesh_cfg(SERVE_ARCH, "bfloat16", MESH_WHOLE_PREFILL_LAYERS)
+    job = {"prompts": DECODE_SHARED["job"]["prompts"]["h2o"],
+           "f32_tokens": DECODE_SHARED["job"]["f32_tokens"]["h2o"],
+           "prefill": _mesh_tokens(pcfg, MESH_WHOLE_B, PREFILL_T, dev,
+                                   seed=MESH_WHOLE_PREFILL_SEED).cpu()}
+    one = DECODE_SHARED["refs"]["h2o"]
+    ref_s = time.perf_counter() - t0
+    per_rank, ranks_s, t0 = yield from _mesh_ranks_of(
+        "_mesh_whole_rank", (job,), t0)
+    launches = 0
+    # (a) the int8 wire
+    for variant, n in MESH_INT8_STEPS.items():
+        res = [pr[("int8", variant)] for pr in per_rank]
+        vs = compare_traces(_compared(res[0]["rows"]), _compared(ref[0][:n]))
+        same_rows = all(x["rows"] == res[0]["rows"] for x in res)
+        want_launches = n if variant == "gathered" else 0
+        n_launch = [x["launches"] for x in res]
+        launches += sum(n_launch)
+        first = res[0]["first"]
+        rel = _rel_norms(first["agg"], ref[3], dev)
+        agg_err = max(rel.values())
+        ok = (not vs and same_rows and agg_err <= MESH_TRAIN_AGG_RTOL
+              and first["update_exact"]
+              and all(x == want_launches for x in n_launch))
+        line = {"phase": "mesh_whole", "part": "a", "arch": TRAIN_ARCH,
+                "variant": variant, "mesh": {"data": 2, "model": 2},
+                "aggregator": "int8_gmom", "compression": "int8_stochastic",
+                "reduced": MESH_TRAIN_CUTS, **MESH_TRAIN, "steps": n,
+                "history_by_rank0": res[0]["rows"],
+                "history_one_process": ref[0][:n],
+                "launches_by_rank": n_launch,
+                "agg_worst_rel_norm_err": agg_err,
+                "agg_worst_leaves": _worst_leaves(rel),
+                "agg_rtol": MESH_TRAIN_AGG_RTOL,
+                "update_of_aggregate_exact": first["update_exact"],
+                "s_per_step_by_rank": [x["s_per_step"] for x in res],
+                "s_per_step_one_process": ref[1],
+                "stage_s_by_rank": [x["stages"] for x in res],
+                "peak_gb_by_rank": [x["peak_gb"] for x in res],
+                "peak_gb_one_process": ref[2],
+                "block_draw_extra_gb_by_rank": [x["draw_extra_gb"]
+                                                for x in res],
+                "card": smi}
+        if variant == "shard_local":
+            eq = [x["payload_equal"] for x in res]
+            both = [k for k, (spec, _) in eq[0].items()
+                    if len({a for e in spec if e for a in (
+                        (e,) if isinstance(e, str) else e)}) >= 2]
+            leaves_ok = all(set(e) == set(MESH_INT8_CHECKED)
+                            and all(v for _, v in e.values()) for e in eq)
+            ok = ok and leaves_ok and bool(both)
+            line.update(payload_leaves_checked={
+                k: list(spec) for k, (spec, _) in eq[0].items()},
+                payload_leaves_cut_over_both_axes=both,
+                payload_equal_by_rank=[sum(v for _, v in e.values())
+                                       for e in eq],
+                payload_bad=[k for e in eq for k, (_, v) in e.items()
+                             if not v])
+        line["ok"] = ok
+        check(ok, f"mesh whole (a) int8 {variant}: vs one process "
+                  f"{vs[:3]}, aggregate {agg_err}, launches {n_launch}, "
+                  f"payload {line.get('payload_bad')}")
+        emit(line)
+    # (b) one request on (2, 2)
+    bres = [pr[("whole", "bfloat16")] for pr in per_rank]
+    toks = [x["tokens"] for x in bres]
+    same = all(torch.equal(t, toks[0]) for t in toks)
+    good = (same and all(x["rows"] == MESH_WHOLE_B for x in bres)
+            and tuple(toks[0].shape) == (MESH_WHOLE_B, DECODE_NEW)
+            and int(toks[0].min()) >= 0
+            and int(toks[0].max()) < _mesh_cfg(SERVE_ARCH).vocab_size)
+    check(good, f"mesh whole (b) bf16: tokens {tuple(toks[0].shape)}, "
+                f"ranks agree {same}")
+    per_step = DECODE_NEW - 1
+    emit({"phase": "mesh_whole", "part": "b", "arch": SERVE_ARCH,
+          "dtype": "bfloat16", "mesh": {"data": 2, "model": 2},
+          "requests": MESH_WHOLE_B, "prompt_len": DECODE_PROMPT,
+          "new_tokens": DECODE_NEW, "ok": good, "ranks_agree": same,
+          "ms_per_decode_step_by_rank": [
+              x["times"]["decode_s"] * 1e3 / per_step for x in bres],
+          "ms_per_decode_step_b4_by_rank": DECODE_SHARED.get(
+              "h2o_bf16_ms_by_rank"),
+          "ms_per_decode_step_one_process": one["whole_times"][
+              "decode_s"] * 1e3 / per_step,
+          "tokens_equal_one_process_share": float(
+              (toks[0] == one["whole_tokens"]).float().mean()),
+          "collectives_per_step_by_rank": [
+              {k: v / x["steps"] for k, v in x["stats"].items()}
+              for x in bres],
+          "peak_gb_by_rank": [x["peak_gb"] for x in bres], "card": smi})
+    fres = [pr[("whole", "float32")] for pr in per_rank]
+    got = fres[0]["logits"]
+    want = one["logits"][:MESH_WHOLE_B]
+    errs = [float((got[:, t] - want[:, t]).abs().max())
+            / float(want[:, t].abs().max()) for t in range(DECODE_LEN)]
+    same = all(x["digest"] == fres[0]["digest"] for x in fres)
+    ok = same and bool(torch.isfinite(got).all()) \
+        and max(errs) <= MESH_DECODE_RTOL
+    check(ok, f"mesh whole (b) f32: worst step {max(errs)} of max|logits| "
+              f"(rtol {MESH_DECODE_RTOL}), ranks agree {same}")
+    emit({"phase": "mesh_whole", "part": "b", "arch": SERVE_ARCH,
+          "dtype": "float32", "mesh": {"data": 2, "model": 2},
+          "requests": MESH_WHOLE_B, "steps": DECODE_LEN, "ok": ok,
+          "ranks_agree": same, "rel_err": max(errs),
+          "rel_err_by_step": errs, "rtol": MESH_DECODE_RTOL,
+          "ms_per_step_by_rank": [x["ms"] / DECODE_LEN for x in fres],
+          "peak_gb_by_rank": [x["peak_gb"] for x in fres], "card": smi})
+    pre = [pr["prefill"] for pr in per_rank]
+    want_route = flash.route(pcfg.dtype, pcfg.head_dim)
+    L = pcfg.num_layers
+    by_route = {"bfloat16": {r: 0 for r in flash.ROUTES},
+                "float32": {r: 0 for r in flash.ROUTES}}
+    for x in pre:
+        for rt, k in x["routes"].items():
+            by_route["bfloat16"][rt] += k
+    launches_ok = all(x["routes"] == {r: L * (r == want_route)
+                                      for r in flash.ROUTES}
+                      and not any(x["plain_routes"].values()) for x in pre)
+    err = max(x["rel_err"] for x in pre)
+    same = all(x["digest"] == pre[0]["digest"] for x in pre)
+    ok = (launches_ok and same and all(x["rows_whole"] and x["finite"]
+                                       for x in pre)
+          and err <= PREFILL_RTOL["bfloat16"])
+    check(ok, f"mesh whole (b) prefill: kernel vs plain {err} (rtol "
+              f"{PREFILL_RTOL['bfloat16']}), launches "
+              f"{[x['routes'] for x in pre]}, ranks agree {same}")
+    emit({"phase": "mesh_whole", "part": "b", "arch": SERVE_ARCH,
+          "what": "prefill", "dtype": "bfloat16",
+          "mesh": {"data": 2, "model": 2}, "batch": MESH_WHOLE_B,
+          "seq_len": PREFILL_T, "num_layers": L,
+          "reduced": MESH_WHOLE_PREFILL_CUTS, "ok": ok,
+          "rel_err_vs_plain": err, "rtol": PREFILL_RTOL["bfloat16"],
+          "launches_by_rank": [x["routes"] for x in pre],
+          "ranks_agree": same,
+          "ms_by_rank": [x["ms"] for x in pre],
+          "plain_ms_by_rank": [x["plain_ms"] for x in pre],
+          "collectives_by_rank": [x["stats"] for x in pre], "card": smi})
+    emit({"phase": "mesh_whole", "seconds": time.perf_counter() - t0,
+          "references_s": ref_s, "ranks_s": ranks_s, "card": smi})
+    return launches, by_route
 
 
 def cfg_param_leaves(cfg) -> int:
@@ -5824,14 +6228,15 @@ def main() -> int:
     av_launches, av_routes, av_timing = audio_vlm_path(dev, hbm, flops, smi)
     main_launches += av_launches
 
-    # -- 12-15 the model mesh on rank processes of the card, one start:
+    # -- 12-16 the model mesh on rank processes of the card, one start:
     # 12 the regions and prefills, 13 the group step, 14 the hybrid, audio
-    # and vlm families, 15 decode and the short prefill
+    # and vlm families, 15 decode and the short prefill, 16 the int8 wire
+    # on the mesh step and one request served on (2, 2)
     torch.cuda.empty_cache()
     ((mesh_routes, sp_row), (mt_launches, mt_row),
-     (fam_routes, fam_launches, fam_rows), dec_routes) = mesh_phases(
-        dev, hbm, smi)
-    main_launches += mt_launches + fam_launches
+     (fam_routes, fam_launches, fam_rows), dec_routes,
+     (whole_launches, whole_routes)) = mesh_phases(dev, hbm, smi)
+    main_launches += mt_launches + fam_launches + whole_launches
 
     # -- 7 the kernel line --------------------------------------------------
     csrc = "src/repro_torch/kernels/"
@@ -5865,7 +6270,7 @@ def main() -> int:
              "src/repro/kernels/attention/flash.py:124",
              sum(r["bfloat16"]["tensor_core"] for r in (
                  attn_routes, moe_routes, rec_routes, av_routes,
-                 mesh_routes, fam_routes, dec_routes)),
+                 mesh_routes, fam_routes, dec_routes, whole_routes)),
              attn_err[(ATTN_MAIN, "bfloat16")], timing[ATTN_MAIN],
              ATTN_MAIN))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
@@ -5908,7 +6313,7 @@ def main() -> int:
         route: sum(r[dname][route] for r in (attn_routes, moe_routes,
                                              rec_routes, av_routes,
                                              mesh_routes, fam_routes,
-                                             dec_routes))
+                                             dec_routes, whole_routes))
         for dname, route in (("bfloat16", "tensor_core"),
                              ("float32", "cuda_core"))}, **{
         key: {"shape": list(case), **{

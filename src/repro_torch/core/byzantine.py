@@ -205,25 +205,13 @@ def _per_leaf_keys(stacked_grads, key):
     return leaves, prng.split(key, len(leaves))
 
 
-def _layout_specs(stacked_grads):
-    """Each leaf's own spec of the ambient layout (None without one), in
-    JAX's leaf order."""
-    layout = sa.current_layout()
-    leaves, spec = tree_flatten(stacked_grads)
-    order = jtree.leaves(tree_unflatten(list(range(len(leaves))), spec))
-    return [sa.leaf_spec(layout, i) for i in order] if layout is not None \
-        else [None] * len(leaves)
-
-
 @register("random_noise", "report large gaussian noise")
 def random_noise_attack(stacked_grads, byz_mask, key, *,
                         scale: float = 100.0, **_kw):
     leaves, keys = _per_leaf_keys(stacked_grads, key)
-    noisy = [(scale * sa.draw_block(s, leaf,
-                                    lambda shape, k=k: prng.normal(k, shape))
-              ).to(leaf.dtype)
-             for k, leaf, s in zip(keys, leaves,
-                                   _layout_specs(stacked_grads))]
+    specs = sa.leaf_specs(sa.current_layout(), stacked_grads)
+    noisy = [(scale * sa.draw_block(s, leaf, k, "normal")).to(leaf.dtype)
+             for k, leaf, s in zip(keys, leaves, specs)]
     return _where_byz(byz_mask, jtree.unflatten(stacked_grads, noisy),
                       stacked_grads)
 
@@ -257,14 +245,14 @@ def colluding_mimic_attack(stacked_grads, byz_mask, key, *,
 
     def mal(g, k, s):
         mu = torch.mean(g, dim=0, keepdim=True)
-        direction = sa.draw_block(s, mu, lambda shape: prng.normal(k, shape))
+        direction = sa.draw_block(s, mu, k, "normal")
         direction = direction / torch.clamp(norm(direction, s), min=1e-12)
         point = mu + scale * norm(mu, s) * direction.to(g.dtype)
         return point.expand(g.shape).to(g.dtype)
     leaves, keys = _per_leaf_keys(stacked_grads, key)
+    specs = sa.leaf_specs(sa.current_layout(), stacked_grads)
     malicious = jtree.unflatten(
-        stacked_grads, [mal(g, k, s) for g, k, s in zip(
-            leaves, keys, _layout_specs(stacked_grads))])
+        stacked_grads, [mal(g, k, s) for g, k, s in zip(leaves, keys, specs)])
     return _where_byz(byz_mask, malicious, stacked_grads)
 
 

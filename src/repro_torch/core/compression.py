@@ -23,15 +23,21 @@ an exact max, a constant multiply, an IEEE division and a floor), so the
 int8 payload is the same bits on the CPU and on the card, and the same as
 the JAX package's for the same key.  Leaf i of the int8 wire draws from
 ``fold_in(key, i)`` with leaves in JAX's order (``repro_torch.tree``);
-under a blocked ``shard_spec`` shard j of a leaf draws from
+under a blocked 1-D ``shard_spec`` shard j of a leaf draws from
 ``fold_in(fold_in(key, i), j)`` and its scale is the ordered max of the
 per-shard maxima, so each shard's payload is the same on a rank and in
-the virtual oracle.
+the virtual oracle.  On the 2D layout (a ``shard_spec`` with ``layout``,
+the mesh step's) the payload is the reference's unsharded one, as GSPMD
+computes it: each rank's ``q`` block is its cut of the unsharded ``q``
+(its block of the whole leaf's draw, ``shard_aggregation.draw_block``)
+and every scale is the unsharded one (the blocks' maxima chain-maxed
+over the whole mesh).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Callable
 
 import torch
@@ -40,6 +46,7 @@ from torch.utils._pytree import tree_map
 from repro_torch import random as prng
 from repro_torch import tree as jtree
 from repro_torch.core import shard_aggregation as sa
+from repro_torch.models import meshctx
 
 EncodeFn = Callable[..., object]   # stacked pytree -> payload pytree
 DecodeFn = Callable[..., object]   # (payload, like) -> stacked pytree
@@ -184,26 +191,47 @@ def _chain_max(parts):
     return acc
 
 
+def _layout_amax(gf, spec: "sa.ShardSpec"):
+    """(m,) maxima of |g| over a leaf's whole coordinates from its blocks
+    on the 2D layout: each rank's maxima of its block, gathered over the
+    whole mesh in rank order and chain-maxed (``shard_map``), or the same
+    rank by rank on the whole leaf (``virtual``).  Max is exact, so
+    either is the unsharded maximum bit for bit, replicas and all."""
+    dims = tuple(range(1, gf.ndim))
+    ps = spec.layout[0][1:]
+    if spec.mode == "virtual":
+        sizes = dict(spec.mesh_shape)
+        names = [a for a, _ in spec.mesh_shape]
+        return _chain_max(torch.stack([
+            torch.amax(torch.abs(meshctx.cut(
+                gf, ps, dict(zip(names, c)), sizes)), dim=dims)
+            for c in itertools.product(*(range(n)
+                                         for _, n in spec.mesh_shape))]))
+    mesh = sa._layout_mesh(spec)
+    return _chain_max(sa.all_gather(torch.amax(torch.abs(gf), dim=dims),
+                                    mesh.group(mesh.axis_names)[0]))
+
+
 def _int8_encode(stacked, *, key=None, shard_spec=None):
     if key is None:
         raise ValueError(
             "int8_stochastic requires a PRNG key for stochastic rounding "
             "(aggregate_reported threads a per-round key automatically)")
-    if shard_spec is not None and shard_spec.layout is not None:
-        raise NotImplementedError(
-            "the int8_stochastic wire on the 2D layout (per-block keys and "
-            "scales): ROADMAP Queue 1 item 16.14")
-    blocked = shard_spec is not None and shard_spec.blocked
+    layout = shard_spec is not None and shard_spec.layout is not None
+    blocked = shard_spec is not None and shard_spec.blocked and not layout
     q_leaves, s_leaves = [], []
-    for i, g in enumerate(jtree.leaves(stacked)):
+    lspecs = sa.leaf_specs(shard_spec if layout else None, stacked)
+    for i, (g, lspec) in enumerate(zip(jtree.leaves(stacked), lspecs)):
         kleaf = prng.fold_in(key, i)
         gf = g.to(torch.float32)
-        # leaves with param dims are split on their last dim; (m,) leaves
-        # are replicated
+        # 1-D shard modes: leaves with param dims are split on their last
+        # dim, with a key a shard; (m,) leaves are replicated
         mode = shard_spec.mode if blocked and g.ndim > 1 else None
         dims = tuple(range(1, g.ndim))
         if g.ndim == 1:
             amax = torch.abs(gf)                                   # (m,)
+        elif layout:
+            amax = _layout_amax(gf, lspec)
         elif mode == "shard_map":
             amax = _chain_max(sa.all_gather(
                 torch.amax(torch.abs(gf), dim=dims),
@@ -234,7 +262,9 @@ def _int8_encode(stacked, *, key=None, shard_spec=None):
                              tuple(g.shape[:-1]) + (c,))
                 for j in range(s)], dim=-1)
         else:
-            u = prng.uniform(prng.fold_in(kleaf, 0), tuple(g.shape))
+            # the unsharded draw of the whole leaf (the reference's plain
+            # and gspmd branches); on the 2D layout the rank's block of it
+            u = sa.draw_block(lspec, g, prng.fold_in(kleaf, 0), "uniform")
         qv = torch.clamp(torch.floor(y + u), -127.0, 127.0).to(torch.int8)
         q_leaves.append(qv)
         s_leaves.append(scale)

@@ -60,7 +60,10 @@ import math
 
 import torch
 import torch.distributed as dist
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from repro_torch import random as prng
+from repro_torch import tree as jtree
 from repro_torch.models import meshctx
 
 _MODES = ("gspmd", "shard_map", "virtual")
@@ -158,6 +161,18 @@ def leaf_spec(spec: ShardSpec | None, i: int) -> ShardSpec | None:
     return dataclasses.replace(spec, layout=(spec.layout[i],))
 
 
+def leaf_specs(spec: ShardSpec | None, tree) -> list:
+    """Each leaf's own spec (``leaf_spec``) in JAX's leaf order of
+    ``tree`` (``repro_torch.tree.leaves``; a layout lists its specs in
+    ``tree_leaves`` order), or ``spec`` itself for every leaf where it
+    has no layout."""
+    leaves, treespec = tree_flatten(tree)
+    if spec is None or spec.layout is None:
+        return [spec] * len(leaves)
+    order = jtree.leaves(tree_unflatten(list(range(len(leaves))), treespec))
+    return [leaf_spec(spec, i) for i in order]
+
+
 def sq_norm(spec: ShardSpec | None, arrays, *, lead_axes: int = 0):
     """The f32 sum of squares of every array, as one blocked sum where
     ``spec`` is blocked."""
@@ -167,17 +182,29 @@ def sq_norm(spec: ShardSpec | None, arrays, *, lead_axes: int = 0):
         shape=(), lead_axes=lead_axes)
 
 
-def draw_block(spec: ShardSpec | None, block, draw):
-    """``draw(shape)`` of the whole leaf whose block is ``block`` (``spec``
-    that leaf's own, ``leaf_spec``), cut to this rank's block under a
-    ``shard_map`` layout, whole otherwise: each rank draws the unsharded
-    bits and keeps its own."""
+def draw_block(spec: ShardSpec | None, block, key, dist: str):
+    """This rank's block of ``repro_torch.random``'s ``dist`` ("uniform"
+    or "normal") draw from ``key`` of the whole leaf whose block is
+    ``block`` (``spec`` that leaf's own, ``leaf_spec``).  Under a
+    ``shard_map`` layout only the block is computed (``<dist>_at`` at
+    its ``meshctx.block_indices``, ``prng.DRAW_CHUNK`` positions at a
+    time): the same bits as its cut of the whole draw.  Otherwise the
+    leaf is whole (no layout, or the ``virtual`` oracle's whole leaves)
+    and so is the draw."""
+    shape = tuple(block.shape)
     if spec is None or spec.layout is None or spec.mode != "shard_map":
-        return draw(tuple(block.shape))
+        return getattr(prng, dist)(key, shape)
     mesh = _layout_mesh(spec)
     s = spec.layout[0][1:]
-    whole = draw(meshctx.whole_shape(tuple(block.shape), s, mesh.shape))
-    return meshctx.cut(whole, s, mesh.coords, mesh.shape)
+    whole = meshctx.whole_shape(shape, s, mesh.shape)
+    draw_at = getattr(prng, dist + "_at")
+    n = math.prod(shape)
+    out = torch.empty(n, dtype=torch.float32, device=block.device)
+    for lo in range(0, n, prng.DRAW_CHUNK):
+        hi = min(lo + prng.DRAW_CHUNK, n)
+        out[lo:hi] = draw_at(key, whole, meshctx.block_indices(
+            whole, s, mesh.coords, mesh.shape, lo, hi, device=block.device))
+    return out.reshape(shape)
 
 
 def _layout_mesh(spec: ShardSpec):

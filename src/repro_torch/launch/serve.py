@@ -49,15 +49,18 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def generate(params, cfg, prompts, new_tokens: int):
+def generate(params, cfg, prompts, new_tokens: int, *,
+             batch: int | None = None):
     """Greedy decoding.  prompts: (B, P) on the params' device.  The prompt
     goes through P decode steps, then ``new_tokens - 1`` more steps decode.
     Returns (tokens (B, new_tokens), logits after the prompt (B, 1, V),
     {"prefill_s", "decode_s"}).  Under an ambient model mesh ``params``
     are the rank's (``sharding.local_params``) and ``prompts`` its rows
-    (``sharding.local_rows``) of B |data| prompts; the rank decodes on its
-    block of the state (``sharding.local_decode_state``) and returns its
-    rows' tokens and logits, the same on every model rank."""
+    (``sharding.local_rows``) of ``batch`` prompts (default B |data|);
+    where the data axes do not divide ``batch`` those rows are all of
+    them, the same on every rank.  The rank decodes on its block of the
+    state (``sharding.local_decode_state``) and returns its rows' tokens
+    and logits, the same on every model rank."""
     B, P = prompts.shape
     dev = prompts.device
     step = steps.make_serve_step(cfg)
@@ -66,7 +69,12 @@ def generate(params, cfg, prompts, new_tokens: int):
         state = model_lib.init_decode_state(cfg, B, P + new_tokens,
                                             device=dev)
     else:
-        rows = B * meshctx.data_size(mesh)
+        rows = B * meshctx.data_size(mesh) if batch is None else batch
+        if sharding.block_shape((rows,), sharding.serve_batch_spec(
+                mesh, rows), mesh) != (B,):
+            raise ValueError(
+                f"{B} prompt rows on a rank are not its serve rows of a "
+                f"batch of {rows} on {meshctx.data_size(mesh)} data ranks")
         state = sharding.local_decode_state(
             model_lib.init_decode_state(cfg, rows, P + new_tokens,
                                         device=dev), mesh, cfg, rows)

@@ -34,9 +34,11 @@ gathers once a step and reduce-scatters once a group.  ``local_batch`` cuts a
 prefill's (B, T) batch to the rank's block, ``local_train_batch`` a
 train step's (k, B/k, T): T over ``model`` for the dense, MoE and audio
 families where the sequence is sequence-parallel, whole below the
-threshold and for ssm, hybrid and vlm (``_seq_entry``).  ``local_rows``
+threshold and for ssm, hybrid and vlm (``_seq_entry``); a serve
+batch's rows the data axes do not divide stay whole on every data rank
+(``serve_batch_spec``), a train batch's are refused.  ``local_rows``
 cuts a serve batch's rows, ``local_decode_state`` a decode state
-(``decode_state_shardings``).
+(``decode_state_specs``).
 """
 
 from __future__ import annotations
@@ -468,35 +470,12 @@ def _seq_entry(t, rows_dim: int, mesh, cfg: ModelConfig):
     return "model" if meshctx.sp_applicable(mesh, rows, seq) else None
 
 
-def _check_memory_rows(batch, mesh, cfg: ModelConfig, dim: int):
-    """Refuse an encoder memory whose rows the data axes do not divide
-    (the reference's condition for its sequence-parallel
-    cross-attention)."""
-    if cfg.family == "audio":
-        rows = batch["frames"].shape[dim]
-        if rows % mesh_lib.data_size(mesh) != 0:
-            raise NotImplementedError(
-                f"an encoder memory of {rows} rows on "
-                f"{mesh_lib.data_size(mesh)} data ranks: the cross-attention "
-                "takes the memory cut over the data axes (memory.shape[0] % "
-                "data == 0)")
-
-
-def _check_rows(rows: int, mesh):
-    """Refuse rows the data axes do not divide: the reference keeps them
-    whole on every data rank (``serve_batch_spec``'s ``P(None)``), a
-    layout of its pod dry-run (ROADMAP Queue 1 item 17)."""
-    if rows % mesh_lib.data_size(mesh) != 0:
-        raise NotImplementedError(
-            f"{rows} rows on {mesh_lib.data_size(mesh)} data ranks: rows "
-            "whole on every data rank are not ported (ROADMAP Queue 1 item "
-            "17)")
-
-
-def _cut_batch(batch, mesh, cfg: ModelConfig, rows_spec: tuple):
+def _cut_batch(batch, mesh, cfg: ModelConfig, rows_spec: tuple,
+               rows_whole: bool = False):
     """The rank's ``meshctx.Block`` of ``batch``: each leaf's dims up to
     its rows by ``rows_spec``, its sequence dim after them by
-    ``_seq_entry``, and the names of the leaves cut there recorded."""
+    ``_seq_entry``, and the names of the leaves cut there recorded, and
+    whether the rows are whole."""
     out, cut = {}, []
     for name, t in batch.items():
         seq = _seq_entry(t, len(rows_spec) - 1, mesh, cfg)
@@ -505,33 +484,42 @@ def _cut_batch(batch, mesh, cfg: ModelConfig, rows_spec: tuple):
                                 mesh.coords, mesh.shape)
         if seq is not None:
             cut.append(name)
-    return meshctx.Block(out, cut)
+    return meshctx.Block(out, cut, rows_whole)
 
 
 def local_batch(batch, mesh, cfg: ModelConfig):
-    """The rank's block of a global batch: rows over the data axes and
-    each sequence dim over ``_seq_entry`` (whole below the threshold:
-    the block is (B/data, T)), a ``meshctx.Block`` that records which
-    leaves it cut in T, the layout the model reads."""
-    _check_memory_rows(batch, mesh, cfg, 0)
-    _check_rows(batch["tokens"].shape[0], mesh)
-    return _cut_batch(batch, mesh, cfg,
-                      (_fsdp_entry(mesh_lib.data_axes(mesh)),))
+    """The rank's block of a global serve batch: rows by
+    ``serve_batch_spec`` (over the data axes, or whole on every data rank
+    where they do not divide them) and each sequence dim over
+    ``_seq_entry`` (whole below the threshold and with whole rows: the
+    block is (B/data, T) or (B, T)), a ``meshctx.Block`` that records
+    which leaves it cut in T and whether its rows are whole, the layout
+    the model reads."""
+    whole = batch["tokens"].shape[0] % mesh_lib.data_size(mesh) != 0
+    spec = (None,) if whole else (_fsdp_entry(mesh_lib.data_axes(mesh)),)
+    return _cut_batch(batch, mesh, cfg, spec, rows_whole=whole)
 
 
 def local_train_batch(batch, mesh, cfg: ModelConfig):
     """The rank's block of a train step's (k, B/k, T) batch: B/k over the
     data axes (``train_batch_spec``) and T over ``_seq_entry``, a
-    ``meshctx.Block`` as ``local_batch``'s."""
-    _check_memory_rows(batch, mesh, cfg, 1)
-    _check_rows(batch["tokens"].shape[1], mesh)
+    ``meshctx.Block`` as ``local_batch``'s.  Rows the data axes do not
+    divide are refused: the reference's ``train_batch_spec`` always cuts
+    them."""
+    rows = batch["tokens"].shape[1]
+    if rows % mesh_lib.data_size(mesh) != 0:
+        raise NotImplementedError(
+            f"a train batch of {rows} rows a group on "
+            f"{mesh_lib.data_size(mesh)} data ranks: the reference's "
+            "train_batch_spec cuts a train batch's rows over the data axes, "
+            "so they must divide them")
     return _cut_batch(batch, mesh, cfg, train_batch_spec(mesh))
 
 
 def local_rows(t, mesh):
     """The rank's rows of a serve batch's (B, ...) leaf
-    (``serve_batch_spec``: over the data axes)."""
-    _check_rows(t.shape[0], mesh)
+    (``serve_batch_spec``: over the data axes, or all of them where the
+    data axes do not divide B)."""
     return meshctx.cut(t, serve_batch_spec(mesh, t.shape[0])
                        + (None,) * (t.ndim - 1), mesh.coords, mesh.shape)
 
@@ -557,16 +545,23 @@ def _decode_dims(path, ndim: int) -> tuple[int, int]:
     raise ValueError(f"no decode state leaf at {path}")
 
 
-def local_decode_state(state, mesh, cfg: ModelConfig, batch: int):
-    """The rank's block of a decode state (``model.init_decode_state``'s,
-    for ``batch`` rows), cut by ``decode_state_shardings`` through
-    ``meshctx.cut``.  The port's mesh decode takes the layout
-    ``_decode_dims`` names; a state the reference's rules cut otherwise
-    (rows the data axes do not divide, a cache whose slots |model| does
-    not divide, Mamba2 heads it does not divide) is refused."""
-    _check_rows(batch, mesh)
+def decode_state_specs(state, mesh, cfg: ModelConfig, batch: int):
+    """The specs ``local_decode_state`` cuts a decode state (for ``batch``
+    rows) by, the layout the port's mesh decode takes: the batch dim and
+    the dim ``_decode_dims`` names over ``model``.  Where the data axes
+    divide the rows these are the reference's ``decode_state_shardings``,
+    rows over the data axes; a state its rules cut otherwise (a cache
+    whose slots |model| does not divide, Mamba2 heads it does not divide)
+    is refused.  Where they do not divide them the rows are whole on
+    every data rank (``serve_batch_spec``'s ``(None,)``) and the same dim
+    is cut over ``model``, refused where |model| does not divide it: the
+    reference's rule, finding no batch dim there, puts ``model`` on the
+    first dim it divides (a KV cache's layers, Zamba2's blocks of a
+    group), a storage layout for GSPMD to gather from, which the port's
+    decode does not hold."""
     specs = decode_state_shardings(state, mesh, cfg, batch)
     b_axis = serve_batch_spec(mesh, batch)[0]
+    model_n = _axes_size(mesh, "model") if "model" in mesh.axis_names else 1
 
     def cuts(spec):
         """The entries that cut: over axes of more than one rank."""
@@ -577,15 +572,30 @@ def local_decode_state(state, mesh, cfg: ModelConfig, batch: int):
         b, m = _decode_dims(path, t.ndim)
         want = [None] * t.ndim
         want[b], want[m] = b_axis, "model"
-        if cuts(spec) != cuts(want):
+        if b_axis is None:
+            ok = _divides(t.shape[m], model_n)
+            spec = tuple(want)
+        else:
+            ok = cuts(spec) == cuts(want)
+        if not ok:
             raise NotImplementedError(
                 f"decode state {'/'.join(map(str, path))} "
                 f"{tuple(t.shape)} cut as {spec} under the mesh "
-                f"{mesh.shape}: the mesh decode takes {tuple(want)} (other "
-                "layouts: ROADMAP Queue 1 item 17)")
-        return meshctx.cut(t, spec, mesh.coords, mesh.shape)
+                f"{mesh.shape}: the mesh decode takes {tuple(want)} with "
+                f"dim {m} over model (other layouts: ROADMAP Queue 1 item "
+                "16.17)")
+        return tuple(spec)
 
     return map_specs(check, state, specs)
+
+
+def local_decode_state(state, mesh, cfg: ModelConfig, batch: int):
+    """The rank's block of a decode state (``model.init_decode_state``'s,
+    for ``batch`` rows), cut by ``decode_state_specs`` through
+    ``meshctx.cut``; ``gather_tree`` with the same specs joins it back."""
+    specs = decode_state_specs(state, mesh, cfg, batch)
+    return map_specs(lambda _, t, s: meshctx.cut(t, s, mesh.coords,
+                                                 mesh.shape), state, specs)
 
 
 # ---------------------------------------------------------------------------

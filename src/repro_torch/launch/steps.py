@@ -24,7 +24,9 @@ step, each group's gradient reduce-scattered into the storage blocks,
 and the stacked (k, *block) gradients are attacked and aggregated on the
 2D layout (``shard_aggregation.layout_spec``) where the spec is
 partitioned, or gathered whole first, where it is not, so that the round
-kernel aggregates them on every rank.
+kernel aggregates them on every rank.  A report wire encodes them in that
+layout: the ``int8_stochastic`` payload is the reference's unsharded one
+either way (on the layout, each rank's cut of it).
 
 The serve steps (``make_prefill_step``, ``make_serve_step``) run under
 ``torch.no_grad``.  A step sets the port's matmul precision
@@ -109,12 +111,8 @@ class _MeshLayout:
     ``gspmd`` spec (``grad_shard_spec``, ``num_shards`` 1 or |model|) or
     None.  Any other spec would not describe the blocks: refused."""
 
-    def __init__(self, cfg, rc, mesh, grad_shardings, shard_spec,
+    def __init__(self, cfg, mesh, grad_shardings, shard_spec,
                  param_shardings):
-        if rc.compression == "int8_stochastic":
-            raise NotImplementedError(
-                "the int8_stochastic wire on the mesh step (per-block keys "
-                "and scales): ROADMAP Queue 1 item 16.14")
         self.mesh = mesh
         if param_shardings is None:
             param_shardings = sharding.param_shardings(
@@ -214,7 +212,7 @@ def make_group_train_step(cfg: ModelConfig, rc: RobustConfig, optimizer, *,
             raise ValueError(
                 "grad_shardings lays the stacked gradients out on a model "
                 "mesh: build the step under meshctx.set_mesh")
-        mesh_layout = _MeshLayout(cfg, rc, mesh, grad_shardings, shard_spec,
+        mesh_layout = _MeshLayout(cfg, mesh, grad_shardings, shard_spec,
                                   param_shardings)
     k = rc.num_workers
     attack = byzantine.get_attack(rc.attack)

@@ -29,9 +29,9 @@ reference's shard_map body:
 over ``model`` in T (sequence-parallel, and outside any layout) or whole
 on every model rank (below the threshold, and decode).  ``Block`` is a
 rank's block of a batch with the names of its leaves whose sequence dim
-is cut over ``model``, recorded where the batch is cut
-(``launch.sharding.local_batch``): the model reads the stream's layout
-from it, never from a block's shape.
+is cut over ``model`` and whether its rows are whole, recorded where the
+batch is cut (``launch.sharding.local_batch``): the model reads the
+stream's layout from it, never from a block's shape.
 
 Every cross-rank sum is taken in rank order: the parts are exchanged
 (``all_gather``, or ``all_to_all_single`` for ``psum_scatter``) and added
@@ -53,7 +53,9 @@ The mesh also carries the one registry of axis groups:
 
 Layouts: a spec tuple (one entry a dim: None, an axis, or a tuple of axes
 in mesh order) cuts a whole tensor into the blocks ``cut`` gives each
-rank; ``launch.sharding.gather_tree`` joins the blocks back.
+rank; ``launch.sharding.gather_tree`` joins the blocks back;
+``block_indices`` names a block's elements by their flat indices in the
+whole tensor (a sharded random draw computes only those).
 ``param_sums_deferred`` hands the gradient sums that model code takes at
 a leaf's entry (``pvary``) to a caller that takes them itself: the
 trainer's storage layout reduce-scatters them (``launch.sharding``).
@@ -293,18 +295,22 @@ def stream_is_cut() -> bool:
 
 class Block(dict):
     """A rank's block of a batch (``launch.sharding.local_batch``): its
-    leaves, and ``cut``, the names of those whose sequence dim (after the
-    rows) is cut over ``model``.  A pytree node that keeps ``cut``, so
-    ``tree_map`` over the block (a group's rows, a microbatch) keeps it."""
+    leaves, ``cut``, the names of those whose sequence dim (after the
+    rows) is cut over ``model``, and ``rows_whole``, whether its rows are
+    the whole batch (rows the data axes do not divide: the reference's
+    ``serve_batch_spec`` keeps them whole on every data rank) rather than
+    the data shard's.  A pytree node that keeps both, so ``tree_map``
+    over the block (a group's rows, a microbatch) keeps them."""
 
-    def __init__(self, leaves=(), cut=()):
+    def __init__(self, leaves=(), cut=(), rows_whole: bool = False):
         super().__init__(leaves)
         self.cut = frozenset(cut)
+        self.rows_whole = bool(rows_whole)
 
 
 _pytree.register_pytree_node(
-    Block, lambda b: (list(b.values()), (tuple(b), b.cut)),
-    lambda values, ctx: Block(zip(ctx[0], values), ctx[1]),
+    Block, lambda b: (list(b.values()), (tuple(b), b.cut, b.rows_whole)),
+    lambda values, ctx: Block(zip(ctx[0], values), ctx[1], ctx[2]),
     serialized_type_name="repro_torch.models.meshctx.Block")
 
 
@@ -748,6 +754,38 @@ def whole_shape(block_shape, spec, sizes) -> tuple:
         for a in entry_axes(entry):
             out[lead + d] *= sizes[a]
     return tuple(out)
+
+
+def block_indices(shape, spec, coords, sizes, start: int = 0,
+                  stop: int | None = None, *, device=None):
+    """The flat indices, in the whole ``shape``'s row-major order, of the
+    block ``cut(t, spec, coords, sizes)`` gives, at the block's own
+    row-major positions ``start`` to ``stop`` (default: all of it): an
+    int64 tensor of ``stop - start``."""
+    shape = tuple(int(s) for s in shape)
+    lead = len(shape) - len(spec)
+    if lead < 0:
+        raise ValueError(f"spec {spec} has more dims than {shape}")
+    dims, offs = list(shape), [0] * len(shape)
+    for d, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        if not axes:
+            continue
+        idx, n = block_index(axes, coords, sizes)
+        if shape[lead + d] % n != 0:
+            raise ValueError(f"dim {lead + d} of {shape} does not split "
+                             f"into {n} blocks over {axes}")
+        dims[lead + d] = shape[lead + d] // n
+        offs[lead + d] = idx * dims[lead + d]
+    stop = math.prod(dims) if stop is None else stop
+    pos = torch.arange(start, stop, dtype=torch.int64, device=device)
+    flat = torch.zeros_like(pos)
+    stride = 1
+    for d in reversed(range(len(shape))):
+        flat += (pos % dims[d] + offs[d]) * stride
+        pos = pos // dims[d]
+        stride *= shape[d]
+    return flat
 
 
 def one_card_turns(mesh, fn, device):

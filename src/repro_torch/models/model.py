@@ -51,7 +51,13 @@ fallback computes it: ``_forward`` says so to the regions through
 kernel's full launch; the SwiGLU's F-slices psum'd; the MoE's uncut
 branch), and Zamba2's shared block runs on the whole stream.  Decode
 (``decode_step``) takes the rank's rows and its block of the decode state
-(``launch.sharding.local_decode_state``).
+(``launch.sharding.local_decode_state``).  Rows the data axes do not
+divide are whole on every data rank (the reference's ``serve_batch_spec``
+``(None,)``): the stream is then below the threshold whatever T is
+(``sp_applicable`` needs B % data == 0), every rank computes the whole
+batch as one process does, and the block records it (``Block.rows_whole``:
+``stream_shape`` reads the rows as the whole batch's).  Such a block
+serves; the loss refuses it (a train batch's rows are cut).
 
 A stream that every model rank holds whole is its copies: the loss counts
 each rank's tokens, and a value's gradient is the sum of its copies'
@@ -244,16 +250,26 @@ T_CUT_FAMILIES = ("dense", "moe", "audio")
 def stream_shape(cfg: ModelConfig, batch, mesh) -> tuple[int, int]:
     """The global (B, T) of the residual stream from a rank's block of the
     batch (``launch.sharding.local_batch``): the tokens' rows over the
-    data axes; T over ``model`` where the block records its tokens cut
-    (dense, MoE, audio above the threshold), else whole (below it, ssm,
-    hybrid), or the patches and tokens joined (vlm)."""
-    B = batch["tokens"].shape[0] * meshctx.data_size(mesh)
+    data axes, or the whole batch where the block records its rows whole;
+    T over ``model`` where the block records its tokens cut (dense, MoE,
+    audio above the threshold), else whole (below it, ssm, hybrid), or
+    the patches and tokens joined (vlm)."""
+    B = batch["tokens"].shape[0]
+    if not _rows_whole(batch):
+        B *= meshctx.data_size(mesh)
     t = batch["tokens"].shape[1]
     if cfg.family == "vlm":
         return B, t + batch["patches"].shape[1]
     if _seq_cut(cfg, batch, "tokens"):
         t *= meshctx.model_size(mesh)
     return B, t
+
+
+def _rows_whole(batch) -> bool:
+    """Whether a rank's block holds the whole batch's rows (rows the data
+    axes do not divide, as ``launch.sharding.local_batch`` records it),
+    not the data shard's."""
+    return isinstance(batch, meshctx.Block) and batch.rows_whole
 
 
 def _seq_cut(cfg: ModelConfig, batch, name: str) -> bool:
@@ -418,6 +434,11 @@ def loss_fn(params, batch, cfg: ModelConfig):
                                        batch["labels"],
                                        vocab_chunk=cfg.loss_chunk)
         return ce + aux
+    if _rows_whole(batch):
+        raise NotImplementedError(
+            "a loss on rows whole on every data rank: the reference's "
+            "train_batch_spec cuts a train batch's rows over the data axes "
+            "(launch.sharding.local_train_batch); whole rows serve")
     params = _enter_mesh(params, cfg, batch, mesh)
     h, aux = _forward(params, cfg, batch, plain=True)
     labels = batch["labels"]

@@ -220,7 +220,12 @@ def _apply_expert_parallel(params, spec: MoESpec, x, mesh, *,
     ``x`` is (B/data, T/model, D), the rank's block of a sequence-parallel
     stream, or, where the stream is not cut over ``model``
     (``meshctx.stream_is_cut``: decode, and prefill below the threshold),
-    the data shard's rows (B/data, T, D), the same on every model rank.
+    the data shard's rows (B/data, T, D), the same on every model rank,
+    or the whole batch's (B, T, D) on every rank where the data axes do
+    not divide B (the reference routes those densely: here the buffer's
+    capacity comes from the same B x T tokens, so the same assignments
+    are kept, and the statistics' psum over the data axes counts every
+    data rank's copy in the sums and in their token count alike).
     ``params``: the router whole; the experts the rank's E/|model|
     (E/model, D, F) slices, their FSDP dim (``fsdp_layout``) further
     split over the data axes when it divides (``fsdp_cut``: whole in the

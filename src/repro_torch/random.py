@@ -14,6 +14,14 @@ is masked to 32 bits, so the hash is exact integer arithmetic and gives
 the same bits on the CPU and on the card.  Draws land on the key's device.
 ``uniform``, ``randint`` and ``bernoulli`` are bit-exact; ``normal`` goes through ``torch.erfinv``, which
 differs from XLA's ``erf_inv`` by a few ulps.
+
+``bits_at``, ``uniform_at`` and ``normal_at`` give the words (or the
+uniforms, the normals) at given flat indices of a draw of the whole
+shape, without the whole draw: word i of ``bits(key, (n,))`` is one
+output of the hash of one pair of counters (``_words_at``), so a rank's
+block of a sharded draw costs its own size.  They work ``DRAW_CHUNK``
+indices at a time, and whole draws ``DRAW_CHUNK`` pairs of counters at a
+time, which bounds their int64 temporaries.
 """
 
 from __future__ import annotations
@@ -84,37 +92,132 @@ def split(key, num: int = 2):
     return threefry_2x32(key, _iota(2 * num, key.device)).reshape(num, 2)
 
 
-def bits(key, shape):
-    """``jax.random.bits`` with 32-bit width: int64 tensor of uint32s."""
-    shape = tuple(shape)
-    size = math.prod(shape)
+# pairs of counters (whole draws) or indices (``*_at``) a chunk: each
+# int64 temporary of the hash is 32 MiB, a dozen of them live at once
+DRAW_CHUNK = 1 << 22
+
+
+def _check_size(size: int) -> None:
     if size >= _MASK:
         raise NotImplementedError(
             "more than 2**32 - 1 random words in one draw")
-    return threefry_2x32(key, _iota(size, key.device)).reshape(shape)
+
+
+def _draw(key, shape, fn):
+    """``fn(words)`` of ``bits(key, shape)``, ``DRAW_CHUNK`` pairs of
+    counters at a time: ``threefry_2x32``'s pair j (counters j and j + h,
+    h = ceil(n / 2), a partner equal to n the odd count's zero pad) gives
+    words j and j + h, so a draw holds its output and one chunk's
+    temporaries, never the whole count's."""
+    shape = tuple(shape)
+    n = math.prod(shape)
+    _check_size(n)
+    half = (n + 1) // 2
+    out = None
+    for lo in range(0, half, DRAW_CHUNK):
+        hi = min(lo + DRAW_CHUNK, half)
+        x0 = torch.arange(lo, hi, dtype=torch.int64, device=key.device)
+        x1 = x0 + half
+        x1 = torch.where(x1 == n, torch.zeros_like(x1), x1)
+        y0, y1 = _threefry2x32(key[0], key[1], x0, x1)
+        first, second = fn(y0), fn(y1[:n - half - lo])
+        if out is None:
+            out = torch.empty(n, dtype=first.dtype, device=first.device)
+        out[lo:hi] = first
+        out[half + lo:half + lo + second.numel()] = second
+    if out is None:
+        out = fn(torch.zeros(0, dtype=torch.int64, device=key.device))
+    return out.reshape(shape)
+
+
+def bits(key, shape):
+    """``jax.random.bits`` with 32-bit width: int64 tensor of uint32s."""
+    return _draw(key, shape, lambda w: w)
+
+
+def _words_at(key, n: int, index):
+    """Words ``index`` (flat int64, all below ``n``) of ``bits(key,
+    (n,))``.  ``threefry_2x32`` pairs counter j with counter j + h (h =
+    ceil(n / 2); a partner equal to n is the odd count's zero pad): word
+    i < h is output 0 of the pair (i, i + h), word i >= h output 1 of the
+    pair (i - h, i)."""
+    half = (n + 1) // 2
+    first = index < half
+    x0 = torch.where(first, index, index - half)
+    x1 = torch.where(first, index + half, index)
+    x1 = torch.where(x1 == n, torch.zeros_like(x1), x1)
+    y0, y1 = _threefry2x32(key[0], key[1], x0, x1)
+    return torch.where(first, y0, y1)
+
+
+def _draw_at(key, shape, index, fn):
+    """``fn(words)`` at the flat ``index`` of a draw of ``shape``, taken
+    ``DRAW_CHUNK`` indices at a time into an output of ``index``'s
+    shape."""
+    n = math.prod(tuple(shape))
+    _check_size(n)
+    flat = index.reshape(-1).to(torch.int64)
+    out = None
+    for lo in range(0, flat.numel(), DRAW_CHUNK):
+        part = fn(_words_at(key, n, flat[lo:lo + DRAW_CHUNK]))
+        if out is None:
+            out = torch.empty(flat.numel(), dtype=part.dtype,
+                              device=part.device)
+        out[lo:lo + part.numel()] = part
+    if out is None:
+        out = fn(flat)
+    return out.reshape(index.shape)
+
+
+def bits_at(key, shape, index):
+    """``bits(key, shape)`` at the flat (row-major) ``index`` (an int64
+    tensor; the result has its shape), without the whole draw."""
+    return _draw_at(key, shape, index, lambda w: w)
 
 
 def _f32(x, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def uniform(key, shape, minval=0.0, maxval=1.0):
-    """``jax.random.uniform`` in float32: 23 random mantissa bits under the
-    exponent of 1.0, minus 1, scaled to [minval, maxval)."""
-    word = (bits(key, shape) >> 9) | 0x3F800000
+def _uniform_of(words, minval, maxval):
+    """Uniform float32s in [minval, maxval) from 32-bit words: 23 random
+    mantissa bits under the exponent of 1.0, minus 1, scaled."""
+    word = (words >> 9) | 0x3F800000
     floats = word.to(torch.int32).view(torch.float32) - 1.0
-    lo, hi = _f32(minval, key.device), _f32(maxval, key.device)
+    lo, hi = _f32(minval, words.device), _f32(maxval, words.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def uniform(key, shape, minval=0.0, maxval=1.0):
+    """``jax.random.uniform`` in float32."""
+    return _draw(key, shape, lambda w: _uniform_of(w, minval, maxval))
+
+
+def uniform_at(key, shape, index, minval=0.0, maxval=1.0):
+    """``uniform(key, shape, ...)`` at the flat ``index``, without the
+    whole draw."""
+    return _draw_at(key, shape, index,
+                    lambda w: _uniform_of(w, minval, maxval))
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2 = float(np.float32(np.sqrt(2)))
 
 
+def _normal_of(words):
+    u = _uniform_of(words, _NORMAL_LO, 1.0)
+    return _f32(_SQRT2, words.device) * torch.erfinv(u)
+
+
 def normal(key, shape):
     """``jax.random.normal`` in float32: sqrt(2) * erfinv(U(-1+ulp, 1))."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0)
-    return _f32(_SQRT2, key.device) * torch.erfinv(u)
+    return _draw(key, shape, _normal_of)
+
+
+def normal_at(key, shape, index):
+    """``normal(key, shape)`` at the flat ``index``, without the whole
+    draw."""
+    return _draw_at(key, shape, index, _normal_of)
 
 
 def _wrap_int32(x):

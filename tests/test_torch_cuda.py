@@ -1739,3 +1739,19 @@ def test_audio_and_vlm_prefill_on_the_card_matches_the_cpu(cuda, arch):
                                       4)
     torch.testing.assert_close(logits.cpu(), logits_cpu, atol=1e-4,
                                rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 4096, 1_000_003])
+def test_draws_at_indices_on_the_card_are_the_cpu_bits(cuda, n):
+    """``random.bits_at`` / ``uniform_at`` on the card at random indices
+    (a chunk edge among them) are the CPU's whole draw there, bit for
+    bit: the hash is exact integer arithmetic on either device."""
+    gen = np.random.default_rng(n)
+    idx = torch.as_tensor(gen.integers(0, n, size=min(n, 5000)))
+    key = prng.PRNGKey(n % 97)
+    whole = prng.bits(key, (n,))
+    on_card = prng.bits_at(key.to(cuda), (n,), idx.to(cuda))
+    assert torch.equal(on_card.cpu(), whole[idx])
+    assert torch.equal(prng.uniform_at(key.to(cuda), (n,), idx.to(cuda)).cpu(),
+                       prng.uniform(key, (n,))[idx])

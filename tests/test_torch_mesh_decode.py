@@ -32,7 +32,11 @@ states within 1e-5 of the reference's mesh prefill and of one process;
 the loss within 1e-5 and every gradient within 1e-4 of its max|g| of
 one process; the train step's losses and aggregate norm within 1e-5
 and its params within 1e-5 of one process's.  A dense batch that is not
-such a block is refused under a mesh.  Two planted faults must miss: softmax parts summed
+such a block is refused under a mesh.  Rows the data axes do not divide (B = 1
+and 3 on (2, 2), each family): whole on every data rank, the decode's logits
+and the prefill's hidden states within 1e-5 of the reference's own mesh run
+and of one process, the same bits on every rank, and H2O served through
+``serve.generate`` at B = 1.  Two planted faults must miss: softmax parts summed
 without the global max's rescale, and a Mamba2 decode that hands its
 heads the rank's B and C block in place of the gathered channels.
 """
@@ -81,7 +85,11 @@ PREFILL_IDS = [f"{n}/{m}" for n in FAMILIES for m in MESHES] \
     + ["h2o_band/1x4", "seamless_band/1x4"]
 FAULTS = {"no_rescale": "h2o_ring/1x4", "no_gather": "zamba2/1x4"}
 GENERATE = {"generate/h2o/2x2": "h2o", "generate/zamba2/1x4": "zamba2",
-            "generate/granite/2x2": "granite"}
+            "generate/granite/2x2": "granite",
+            "generate/h2o/2x2/b1": "h2o"}
+# rows the data axes do not divide: whole on every data rank of (2, 2)
+WHOLE_ROWS = (1, 3)
+WHOLE_IDS = [f"{n}/2x2/b{b}" for n in FAMILIES for b in WHOLE_ROWS]
 
 
 @pytest.fixture(autouse=True)
@@ -156,10 +164,20 @@ def _cases(inputs):
         cases[f"fault/{fault}"] = dict(cases[f"decode/{cid}"], fault=fault)
     for cid, name in GENERATE.items():
         arch, ov = DECODE[name]
+        rows = int(cid.split("/b")[1]) if "/b" in cid else ROWS
         cases[cid] = dict(arch=arch, overrides=ov, kind="generate",
                           family=name,
                           params=inputs[name][1], mesh=cid.split("/")[2],
-                          prompts=inputs[name][2][:, :8], new_tokens=8)
+                          prompts=inputs[name][2][:rows, :8], new_tokens=8)
+    for wid in WHOLE_IDS:
+        name, b = wid.split("/")[0], int(wid.split("/b")[1])
+        decode = cases[f"decode/{name}/2x2"]
+        cases[f"decode/{wid}"] = dict(decode, tokens=decode["tokens"][:b])
+        if "memory" in decode:
+            cases[f"decode/{wid}"]["memory"] = decode["memory"][:b]
+        prefill = cases[f"prefill/{name}/2x2"]
+        cases[f"prefill/{wid}"] = dict(prefill, batch={
+            k: v[:b] for k, v in prefill["batch"].items()})
     return cases
 
 
@@ -185,6 +203,9 @@ def _one_process(inputs, cases):
             batch = dr.as_batch(case["batch"])
             with torch.no_grad():
                 h = model.prefill(params, cfg, batch)
+            if cid.endswith(tuple(f"/b{b}" for b in WHOLE_ROWS)):
+                out[cid] = (h,)
+                continue
             params = tree_map(lambda t: t.requires_grad_(), params)
             loss = model.loss_fn(params, batch, cfg)
             loss.backward()
@@ -285,6 +306,14 @@ def _one_decode(one, name):
     return one[f"decode/{name}/{MESHES[0]}"]
 
 
+def _whole(per_rank, cid, key):
+    """A result every rank holds whole (rows the data axes do not divide):
+    the same bits on every rank."""
+    parts = [res[cid][key] for res in per_rank]
+    assert all(torch.equal(p, parts[0]) for p in parts), cid
+    return parts[0].numpy()
+
+
 # ---------------------------------------------------------------------------
 # decode
 
@@ -341,8 +370,44 @@ def test_generate_gives_one_process_tokens(runs, cid):
     layout: Granite's experts hold their FSDP dim whole) and state block:
     its rows' greedy tokens are one process's."""
     _, per_rank, _, one = runs
-    got = _rows(per_rank, cid, "tokens", cid.split("/")[2])
+    got = (_whole(per_rank, cid, "tokens") if "/b" in cid
+           else _rows(per_rank, cid, "tokens", cid.split("/")[2]))
     assert np.array_equal(got, one[cid].numpy())
+
+
+# ---------------------------------------------------------------------------
+# rows the data axes do not divide: whole on every data rank
+
+@pytest.mark.parametrize("wid", WHOLE_IDS)
+def test_whole_rows_decode_matches_the_reference_and_one_process(runs, wid):
+    """B = 1 and B = 3 on (2, 2): every rank decodes all B rows (the
+    reference's ``serve_batch_spec`` ``(None,)``), the same bits on every
+    rank; the logits of every step within 1e-5 of max|logits| of the
+    reference's own mesh decode and of one process, and the state's
+    blocks gathered whole within 1e-5 of one process's."""
+    _, per_rank, reference, one = runs
+    cid = f"decode/{wid}"
+    got = _whole(per_rank, cid, "logits")
+    want_ref = reference[cid]
+    want_one = one[cid][0].numpy()
+    assert np.isfinite(got).all() and got.shape == want_ref.shape
+    for want in (want_ref, want_one):
+        errs = [_rel_err(got[:, t], want[:, t]) for t in range(STEPS)]
+        assert max(errs) <= 1e-5, errs
+    state = tree_leaves(per_rank[0][cid]["state"])
+    for g, w in zip(state, tree_leaves(one[cid][1])):
+        assert _rel_err(g.numpy(), w.numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("wid", WHOLE_IDS)
+def test_whole_rows_prefill_matches_the_reference_and_one_process(runs,
+                                                                  wid):
+    _, per_rank, reference, one = runs
+    cid = f"prefill/{wid}"
+    got = _whole(per_rank, cid, "h")
+    assert np.isfinite(got).all()
+    assert _rel_err(got, reference[cid]) <= 1e-5
+    assert _rel_err(got, one[cid][0].numpy()) <= 1e-5
 
 
 # ---------------------------------------------------------------------------
@@ -425,10 +490,55 @@ def _mesh(shape):
 def test_other_decode_layouts_are_refused(arch, overrides, rows, max_len,
                                           match):
     """A cache of 6 slots on 4 model ranks (the reference's rule cuts its
-    head dim), rows the data axes do not divide, and Mamba2 heads |model|
-    does not divide are refused by name, never decoded."""
+    head dim) and Mamba2 heads |model| does not divide are refused by
+    name, never decoded.  Rows the data axes do not divide, once refused
+    too, are taken: whole on every data rank, the cache's slots over
+    ``model`` (the reference's rule, finding no batch dim, would cut the
+    layers)."""
     cfg = dr.cfg_of({"arch": arch, "overrides": overrides})
     mesh = _mesh((2, 2) if rows == 3 else (1, 4))
     state = model.init_decode_state(cfg, rows, max_len, device="cpu")
+    if match == "rows":
+        specs = sharding.decode_state_specs(state, mesh, cfg, rows)
+        assert set(sharding.spec_leaves(state, specs)) == {
+            (None, None, "model", None, None)}
+        assert set(sharding.spec_leaves(state, sharding.decode_state_shardings(
+            state, mesh, cfg, rows))) == {("model", None, None, None, None)}
+        local = sharding.local_decode_state(state, mesh, cfg, rows)
+        for t in tree_leaves(local):
+            assert t.shape == (2, rows, max_len // 2, 2, 64)
+        return
     with pytest.raises(NotImplementedError, match=match):
         sharding.local_decode_state(state, mesh, cfg, rows)
+
+
+def test_whole_rows_refuse_a_cache_model_does_not_divide():
+    """Whole rows on a (2, 4) mesh: a cache of 6 slots on 4 model ranks is
+    refused by name."""
+    cfg = dr.cfg_of({"arch": "h2o-danube-3-4b",
+                     "overrides": {"sliding_window": 6}})
+    state = model.init_decode_state(cfg, 3, 16, device="cpu")
+    with pytest.raises(NotImplementedError, match="cache/self/k"):
+        sharding.local_decode_state(state, _mesh((2, 4)), cfg, 3)
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+def test_train_rows_the_data_axes_do_not_divide_are_refused(rows):
+    """A train batch's rows are cut over the data axes (the reference's
+    ``train_batch_spec``): rows they do not divide are refused, and a
+    loss on a serve block of whole rows too."""
+    cfg = dr.cfg_of({"arch": "h2o-danube-3-4b"})
+    mesh = _mesh((2, 2))
+    tok = torch.zeros((2, rows, 8), dtype=torch.int64)
+    with pytest.raises(NotImplementedError,
+                       match=f"{rows} rows a group on 2 data ranks: the "
+                       "reference's train_batch_spec"):
+        sharding.local_train_batch({"tokens": tok, "labels": tok}, mesh,
+                                   cfg)
+    block = sharding.local_batch({"tokens": tok[0], "labels": tok[0]}, mesh,
+                                 cfg)
+    assert block.rows_whole and block["tokens"].shape == (rows, 8)
+    params = model.init(0, cfg, device="cpu")
+    with meshctx.set_mesh(mesh), pytest.raises(NotImplementedError,
+                                               match="train_batch_spec"):
+        model.loss_fn(params, block, cfg)

@@ -364,17 +364,22 @@ def test_mamba_leaves_are_channel_parallel():
 
 def test_a_memory_the_data_axes_do_not_divide_is_refused():
     """The reference's condition for its sequence-parallel
-    cross-attention, memory.shape[0] % data == 0: a batch whose frames
-    the data axes do not divide is refused where it is cut."""
+    cross-attention, memory.shape[0] % data == 0: a serve batch whose
+    frames the data axes do not divide keeps them whole on every data
+    rank with its rows (``serve_batch_spec``'s ``(None,)``; once refused,
+    now served: tests/test_torch_mesh_decode.py runs it), the stream
+    below the threshold; a train batch's rows, which the reference always
+    cuts, are refused."""
     shape, axes = fr.MESHES["2x2"]
     mesh = types.SimpleNamespace(shape=dict(zip(axes, shape)),
                                  axis_names=axes,
                                  coords={a: 0 for a in axes})
     cfg = fr._cfg({"arch": SEAMLESS})
     batch = fr._batch(_inputs("seamless", 3, 32, seed=0))
-    with pytest.raises(NotImplementedError, match="memory"):
-        sharding.local_batch(batch, mesh, cfg)
-    with pytest.raises(NotImplementedError, match="memory"):
+    block = sharding.local_batch(batch, mesh, cfg)
+    assert block.rows_whole and not block.cut
+    assert block["frames"].shape == batch["frames"].shape
+    with pytest.raises(NotImplementedError, match="train_batch_spec"):
         sharding.local_train_batch(tree_map(lambda t: t[None], batch), mesh,
                                    cfg)
 

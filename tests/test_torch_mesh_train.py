@@ -44,6 +44,23 @@ oracle on the same numpy inputs.
   version the same bits on every rank and equal to it unsharded.
 * ``storage_params`` then ``gather_params`` is the identity for every
   architecture's reduced config.
+* The int8 wire on the 2D layout: the ``int8_stochastic`` encode of the
+  reduced minitron's (4, *param) tree (leaves cut over ``data``, over
+  ``model`` and over both, a (4,) leaf, a bf16 leaf, an all-zero row) on
+  the (4, 2) and (2, 2, 2) meshes: every rank's ``q`` block
+  ``torch.equal`` to the cut of the reference's unsharded
+  ``_int8_encode`` (jitted, the original threefry) and every scale its
+  bits; the virtual oracle the same whole; keys folded by the block's
+  coordinates, and scales from the block's own maxima, must miss.  The
+  mesh step with ``int8_gmom`` on the wire, shard-local and gathered,
+  SGD, one step: metrics at rel 1e-5 of the reference's and the port's
+  unsharded int8 steps; params within the SGD limit plus lr x each
+  leaf's largest scale, with at most ``FLIP_SHARE`` of a leaf's
+  coordinates past the limit (a rounding that flips by one step where
+  the mesh sums a gradient in another order), which a wrong key
+  exceeds; the first payload within one rounding step of the port's
+  unsharded one; and every step's payload, on every rank, the cut of
+  the unsharded encode of its own stack gathered whole.
 
 The pieces in one process (no ranks): the block shapes on (16, 16) and
 (2, 16, 16) against the reference's ``param_partition_spec``, the new
@@ -105,6 +122,18 @@ VARIANTS = {a: ("shard_local",) if a == "h2o-danube-3-4b"
             else ("shard_local", "gathered") for a in SETTINGS}
 STEP_IDS = [f"step/{a}/{v}" for a in SETTINGS
             for v in VARIANTS[a]] + ["step/pod/minitron-4b"]
+# the int8 wire: int8_gmom on int8_stochastic, minitron under SGD
+INT8_ARCH = "minitron-4b"
+INT8_RC = dict(RC, aggregator="int8_gmom", compression="int8_stochastic")
+INT8_STEP_IDS = [f"int8step/{INT8_ARCH}/{v}"
+                 for v in ("shard_local", "gathered")]
+INT8_FAULT_ID = f"int8step/{INT8_ARCH}/wrong_key"
+# at most this share of a leaf's coordinates may sit past the SGD limit
+# (by at most lr x the leaf's largest scale: a stochastic rounding that
+# flips by one step where the mesh sums a gradient in another order)
+FLIP_SHARE = 1e-3
+INT8_MESHES = ("4x2", "2x2x2")
+INT8_FAULTS = ("block_keys", "block_amax")
 
 
 @pytest.fixture(autouse=True)
@@ -172,6 +201,20 @@ def _cases(inputs, grads):
             params=params, tokens=toks[0][0], min_fsdp_elems=FSDP_ELEMS)
     cases["step/pod/minitron-4b"] = dict(cases["step/minitron-4b/shard_local"],
                                          mesh="2x2x2")
+    int8 = dict(cases[f"step/{INT8_ARCH}/shard_local"], opt="sgd",
+                lr=SGD_LR, rc=INT8_RC, batches=inputs[INT8_ARCH][1][:1])
+    # the gathered variant runs once: its aggregation is the unsharded
+    # path's, whose repeat the other gathered cases hold
+    for cid in INT8_STEP_IDS:
+        variant = cid.split("/")[2]
+        cases[cid] = dict(int8, variant=variant,
+                          repeat=variant == "shard_local")
+    cases[INT8_FAULT_ID] = dict(int8, fault="wrong_key", repeat=False)
+    for mesh in INT8_MESHES:
+        cases[f"int8/{mesh}"] = _int8_case(grads, mesh)
+    for fault in INT8_FAULTS:
+        cases[f"int8/fault/{fault}"] = dict(_int8_case(grads, "4x2"),
+                                            fault=fault, repeat=False)
     agg = dict(kind="aggregate", arch="minitron-4b", grads=grads,
                seed=SEED, min_fsdp_elems=FSDP_ELEMS)
     for rule in RULES:
@@ -187,6 +230,22 @@ def _cases(inputs, grads):
     return cases
 
 
+def _int8_case(grads, mesh):
+    """The int8 encode's case: the reduced minitron's (K, *param) tree
+    (leaves cut over ``data`` and over both axes; its ``w_down`` in
+    bf16; an all-zero row of ``unembed``) and two more leaves, one cut
+    over ``model`` alone and a (K,) one."""
+    rng = np.random.default_rng(2)
+    grads = tree_map(np.copy, grads)
+    grads["unembed"][2] = 0.0
+    extra = {"x_model": (rng.standard_normal((K, 8, 6)).astype(np.float32),
+                         ("model", None)),
+             "x_scalar": (rng.standard_normal(K).astype(np.float32), ())}
+    return dict(kind="int8", arch=INT8_ARCH, grads=grads, extra=extra,
+                bf16=[("layers", "mlp", "w_down")], seed=SEED + 5,
+                min_fsdp_elems=FSDP_ELEMS, mesh=mesh)
+
+
 # ---------------------------------------------------------------------------
 # this process: the reference's unsharded step, the port's, the oracle
 
@@ -194,12 +253,12 @@ def _batch(tok):
     return {"tokens": tok, "labels": np.roll(tok, -1, -1)}
 
 
-def _reference_step(arch, params, toks):
+def _reference_step(arch, params, toks, settings=None, rc=RC):
     """The reference's unsharded group step: (metrics rows, params)."""
-    opt_name, mb, sched = SETTINGS[arch]
+    opt_name, mb, sched = settings or SETTINGS[arch]
     jopt = (joptim.adamw(ADAM_LR) if opt_name == "adamw"
             else joptim.sgd(SGD_LR))
-    jrc = jrt.RobustConfig(**RC)
+    jrc = jrt.RobustConfig(**rc)
     jsched = (jbyz.make_schedule(sched, num_workers=K, num_byzantine=Q,
                                  attack=RC["attack"]) if sched else None)
     step = jax.jit(jsteps.make_group_train_step(
@@ -224,14 +283,14 @@ def _port_order_to_ref(params):
     return jax.tree.map(jnp.asarray, params)
 
 
-def _port_step(arch, params, toks):
+def _port_step(arch, params, toks, settings=None, rc=RC):
     """The port's unsharded group step: (metrics rows, params)."""
-    opt_name, mb, sched = SETTINGS[arch]
+    opt_name, mb, sched = settings or SETTINGS[arch]
     cfg = _cfg(arch)
     opt = optim.adamw(ADAM_LR) if opt_name == "adamw" else optim.sgd(SGD_LR)
     tsched = (byzantine.make_schedule(sched, num_workers=K, num_byzantine=Q,
                                       attack=RC["attack"]) if sched else None)
-    step = steps.make_group_train_step(cfg, trt.RobustConfig(**RC), opt,
+    step = steps.make_group_train_step(cfg, trt.RobustConfig(**rc), opt,
                                        microbatches=mb, schedule=tsched)
     p = convert.lm_params_from_numpy(cfg, params, "cpu")
     s = opt.init(p)
@@ -264,8 +323,46 @@ def _oracle(case):
     return stacked, virtual, plain
 
 
+def _jax_tree(tree):
+    """A port tree as the reference's: bf16 leaves as bf16."""
+    return jax.tree.map(lambda t: jnp.asarray(t.float().numpy()).astype(
+        jnp.bfloat16) if t.dtype == torch.bfloat16 else jnp.asarray(
+        t.numpy()), tree)
+
+
+def _int8_reference(cases):
+    """The reference's unsharded ``_int8_encode`` (jitted) of the int8
+    case's tree, and the port's virtual oracle of the (4, 2) layout."""
+    from repro.core import compression as jcompression
+    case = cases["int8/4x2"]
+    mesh = _ns_mesh(*torch_mesh_train_ranks.MESHES["4x2"])
+    _, grads = torch_mesh_train_ranks.layout_of(case, mesh)
+    jcodec = jcompression.get_codec("int8_stochastic")
+    ref = jax.jit(lambda t, k: jcodec.encode(t, key=k))(
+        _jax_tree(grads), jax.random.PRNGKey(case["seed"]))
+    ref = {k: _port_order(_np(v), grads) for k, v in ref.items()}
+    out = {}
+    for name in INT8_MESHES:
+        mesh = _ns_mesh(*torch_mesh_train_ranks.MESHES[name])
+        stacked, grads = torch_mesh_train_ranks.layout_of(case, mesh)
+        spec = sa.layout_spec(sharding.spec_leaves(grads, stacked),
+                              tuple(mesh.shape.items()), mode="virtual")
+        out[name] = (stacked, torch_mesh_train_ranks.int8_encode(
+            case, grads, spec))
+    return ref, out
+
+
 def _parent_work(cases, inputs):
     out = {}
+    params, toks = inputs[INT8_ARCH][0], inputs[INT8_ARCH][1][:1]
+    int8_settings = ("sgd", 1, None)
+    out["ref/int8"] = _reference_step(INT8_ARCH, params, toks,
+                                      int8_settings, INT8_RC)
+    with torch_mesh_train_ranks._Wire(None, None) as wire:
+        out["port/int8"] = _port_step(INT8_ARCH, params, toks,
+                                      int8_settings, INT8_RC)
+    out["port/int8/q0"] = wire.records[0]["q"]
+    out["int8"] = _int8_reference(cases)
     for arch, (params, toks) in inputs.items():
         out[f"ref/{arch}"] = _reference_step(arch, params, toks)
         out[f"port/{arch}"] = _port_step(arch, params, toks)
@@ -453,6 +550,132 @@ def test_layout_aggregation_is_its_virtual_oracle(runs, cid):
         assert float((a - b).abs().max()) <= 1e-5 * top, cid
 
 
+# ---------------------------------------------------------------------------
+# the int8 wire on the 2D layout
+
+def _bits(t):
+    t = torch.as_tensor(np.array(t)) if not torch.is_tensor(t) else t
+    return t.contiguous().view(torch.int32)
+
+
+def _int8_misses(payload, ref, stacked, coords, sizes):
+    """The leaves whose ``q`` block is not the cut of the reference's (at
+    ``coords``; None: the whole), or whose scales are not the reference's
+    bits."""
+    bad = []
+    for i, (q, s, rq, rs, spec) in enumerate(zip(
+            tree_leaves(payload["q"]), tree_leaves(payload["scale"]),
+            tree_leaves(ref["q"]), tree_leaves(ref["scale"]),
+            sharding.spec_leaves(ref["q"], stacked))):
+        want = torch.as_tensor(np.array(rq))
+        if coords is not None:
+            want = meshctx.cut(want, spec, coords, sizes)
+        if not (torch.equal(q, want) and torch.equal(_bits(s), _bits(rs))):
+            bad.append(i)
+    return bad
+
+
+@pytest.mark.parametrize("mesh", INT8_MESHES)
+def test_int8_layout_blocks_are_the_reference_payload_cut(runs, mesh):
+    """Every rank's ``q`` block is its cut of the reference's unsharded
+    ``_int8_encode`` payload (jitted, the original threefry), and every
+    scale is the reference's, bit for bit: leaves cut over ``data``,
+    ``model`` and both, a (K,) leaf, a bf16 leaf and an all-zero row; the
+    virtual oracle gives the same bits whole."""
+    _, per_rank, here = runs
+    ref, virtual = here["int8"]
+    stacked, oracle = virtual[mesh]
+    assert _int8_misses(oracle, ref, stacked, None, None) == []
+    sizes = dict(zip(*reversed(torch_mesh_train_ranks.MESHES[mesh])))
+    for r, res in enumerate(per_rank):
+        got = res[f"int8/{mesh}"]
+        assert _int8_misses(got, ref, stacked, res["coords"][mesh],
+                            sizes) == [], r
+
+
+@pytest.mark.parametrize("fault", INT8_FAULTS)
+def test_int8_planted_faults_miss_the_reference(runs, fault):
+    """Keys folded by the block's coordinates, and scales from the
+    block's own maxima, give some rank a payload that is not its cut."""
+    _, per_rank, here = runs
+    ref, virtual = here["int8"]
+    stacked = virtual["4x2"][0]
+    sizes = dict(zip(*reversed(torch_mesh_train_ranks.MESHES["4x2"])))
+    assert any(_int8_misses(res[f"int8/fault/{fault}"], ref, stacked,
+                            res["coords"]["4x2"], sizes)
+               for res in per_rank)
+
+
+def _int8_param_check(got, want, scales):
+    """(whether every leaf sits within the SGD limit plus lr x its largest
+    scale, with at most ``FLIP_SHARE`` of its coordinates past the
+    limit; the largest such share)."""
+    ok, worst = True, 0.0
+    for g, w, sc in zip(tree_leaves(got), tree_leaves(want),
+                        tree_leaves(scales)):
+        g = np.asarray(g.detach().float(), np.float32)
+        w = np.asarray(w.detach().float() if torch.is_tensor(w) else w,
+                       np.float32)
+        err = np.abs(g - w)
+        limit = 1e-5 * float(np.abs(w).max()) + 1e-7
+        share = float((err > limit).mean())
+        worst = max(worst, share)
+        ok &= bool(err.max() <= limit + SGD_LR * float(sc)) \
+            and share <= FLIP_SHARE
+    return ok, worst
+
+
+@pytest.mark.parametrize("cid", INT8_STEP_IDS)
+def test_int8_mesh_step_matches_the_unsharded_steps(runs, cid):
+    """``int8_gmom`` on ``int8_stochastic``, shard-local and gathered:
+    metrics at rel 1e-5 of the reference's and the port's unsharded int8
+    steps, params within ``_int8_param_check``'s bound of both; the
+    step's own payload is, every step on every rank, the cut of the
+    unsharded encode of its own stack gathered whole."""
+    _, per_rank, here = runs
+    got = per_rank[0][cid]
+    for name in ("ref/int8", "port/int8"):
+        rows, want = here[name]
+        for t, row in enumerate(rows):
+            for k, w in row.items():
+                assert float(got["metrics"][t][k]) == pytest.approx(
+                    w, rel=1e-5), (name, t, k)
+        ok, share = _int8_param_check(got["params"],
+                                      _port_order(want, got["params"]),
+                                      got["scale"])
+        print(f"{cid} vs {name}: largest share of params past the limit "
+              f"{share}")
+        assert ok, (name, share)
+    for res in per_rank:
+        assert res[cid]["wire_equal"] == [True]
+
+
+@pytest.mark.parametrize("cid", INT8_STEP_IDS)
+def test_int8_mesh_step_flips_single_steps(runs, cid):
+    """The first step's payload on the mesh against the port's unsharded
+    one: every coordinate within one rounding step, few of them off."""
+    _, per_rank, here = runs
+    share = []
+    for a, b in zip(tree_leaves(per_rank[0][cid]["q0"]),
+                    tree_leaves(here["port/int8/q0"])):
+        d = (a.to(torch.int32) - b.to(torch.int32)).abs()
+        assert int(d.max()) <= 1
+        share.append(float((d > 0).to(torch.float64).mean()))
+    print(f"{cid}: share of q flipped, leaf by leaf: {share}")
+    assert max(share) <= FLIP_SHARE, share
+
+
+def test_int8_wrong_key_exceeds_the_bound(runs):
+    _, per_rank, here = runs
+    got = per_rank[0][INT8_FAULT_ID]
+    _, want = here["ref/int8"]
+    ok, share = _int8_param_check(got["params"],
+                                  _port_order(want, got["params"]),
+                                  got["scale"])
+    print(f"{INT8_FAULT_ID}: largest share of params past the limit {share}")
+    assert not ok, share
+
+
 def test_gathered_aggregation_is_the_same_on_every_rank(runs):
     _, per_rank, here = runs
     assert all(res["gathered/gmom"]["same_everywhere"] for res in per_rank)
@@ -464,7 +687,7 @@ def test_gathered_aggregation_is_the_same_on_every_rank(runs):
 def test_every_case_repeats_bit_for_bit(runs):
     cases, per_rank, _ = runs
     for cid, case in cases.items():
-        if case["kind"] != "roundtrip":
+        if case["kind"] != "roundtrip" and case.get("repeat", True):
             assert all(res[cid]["repeat_equal"] for res in per_rank), cid
 
 
@@ -609,10 +832,11 @@ def test_step_refusals_on_a_mesh():
     with torch_mesh_ranks.one_rank_mesh() as mesh:
         gs = sharding.stacked_grad_shardings(params, mesh, cfg)
         spec = sharding.grad_shard_spec(mesh, cfg)
-        with pytest.raises(NotImplementedError, match="item 16.14"):
-            steps.make_group_train_step(
-                cfg, dataclasses.replace(rc, compression="int8_stochastic"),
-                optim.sgd(0.1), grad_shardings=gs, shard_spec=spec)
+        # the int8 wire on the mesh step, once refused, builds (the
+        # ranks run it: test_int8_mesh_step_matches_the_unsharded_steps)
+        assert callable(steps.make_group_train_step(
+            cfg, dataclasses.replace(rc, compression="int8_stochastic"),
+            optim.sgd(0.1), grad_shardings=gs, shard_spec=spec))
         with pytest.raises(ValueError, match="gspmd"):
             steps.make_group_train_step(
                 cfg, rc, optim.sgd(0.1), grad_shardings=gs,
@@ -630,11 +854,16 @@ def test_step_refusals_on_a_mesh():
                 other, rc, optim.sgd(0.1),
                 grad_shardings=sharding.gathered_grad_shardings(
                     model.init(0, other, device="cpu"), mesh)))
-    with pytest.raises(NotImplementedError, match="item 16.14"):
-        spec = sa.layout_spec([(None, None)], (("data", 1), ("model", 1)))
+        # and the codec encodes on a layout spec: on one rank, the
+        # unsharded payload
         from repro_torch.core import compression
-        compression.get_codec("int8_stochastic").encode(
-            torch.zeros(2, 3), key=prng.PRNGKey(0), shard_spec=spec)
+        codec = compression.get_codec("int8_stochastic")
+        spec = sa.layout_spec([(None, None)], tuple(mesh.shape.items()))
+        g = torch.randn(2, 3)
+        got = codec.encode(g, key=prng.PRNGKey(0), shard_spec=spec)
+        want = codec.encode(g, key=prng.PRNGKey(0))
+        assert torch.equal(got["q"], want["q"])
+        assert torch.equal(got["scale"], want["scale"])
 
 
 def test_remat_recomputes_under_the_forward_mesh():

@@ -83,3 +83,108 @@ def test_draws_follow_the_key_device_and_chain():
 def test_seed_outside_int32_rejected():
     with pytest.raises(OverflowError):
         tr.PRNGKey(2**31)
+
+
+# ---------------------------------------------------------------------------
+# draws at given flat indices (``bits_at``, ``uniform_at``, ``normal_at``)
+
+class _Largest(torch.utils._python_dispatch.TorchDispatchMode):
+    """The most elements of any tensor an op returns inside the mode."""
+
+    def __init__(self):
+        super().__init__()
+        self.numel = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in torch.utils._pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self.numel = max(self.numel, t.numel())
+        return out
+
+
+AT_SIZES = [1, 2, 7, 8, 1001, 4096]
+
+
+@pytest.mark.parametrize("n", AT_SIZES)
+@pytest.mark.parametrize("seed", [0, 42])
+def test_draws_at_indices_are_the_whole_draw(seed, n):
+    """Odd and even n, every index and a random subset (repeats and any
+    order): the words, uniforms and normals of the whole draw there, and
+    ``jax.random.bits`` / ``uniform`` of the whole shape."""
+    jk, tk = jax.random.PRNGKey(seed), tr.PRNGKey(seed)
+    rng = np.random.default_rng(n + seed)
+    whole = tr.bits(tk, (n,))
+    jbits = _np(jax.random.bits(jk, (n,)))
+    juni = np.asarray(jax.random.uniform(jk, (n,))).view(np.int32)
+    for idx in (np.arange(n), rng.integers(0, n, size=max(1, n // 3))):
+        i = torch.as_tensor(idx)
+        got = tr.bits_at(tk, (n,), i)
+        assert torch.equal(got, whole[i])
+        np.testing.assert_array_equal(got.numpy(), jbits[idx])
+        np.testing.assert_array_equal(
+            tr.uniform_at(tk, (n,), i).numpy().view(np.int32), juni[idx])
+        assert torch.equal(tr.normal_at(tk, (n,), i), tr.normal(tk, (n,))[i])
+
+
+@pytest.mark.parametrize("chunk", [1, 5, 64])
+def test_draws_at_indices_across_chunk_edges(monkeypatch, chunk):
+    """Indices that straddle the chunks' edges, of a multi-dim shape (the
+    flat row-major index), and an index tensor of two dims."""
+    monkeypatch.setattr(tr, "DRAW_CHUNK", chunk)
+    shape = (7, 11, 13)
+    n = 7 * 11 * 13
+    tk = tr.PRNGKey(9)
+    whole = tr.bits(tk, shape).reshape(-1)
+    edges = sorted({min(max(e + d, 0), n - 1)
+                    for e in range(0, n + chunk, chunk) for d in (-1, 0, 1)})
+    i = torch.as_tensor(edges)
+    assert torch.equal(tr.bits_at(tk, shape, i), whole[i])
+    i2 = torch.arange(n - 40, n).reshape(4, 10)
+    assert torch.equal(tr.uniform_at(tk, shape, i2),
+                       tr.uniform(tk, shape).reshape(-1)[i2])
+    np.testing.assert_array_equal(
+        tr.bits_at(tk, shape, i2).numpy(),
+        _np(jax.random.bits(jax.random.PRNGKey(9), shape)).reshape(-1)[
+            i2.numpy()])
+
+
+def test_draws_at_indices_never_allocate_the_whole_draw(monkeypatch):
+    """A draw of 2**20 words at 1000 indices, 64 at a time: no tensor the
+    draw makes holds more than the index's 1000 elements."""
+    monkeypatch.setattr(tr, "DRAW_CHUNK", 64)
+    tk = tr.PRNGKey(1)
+    idx = torch.arange(0, 1 << 20, (1 << 20) // 1000)[:1000]
+    with _Largest() as seen:
+        got = tr.uniform_at(tk, (1 << 10, 1 << 10), idx)
+    assert got.shape == (1000,)
+    assert seen.numel <= 1000
+    assert torch.equal(got, tr.uniform(tk, (1 << 20,))[idx])
+
+
+def test_draws_at_indices_refuse_what_bits_refuses():
+    with pytest.raises(NotImplementedError, match="2\\*\\*32"):
+        tr.bits_at(tr.PRNGKey(0), (1 << 16, 1 << 16), torch.arange(3))
+
+
+@pytest.mark.parametrize("chunk", [1, 5, 64])
+@pytest.mark.parametrize("n", [1, 2, 7, 8, 1001])
+def test_whole_draws_in_chunks_are_jax_bits(monkeypatch, chunk, n):
+    """``bits``, ``uniform`` and ``normal`` draw ``DRAW_CHUNK`` pairs of
+    counters at a time: the same bits as ``jax.random`` of the whole
+    shape at any chunk (odd and even counts), and no temporary larger
+    than a chunk beside the output."""
+    monkeypatch.setattr(tr, "DRAW_CHUNK", chunk)
+    jk, tk = jax.random.PRNGKey(n), tr.PRNGKey(n)
+    np.testing.assert_array_equal(tr.bits(tk, (n,)).numpy(),
+                                  _np(jax.random.bits(jk, (n,))))
+    np.testing.assert_array_equal(
+        tr.uniform(tk, (n,)).numpy().view(np.int32),
+        np.asarray(jax.random.uniform(jk, (n,))).view(np.int32))
+    monkeypatch.setattr(tr, "DRAW_CHUNK", 1 << 22)
+    want = tr.normal(tk, (n,))
+    monkeypatch.setattr(tr, "DRAW_CHUNK", chunk)
+    with _Largest() as seen:
+        got = tr.normal(tk, (n,))
+    assert torch.equal(got, want)
+    assert seen.numel <= max(n, chunk)

@@ -12,15 +12,16 @@ runs each case under the mesh it names; a case is a dict with ``kind``:
   S) (numpy; the audio family's ``memory`` (B, S_enc, D) put in it) cut
   to the rank's block (``sharding.local_decode_state``), then S steps of
   ``steps.make_serve_step``, token t at position t: the logits of every
-  step for the rank's rows (B/data, S, V), and the state's blocks
-  gathered whole (rank 0 only); ``fault`` plants one: ``"no_rescale"``
+  step for the rank's rows (B/data, S, V; all B rows where the data axes
+  do not divide B), and the state's blocks gathered whole (rank 0 only);
+  ``fault`` plants one: ``"no_rescale"``
   sums the ranks' softmax parts without rescaling them by the global
   max, ``"no_gather"`` hands the rank's Mamba2 B and C conv block to its
   heads as if it were every channel (no gather);
 * ``"prefill"``: ``steps.make_prefill_step`` on the rank's block of
   ``batch`` (numpy; ``sharding.local_batch``, which records the
   layout), and ``model.loss_fn`` with its gradients gathered whole (rank
-  0 only);
+  0 only), but for rows the data axes do not divide, which serve only;
 * ``"train"``: one step of ``steps.make_group_train_step`` (the
   gathered variant, the ``rc`` aggregation, SGD at ``lr``) on the rank's
   ``sharding.local_train_batch`` block of ``batch`` (numpy, (k, B/k,
@@ -112,7 +113,7 @@ def _decode(case, mesh):
     local = sharding.local_params(full, mesh, cfg)
     rows = case["tokens"].shape[0]
     whole = decode_state(cfg, case)
-    specs = sharding.decode_state_shardings(whole, mesh, cfg, rows)
+    specs = sharding.decode_state_specs(whole, mesh, cfg, rows)
     state = sharding.local_decode_state(whole, mesh, cfg, rows)
     tokens = sharding.local_rows(torch.as_tensor(case["tokens"]).long(),
                                  mesh)
@@ -141,6 +142,8 @@ def _prefill(case, mesh):
     local = sharding.cut_tree(full, specs, mesh)
     batch = sharding.local_batch(as_batch(case["batch"]), mesh, cfg)
     h = steps.make_prefill_step(cfg)(local, batch)
+    if batch.rows_whole:
+        return {"h": h}                   # whole rows serve, never train
     local = tree_map(lambda t: t.detach().clone().requires_grad_(), local)
     loss = model.loss_fn(local, batch, cfg)
     loss.backward()
@@ -190,9 +193,10 @@ def _generate(case, mesh):
     cfg = cfg_of(case)
     full = convert.lm_params_from_numpy(cfg, case["params"], "cpu")
     local = sharding.local_params(full, mesh, cfg, expert_fsdp=False)
-    prompts = sharding.local_rows(torch.as_tensor(case["prompts"]).long(),
-                                  mesh)
-    tokens, _, _ = serve.generate(local, cfg, prompts, case["new_tokens"])
+    whole = torch.as_tensor(case["prompts"]).long()
+    tokens, _, _ = serve.generate(local, cfg,
+                                  sharding.local_rows(whole, mesh),
+                                  case["new_tokens"], batch=whole.shape[0])
     return {"tokens": tokens}
 
 

@@ -14,7 +14,12 @@ mesh; a case is a dict with ``kind``:
   (``gathered_grad_shardings``, its ``num_shards`` set to 1); the
   result: each step's metrics, the round kernel's launches, the storage
   blocks, the params and optimizer state gathered whole (rank 0 only),
-  and whether every rank gathered the same bits;
+  and whether every rank gathered the same bits; on the
+  ``int8_stochastic`` wire also, each step, whether the step's payload
+  is bit for bit the cut of the unsharded encode of its own stack
+  gathered whole, each leaf's largest scale, and the first step's ``q``
+  gathered whole (rank 0 only); ``fault`` "wrong_key" encodes with
+  another key than the step's;
 * ``"grad"``: ``model.loss_fn`` of the reduced ``arch`` on the compute
   layout gathered from the storage blocks (``sharding.compute_params``),
   its gradient under ``meshctx.param_sums_deferred`` taken back to the
@@ -25,6 +30,13 @@ mesh; a case is a dict with ``kind``:
   layout (``shard_map`` mode): the rank's aggregate blocks; with
   ``gathered`` the blocks gathered whole first and aggregated whole
   (rank 0 returns it; every rank whether all hold the same bits);
+* ``"int8"``: the ``int8_stochastic`` encode of the whole stacked
+  ``grads`` (with ``extra`` leaves, the ``bf16`` ones cast) cut by
+  ``stacked_grad_shardings`` on the 2D layout (``shard_map`` mode): the
+  rank's ``q`` blocks and the scales; ``fault`` plants one:
+  ``"block_keys"`` draws each block from the leaf's key folded by the
+  rank (not its block of the whole draw), ``"block_amax"`` scales by the
+  block's own maxima (not the whole leaf's);
 * ``"clip"``: AdamW's update with a global clip norm on the 2D layout,
   the gradient and the params rows 0 and 1 of the stacked ``grads``;
 * ``"roundtrip"``: ``storage_params`` then ``gather_params`` of every
@@ -35,7 +47,8 @@ The storage layout is ``param_specs``: the reference's rules with FSDP
 from ``min_fsdp_elems`` elements a leaf (the cases' 4096, so that the
 reduced dense leaves are cut over ``data`` too).  A result carries
 ``repeat_equal``: whether the second run gave the same
-bits (the round trip, an identity, runs once).
+bits (the round trip, an identity, and a case with ``repeat`` False run
+once).
 """
 
 from __future__ import annotations
@@ -48,7 +61,7 @@ from torch.utils._pytree import tree_leaves, tree_map
 
 from repro_torch import configs, convert, optim
 from repro_torch import random as prng
-from repro_torch.core import byzantine
+from repro_torch.core import byzantine, compression
 from repro_torch.core import robust_train as rt
 from repro_torch.core import shard_aggregation as sa
 from repro_torch.launch import mesh as mesh_lib
@@ -90,6 +103,48 @@ def _same_everywhere(tree, mesh) -> bool:
     return all(torch.equal(parts[0], p) for p in parts[1:])
 
 
+class _Wire:
+    """Records the ``int8_stochastic`` payloads a step encodes (installed
+    in the codec registry for a ``with`` block): for each, whether it is
+    the cut of the unsharded encode of the stack gathered whole (by
+    ``stacked``, the stack's specs on ``mesh``; None: the stack is
+    whole), its scales, and its ``q`` gathered whole.  ``wrong_key``
+    encodes with another key (a planted fault)."""
+
+    def __init__(self, mesh, stacked, wrong_key: bool = False):
+        self.mesh, self.stacked, self.wrong_key = mesh, stacked, wrong_key
+        self.records = []
+
+    def encode(self, stacked, *, key=None, shard_spec=None):
+        if self.wrong_key:
+            key = prng.fold_in(key, 1)
+        payload = self.real.encode(stacked, key=key, shard_spec=shard_spec)
+        layout = shard_spec is not None and shard_spec.layout is not None
+        whole = (sharding.gather_tree(stacked, self.stacked, self.mesh)
+                 if layout else stacked)
+        plain = self.real.encode(whole, key=key)
+        q = payload["q"]
+        if layout:
+            plain = dict(q=sharding.cut_tree(plain["q"], self.stacked,
+                                             self.mesh),
+                         scale=plain["scale"])
+            q = sharding.gather_tree(q, self.stacked, self.mesh)
+        self.records.append(dict(
+            equal=_equal(payload, plain),
+            scale=tree_map(lambda x: x.max().cpu(), payload["scale"]),
+            q=tree_map(lambda x: x.cpu(), q)))
+        return payload
+
+    def __enter__(self):
+        self.real = compression.get_codec("int8_stochastic")
+        compression._REGISTRY["int8_stochastic"] = dataclasses.replace(
+            self.real, encode=self.encode)
+        return self
+
+    def __exit__(self, *exc):
+        compression._REGISTRY["int8_stochastic"] = self.real
+
+
 def _step(case, mesh):
     from repro_torch.kernels.geomed import round as rk
     cfg = _cfg(case)
@@ -117,8 +172,35 @@ def _step(case, mesh):
         param_shardings=specs)
     ostate = opt.init(storage)
     astate = sched.init_state(dev) if sched else None
-    rows = []
     launches = rk.round_aggregate_kernel.launches
+    wire = _Wire(mesh, stacked_specs(specs),
+                 wrong_key=case.get("fault") == "wrong_key")
+    with wire:
+        storage, ostate, rows = _steps(case, mesh, cfg, step, storage,
+                                       ostate, astate, sched, dev)
+    launches = rk.round_aggregate_kernel.launches - launches
+    whole = tree_map(lambda t: t.cpu(),
+                     sharding.gather_tree(storage, specs, mesh))
+    ostate_whole = tree_map(lambda t: t.cpu(), type(ostate)(*[
+        sharding.gather_tree(v, specs, mesh) if isinstance(v, dict) else v
+        for v in ostate]))
+    out = {"metrics": rows, "launches": launches,
+           "same_everywhere": _same_everywhere(whole, mesh),
+           "blocks": tree_map(lambda t: t.cpu(), storage)}
+    if wire.records:
+        out["wire_equal"] = [r["equal"] for r in wire.records]
+        out["scale"] = tree_map(lambda *x: torch.stack(x).max(),
+                                *[r["scale"] for r in wire.records])
+    if mesh.rank == 0:
+        out.update(params=whole, opt_state=ostate_whole)
+        if wire.records:
+            out["q0"] = wire.records[0]["q"]
+    return out
+
+
+def _steps(case, mesh, cfg, step, storage, ostate, astate, sched, dev):
+    """The case's steps -> (storage, optimizer state, metrics rows)."""
+    rows = []
     for t, tokens in enumerate(case["batches"]):
         tok = torch.as_tensor(np.asarray(tokens)).long().to(dev)
         batch = sharding.local_train_batch(
@@ -130,18 +212,7 @@ def _step(case, mesh):
             storage, ostate, m, astate = step(storage, ostate, batch, key,
                                               t, astate)
         rows.append({k: v.detach().cpu() for k, v in m.items()})
-    launches = rk.round_aggregate_kernel.launches - launches
-    whole = tree_map(lambda t: t.cpu(),
-                     sharding.gather_tree(storage, specs, mesh))
-    ostate_whole = tree_map(lambda t: t.cpu(), type(ostate)(*[
-        sharding.gather_tree(v, specs, mesh) if isinstance(v, dict) else v
-        for v in ostate]))
-    out = {"metrics": rows, "launches": launches,
-           "same_everywhere": _same_everywhere(whole, mesh),
-           "blocks": tree_map(lambda t: t.cpu(), storage)}
-    if mesh.rank == 0:
-        out.update(params=whole, opt_state=ostate_whole)
-    return out
+    return storage, ostate, rows
 
 
 def _grad(case, mesh):
@@ -167,13 +238,23 @@ def _grad(case, mesh):
 
 def layout_of(case, mesh):
     """(stacked specs tree, the whole stacked grads as torch) of an
-    aggregate case."""
+    aggregate case: ``grads`` with the storage layout's specs, then the
+    ``extra`` leaves {name: (array, param spec)}, the ``bf16`` top-level
+    paths cast to bfloat16."""
     cfg = _cfg(case)
     grads = tree_map(lambda a: torch.as_tensor(np.asarray(a)),
                      case["grads"])
     shapes = tree_map(lambda t: t[0], grads)
-    return stacked_specs(param_specs(shapes, mesh, cfg,
-                                     case["min_fsdp_elems"])), grads
+    specs = param_specs(shapes, mesh, cfg, case["min_fsdp_elems"])
+    for name, (a, spec) in case.get("extra", {}).items():
+        grads[name] = torch.as_tensor(np.asarray(a))
+        specs[name] = tuple(spec)
+    for path in case.get("bf16", ()):
+        node = grads
+        for n in path[:-1]:
+            node = node[n]
+        node[path[-1]] = node[path[-1]].to(torch.bfloat16)
+    return stacked_specs(specs), grads
 
 
 def aggregate_case(case, stacked_grads, spec):
@@ -204,6 +285,32 @@ def _aggregate(case, mesh):
     spec = sa.layout_spec(sharding.spec_leaves(grads, stacked),
                           tuple(mesh.shape.items()))
     return {"agg": aggregate_case(case, blocks, spec)}
+
+
+def int8_encode(case, stacked_grads, spec):
+    """The ``int8_stochastic`` payload of ``stacked_grads`` under
+    ``spec`` with the case's key."""
+    return compression.get_codec("int8_stochastic").encode(
+        stacked_grads, key=prng.PRNGKey(case["seed"]), shard_spec=spec)
+
+
+def _int8(case, mesh):
+    stacked, grads = layout_of(case, mesh)
+    blocks = sharding.cut_tree(grads, stacked, mesh)
+    spec = sa.layout_spec(sharding.spec_leaves(grads, stacked),
+                          tuple(mesh.shape.items()))
+    fault = case.get("fault")
+    real = prng.uniform_at, compression._layout_amax
+    if fault == "block_keys":
+        prng.uniform_at = lambda k, shape, idx: prng.uniform(
+            prng.fold_in(k, mesh.rank), (idx.numel(),)).reshape(idx.shape)
+    elif fault == "block_amax":
+        compression._layout_amax = lambda gf, _spec: torch.amax(
+            torch.abs(gf), dim=tuple(range(1, gf.ndim)))
+    try:
+        return int8_encode(case, blocks, spec)
+    finally:
+        prng.uniform_at, compression._layout_amax = real
 
 
 def clip_case(case, grads, params, spec):
@@ -240,7 +347,7 @@ def _roundtrip(case, mesh):
 
 
 KINDS = {"step": _step, "grad": _grad, "aggregate": _aggregate,
-         "clip": _clip, "roundtrip": _roundtrip}
+         "int8": _int8, "clip": _clip, "roundtrip": _roundtrip}
 
 
 def _equal(a, b) -> bool:
@@ -262,7 +369,7 @@ def run_cases(rank: int, world: int, cases: dict, meshes=None):
         mesh = meshes[case.get("mesh", "4x2")]
         with meshctx.set_mesh(mesh):
             first = KINDS[case["kind"]](case, mesh)
-            if case["kind"] != "roundtrip":
+            if case["kind"] != "roundtrip" and case.get("repeat", True):
                 again = KINDS[case["kind"]](case, mesh)
                 first["repeat_equal"] = _equal(first, again)
         out[cid] = first
