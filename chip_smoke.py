@@ -248,6 +248,14 @@ Phases:
                  RWKV6, Zamba2, SeamlessM4T and InternVL2 served on their
                  meshes (MESH_DECODE) with f32 checks; ms a decode step a
                  rank and one process's, the collectives a step, peak GB
+ 17 dry run      the pod dry run (launch/dryrun.py) held to the card, on
+                 the host: phase 13 (a)'s and 16 (a)'s first steps traced
+                 on fake cuda tensors of each rank of (2, 2), their
+                 collectives by kind and group equal to the real step's,
+                 their peaks within DRY_PEAK_RTOL of the rank's measured
+                 one; dryrun_pair of DRY_PAIRS on (16, 16) (records and
+                 trace seconds); the round and flash custom ops
+                 torch.equal to their direct launches
   7 kernel line  one JSON object, a row per kernel (the round kernel's
                  launches include phase 6 (c)'s, phase 8's, phase 9's,
                  phase 10's and phase 11's; its row carries the (8, 8, P)
@@ -1365,17 +1373,6 @@ def attn_inputs(case, dtype, dev, seed=0):
                                (B, Tk, KV, hd)))
 
 
-def live_pairs(Tq, Tk, causal, window, offset=0):
-    """(q, k) pairs that the masks leave live, queries at positions
-    offset..offset + Tq - 1, keys at their index."""
-    total = 0
-    for q in range(offset, offset + Tq):
-        hi = min(q, Tk - 1) if causal else Tk - 1
-        lo = max(0, q - window + 1) if window else 0
-        total += max(0, hi - lo + 1)
-    return total
-
-
 def attention_parity(dev, grid=ATTN_GRID):
     """The flash kernel (``ops.attention`` on CUDA tensors) vs
     ``flash_attention_ref`` -> {(case, dtype): max_abs_err}.  f32 goes
@@ -1718,7 +1715,7 @@ def attention_timings(dev, hbm, smi):
                 library_ms = timed(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=bias))
             del bias
-        pairs = live_pairs(Tq, Tk, causal, window)
+        pairs = flash.live_pairs(Tq, Tk, causal, window)
         ops_ = pairs * 4 * H * hd
         nbytes = 2 * (2 * B * Tq * H * hd + 2 * B * Tk * KV * hd)
         bound_ms, bound_by = bound(nbytes, ops_, hbm, tc)
@@ -3673,13 +3670,13 @@ def sp_offset_kernel(dev, hbm, smi, shapes, phase, seed):
             if dname == "bfloat16":
                 err = max(b["max_abs_err_twin"] for b in blocks[:n])
                 worst = max(worst, err)
-                pairs_full = live_pairs(Tq * n, Tk, causal, window)
+                pairs_full = flash.live_pairs(Tq * n, Tk, causal, window)
                 ms, bounds, shares = [], [], []
                 for off in offsets:
                     qr = q[:, off:off + Tq]
                     ms.append(timed(lambda: ops.attention(
                         qr, k, v, q_offset=off, **kw)))
-                    pairs = live_pairs(Tq, Tk, causal, window, off)
+                    pairs = flash.live_pairs(Tq, Tk, causal, window, off)
                     nbytes = 2 * (2 * B * Tq * H * hd + 2 * B * Tk * KV * hd)
                     bounds.append(bound(nbytes, pairs * 4 * H * hd, hbm, tc))
                     shares.append(pairs / pairs_full)
@@ -4294,11 +4291,16 @@ def _mesh_train_variant(cfg, mesh, variant, full, specs, dev, steps_n,
     collectives included), the storage-to-compute gather (and the
     gathered variant's stacked gather), the reduce-scatter, the
     aggregation (the gathered variant's turns included) and AdamW; the
-    rest is the attack, the stacking and the update."""
+    rest is the attack, the stacking and the update.  Phase 17's record
+    of the first step (``dry``): its collectives by kind and by group,
+    the card's memory before it and its peak (reset before it), the
+    bytes of its inputs, and its count of host stop reads (the Weiszfeld
+    loop's iterations)."""
     import dataclasses
 
     import torch
-    from torch.utils._pytree import tree_map
+    from torch.utils._pytree import tree_leaves, tree_map
+    from repro_torch import _device
     from repro_torch.kernels.geomed import round as rk
     from repro_torch.launch import sharding, steps
     spec = sharding.grad_shard_spec(mesh, cfg)
@@ -4355,16 +4357,39 @@ def _mesh_train_variant(cfg, mesh, variant, full, specs, dev, steps_n,
     torch.cuda.reset_peak_memory_stats(dev)
     rows, secs, stages, staged, digests, first = [], [], [], [], [], {}
     first_digest = None
+    dry = {}
+    real_read = _device.host_value
+
+    def counted_read(t, *, traced):
+        dry["reads"] += 1
+        return real_read(t, traced=traced)
+
     try:
         for t in range(steps_n):
             batch = sharding.local_train_batch(batches(t), mesh, cfg)
+            key_t = keys(t)
             mesh.reset_stats()
             stage.clear()
             torch.cuda.synchronize(dev)
+            if t == 0:
+                torch.cuda.reset_peak_memory_stats(dev)
+                dry.update(base=torch.cuda.memory_allocated(dev), reads=0,
+                           inputs=sum(x.numel() * x.element_size()
+                                      for x in tree_leaves(
+                                          (storage, opt_state, batch,
+                                           key_t))))
+                _device.host_value = counted_read
             t0 = time.perf_counter()
             storage, opt_state, met = step(storage, opt_state, batch,
-                                           keys(t), t)
+                                           key_t, t)
             torch.cuda.synchronize(dev)
+            if t == 0:
+                _device.host_value = real_read
+                # copies: the stats go on counting until the next reset
+                dry.update(peak=torch.cuda.max_memory_allocated(dev),
+                           kinds={k: dict(v) for k, v in
+                                  mesh.stats["kinds"].items()},
+                           groups=dict(mesh.stats["groups"]))
             secs.append(time.perf_counter() - t0)
             stages.append(dict(stage, rest=secs[-1] - sum(stage.values())))
             staged.append(dict(mesh.stats))
@@ -4384,6 +4409,7 @@ def _mesh_train_variant(cfg, mesh, variant, full, specs, dev, steps_n,
                 del agg, whole
             held.clear()
     finally:
+        _device.host_value = real_read
         for (mod, name, _), fn in zip(patched, real):
             setattr(mod, name, fn)
         real_kernel.launches = rk.round_aggregate_kernel.launches
@@ -4393,7 +4419,7 @@ def _mesh_train_variant(cfg, mesh, variant, full, specs, dev, steps_n,
            "staged": staged, "launches": real_kernel.launches - start,
            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
            "digests": digests, "kernel_ms": kernel_ms, "whole": None,
-           "first": first, "first_digest": first_digest}
+           "first": first, "first_digest": first_digest, "dry": dry}
     if not check_first:
         whole = sharding.gather_tree(storage, specs, mesh)
         if mesh.rank == 0:
@@ -4603,6 +4629,7 @@ def mesh_train_path(dev, smi):
     # (a) H2O at full width
     for variant, n in MESH_TRAIN_STEPS.items():
         res = [pr[("h2o", variant)] for pr in per_rank]
+        DRY_SHARED[("none", variant)] = [x["dry"] for x in res]
         backend = "auto" if variant == "gathered" else "reference"
         want_rows = refs[backend][0][:n]
         vs = [compare_traces(_compared(x["rows"]), _compared(want_rows))
@@ -5460,7 +5487,8 @@ def mesh_decode_path(dev, smi):
                     + ([MESH_DECODE_F32_CUT] if dname == "float32"
                        and fsteps < DECODE_LEN else []),
                     "collectives_per_step_by_rank": [
-                        {k: v / steps_n for k, v in x["stats"].items()}
+                        {k: v / steps_n for k, v in x["stats"].items()
+                         if k in ("calls", "bytes", "ms")}
                         for x in res],
                     "peak_gb_by_rank": [x["peak_gb"] for x in res],
                     "card": smi}
@@ -5715,6 +5743,7 @@ def _mesh_whole_rank(rank, world, device, job):
                     stream.batch, lambda t: prng.fold_in(key, t),
                     check_first=True)
             res["peak_gb"] = max(res["peak_gb"], wire.peak_before / 1e9)
+            res["dry"]["peak"] = max(res["dry"]["peak"], wire.peak_before)
             res["draw_extra_gb"] = wire.draw_bytes / 1e9
             if variant == "shard_local":
                 mark("mesh_whole (a) payload check")
@@ -5827,6 +5856,7 @@ def mesh_whole_path(dev, smi):
     # (a) the int8 wire
     for variant, n in MESH_INT8_STEPS.items():
         res = [pr[("int8", variant)] for pr in per_rank]
+        DRY_SHARED[("int8", variant)] = [x["dry"] for x in res]
         vs = compare_traces(_compared(res[0]["rows"]), _compared(ref[0][:n]))
         same_rows = all(x["rows"] == res[0]["rows"] for x in res)
         want_launches = n if variant == "gathered" else 0
@@ -5901,7 +5931,8 @@ def mesh_whole_path(dev, smi):
           "tokens_equal_one_process_share": float(
               (toks[0] == one["whole_tokens"]).float().mean()),
           "collectives_per_step_by_rank": [
-              {k: v / x["steps"] for k, v in x["stats"].items()}
+              {k: v / x["steps"] for k, v in x["stats"].items()
+               if k in ("calls", "bytes", "ms")}
               for x in bres],
           "peak_gb_by_rank": [x["peak_gb"] for x in bres], "card": smi})
     fres = [pr[("whole", "float32")] for pr in per_rank]
@@ -5954,6 +5985,231 @@ def mesh_whole_path(dev, smi):
     emit({"phase": "mesh_whole", "seconds": time.perf_counter() - t0,
           "references_s": ref_s, "ranks_s": ranks_s, "card": smi})
     return launches, by_route
+
+
+# -- phase 17: the pod dry run held to the card --------------------------------
+
+# the dry run's peak against a rank's measured one: the reference's memory
+# tolerance (its pod sweep's RTOL_MEMORY, src/repro/sim/sweep.py)
+DRY_PEAK_RTOL = 0.25
+# phase 13 (a)'s and 16 (a)'s steps, by the wire they take
+DRY_STEPS = (("none", "shard_local"), ("none", "gathered"),
+             ("int8", "shard_local"), ("int8", "gathered"))
+# (b): pairs of the pod dry run on the (16, 16) mesh, rank 0; cut to the
+# prefill (the flash op's path) after a run of the script passed 1000 s
+# on a slow host (H2O's train_4k trace takes 50 s of a worker; (a) traces
+# that step's program at (2, 2))
+DRY_PAIRS = (("h2o-danube-3-4b", "prefill_32k"),)
+# worker processes of the traces, started (and their imports done) before
+# the mesh phases; (b) runs then too, as it needs nothing of them
+DRY_WORKERS = 8
+# phase 13's and 16's per-rank records of the first step, by (wire,
+# variant)
+DRY_SHARED = {}
+
+
+def _dry_job(job):
+    """One dry run of phase 17 in a worker process: ("step", wire,
+    variant, rank, reads) traces phase 13 (a)'s (wire "none") or 16 (a)'s
+    (wire "int8") first step on rank ``rank`` of the (2, 2) mesh, its
+    host Weiszfeld loop capped at ``reads`` iterations (the real step's
+    count; 0 where the loop is the round kernel's, on the card);
+    ("pair", arch, shape) traces ``dryrun_pair`` on the (16, 16) mesh.
+    Both on fake cuda tensors -> the record as a dict."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    torch.set_num_threads(1)
+    if job[0] == "pair":
+        return dryrun.dryrun_pair(job[1], job[2], verbose=False).to_dict()
+    _, wire, variant, rank, reads = job
+    g = MESH_TRAIN
+    rc = (_mesh_int8_rc("auto") if wire == "int8"
+          else _mesh_train_rc(g["k"], g["q"], "auto"))
+    if reads:       # the gathered step's loop is the round kernel's own
+        rc = dataclasses.replace(rc, gmom_max_iters=reads)
+    art = dryrun.lower_pair(
+        mesh_train_config(TRAIN_ARCH),
+        InputShape("mesh_train", TRAIN_SEQ, g["batch"], "train"),
+        mesh=mesh_lib.make_mesh((2, MESH_RANKS // 2), ("data", "model"),
+                                rank=rank),
+        num_groups=g["k"], microbatches=g["microbatches"], rc=rc,
+        gather_grads=variant == "gathered", verbose=False)
+    return art.record.to_dict()
+
+
+def _ops_equal_their_launches(dev):
+    """(c): the custom ops' results against the direct launches of their
+    CUDA implementations (the path before the ops) on the same inputs:
+    the round op at phase 13's gathered (k, k, P) block, the flash op at
+    the mesh prefill's sequence-parallel shape and query offsets, bf16
+    -> {name: torch.equal}."""
+    import torch
+    from repro_torch.core.grouping import make_grouping
+    from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.geomed import round as rk
+    out = {}
+    k = MESH_TRAIN["k"]
+    P = cfg_param_leaves(mesh_train_config(TRAIN_ARCH))
+    gen = torch.Generator(device=dev).manual_seed(17)
+    g = torch.randn((k, P), generator=gen, device=dev)
+    grouping = make_grouping(k, k)
+    kw = dict(trim_multiplier=3.0, max_iters=32, tol=1e-7, eps=1e-12)
+    y, it = rk.round_aggregate_kernel(g, grouping, **kw)
+    y0, it0 = rk._launch(g, *rk._grouping_on(grouping, dev),
+                         *rk._round_args(k, kw["trim_multiplier"],
+                                         kw["max_iters"], kw["tol"],
+                                         kw["eps"]))
+    out["round_aggregate"] = bool(torch.equal(y, y0)) and int(it) == int(
+        it0[0])
+    del g, y, y0
+    torch.cuda.empty_cache()
+    B, Tq, Tk, H, KV, hd, causal, window = SP_SHAPE
+    q, kk, v = attn_inputs(SP_SHAPE, torch.bfloat16, dev, seed=5)
+    same = True
+    for r in range(MESH_RANKS):
+        off = r * Tq
+        a = flash.flash_attention(q, kk, v, causal=causal,
+                                  sliding_window=window, q_offset=off)
+        b = flash._launch(q, kk, v, causal, window, off)
+        same = same and bool(torch.equal(a, b))
+    out["flash_attention"] = same
+    return out
+
+
+def _op_dispatch_ms(dev):
+    """(c): what an op's dispatch costs: the op and the direct launch of
+    its CUDA implementation timed in turns (op, launch, launch, op;
+    ``timed`` and ``host_ms``, the better of each path's two) at the
+    kernel line's shapes, MAIN_SHAPE and ATTN_MAIN, bf16 -> {name: {path:
+    {"ms", "host_ms"}}}."""
+    import torch
+    from repro_torch.core.grouping import make_grouping
+    from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.geomed import round as rk
+
+    def turns(op, launch):
+        got = {}
+        for name, fn in (("op", op), ("launch", launch), ("launch", launch),
+                         ("op", op)):
+            got.setdefault(name, []).append((timed(fn), host_ms(fn)))
+        return {name: {"ms": min(t for t, _ in v),
+                       "host_ms": min(h for _, h in v)}
+                for name, v in got.items()}
+
+    m, k, d = MAIN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(18)
+    g = torch.randn((m, d), generator=gen, device=dev)
+    grouping = make_grouping(m, k)
+    plan = (*rk._grouping_on(grouping, dev), *rk._round_args(
+        k, 3.0, 64, 1e-8, 1e-12))
+    dispatch = {"round_aggregate": turns(
+        lambda: rk.round_aggregate_kernel(g, grouping),
+        lambda: rk._launch(g, *plan))}
+    B, Tq, Tk, H, KV, hd, causal, window = ATTN_MAIN
+    q, kk, v = attn_inputs(ATTN_MAIN, torch.bfloat16, dev, seed=6)
+    dispatch["flash_attention"] = turns(
+        lambda: flash.flash_attention(q, kk, v, causal=causal,
+                                      sliding_window=window),
+        lambda: flash._launch(q, kk, v, causal, window, 0))
+    return dispatch
+
+
+def _dry_warm(_):
+    """A worker's imports, done before its first trace."""
+    from repro_torch.launch import dryrun  # noqa: F401
+
+
+def dry_run_start():
+    """Phase 17's DRY_WORKERS worker processes, started before the mesh
+    phases with their imports done, and (b)'s traces submitted -> (the
+    pool, (b)'s futures)."""
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=DRY_WORKERS,
+        mp_context=multiprocessing.get_context("spawn"))
+    for _ in range(DRY_WORKERS):
+        pool.submit(_dry_warm, None)
+    return pool, [pool.submit(_dry_job, ("pair", arch, shape))
+                  for arch, shape in DRY_PAIRS]
+
+
+def dry_run_path(dev, smi, started):
+    """Phase 17, on the host after the mesh phases: the pod dry run held
+    to the card.
+    (a) For every rank of phases 13 (a) and 16 (a)'s first steps (H2O at
+    full width, 1 layer, (2, 2), both variants, the none and the int8
+    wire), the dry run of the same step on fake cuda tensors of the same
+    rank (its Weiszfeld loop capped at the real step's iterations) must
+    give exactly the real step's collectives by kind (calls,
+    result_bytes, wire_bytes) and the bytes received by group, the
+    layout's blocked-sum gathers among them; its peak must lie within
+    DRY_PEAK_RTOL of the rank's measured peak of the step (the card's
+    peak over the step, reset before it, less what the card held before
+    it beside the step's inputs).
+    (b) ``dryrun_pair`` of DRY_PAIRS on the (16, 16) mesh: the records
+    and each trace's seconds.
+    (c) The round op and the flash op ``torch.equal`` to the direct
+    launches of their CUDA implementations.
+    The traces run in ``started``'s pool (``dry_run_start``), (a)'s the
+    int8 wire's first (the longest)."""
+    t0 = time.perf_counter()
+    pool, pair_futures = started
+    jobs = [("step", wire, variant, rank, DRY_SHARED[(wire, variant)][rank]
+             ["reads"]) for wire, variant in reversed(DRY_STEPS)
+            for rank in range(MESH_RANKS)]
+    with pool:
+        futures = [pool.submit(_dry_job, job) for job in jobs]
+        equal = _ops_equal_their_launches(dev)
+        records = [f.result() for f in futures]
+        jobs = [("pair", arch, shape) for arch, shape in DRY_PAIRS] + jobs
+        records = [f.result() for f in pair_futures] + records
+    traced_s = time.perf_counter() - t0
+    dispatch = _op_dispatch_ms(dev)
+    n = len(DRY_PAIRS)
+    for (_, arch, shape), rec in zip(jobs[:n], records[:n]):
+        emit({"phase": "dry_run", "part": "b", "arch": arch, "shape": shape,
+              "mesh": rec["mesh"], "rank": rec["rank"],
+              "trace_seconds": rec["trace_seconds"], "record": rec,
+              "card": smi})
+    ratios, worst = {}, 0.0
+    for (_, wire, variant, rank, reads), rec in zip(jobs[n:], records[n:]):
+        real = DRY_SHARED[(wire, variant)][rank]
+        groups = {key: v["wire_bytes"]
+                  for key, v in rec["collective_groups"].items()}
+        same = (rec["collective_breakdown"] == real["kinds"]
+                and groups == real["groups"])
+        peak = real["peak"] - real["base"] + real["inputs"]
+        ratio = rec["peak_memory_bytes"] / peak
+        ratios[f"{wire}/{variant}/{rank}"] = ratio
+        worst = max(worst, abs(ratio - 1.0))
+        check(same, f"dry run (a) {wire} {variant} rank {rank}: collectives "
+                    f"{rec['collective_breakdown']} {groups}, the real step's "
+                    f"{real['kinds']} {real['groups']}")
+        check(abs(ratio - 1.0) <= DRY_PEAK_RTOL,
+              f"dry run (a) {wire} {variant} rank {rank}: peak "
+              f"{rec['peak_memory_bytes']} against the step's {peak}")
+        emit({"phase": "dry_run", "part": "a", "wire": wire,
+              "variant": variant, "rank": rank, "weiszfeld_iters": reads,
+              "collectives_equal": same, "kinds": real["kinds"],
+              "groups": real["groups"], "dry_peak_gb":
+              rec["peak_memory_bytes"] / 1e9, "step_peak_gb": peak / 1e9,
+              "peak_ratio": ratio, "trace_seconds": rec["trace_seconds"],
+              "dot_flops": rec["flops_per_device"],
+              "bytes_accessed": rec["bytes_per_device"], "card": smi})
+    for name, ok in equal.items():
+        check(ok, f"dry run (c): the {name} op differs from its direct "
+                  "launch")
+    emit({"phase": "dry_run", "part": "c", "op_equals_launch": equal,
+          "op_against_launch": dispatch, "card": smi})
+    emit({"phase": "dry_run", "seconds": time.perf_counter() - t0,
+          "traces_s": traced_s, "peak_ratios": ratios,
+          "worst_peak_rel": worst, "peak_rtol": DRY_PEAK_RTOL,
+          "card": smi})
 
 
 def cfg_param_leaves(cfg) -> int:
@@ -6233,10 +6489,15 @@ def main() -> int:
     # and vlm families, 15 decode and the short prefill, 16 the int8 wire
     # on the mesh step and one request served on (2, 2)
     torch.cuda.empty_cache()
+    dry = dry_run_start()
     ((mesh_routes, sp_row), (mt_launches, mt_row),
      (fam_routes, fam_launches, fam_rows), dec_routes,
      (whole_launches, whole_routes)) = mesh_phases(dev, hbm, smi)
     main_launches += mt_launches + fam_launches + whole_launches
+
+    # -- 17 the pod dry run held to the card (on the host) ------------------
+    torch.cuda.empty_cache()
+    dry_run_path(dev, smi, dry)
 
     # -- 7 the kernel line --------------------------------------------------
     csrc = "src/repro_torch/kernels/"

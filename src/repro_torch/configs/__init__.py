@@ -32,3 +32,18 @@ def get_config(arch: str) -> ModelConfig:
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; have {list(_ARCH_MODULES)}")
     return importlib.import_module(_ARCH_MODULES[arch]).CONFIG
+
+
+def supports_long_context(cfg: ModelConfig) -> bool:
+    """Whether the arch runs long_500k natively (sub-quadratic without a
+    variant toggle); the others get the sliding-window variant."""
+    return cfg.family in ("ssm", "hybrid") or cfg.sliding_window is not None
+
+
+def long_context_variant(cfg: ModelConfig) -> ModelConfig:
+    """The long_500k-ready variant: the config itself where it runs
+    long_500k natively, else a 4096-token sliding window, named
+    ``<name>+swa4k``."""
+    if supports_long_context(cfg):
+        return cfg
+    return cfg.with_(name=cfg.name + "+swa4k", sliding_window=4096)

@@ -35,6 +35,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
 
+from repro_torch import _device
 from repro_torch import random as prng
 from repro_torch import tree as jtree
 from repro_torch.core import shard_aggregation as sa
@@ -500,7 +501,8 @@ def stealth_then_strike_schedule(*, num_workers, num_byzantine,
         base = sample_byzantine_mask(key, num_workers, num_byzantine,
                                      rotate=False)
         mask = torch.logical_and(base, strike)
-        reported = atk(stacked, mask, key, **kw) if bool(strike) else stacked
+        reported = (atk(stacked, mask, key, **kw)
+                    if _device.host_value(strike, traced=True) else stacked)
         new_state = {"init_norm": init_norm, "ema_norm": ema,
                      "struck": strike}
         return reported, mask, new_state

@@ -8,15 +8,19 @@ norm-trimmed points (paper Remark 2) take part with weight zero.
 Port of ``repro.core.geometric_median``.  The loops are Python loops
 whose stopping test reads one scalar back from the device per iteration;
 the CUDA round kernel (``kernels.geomed.round``) is the path that keeps
-the loop on the device.
+the loop on the device.  Under a dry trace (fake tensors) the read has no
+value and a loop runs to its cap (``_device.host_value``).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
+from repro_torch import _device
 from repro_torch.core.shard_aggregation import blocked_partial_sum
 
 
@@ -72,7 +76,8 @@ def geometric_median(points, *, weights=None, max_iters: int = 64,
     delta = float("inf")
     while step < max_iters and delta > f32_threshold(tol):
         y_new = weiszfeld_step(points, y, weights, eps)
-        delta = float(torch.linalg.norm(y_new - y))
+        delta = _device.host_value(torch.linalg.norm(y_new - y),
+                                   traced=math.inf)
         y = y_new
         step += 1
     return y
@@ -133,7 +138,7 @@ def geometric_median_pytree(batch_means, *, weights=None,
         inv = weights / d
         denom = torch.clamp(torch.sum(inv), min=eps)
         y_new = [_wsum(inv / denom, leaf) for leaf in leaves]
-        delta = float(flat_delta(y_new, y))
+        delta = _device.host_value(flat_delta(y_new, y), traced=math.inf)
         y = y_new
         it += 1
     return tree_unflatten(y, spec)

@@ -250,9 +250,17 @@ def shard_index(spec: ShardSpec) -> int:
 def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's ``x`` stacked in rank order: (world,) + x.shape.
 
-    Over a gloo group a CUDA tensor goes through the host and back, every
-    time; what the port gathers is (k,)-, (m,)- or (m, m)-sized, or a
-    data-axis rank's (k, ...) batch-mean contribution."""
+    Where a model mesh is ambient and ``group`` is one of its groups (None:
+    the whole mesh), through the mesh's transport (``meshctx.parts``), so
+    that ``Mesh.stats`` counts it and a dry trace passes through it; the
+    same bits.  Otherwise over ``group``: over gloo a CUDA tensor goes
+    through the host and back, every time; what the port gathers is
+    (k,)-, (m,)- or (m, m)-sized, or a data-axis rank's (k, ...)
+    batch-mean contribution."""
+    mesh = meshctx.current_mesh()
+    axes = mesh.axes_of(group) if mesh is not None else None
+    if axes is not None:
+        return meshctx.parts(x, axes, mesh=mesh)
     staged = x.is_cuda and dist.get_backend(group) == "gloo"
     local = (x.cpu() if staged else x).contiguous()
     parts = [torch.empty_like(local)
@@ -277,9 +285,10 @@ def shard_slice(leaf, index: int, num_shards: int):
 def chain_sum(parts):
     """Ordered shard-major combine as an unrolled left-to-right add chain
     over the leading axis."""
-    acc = parts[0]
-    for i in range(1, parts.shape[0]):
-        acc = acc + parts[i]
+    rows = parts.unbind(0)
+    acc = rows[0]
+    for row in rows[1:]:
+        acc = acc + row
     return acc
 
 

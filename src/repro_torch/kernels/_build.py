@@ -83,7 +83,13 @@ def build_all(sources) -> list[Path]:
 
 
 def load(source: Path) -> ctypes.CDLL:
-    """Build (if needed) and ``dlopen`` the library of one ``.cu`` file."""
+    """Build (if needed) and ``dlopen`` the library of one ``.cu`` file;
+    refused under a fake trace, which never reaches a kernel's library."""
+    from repro_torch import _device
+    if _device.tracing():
+        raise RuntimeError(f"a fake trace reached the library of {source}: "
+                           "a kernel on a dry run's path is a custom op "
+                           "with a fake, never a ctypes launch")
     path = str(build(source))
     lib = _LOADED.get(path)
     if lib is None:

@@ -25,7 +25,12 @@ with no fallback between them (both live in one library,
 
 ``flash_attention`` takes CUDA tensors only and raises on anything else;
 ``flash_attention.launches`` counts its kernel launches and
-``flash_attention.route_launches`` counts them by route.
+``flash_attention.route_launches`` counts them by route.  The launch is
+the custom op ``repro_torch::flash_attention`` (CUDA only, no CPU
+implementation): a fake trace passes through it (its fake gives the
+output's shape and type) and ``FlopCounterMode`` counts its work,
+4·B·H·hd a live (q, k) pair (``live_pairs``); registering it builds and
+loads nothing, the library is built at the first real call.
 ``ops.attention`` is the public entry that runs the plain version on CPU
 tensors.  It is forward only, as the TPU kernel is: a call on a tensor
 that requires grad raises.
@@ -36,8 +41,13 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
+from typing import Optional
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch import _device
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 MAX_HEAD_DIM = 256
@@ -76,7 +86,7 @@ def _library() -> ctypes.CDLL:
 
 
 def _check(q, k, v, sliding_window, q_offset=0):
-    if not (q.device.type == k.device.type == v.device.type == "cuda"
+    if not (all(_device.device_type(t) == "cuda" for t in (q, k, v))
             and q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v must lie on one CUDA "
                          f"device, got {q.device}, {k.device}, {v.device}")
@@ -112,13 +122,18 @@ def _aligned(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    sliding_window: int | None = None, q_offset: int = 0):
-    """q: (B, Tq, H, hd); k, v: (B, Tk, KV, hd) -> (B, Tq, H, hd), one
-    launch of the route's CUDA kernel on q's current stream; query row i
-    at position ``q_offset + i``."""
-    q_offset = int(q_offset)
-    _check(q, k, v, sliding_window, q_offset)
+def live_pairs(Tq: int, Tk: int, causal: bool, window, offset: int = 0):
+    """(q, k) pairs that the masks leave live, queries at positions
+    offset..offset + Tq - 1, keys at their index."""
+    q = np.arange(offset, offset + Tq, dtype=np.int64)
+    hi = np.minimum(q, Tk - 1) if causal else np.full_like(q, Tk - 1)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros_like(q)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def _launch(q, k, v, causal: bool, sliding_window, q_offset: int):
+    """One launch of the route's CUDA kernel on q's current stream (the
+    op's CUDA implementation)."""
     B, Tq, H, hd = q.shape
     Tk, KV = k.shape[1], k.shape[2]
     name = route(q.dtype, hd)
@@ -137,6 +152,43 @@ def flash_attention(q, k, v, *, causal: bool = True,
     flash_attention.launches += 1
     flash_attention.route_launches[name] += 1
     return out
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, sliding_window: Optional[int],
+              q_offset: int) -> torch.Tensor:
+    return _launch(q, k, v, causal, sliding_window, q_offset)
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, sliding_window, q_offset):
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def flops(q_shape, k_shape, v_shape, causal=True, sliding_window=None,
+          q_offset=0, *args, out_shape=None, **kwargs) -> int:
+    """The kernel's work: q K^T and P V, 2·hd each a live (q, k) pair of
+    each of the B·H heads."""
+    B, Tq, H, hd = q_shape
+    return 4 * B * H * hd * live_pairs(Tq, k_shape[1], causal,
+                                       sliding_window, q_offset)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    sliding_window: int | None = None, q_offset: int = 0):
+    """q: (B, Tq, H, hd); k, v: (B, Tk, KV, hd) -> (B, Tq, H, hd), one
+    launch of the route's CUDA kernel on q's current stream (the op
+    ``repro_torch::flash_attention``); query row i at position
+    ``q_offset + i``."""
+    q_offset = int(q_offset)
+    _check(q, k, v, sliding_window, q_offset)
+    route(q.dtype, q.shape[-1])
+    return torch.ops.repro_torch.flash_attention(
+        q, k, v, bool(causal),
+        None if sliding_window is None else int(sliding_window), q_offset)
 
 
 def reset_launches() -> None:

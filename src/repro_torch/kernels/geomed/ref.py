@@ -6,8 +6,11 @@ and the yardstick the chip check holds the CUDA kernels against; and
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch import _device
 from repro_torch.core.geometric_median import f32_threshold
 from repro_torch.kernels.geomed.twin import reduce_partials, unit_partials
 
@@ -60,7 +63,8 @@ def geometric_median_ref(points, weights, *, max_iters: int = 64,
     it, delta = 0, float("inf")
     while it < max_iters and delta > f32_threshold(tol):
         y_new = step(points, y, weights, eps=eps)
-        delta = float(torch.linalg.norm(y_new - y))
+        delta = _device.host_value(torch.linalg.norm(y_new - y),
+                                   traced=math.inf)
         y = y_new
         it += 1
     return y, torch.tensor(it, dtype=torch.int32, device=points.device)

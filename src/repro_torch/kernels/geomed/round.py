@@ -8,7 +8,9 @@ Pallas TPU kernel) and its jnp twin ``round_aggregate_ref``:
 
 * ``round_aggregate_kernel`` — the wrapper.  On a CUDA tensor it launches
   the hand-written kernel ``csrc/round_aggregate.cu`` (one cooperative
-  launch, or raises); on a CPU tensor, and only there, it runs the plain
+  launch, or raises) through the custom op ``repro_torch::gmom_round``
+  (CUDA only; its fake gives a fake trace the outputs, and registering
+  it builds nothing); on a CPU tensor, and only there, it runs the plain
   PyTorch version.  It counts its launches in
   ``round_aggregate_kernel.launches``.
 * ``round_aggregate_ref`` — the plain PyTorch version, built from the same
@@ -51,12 +53,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from pathlib import Path
+from typing import Tuple
 
 import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch import _device
 from repro_torch.core.geometric_median import f32_threshold
 from repro_torch.core.grouping import (Grouping, assignment_matrix,
                                        batch_members_csr)
@@ -145,7 +151,7 @@ def _weiszfeld_resident(z, w, *, max_iters, tol, eps):
     it, delta2 = 0, float("inf")
     while it < max_iters and delta2 > f32_threshold(tol * tol):
         y, d2 = _weiszfeld_step_vals(z, w, y, eps=eps)
-        delta2 = float(d2)
+        delta2 = _device.host_value(d2, traced=math.inf)
         it += 1
     return y, it
 
@@ -522,6 +528,30 @@ def _blocks_per_sm(lib, prefix: str, k: int) -> int:
     return n
 
 
+def _grouping_on(grouping: Grouping, device: torch.device):
+    """``_grouping_tensors``, uncached under a fake trace (a fake tensor
+    must never reach a real call through the cache)."""
+    if _device.tracing():
+        return _grouping_tensors.__wrapped__(grouping, device)
+    return _grouping_tensors(grouping, device)
+
+
+# the card a dry trace reckons the round's scratch for: the H100 SXM's
+# 132 SMs (NVIDIA H100 data sheet), one block of the persistent grid each
+RECKONED_SMS = 132
+
+
+def scratch_bytes(k: int, d: int) -> int:
+    """Bytes of the round kernel's scratch beyond its outputs on the
+    persistent grid of ``RECKONED_SMS`` blocks: z (k, d padded to tiles)
+    f32 where the tiles outnumber the blocks, and the (2, nb, k + 1)
+    partials."""
+    n_tiles = -(-d // TILE)
+    nb = persistent_blocks(d, 1, RECKONED_SMS)
+    z = k * n_tiles * TILE if n_tiles > nb else 0
+    return 4 * (z + 2 * nb * (k + 1))
+
+
 def _round_scratch(lib, prefix: str, k: int, d: int, device):
     """(n_blocks, z or None, partials (2, nb, k + 1), y, iters) of one
     round on the persistent grid."""
@@ -551,21 +581,69 @@ def _round_args(k, trim_multiplier, max_iters, tol, eps):
             f32_threshold(eps * eps))
 
 
+def _launch(g, offsets, members, bsz, use_trim, trim_multiplier, max_iters,
+            tol2, eps, eps2):
+    """One cooperative launch of the persistent round kernel on g's
+    current stream -> ((d,) f32, (1,) int32 iterations) (the op's CUDA
+    implementation)."""
+    k, d = bsz.shape[0], g.shape[1]
+    lib = _library()
+    nb, z, part, y, iters = _round_scratch(lib, "gmom_round", k, d,
+                                           g.device)
+    rc = lib.gmom_round_aggregate(
+        g.data_ptr(), offsets.data_ptr(), members.data_ptr(), bsz.data_ptr(),
+        k, d, use_trim, trim_multiplier, max_iters, tol2, eps, eps2,
+        _ptr(z), part.data_ptr(), iters.data_ptr(), y.data_ptr(), nb,
+        stream(g))
+    if rc != 0:
+        raise RuntimeError(
+            f"round_aggregate kernel launch failed: CUDA error {rc} "
+            f"({lib.gmom_cuda_error_string(rc).decode()})")
+    round_aggregate_kernel.launches += 1
+    return y, iters
+
+
+@torch.library.custom_op("repro_torch::gmom_round", mutates_args=(),
+                         device_types="cuda")
+def _round_op(g: torch.Tensor, offsets: torch.Tensor, members: torch.Tensor,
+              bsz: torch.Tensor, use_trim: int, trim_multiplier: float,
+              max_iters: int, tol2: float, eps: float,
+              eps2: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _launch(g, offsets, members, bsz, use_trim, trim_multiplier,
+                   max_iters, tol2, eps, eps2)
+
+
+@_round_op.register_fake
+def _(g, offsets, members, bsz, use_trim, trim_multiplier, max_iters,
+      tol2, eps, eps2):
+    return (g.new_empty((g.shape[1],), dtype=torch.float32),
+            g.new_empty((1,), dtype=torch.int32))
+
+
+@register_flop_formula(torch.ops.repro_torch.gmom_round)
+def flops(*args, out_shape=None, **kwargs) -> int:
+    """No dot products: the reference's dot count gives a custom call
+    none (its means, distances and sums are vector work)."""
+    return 0
+
+
 def round_aggregate_kernel(stacked_grads, grouping: Grouping, *,
                            trim_multiplier: float | None = 3.0,
                            max_iters: int = 64, tol: float = 1e-8,
                            eps: float = 1e-12):
     """GMoM round on the card: f32 contiguous (m, d) -> ((d,), iterations).
 
-    Launches the persistent CUDA kernel (one cooperative launch) for a CUDA
-    tensor; a CPU tensor runs ``round_aggregate_ref``.  The early exit is
-    taken on the device; nothing synchronises the host."""
+    Launches the persistent CUDA kernel (one cooperative launch, the op
+    ``repro_torch::gmom_round``, whose fake gives a fake trace its
+    outputs) for a CUDA tensor; a CPU tensor runs ``round_aggregate_ref``.
+    The early exit is taken on the device; nothing synchronises the
+    host."""
     g = stacked_grads
-    if g.device.type == "cpu":
+    if _device.device_type(g) == "cpu":
         return round_aggregate_ref(g, grouping,
                                    trim_multiplier=trim_multiplier,
                                    max_iters=max_iters, tol=tol, eps=eps)
-    if g.device.type != "cuda":
+    if _device.device_type(g) != "cuda":
         raise ValueError(f"round_aggregate_kernel: unsupported device "
                          f"{g.device}")
     if g.dtype != torch.float32 or g.ndim != 2 or not g.is_contiguous():
@@ -577,20 +655,10 @@ def round_aggregate_kernel(stacked_grads, grouping: Grouping, *,
         raise ValueError(f"{m} gradient rows for a grouping of "
                          f"{grouping.num_workers} workers")
     args = _round_args(k, trim_multiplier, max_iters, tol, eps)
-    lib = _library()
-    offsets, members, bsz = _grouping_tensors(grouping, g.device)
-    nb, z, part, y, iters = _round_scratch(lib, "gmom_round", k, d,
-                                           g.device)
-    rc = lib.gmom_round_aggregate(
-        g.data_ptr(), offsets.data_ptr(), members.data_ptr(), bsz.data_ptr(),
-        k, d, *args, _ptr(z), part.data_ptr(), iters.data_ptr(),
-        y.data_ptr(), nb, stream(g))
-    if rc != 0:
-        raise RuntimeError(
-            f"round_aggregate kernel launch failed: CUDA error {rc} "
-            f"({lib.gmom_cuda_error_string(rc).decode()})")
-    round_aggregate_kernel.launches += 1
-    return y, iters[0]
+    offsets, members, bsz = _grouping_on(grouping, g.device)
+    y, iters = torch.ops.repro_torch.gmom_round(g, offsets, members, bsz,
+                                                *args)
+    return y, iters.squeeze(0)
 
 
 round_aggregate_kernel.launches = 0
@@ -637,7 +705,7 @@ def _linreg_launch(x, t, th, grouping: Grouping, route: str, *,
             f"({lib.gmom_linreg_error_string(rc).decode()})")
     linreg_round_kernel.launches += 1
     linreg_round_kernel.route_launches[route] += 1
-    return y, iters[0]
+    return y, iters.squeeze(0)
 
 
 def linreg_round_kernel(features, targets, theta, grouping: Grouping, *,

@@ -5,6 +5,10 @@
   raises without a card.
 * ``--scale cpu``: the reduced config on the CPU, as the reference serves
   it.
+* ``--scale pod``: the reference's dry run of one serve step against a
+  ``--shape`` context (decode_32k or long_500k) on the (16, 16) mesh
+  (``--multi-pod``: (2, 16, 16)), rank ``--rank``'s step traced on fake
+  tensors (``launch.dryrun``; no card, no process group).
 
 Both prefill the prompts through decode steps (the reference's path) and
 then decode greedily.  The audio family decodes against the zero encoder
@@ -13,10 +17,8 @@ does, so its cross-attention adds exactly 0; the vlm family decodes text
 tokens alone, with no patch prefix, as the reference's does.  Prompts
 are drawn from ``--seed`` too, on a generator of their own (seeded with
 ``--seed`` XOR ``PROMPT_SEED``), so their stream differs from the
-params', as the reference folds its key for them.  The reference's
-``--scale pod`` (a dry-run lowering on the production mesh) is ROADMAP
-Queue 1 item 17 and is not ported, nor are its ``--shape`` and
-``--multi-pod`` flags, which are refused.
+params', as the reference folds its key for them.  ``--shape`` and
+``--multi-pod`` belong to ``--scale pod``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve          # the card
     PYTHONPATH=src python -m repro_torch.launch.serve --scale cpu
@@ -141,18 +143,24 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--arch", default="h2o-danube-3-4b",
                    choices=list(ARCHITECTURES))
-    p.add_argument("--scale", default="gpu", choices=["gpu", "cpu"])
+    p.add_argument("--scale", default="gpu", choices=["gpu", "cpu", "pod"])
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--prompt-len", type=int, default=16)
     p.add_argument("--new-tokens", type=int, default=32)
     p.add_argument("--shape", default=None,
-                   choices=["decode_32k", "long_500k"])
+                   choices=["decode_32k", "long_500k"],
+                   help="--scale pod's context (default decode_32k)")
     p.add_argument("--multi-pod", action="store_true")
+    p.add_argument("--rank", type=int, default=0,
+                   help="the rank whose step --scale pod traces")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
+    if args.scale == "pod":
+        from repro_torch.launch import dryrun
+        return dryrun.dryrun_pair(args.arch, args.shape or "decode_32k",
+                                  multi_pod=args.multi_pod, rank=args.rank)
     if args.shape is not None or args.multi_pod:
-        p.error("--shape and --multi-pod belong to the pod dry-run, which is "
-                "not ported (ROADMAP Queue 1 item 17)")
+        p.error("--shape and --multi-pod belong to --scale pod")
     return serve_cpu(args) if args.scale == "cpu" else serve_gpu(args)
 
 

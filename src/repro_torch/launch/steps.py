@@ -31,8 +31,14 @@ either way (on the layout, each rank's cut of it).
 The serve steps (``make_prefill_step``, ``make_serve_step``) run under
 ``torch.no_grad``.  A step sets the port's matmul precision
 (``_device.set_precision``) and runs on whatever device its params lie
-on.  The reference's abstract input specs (``ShapeDtypeStruct``) wait for
-the dry-run tooling (ROADMAP Queue 1 item 17).
+on.
+
+``input_specs`` gives the reference's abstract inputs of an (arch,
+shape) pair as fake tensors (the reference's ``ShapeDtypeStruct``s: the
+same shapes and dtypes, no memory) under a given ``FakeTensorMode``, and
+``abstract_params`` / ``abstract_opt_state`` the params' and the
+optimizer state's: what the pod dry run (``launch.dryrun``) cuts into a
+rank's blocks and traces one step on.
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ from torch.utils._pytree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
 
 from repro_torch import _device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs import get_config, get_shape, long_context_variant
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core import byzantine
 from repro_torch.core import shard_aggregation as sa
 from repro_torch.core.geometric_median import median
@@ -50,6 +57,119 @@ from repro_torch.core.robust_train import RobustConfig, aggregate_reported
 from repro_torch.launch import sharding
 from repro_torch.models import meshctx
 from repro_torch.models import model as model_lib
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs: fake tensors of the reference's shapes and dtypes
+
+def _fake(mode, device):
+    """(the fake-tensor mode, its device): a new mode where none is given,
+    on ``device`` (a torch device, default the CPU)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    return (mode if mode is not None else FakeTensorMode(),
+            torch.device("cpu" if device is None else device))
+
+
+def train_batch_struct(cfg: ModelConfig, shape: InputShape, num_groups: int,
+                       *, mode=None, device=None):
+    """Abstract train batch: leaves (k, B/k, ...)."""
+    mode, dev = _fake(mode, device)
+    k = num_groups
+    if shape.global_batch % k != 0:
+        raise ValueError(f"global_batch={shape.global_batch} % k={k} != 0")
+    bg = shape.global_batch // k
+    T = shape.seq_len
+    i32 = torch.int32
+    with mode:
+        def arr(shp, dt):
+            return torch.empty(shp, dtype=dt, device=dev)
+
+        if cfg.family == "vlm":
+            t_text = T - cfg.num_patches
+            return {"tokens": arr((k, bg, t_text), i32),
+                    "labels": arr((k, bg, t_text), i32),
+                    "patches": arr((k, bg, cfg.num_patches, cfg.d_model),
+                                   cfg.dtype)}
+        if cfg.family == "audio":
+            t_enc = max(T // cfg.encoder_seq_divisor, 1)
+            return {"tokens": arr((k, bg, T), i32),
+                    "labels": arr((k, bg, T), i32),
+                    "frames": arr((k, bg, t_enc, cfg.d_model), cfg.dtype)}
+        return {"tokens": arr((k, bg, T), i32),
+                "labels": arr((k, bg, T), i32)}
+
+
+def prefill_batch_struct(cfg: ModelConfig, shape: InputShape, *, mode=None,
+                         device=None):
+    """Abstract prefill batch: (B, T) tokens, and vlm's patches or audio's
+    frames."""
+    mode, dev = _fake(mode, device)
+    B, T = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    with mode:
+        def arr(shp, dt):
+            return torch.empty(shp, dtype=dt, device=dev)
+
+        if cfg.family == "vlm":
+            return {"tokens": arr((B, T - cfg.num_patches), i32),
+                    "patches": arr((B, cfg.num_patches, cfg.d_model),
+                                   cfg.dtype)}
+        if cfg.family == "audio":
+            t_enc = max(T // cfg.encoder_seq_divisor, 1)
+            return {"tokens": arr((B, T), i32),
+                    "frames": arr((B, t_enc, cfg.d_model), cfg.dtype)}
+        return {"tokens": arr((B, T), i32)}
+
+
+def decode_input_struct(cfg: ModelConfig, shape: InputShape, *, mode=None,
+                        device=None):
+    """(tokens (B, 1), positions (B,), state) for one serve_step against a
+    seq_len-deep context; the state ``model.init_decode_state``'s, traced
+    on the fake device."""
+    mode, dev = _fake(mode, device)
+    B, T = shape.global_batch, shape.seq_len
+    with mode:
+        tokens = torch.empty((B, 1), dtype=torch.int32, device=dev)
+        positions = torch.empty((B,), dtype=torch.int32, device=dev)
+        state = model_lib.init_decode_state(
+            cfg, B, T, device=_device.traced(str(dev)))
+    return tokens, positions, state
+
+
+def input_specs(arch_or_cfg, shape_name, *, num_groups: int = 4,
+                mode=None, device=None):
+    """The dry run's entry: (cfg, shape, abstract inputs) of (arch,
+    shape); ``shape_name`` names a shape of the table, or is an
+    ``InputShape``; long_500k takes ``configs.long_context_variant``."""
+    cfg = (arch_or_cfg if isinstance(arch_or_cfg, ModelConfig)
+           else get_config(arch_or_cfg))
+    shape = (shape_name if isinstance(shape_name, InputShape)
+             else get_shape(shape_name))
+    if shape.name == "long_500k":
+        cfg = long_context_variant(cfg)
+    kw = dict(mode=mode, device=device)
+    if shape.kind == "train":
+        return cfg, shape, train_batch_struct(cfg, shape, num_groups, **kw)
+    if shape.kind == "prefill":
+        return cfg, shape, prefill_batch_struct(cfg, shape, **kw)
+    return cfg, shape, decode_input_struct(cfg, shape, **kw)
+
+
+def abstract_params(cfg: ModelConfig, *, mode=None, device=None):
+    """The params as fake tensors, from ``sharding.param_shapes`` (the
+    init traced once on fake tensors): nothing is drawn."""
+    mode, dev = _fake(mode, device)
+    with mode:
+        return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                              device=dev),
+                        sharding.param_shapes(cfg))
+
+
+def abstract_opt_state(optimizer, params, *, mode=None):
+    """``optimizer.init`` of fake ``params`` under their mode."""
+    mode, _ = _fake(mode, None)
+    with mode:
+        return optimizer.init(params)
 
 
 # ---------------------------------------------------------------------------

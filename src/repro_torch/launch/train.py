@@ -11,8 +11,10 @@ AdamW, checkpoints of the full ``TrainState`` and a metrics log.
   per-worker ``vmap`` of ``grad``); raises without a card.
 * ``--scale cpu``: the reduced config on the CPU, as the reference's
   default.
-* ``--scale pod`` (the reference's dry-run lowering of the production job)
-  is refused: it needs the dry-run tooling (ROADMAP Queue 1 item 17).
+* ``--scale pod``: the reference's dry run of the production job, one
+  train_4k step of rank ``--rank`` of the (16, 16) mesh (``--multi-pod``:
+  (2, 16, 16)) traced on fake tensors (``launch.dryrun``; no card, no
+  process group), its roofline record printed.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --scale cpu \\
@@ -25,6 +27,8 @@ Usage:
         --seq-len 512 --arch zamba2-2.7b              # 6 layers
     PYTHONPATH=src python -m repro_torch.launch.train --steps 4 \\
         --seq-len 512 --arch seamless-m4t-medium      # 1 + 1 layers
+    PYTHONPATH=src python -m repro_torch.launch.train --scale pod \\
+        --arch qwen2-72b                              # dry run, rank 0
 """
 
 from __future__ import annotations
@@ -113,15 +117,16 @@ def gpu_train_layers(cfg) -> int:
 def train_config(arch: str, scale: str):
     """The config ``train`` runs at ``scale``: reduced on the CPU; the
     published widths at ``gpu_train_layers`` layers on the card (the audio
-    encoder cut with the decoder), remat as the config has it."""
+    encoder cut with the decoder), remat as the config has it; the config
+    itself on the pod (the dry run's)."""
     if scale == "cpu":
         return get_config(arch).reduced()
     if scale == "gpu":
         cfg = get_config(arch)
         return _at_depth(cfg, gpu_train_layers(cfg))
-    raise NotImplementedError(
-        f"--scale {scale}: the reference lowers the production job in a "
-        "dry run, which needs the dry-run tooling (ROADMAP Queue 1 item 17)")
+    if scale == "pod":
+        return get_config(arch)
+    raise ValueError(f"unknown scale {scale!r}")
 
 
 def build_cpu_batch(cfg, stream: TokenStream, step: int, key):
@@ -184,7 +189,9 @@ def resume_train_state(ckpt_dir, params, opt_state, schedule, step_key,
 def train(args) -> dict:
     """The reference's ``train_cpu``, line for line, at ``args.scale``:
     on the CPU for ``cpu``, on the CUDA card (raising without one) for
-    ``gpu``."""
+    ``gpu``; ``pod`` is ``train_pod``."""
+    if args.scale == "pod":
+        return train_pod(args)
     cfg = train_config(args.arch, args.scale)
     if args.scale != "cpu":
         _device.expandable_segments()
@@ -268,6 +275,20 @@ def train(args) -> dict:
     return result
 
 
+def train_pod(args) -> dict:
+    """One train_4k step of rank ``args.rank`` of the production mesh,
+    traced on fake tensors (the reference's ``train_pod``): its roofline
+    record, printed and returned as a dict."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.dryrun_pair(args.arch, "train_4k",
+                             multi_pod=args.multi_pod, rank=args.rank,
+                             num_groups=args.num_batches or 4,
+                             microbatches=args.microbatches)
+    print("[train] pod-scale step traced; roofline:",
+          json.dumps(rec.to_dict(), indent=1, default=str))
+    return rec.to_dict()
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
@@ -309,6 +330,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--ckpt-every", type=int, default=50)
+    p.add_argument("--microbatches", type=int, default=1,
+                   help="a group's microbatches (--scale pod)")
+    p.add_argument("--multi-pod", action="store_true",
+                   help="the (2, 16, 16) mesh (--scale pod)")
+    p.add_argument("--rank", type=int, default=0,
+                   help="the rank whose step is traced (--scale pod)")
     p.add_argument("--out", default=None)
     return p
 

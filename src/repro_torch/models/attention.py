@@ -36,6 +36,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import _device
 from repro_torch.models import layers, meshctx
 
 # sentinel position of an empty cache slot (never inside a window)
@@ -267,7 +268,7 @@ def apply_sequence_parallel(params, spec: AttentionSpec, x, *, memory=None,
         k_loc, v_loc = _project_kv(params, spec, x, pos)
         k, v = meshctx.all_gather_many([k_loc, v_loc], "model", 1,
                                        mesh=mesh)
-    if x.device.type == "cuda" and not plain:
+    if _device.device_type(x) == "cuda" and not plain:
         from repro_torch.kernels.attention import ops
         out = ops.attention(q, k, v, causal=causal, sliding_window=window,
                             q_offset=offset)
@@ -315,7 +316,7 @@ def apply(params, spec: AttentionSpec, x, *, memory=None,
     k, v = _project_kv(params, spec, kv_src, kv_pos)
     causal = spec.causal and not spec.cross
     window = None if spec.cross else spec.sliding_window
-    if x.device.type == "cuda" and not plain:
+    if _device.device_type(x) == "cuda" and not plain:
         from repro_torch.kernels.attention import ops
         out = ops.attention(q, k, v, causal=causal, sliding_window=window)
     elif not spec.cross and T > BLOCKED_ATTENTION_THRESHOLD:

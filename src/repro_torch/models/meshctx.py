@@ -44,8 +44,14 @@ its ranks sharing one host), through a file there that the group's ranks
 map (``_Arena``: a slot a rank, counters the ranks poll), which spares
 each collective gloo's round trips through the socket layer.  The bytes
 are the same either way.  ``Mesh.stats`` counts a mesh's collectives,
-their bytes and their milliseconds (the staging included);
-``Mesh.reset_stats`` zeroes it.
+their bytes and their milliseconds (the staging included), and by kind
+(``KINDS``) their calls, ``result_bytes`` (the collective's result a
+rank, the reference's convention: a psum's is one part) and
+``wire_bytes`` (what the transport received: a psum gathers its n parts);
+``Mesh.reset_stats`` zeroes it.  ``Mesh.abstract(shape, axes, rank)`` is
+one rank's view of a mesh with no process group: the dry run
+(``launch.dryrun``) traces that rank's program on fake tensors through
+its transport, which moves no bytes and counts as a real one does.
 
 The mesh also carries the one registry of axis groups:
 ``core.shard_aggregation`` reads an axis's group through
@@ -102,11 +108,7 @@ class Mesh:
     the reference."""
 
     def __init__(self, shape, axis_names):
-        shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
-        if len(shape) != len(axis_names) or len(set(axis_names)) != len(
-                axis_names):
-            raise ValueError(f"mesh shape {shape} and axes {axis_names} "
-                             "must pair one size with each distinct name")
+        shape, axis_names = _check_shape(shape, axis_names)
         if not dist.is_initialized():
             raise RuntimeError("a Mesh is a grid of torch.distributed ranks: "
                                "initialise the default group first")
@@ -115,11 +117,36 @@ class Mesh:
             raise ValueError(f"mesh {dict(zip(axis_names, shape))} holds "
                              f"{math.prod(shape)} ranks, the default group "
                              f"{world}")
+        self._setup(shape, axis_names, dist.get_rank(), dist.new_group)
+
+    @classmethod
+    def abstract(cls, shape, axis_names, rank: int) -> "Mesh":
+        """The mesh as rank ``rank`` of it sees it, with no process group:
+        the same ``coords``, group ranks, ``size`` and ``index``; its
+        collectives take fake tensors only and return fake tensors of the
+        received shapes (the dry run's transport), counted in ``stats``
+        as a real mesh counts them."""
+        shape, axis_names = _check_shape(shape, axis_names)
+        if not 0 <= rank < math.prod(shape):
+            raise ValueError(f"rank {rank} is not in a mesh of "
+                             f"{math.prod(shape)} ranks")
+        mesh = cls.__new__(cls)
+        mesh._setup(shape, axis_names, int(rank),
+                    lambda ranks: _AbstractGroup(tuple(ranks)))
+        return mesh
+
+    @property
+    def is_abstract(self) -> bool:
+        return self._abstract
+
+    def _setup(self, shape, axis_names, rank, new_group):
+        self._abstract = new_group is not dist.new_group
+        world = math.prod(shape)
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, shape))
         self.stats = {}
         self.reset_stats()
-        self.rank = dist.get_rank()
+        self.rank = rank
         coords, r = [], self.rank
         for size in reversed(shape):
             coords.append(r % size)
@@ -141,13 +168,28 @@ class Mesh:
                     elif len(ranks) == 1:
                         group = None                        # never used
                     else:
-                        group = dist.new_group(ranks)
+                        group = new_group(ranks)
                     if self.rank in ranks:
                         self._groups[axes] = (group, tuple(ranks))
 
     def reset_stats(self) -> None:
-        """Zero the count of collectives, their bytes and milliseconds."""
-        self.stats.update(calls=0, bytes=0, ms=0.0)
+        """Zero the count of collectives, their bytes and milliseconds,
+        the counts by kind, and the bytes received by group (``groups``:
+        "axis,axis" -> bytes); new dicts, so a copy of the old stats keeps
+        its own."""
+        self.stats.update(calls=0, bytes=0, ms=0.0, kinds={
+            kind: dict(calls=0, result_bytes=0, wire_bytes=0)
+            for kind in KINDS}, groups={})
+
+    def axes_of(self, group):
+        """The axes whose group is ``group`` (None: the default group, the
+        whole mesh), or None where no set of this mesh's axes has it."""
+        if group is None:
+            return self.axis_names
+        for axes, (g, _) in self._groups.items():
+            if g is group:
+                return axes
+        return None
 
     def axes(self, axes) -> tuple:
         """``axes`` (a name or a tuple of names) in mesh order."""
@@ -171,6 +213,31 @@ class Mesh:
 
     def __repr__(self):
         return f"Mesh({self.shape}, rank {self.rank} at {self.coords})"
+
+
+# the kinds of collective ``Mesh.stats`` counts: a gather, a sum on every
+# rank, a sum scattered, and an exchange of blocks
+KINDS = ("all_gather", "psum", "psum_scatter", "all_to_all")
+
+
+def _check_shape(shape, axis_names):
+    shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+    if len(shape) != len(axis_names) or len(set(axis_names)) != len(
+            axis_names):
+        raise ValueError(f"mesh shape {shape} and axes {axis_names} "
+                         "must pair one size with each distinct name")
+    return shape, axis_names
+
+
+class _AbstractGroup:
+    """An abstract mesh's stand-in for a process group: its ranks; no
+    ``torch.distributed`` call takes it."""
+
+    def __init__(self, ranks):
+        self.ranks = ranks
+
+    def __repr__(self):
+        return f"_AbstractGroup({self.ranks})"
 
 
 @contextlib.contextmanager
@@ -327,18 +394,44 @@ def _as_bytes(x):
     return x.contiguous().reshape(-1).view(torch.uint8)
 
 
-def _transfer(x, mesh, fn):
-    """Run ``fn(local_bytes) -> received bytes`` on ``x``'s bytes, staged
-    through the host when ``x`` lies on the card; counted in
-    ``mesh.stats``."""
+def _transfer(x, mesh, axes, exchange: str, kind: str, result_bytes: int):
+    """``x``'s bytes through the transport of ``mesh``'s group over
+    ``axes``: ``exchange`` "gather" -> (n, bytes), every rank's in order;
+    "all_to_all" -> (bytes,), block j of every rank's n blocks to rank j.
+    Staged through the host when ``x`` lies on the card.  An abstract
+    mesh takes fake tensors only and returns a fake tensor of the received
+    shape on ``x``'s device.  Counted in ``mesh.stats``: the totals, and
+    under ``kind`` the calls, the result's bytes a rank (``result_bytes``,
+    the reference's convention) and the bytes the transport received."""
+    group, ranks = mesh.group(axes)
+    n = len(ranks)
     t0 = time.perf_counter()
-    local = _as_bytes(x.detach().cpu() if x.is_cuda else x.detach())
-    out = fn(local)
-    if x.is_cuda:
-        out = out.to(x.device)
+    if mesh.is_abstract:
+        from torch._subclasses.fake_tensor import is_fake
+        if not is_fake(x):
+            raise RuntimeError("an abstract mesh's collectives take fake "
+                               "tensors only (a dry trace); got a real "
+                               f"{x.device} tensor")
+        local = _as_bytes(x.detach())
+        shape = (n, local.numel()) if exchange == "gather" \
+            else (local.numel(),)
+        out = torch.empty(shape, dtype=torch.uint8, device=x.device)
+    else:
+        local = _as_bytes(x.detach().cpu() if x.is_cuda else x.detach())
+        out = (_gather_bytes if exchange == "gather"
+               else _all_to_all_bytes)(local, group, ranks)
+        if x.is_cuda:
+            out = out.to(x.device)
     mesh.stats["calls"] += 1
     mesh.stats["bytes"] += local.numel()
     mesh.stats["ms"] += (time.perf_counter() - t0) * 1e3
+    counts = mesh.stats["kinds"][kind]
+    counts["calls"] += 1
+    counts["result_bytes"] += int(result_bytes)
+    counts["wire_bytes"] += out.numel()
+    groups = mesh.stats["groups"]
+    key = ",".join(axes)
+    groups[key] = groups.get(key, 0) + out.numel()
     return out
 
 
@@ -480,19 +573,35 @@ def _all_to_all_bytes(local, group, ranks):
     return out
 
 
-def _parts(x, mesh, axes):
-    """Every rank's ``x`` over ``axes``, in group order: (n, *x.shape)."""
-    group, ranks = mesh.group(axes)
-    if len(ranks) == 1:
+def _nbytes(x) -> int:
+    return x.numel() * x.element_size()
+
+
+def _parts(x, mesh, axes, kind: str = "all_gather"):
+    """Every rank's ``x`` over ``axes``, in group order: (n, *x.shape),
+    counted as ``kind`` (a gather; "psum": the parts of a sum, whose
+    result is one part)."""
+    n = len(mesh.group(axes)[1])
+    if n == 1:
         return x[None]
-    return _transfer(x, mesh, lambda local: _gather_bytes(
-        local, group, ranks)).view(x.dtype).reshape(len(ranks), *x.shape)
+    result = _nbytes(x) * (n if kind == "all_gather" else 1)
+    return _transfer(x, mesh, axes, "gather", kind, result).view(
+        x.dtype).reshape(n, *x.shape)
+
+
+def parts(x, axes, *, mesh=None):
+    """Every rank's ``x`` over ``axes`` of the (ambient) mesh, stacked in
+    rank order: (n, *x.shape), through the mesh's transport (no
+    autograd)."""
+    mesh = _mesh_for(mesh)
+    return _parts(x, mesh, mesh.axes(axes))
 
 
 def _chain(parts):
-    acc = parts[0]
-    for i in range(1, parts.shape[0]):
-        acc = acc + parts[i]
+    rows = parts.unbind(0)
+    acc = rows[0]
+    for row in rows[1:]:
+        acc = acc + row
     return acc
 
 
@@ -502,7 +611,7 @@ def _all_gather(x, mesh, axes, dim):
 
 
 def _psum(x, mesh, axes):
-    return _chain(_parts(x, mesh, axes))
+    return _chain(_parts(x, mesh, axes, "psum"))
 
 
 def softmax_combine(m, l, o, axes, *, mesh=None):
@@ -523,27 +632,26 @@ def softmax_combine(m, l, o, axes, *, mesh=None):
 
 
 def _psum_scatter(x, mesh, axes, dim):
-    group, ranks = mesh.group(axes)
-    n = len(ranks)
+    n = len(mesh.group(axes)[1])
     if x.shape[dim] % n != 0:
         raise ValueError(f"psum_scatter: dim {dim} of {tuple(x.shape)} does "
                          f"not split into {n} ranks")
     if n == 1:
         return x
     chunks = torch.stack(x.chunk(n, dim))          # (n, *chunk) to rank j
-    mine = _transfer(chunks, mesh, lambda local: _all_to_all_bytes(
-        local, group, ranks)).view(x.dtype).reshape(chunks.shape)
+    mine = _transfer(chunks, mesh, axes, "all_to_all", "psum_scatter",
+                     _nbytes(x) // n).view(x.dtype).reshape(chunks.shape)
     return _chain(mine)
 
 
-def _parts_many(xs, mesh, axes):
+def _parts_many(xs, mesh, axes, kind: str = "all_gather"):
     """``_parts`` of every tensor of ``xs`` in one gather: their bytes side
     by side."""
     n = len(mesh.group(axes)[1])
     if n == 1 or len(xs) == 1:
-        return [_parts(x, mesh, axes) for x in xs]
+        return [_parts(x, mesh, axes, kind) for x in xs]
     flat = torch.cat([_as_bytes(x) for x in xs])
-    rows = _parts(flat, mesh, axes)                # (n, bytes)
+    rows = _parts(flat, mesh, axes, kind)          # (n, bytes)
     out, off = [], 0
     for x in xs:
         nb = x.numel() * x.element_size()
@@ -562,14 +670,13 @@ def _all_gather_many(xs, mesh, axes, dims):
 
 def _psum_many(xs, mesh, axes):
     """``_psum`` of each tensor, in one collective (no autograd)."""
-    return [_chain(p) for p in _parts_many(xs, mesh, axes)]
+    return [_chain(p) for p in _parts_many(xs, mesh, axes, "psum")]
 
 
 def _psum_scatter_many(xs, mesh, axes, dims):
     """``_psum_scatter`` of each tensor along its dim, in one exchange (no
     autograd)."""
-    group, ranks = mesh.group(axes)
-    n = len(ranks)
+    n = len(mesh.group(axes)[1])
     if n == 1:
         return list(xs)
     if len(xs) == 1:
@@ -582,8 +689,8 @@ def _psum_scatter_many(xs, mesh, axes, dims):
         chunks.append(torch.stack(x.chunk(n, d)))
     rows = torch.cat([c.reshape(n, -1).view(torch.uint8) for c in chunks],
                      dim=1)                        # (n, bytes): row j to j
-    got = _transfer(rows, mesh, lambda local: _all_to_all_bytes(
-        local, group, ranks)).reshape(n, -1)
+    got = _transfer(rows, mesh, axes, "all_to_all", "psum_scatter",
+                    rows.numel() // n).reshape(n, -1)
     out, off = [], 0
     for c in chunks:
         nb = c[0].numel() * c.element_size()
@@ -792,10 +899,12 @@ def one_card_turns(mesh, fn, device):
     """``fn()`` on every rank; where the mesh's ranks share one card, one
     rank at a time in rank order, each emptying its allocator's cache
     before and after its turn, so that one rank's scratch at a time holds
-    the card (a barrier over the mesh between turns)."""
+    the card (a barrier over the mesh between turns).  An abstract mesh
+    runs ``fn`` once: its one rank has no card to share."""
     world = math.prod(mesh.shape.values())
     dev = torch.device(device)
-    if dev.type != "cuda" or torch.cuda.device_count() >= world:
+    if (mesh.is_abstract or dev.type != "cuda"
+            or torch.cuda.device_count() >= world):
         return fn()
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()

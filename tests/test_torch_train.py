@@ -600,8 +600,29 @@ def test_train_cli_learns(tmp_path):
 
 
 def test_train_scales(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 17"):
-        train_lib.train(train_lib.parse_args(["--scale", "pod"]))
+    # --scale pod is the dry run of one train_4k step of a rank of the
+    # production mesh (tests/test_torch_dryrun.py traces it whole)
+    from repro_torch.launch import dryrun
+    seen = {}
+
+    class Record:
+        def to_dict(self):
+            return {"shape": "train_4k"}
+
+    def pair(arch, shape, **kw):
+        seen.update(kw, arch=arch, shape=shape)
+        return Record()
+
+    monkeypatch.setattr(dryrun, "dryrun_pair", pair)
+    pod = train_lib.parse_args(["--scale", "pod", "--multi-pod", "--rank",
+                                "7", "--num-batches", "8"])
+    assert train_lib.train(pod) == {"shape": "train_4k"}
+    assert seen == dict(arch="minitron-4b", shape="train_4k",
+                        multi_pod=True, rank=7, num_groups=8,
+                        microbatches=1)
+    assert train_lib.train_config("qwen2-72b", "pod") == \
+        configs.get_config("qwen2-72b")
+    monkeypatch.undo()
     args = train_lib.parse_args([])
     assert (args.scale, args.arch) == ("gpu", "h2o-danube-3-4b")
     assert train_lib.parse_args(["--scale", "cpu"]).arch == "minitron-4b"
