@@ -256,12 +256,26 @@ Phases:
                  one; dryrun_pair of DRY_PAIRS on (16, 16) (records and
                  trace seconds); the round and flash custom ops
                  torch.equal to their direct launches
+ 18 sweep        the pod sweep (sim/sweep.py) held to the card: (a) its
+                 five microcells (the report wire, none / sign / int8,
+                 and the staleness merge, sharded / gathered) for real
+                 on (1, 4) rank processes at m = 4, d = SWEEP_MICRO_D,
+                 each rank's collectives by kind and group equal to its
+                 dry run's on fake cuda tensors, the aggregates the same
+                 bits on every rank and equal to one process's (the
+                 sharded stale cell's within RTOL / ATOL of max|y|), one
+                 round-kernel launch a rank in each whole gmom consume,
+                 and the wire's gather taken around the mesh caught; (b)
+                 the five at production size (minitron-4b, (16, 16), rank
+                 0) traced on the host, within the gate of the port's
+                 record (compare_payloads, compression_wire_problems)
   7 kernel line  one JSON object, a row per kernel (the round kernel's
                  launches include phase 6 (c)'s, phase 8's, phase 9's,
-                 phase 10's and phase 11's; its row carries the (8, 8, P)
-                 timings as train_shape (H2O), granite_train_shape
-                 (Granite), zamba2_train_shape (Zamba2) and
-                 seamless_train_shape (SeamlessM4T); the flash row's
+                 phase 10's, phase 11's and phase 18 (a)'s; its row
+                 carries the (8, 8, P) timings as train_shape (H2O),
+                 granite_train_shape (Granite), zamba2_train_shape
+                 (Zamba2) and seamless_train_shape (SeamlessM4T); the
+                 flash row's
                  launches include phase 9's, 10's, 11's, 12's, 14's and
                  15's prefills
                  and it carries Granite's, Zamba2's, SeamlessM4T's and
@@ -3500,18 +3514,19 @@ def _mesh_phase_ranks(rank, world, device, bodies):
     return out
 
 
-def mesh_phases(dev, hbm, smi):
-    """Phases 12-16 on MESH_RANKS rank processes of the card, started once
-    (a start took 10-15 s, and each phase's first calls on the card as
-    many again): every phase's kernel checks and one-process references
-    first (each phase's code up to its rank body), then one
-    ``ranks.run`` that runs the five rank bodies in turn, then each
-    phase's checks.  -> the five phases' returns."""
+def mesh_phases(dev, hbm, smi, started):
+    """Phases 12-16 and 18 (a) on MESH_RANKS rank processes of the card,
+    started once (a start took 10-15 s, and each phase's first calls on
+    the card as many again): every phase's kernel checks and one-process
+    references first (each phase's code up to its rank body), then one
+    ``ranks.run`` that runs the six rank bodies in turn, then each
+    phase's checks (phase 18's with ``started``'s traces, from
+    ``dry_run_start``).  -> the six phases' returns."""
     import torch
     from repro_torch.launch import ranks
     phases = (mesh_path(dev, hbm, smi), mesh_train_path(dev, smi),
               mesh_families_path(dev, hbm, smi), mesh_decode_path(dev, smi),
-              mesh_whole_path(dev, smi))
+              mesh_whole_path(dev, smi), sweep_path(dev, smi, started))
     bodies = []
     for phase in phases:
         bodies.append(next(phase))
@@ -3530,8 +3545,8 @@ def mesh_phases(dev, hbm, smi):
         except StopIteration as stop:
             out.append(stop.value)
         else:
-            raise RuntimeError(f"mesh phase {12 + i} handed over a second "
-                               "rank body")
+            raise RuntimeError(f"mesh phase {(12, 13, 14, 15, 16, 18)[i]} "
+                               "handed over a second rank body")
     return out
 
 
@@ -6014,8 +6029,9 @@ def _dry_job(job):
     (wire "int8") first step on rank ``rank`` of the (2, 2) mesh, its
     host Weiszfeld loop capped at ``reads`` iterations (the real step's
     count; 0 where the loop is the round kernel's, on the card);
-    ("pair", arch, shape) traces ``dryrun_pair`` on the (16, 16) mesh.
-    Both on fake cuda tensors -> the record as a dict."""
+    ("pair", arch, shape) traces ``dryrun_pair`` on the (16, 16) mesh;
+    ("micro", ...) and ("sweep", ...) are phase 18's (``_sweep_job``).
+    All on fake cuda tensors -> the record as a dict."""
     import dataclasses
 
     import torch
@@ -6025,6 +6041,8 @@ def _dry_job(job):
     torch.set_num_threads(1)
     if job[0] == "pair":
         return dryrun.dryrun_pair(job[1], job[2], verbose=False).to_dict()
+    if job[0] in ("micro", "sweep"):
+        return _sweep_job(job)
     _, wire, variant, rank, reads = job
     g = MESH_TRAIN
     rc = (_mesh_int8_rc("auto") if wire == "int8"
@@ -6125,8 +6143,9 @@ def _dry_warm(_):
 
 def dry_run_start():
     """Phase 17's DRY_WORKERS worker processes, started before the mesh
-    phases with their imports done, and (b)'s traces submitted -> (the
-    pool, (b)'s futures)."""
+    phases with their imports done, and the traces that need nothing of
+    the mesh phases submitted: 17 (b)'s, then 18's (``_sweep_jobs``) ->
+    (the pool, 17 (b)'s futures, 18's {job: future})."""
     import concurrent.futures
     import multiprocessing
     pool = concurrent.futures.ProcessPoolExecutor(
@@ -6134,8 +6153,10 @@ def dry_run_start():
         mp_context=multiprocessing.get_context("spawn"))
     for _ in range(DRY_WORKERS):
         pool.submit(_dry_warm, None)
-    return pool, [pool.submit(_dry_job, ("pair", arch, shape))
-                  for arch, shape in DRY_PAIRS]
+    pairs = [pool.submit(_dry_job, ("pair", arch, shape))
+             for arch, shape in DRY_PAIRS]
+    return pool, pairs, {job: pool.submit(_dry_job, job)
+                         for job in _sweep_jobs()}
 
 
 def dry_run_path(dev, smi, started):
@@ -6158,7 +6179,7 @@ def dry_run_path(dev, smi, started):
     The traces run in ``started``'s pool (``dry_run_start``), (a)'s the
     int8 wire's first (the longest)."""
     t0 = time.perf_counter()
-    pool, pair_futures = started
+    pool, pair_futures, _ = started
     jobs = [("step", wire, variant, rank, DRY_SHARED[(wire, variant)][rank]
              ["reads"]) for wire, variant in reversed(DRY_STEPS)
             for rank in range(MESH_RANKS)]
@@ -6210,6 +6231,238 @@ def dry_run_path(dev, smi, started):
           "traces_s": traced_s, "peak_ratios": ratios,
           "worst_peak_rel": worst, "peak_rtol": DRY_PEAK_RTOL,
           "card": smi})
+
+
+# -- phase 18: the pod sweep held to the card ----------------------------------
+
+# (a): the five microcells at m = 4 (the cells' k) and d = 2**20, cut from
+# minitron-4b's padded d of 5.10e9: the host-staged gathers move 16 MB in
+# 46.6 ms (phase 12's transport)
+SWEEP_MICRO_D = 1 << 20
+SWEEP_MICRO_SEED = 29
+
+
+def _sweep_cells():
+    """The five microcells, wire cells first."""
+    from repro_torch.sim import sweep
+    return (sweep.WIRE_BASELINE_SCENARIO, sweep.WIRE_SIGN_SCENARIO,
+            sweep.WIRE_INT8_SCENARIO, sweep.STALE_SHARDED_SCENARIO,
+            sweep.STALE_GATHERED_SCENARIO)
+
+
+def _sweep_jobs():
+    """Phase 18's traces: (b)'s production microcells, then (a)'s five on
+    each rank of (1, MESH_RANKS)."""
+    cells = _sweep_cells()
+    return ([("sweep", name) for name in cells]
+            + [("micro", name, rank) for name in cells
+               for rank in range(MESH_RANKS)])
+
+
+def _sweep_job(job):
+    """One trace of phase 18 in a worker (``_dry_job``): ("sweep", name)
+    the cell's sweep entry at production size (``lower_any``: rank 0 of
+    (16, 16)); ("micro", name, rank) the RooflineRecord of the cell on
+    rank ``rank`` of (1, MESH_RANKS) at SWEEP_MICRO_D, as a dict."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.sim import sweep
+    ps = sweep.get_pod_scenario(job[1])
+    if job[0] == "sweep":
+        return sweep.lower_any(ps)
+    return sweep.trace_microcell(
+        ps, mesh=mesh_lib.make_mesh((1, MESH_RANKS), ("data", "model"),
+                                    rank=job[2]),
+        d_pad=SWEEP_MICRO_D).record.to_dict()
+
+
+def _direct_gather_many(xs, axes, dim, *, mesh=None):
+    """``meshctx.all_gather_many`` taken around the mesh: a direct
+    ``dist.all_gather`` on the axes' group (the same bits, uncounted)."""
+    import torch
+    import torch.distributed as dist
+    group, ranks = mesh.group(axes)
+    out = []
+    for x in xs:
+        local = x.detach().cpu().contiguous()
+        parts = [torch.empty_like(local) for _ in ranks]
+        dist.all_gather(parts, local, group=group)
+        out.append(torch.cat(parts, dim=dim).to(x.device))
+    return out
+
+
+def _sweep_rank(rank, world, device, job):
+    """Phase 18 (a) on one rank of the card: each microcell of
+    ``job["cells"]`` on this rank of the (1, world) mesh, its counts,
+    round-kernel launches and sha256 of the aggregate (a cut aggregate
+    gathered whole after the counts), then the planted fault: the
+    baseline wire with its gather taken around the mesh."""
+    import hashlib
+    import torch
+    from repro_torch.kernels.geomed import round as rk
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import meshctx
+    from repro_torch.sim import sweep
+    dev = torch.device(device)
+    line = mesh_lib.make_mesh((1, world), ("data", "model"))
+    out = {}
+
+    def run(name):
+        ps = sweep.get_pod_scenario(name)
+        with meshctx.set_mesh(line):
+            torch.cuda.synchronize()
+            line.reset_stats()
+            rk.round_aggregate_kernel.launches = 0
+            t0 = time.perf_counter()
+            res = sweep.run_microcell(ps, line, SWEEP_MICRO_D,
+                                      SWEEP_MICRO_SEED,
+                                      rc=sweep.capped_rc(ps), device=dev)
+            torch.cuda.synchronize()
+            got = {"s": time.perf_counter() - t0,
+                   "launches": rk.round_aggregate_kernel.launches,
+                   "kinds": {k: dict(v)
+                             for k, v in line.stats["kinds"].items()},
+                   "groups": dict(line.stats["groups"])}
+            agg = res["aggregate"]
+            if ps.stale and ps.grad_mode == "sharded":
+                agg = meshctx.all_gather_many([agg], "model", -1)[0]
+        agg = agg.cpu()
+        got.update(aggregate=agg, sha256=hashlib.sha256(
+            agg.numpy().tobytes()).hexdigest())
+        return got
+
+    for name in job["cells"]:
+        mark(f"sweep (a) {name}")
+        out[name] = run(name)
+        torch.cuda.empty_cache()
+    mark("sweep (a) planted fault")
+    real = meshctx.all_gather_many
+    meshctx.all_gather_many = _direct_gather_many
+    try:
+        out["fault"] = run(job["cells"][0])
+    finally:
+        meshctx.all_gather_many = real
+    return out
+
+
+def sweep_path(dev, smi, started):
+    """Phase 18 (a generator, as phase 12's), on the 4 rank processes of
+    the card, and on the host.
+    (a) The pod sweep's five microcells (sim/sweep.py: the report wire,
+    none / sign / int8, and the staleness merge, sharded / gathered) for
+    real on the (1, 4) mesh at m = 4 and d = SWEEP_MICRO_D, inputs from
+    SWEEP_MICRO_SEED, the Weiszfeld stop at the cap: on every rank the
+    collectives by kind (calls, result_bytes, wire_bytes) and the bytes
+    received by group equal the dry run of the same rank's microcell on
+    fake cuda tensors (traced in phase 17's pool); the aggregates' sha256
+    equal across ranks; the aggregate equal to one process's unsharded
+    run on the card (``torch.equal``; the sharded stale cell within RTOL
+    / ATOL of max|y|, its blocked sums in rank order); one round-kernel
+    launch a rank in each whole gmom consume (the none and int8 wires,
+    the gathered stale cell), none in the others; the baseline wire with
+    its gather taken around the mesh (a direct ``dist.all_gather``) must
+    miss the dry run's counts.
+    (b) The five at production size (minitron-4b, (16, 16), rank 0)
+    traced in the pool on fake cuda tensors: ``compare_payloads`` against
+    the port's record (src/repro_torch/sim/pod_sweeps.json) restricted to
+    them, and ``compression_wire_problems``, report no problem.
+    -> the ranks' round-kernel launches."""
+    import torch
+    from repro_torch.sim import sweep
+    t0 = time.perf_counter()
+    cells = _sweep_cells()
+    one = {}
+    for name in cells:
+        ps = sweep.get_pod_scenario(name)
+        out = sweep.run_microcell(ps, None, SWEEP_MICRO_D, SWEEP_MICRO_SEED,
+                                  rc=sweep.capped_rc(ps), device=dev)
+        one[name] = out["aggregate"].cpu()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    per_rank, ranks_s, t0 = yield from _mesh_ranks_of(
+        "_sweep_rank", ({"cells": cells},), t0)
+    _, _, futures = started
+    launches = 0
+    whole_gmom = (sweep.WIRE_BASELINE_SCENARIO, sweep.WIRE_INT8_SCENARIO,
+                  sweep.STALE_GATHERED_SCENARIO)
+    for name in cells:
+        ps = sweep.get_pod_scenario(name)
+        res = [pr[name] for pr in per_rank]
+        dry = [futures[("micro", name, r)].result()
+               for r in range(MESH_RANKS)]
+        counts_ok = [x["kinds"] == d["collective_breakdown"]
+                     and x["groups"] == {g: v["wire_bytes"] for g, v in
+                                         d["collective_groups"].items()}
+                     for x, d in zip(res, dry)]
+        same = len({x["sha256"] for x in res}) == 1
+        if ps.stale and ps.grad_mode == "sharded":
+            err, equal, scale = compare(res[0]["aggregate"], one[name])
+        else:
+            equal = bool(torch.equal(res[0]["aggregate"], one[name]))
+            err = float((res[0]["aggregate"] - one[name]).abs().max())
+            scale = float(one[name].abs().max())
+        want = 1 if name in whole_gmom else 0
+        n_launch = [x["launches"] for x in res]
+        launches += sum(n_launch)
+        ok = (all(counts_ok) and same and equal
+              and all(n == want for n in n_launch))
+        check(ok, f"sweep (a) {name}: counts {counts_ok}, ranks agree "
+                  f"{same}, vs one process {err} (max|y| {scale}), "
+                  f"launches {n_launch} (want {want} a rank)")
+        emit({"phase": "sweep", "part": "a", "scenario": name,
+              "mesh": {"data": 1, "model": MESH_RANKS},
+              "m": ps.num_groups, "d": SWEEP_MICRO_D,
+              "reduced": ["d cut from minitron-4b's padded 5.10e9 to "
+                          f"{SWEEP_MICRO_D} (host-staged gathers)"],
+              "ok": ok, "counts_equal_dry_by_rank": counts_ok,
+              "kinds": res[0]["kinds"], "groups": res[0]["groups"],
+              "ranks_agree": same, "equal_one_process": equal,
+              "max_abs_err": err, "max_abs_y": scale,
+              "launches_by_rank": n_launch,
+              "s_by_rank": [x["s"] for x in res],
+              "dry_trace_s_by_rank": [d["trace_seconds"] for d in dry],
+              "card": smi})
+    fault = [pr["fault"] for pr in per_rank]
+    base = [futures[("micro", cells[0], r)].result()
+            for r in range(MESH_RANKS)]
+    caught = all(x["kinds"] != d["collective_breakdown"]
+                 for x, d in zip(fault, base))
+    fault_same = all(torch.equal(x["aggregate"], one[cells[0]])
+                     for x in fault)
+    check(caught and fault_same,
+          f"sweep (a) planted fault: the counts miss the direct gather "
+          f"{caught}, the same bits {fault_same}")
+    emit({"phase": "sweep", "part": "a", "fault": "direct_gather",
+          "caught": caught, "aggregate_equal": fault_same,
+          "kinds_by_rank": [x["kinds"] for x in fault], "card": smi})
+    # (b) production size against the port's record
+    fresh = {"scenarios": {name: futures[("sweep", name)].result()
+                           for name in cells}}
+    record = sweep.load_record()
+    record["scenarios"] = {n: e for n, e in record["scenarios"].items()
+                           if n in fresh["scenarios"]}
+    problems, notes = sweep.compare_payloads(record, fresh)
+    problems += sweep.compression_wire_problems(fresh["scenarios"])
+    check(not problems, f"sweep (b): {problems}")
+    base_b = fresh["scenarios"][sweep.WIRE_BASELINE_SCENARIO][
+        "collective_bytes_per_device"]
+    emit({"phase": "sweep", "part": "b", "ok": not problems,
+          "problems": problems, "notes": notes,
+          "wire_reduction": {
+              codec: base_b / fresh["scenarios"][n][
+                  "collective_bytes_per_device"]
+              for codec, n in (("sign", sweep.WIRE_SIGN_SCENARIO),
+                               ("int8", sweep.WIRE_INT8_SCENARIO))},
+          "entries": fresh["scenarios"],
+          "peak_over_record": {
+              n: e["peak_memory_bytes"]
+              / record["scenarios"][n]["peak_memory_bytes"]
+              for n, e in fresh["scenarios"].items()},
+          "trace_s": {n: e["trace_seconds"]
+                      for n, e in fresh["scenarios"].items()},
+          "card": smi})
+    emit({"phase": "sweep", "seconds": time.perf_counter() - t0,
+          "references_s": ref_s, "ranks_s": ranks_s, "card": smi})
+    return launches
 
 
 def cfg_param_leaves(cfg) -> int:
@@ -6489,11 +6742,14 @@ def main() -> int:
     # and vlm families, 15 decode and the short prefill, 16 the int8 wire
     # on the mesh step and one request served on (2, 2)
     torch.cuda.empty_cache()
+    # 18 (a) the pod sweep's microcells on the same rank processes
     dry = dry_run_start()
     ((mesh_routes, sp_row), (mt_launches, mt_row),
      (fam_routes, fam_launches, fam_rows), dec_routes,
-     (whole_launches, whole_routes)) = mesh_phases(dev, hbm, smi)
+     (whole_launches, whole_routes), sweep_launches) = mesh_phases(
+        dev, hbm, smi, dry)
     main_launches += mt_launches + fam_launches + whole_launches
+    main_launches += sweep_launches
 
     # -- 17 the pod dry run held to the card (on the host) ------------------
     torch.cuda.empty_cache()

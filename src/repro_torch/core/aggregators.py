@@ -50,6 +50,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
 
+from repro_torch import _device
 from repro_torch import random as prng
 from repro_torch.core import shard_aggregation as sa
 from repro_torch.core.geometric_median import (
@@ -219,13 +220,16 @@ def mean_aggregator(stacked_grads, **_kw):
 
 
 def resolve_round_backend(round_backend: str | None, *, num_batches: int,
-                          device: torch.device, partitioned: bool = False,
+                          device: torch.device | str,
+                          partitioned: bool = False,
                           target_backend: str | None = None) -> str:
     """Map the ``round_backend`` switch to a concrete path.
 
-    ``auto``/None picks the CUDA round kernel when the gradients are on a
-    CUDA device (``target_backend``, where given, names the device type in
-    place of ``device``'s), k fits the kernel (<= ``round.MAX_BATCHES``)
+    ``auto``/None picks the CUDA round kernel when the gradients take the
+    CUDA path (``device``: ``_device.device_type`` of a leaf, so that a
+    fake trace under ``route_as`` resolves as the card would;
+    ``target_backend``, where given, names the device type in place of
+    ``device``'s), k fits the kernel (<= ``round.MAX_BATCHES``)
     and the gradients are not ``partitioned`` over param shards, and
     ``reference`` otherwise: the kernel concatenates every leaf into one
     (m, d) block, which on partitioned slices would be the gather the
@@ -289,7 +293,7 @@ def gmom_aggregator(stacked_grads, *, num_batches: int | None = None,
         return mean_aggregator(stacked_grads)
     backend = resolve_round_backend(
         round_backend, num_batches=num_batches,
-        device=tree_leaves(stacked_grads)[0].device,
+        device=_device.device_type(tree_leaves(stacked_grads)[0]),
         partitioned=sa.is_partitioned(shard_spec),
         target_backend=sa.target_backend_of(shard_spec))
     if backend != "reference":
@@ -383,8 +387,11 @@ def krum_aggregator(stacked_grads, *, num_byzantine: int = 0,
     d2 = d2 + torch.diag(torch.full((m,), torch.inf, dtype=torch.float32,
                                     device=gram.device))
     scores = torch.sum(torch.sort(d2, dim=1).values[:, :closest], dim=1)
-    winner = torch.argmin(scores)
-    return tree_map(lambda g: g[winner], stacked_grads)
+    # the winner's row, gathered on the device: a 0-d tensor index would
+    # read its value on the host (and a fake trace has none)
+    winner = torch.argmin(scores).reshape(1)
+    return tree_map(lambda g: torch.index_select(g, 0, winner)[0],
+                    stacked_grads)
 
 
 @register("norm_clip_mean",

@@ -337,7 +337,7 @@ def make_shardmap_aggregate(cfg: RobustConfig, group=None):
         means = tree_map(leaf, my_grad)
         backend = aggregators.resolve_round_backend(
             cfg.round_backend, num_batches=k,
-            device=tree_leaves(means)[0].device)
+            device=_device.device_type(tree_leaves(means)[0]))
         if backend != "reference":
             from repro_torch.kernels.geomed import round as round_kernel
             return round_kernel.round_aggregate_pytree(

@@ -231,20 +231,26 @@ def axis_group(axis: str, group):
     return meshctx.bind_axis(axis, group)
 
 
-def shard_group(spec: ShardSpec):
-    """The group carrying ``spec.axis`` (``meshctx.axis_group_of``; None:
-    the default group), checked to have ``spec.num_shards`` ranks."""
-    group = meshctx.axis_group_of(spec.axis)
-    world = dist.get_world_size(group)
+def _place(spec: ShardSpec):
+    """(group, index) of this rank on ``spec.axis`` (``meshctx.axis_place``;
+    group None: the default group), the group checked to have
+    ``spec.num_shards`` ranks."""
+    group, world, index = meshctx.axis_place(spec.axis)
     if world != spec.num_shards:
         raise ValueError(f"ShardSpec.num_shards={spec.num_shards} but the "
                          f"{spec.axis!r} group has {world} ranks")
-    return group
+    return group, index
+
+
+def shard_group(spec: ShardSpec):
+    """The group carrying ``spec.axis``, checked to have
+    ``spec.num_shards`` ranks."""
+    return _place(spec)[0]
 
 
 def shard_index(spec: ShardSpec) -> int:
     """This rank's shard: its rank in the axis's group."""
-    return dist.get_rank(shard_group(spec))
+    return _place(spec)[1]
 
 
 def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:

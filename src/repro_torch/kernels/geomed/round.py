@@ -506,12 +506,15 @@ def _linreg_library() -> ctypes.CDLL:
     return lib
 
 
+def _grouping_arrays(grouping: Grouping):
+    offsets, members = batch_members_csr(grouping)
+    return offsets, members, np.asarray(grouping.batch_sizes, np.float32)
+
+
 @functools.lru_cache(maxsize=32)
 def _grouping_tensors(grouping: Grouping, device: torch.device):
-    offsets, members = batch_members_csr(grouping)
-    bsz = np.asarray(grouping.batch_sizes, np.float32)
     return tuple(torch.as_tensor(a, device=device)
-                 for a in (offsets, members, bsz))
+                 for a in _grouping_arrays(grouping))
 
 
 @functools.lru_cache(maxsize=None)
@@ -530,9 +533,13 @@ def _blocks_per_sm(lib, prefix: str, k: int) -> int:
 
 def _grouping_on(grouping: Grouping, device: torch.device):
     """``_grouping_tensors``, uncached under a fake trace (a fake tensor
-    must never reach a real call through the cache)."""
+    must never reach a real call through the cache) and copied there on
+    any device: the card holds a copy of each array, which ``as_tensor``
+    on the CPU does not make, so that a trace routed as CUDA counts the
+    card's bytes."""
     if _device.tracing():
-        return _grouping_tensors.__wrapped__(grouping, device)
+        return tuple(torch.as_tensor(a).to(device, copy=True)
+                     for a in _grouping_arrays(grouping))
     return _grouping_tensors(grouping, device)
 
 

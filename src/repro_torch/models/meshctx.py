@@ -264,6 +264,18 @@ def axis_group_of(axis: str):
     return _BOUND.get().get(axis)
 
 
+def axis_place(axis: str):
+    """(group, size, this rank's index) of the group carrying ``axis``
+    (``axis_group_of``): the ambient mesh's count and index where it has
+    the axis (an abstract mesh's groups take no ``torch.distributed``
+    call), else the bound group's."""
+    mesh = current_mesh()
+    if mesh is not None and axis in mesh.axis_names:
+        return mesh.group(axis)[0], mesh.size(axis), mesh.index(axis)
+    group = _BOUND.get().get(axis)
+    return group, dist.get_world_size(group), dist.get_rank(group)
+
+
 @contextlib.contextmanager
 def bind_axis(axis: str, group):
     """Bind ``axis`` to ``group`` for a ``with`` block.  Under a mesh that

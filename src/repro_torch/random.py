@@ -97,21 +97,34 @@ def split(key, num: int = 2):
 DRAW_CHUNK = 1 << 22
 
 
-def _check_size(size: int) -> None:
-    if size >= _MASK:
-        raise NotImplementedError(
-            "more than 2**32 - 1 random words in one draw")
+# the most words one counter run draws: a draw of n >= _BLOCK_WORDS words
+# is, as in JAX's original threefry scheme, blocks of _BLOCK_WORDS words,
+# block j from key j of split(key, blocks + 1), the remainder from the
+# last key
+_BLOCK_WORDS = _MASK
 
 
 def _draw(key, shape, fn):
-    """``fn(words)`` of ``bits(key, shape)``, ``DRAW_CHUNK`` pairs of
-    counters at a time: ``threefry_2x32``'s pair j (counters j and j + h,
-    h = ceil(n / 2), a partner equal to n the odd count's zero pad) gives
-    words j and j + h, so a draw holds its output and one chunk's
-    temporaries, never the whole count's."""
+    """``fn(words)`` of ``bits(key, shape)``: the whole count's draw, or
+    its blocks (``_BLOCK_WORDS``) side by side."""
     shape = tuple(shape)
     n = math.prod(shape)
-    _check_size(n)
+    nblocks, rem = divmod(n, _BLOCK_WORDS)
+    if not nblocks:
+        return _draw_run(key, n, fn).reshape(shape)
+    keys = split(key, nblocks + 1)
+    parts = [_draw_run(keys[j], _BLOCK_WORDS, fn) for j in range(nblocks)]
+    if rem:
+        parts.append(_draw_run(keys[nblocks], rem, fn))
+    return torch.cat(parts).reshape(shape)
+
+
+def _draw_run(key, n: int, fn):
+    """``fn(words)`` of one counter run of ``n`` words, ``DRAW_CHUNK``
+    pairs of counters at a time: ``threefry_2x32``'s pair j (counters j
+    and j + h, h = ceil(n / 2), a partner equal to n the odd count's zero
+    pad) gives words j and j + h, so a draw holds its output and one
+    chunk's temporaries, never the whole count's."""
     half = (n + 1) // 2
     out = None
     for lo in range(0, half, DRAW_CHUNK):
@@ -127,7 +140,7 @@ def _draw(key, shape, fn):
         out[half + lo:half + lo + second.numel()] = second
     if out is None:
         out = fn(torch.zeros(0, dtype=torch.int64, device=key.device))
-    return out.reshape(shape)
+    return out
 
 
 def bits(key, shape):
@@ -150,16 +163,33 @@ def _words_at(key, n: int, index):
     return torch.where(first, y0, y1)
 
 
+def _block_words_at(key, n: int, index):
+    """``_words_at`` of a draw of ``n`` words that may be blocks
+    (``_BLOCK_WORDS``): each index's word from its block's key."""
+    nblocks, rem = divmod(n, _BLOCK_WORDS)
+    if not nblocks:
+        return _words_at(key, n, index)
+    keys = split(key, nblocks + 1)
+    block = torch.div(index, _BLOCK_WORDS, rounding_mode="floor")
+    at = index - block * _BLOCK_WORDS
+    out = torch.zeros_like(index)
+    for j in range(nblocks + (1 if rem else 0)):
+        sel = block == j
+        words = _words_at(keys[j], _BLOCK_WORDS if j < nblocks else rem,
+                          torch.where(sel, at, torch.zeros_like(at)))
+        out = torch.where(sel, words, out)
+    return out
+
+
 def _draw_at(key, shape, index, fn):
     """``fn(words)`` at the flat ``index`` of a draw of ``shape``, taken
     ``DRAW_CHUNK`` indices at a time into an output of ``index``'s
     shape."""
     n = math.prod(tuple(shape))
-    _check_size(n)
     flat = index.reshape(-1).to(torch.int64)
     out = None
     for lo in range(0, flat.numel(), DRAW_CHUNK):
-        part = fn(_words_at(key, n, flat[lo:lo + DRAW_CHUNK]))
+        part = fn(_block_words_at(key, n, flat[lo:lo + DRAW_CHUNK]))
         if out is None:
             out = torch.empty(flat.numel(), dtype=part.dtype,
                               device=part.device)

@@ -4,6 +4,13 @@
     trace = sim.run_scenario("linreg/gmom/sign_flip/stealth_then_strike")
 
 runs on the CUDA card; pass ``device="cpu"`` for the CPU.
+
+The production-mesh counterpart is ``repro_torch.sim.sweep``: the same
+attack × schedule × aggregator matrix bound to (arch, shape, mesh) triples
+(``PodScenario``), each cell one rank's program traced on fake tensors on
+the 16×16 / 2×16×16 meshes, its collective costs gated against the port's
+record ``src/repro_torch/sim/pod_sweeps.json``
+(``python -m repro_torch.sim.sweep --check``).
 """
 
 from repro_torch.sim.engine import (  # noqa: F401

@@ -31,22 +31,23 @@ def leaves(tree) -> list:
     return [leaf for kid in kids for leaf in leaves(kid)]
 
 
+def _build(tree, it):
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_build(getattr(tree, f), it)
+                            for f in tree._fields])
+    if isinstance(tree, dict):
+        new = {k: _build(tree[k], it) for k in sorted(tree)}
+        return {k: new[k] for k in tree}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_build(v, it) for v in tree)
+    return next(it)
+
+
 def unflatten(template, new_leaves):
     """``template`` with its leaves replaced by ``new_leaves`` (given in
-    ``leaves``' order); dicts keep the template's insertion order."""
-    it = iter(new_leaves)
-
-    def build(tree):
-        if tree is None:
-            return None
-        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-            return type(tree)(*[build(getattr(tree, f))
-                                for f in tree._fields])
-        if isinstance(tree, dict):
-            new = {k: build(tree[k]) for k in sorted(tree)}
-            return {k: new[k] for k in tree}
-        if isinstance(tree, (tuple, list)):
-            return type(tree)(build(v) for v in tree)
-        return next(it)
-
-    return build(template)
+    ``leaves``' order); dicts keep the template's insertion order.  (A
+    module-level walk: a self-recursive closure would hold ``new_leaves``
+    in a reference cycle until the garbage collector ran.)"""
+    return _build(template, iter(new_leaves))

@@ -72,6 +72,23 @@ def test_tree_order_is_jax_order():
     assert rebuilt == {"z": 3, "a": {"y": 1, "b": 0}, "m": 2}
 
 
+def test_unflatten_holds_no_leaf_once_dropped():
+    """The rebuilt tree's leaves are freed with it, by reference count:
+    nothing of the walk keeps ``new_leaves`` in a reference cycle."""
+    import gc
+    import weakref
+    leaf = torch.zeros(3)
+    ref = weakref.ref(leaf)
+    gc.disable()
+    try:
+        rebuilt = jtree.unflatten(_tree(0), [leaf] + [torch.ones(1)] * 3)
+        del rebuilt, leaf
+        freed = ref() is None
+    finally:
+        gc.enable()
+    assert freed
+
+
 EDGE = np.array([[0.0, -0.0, 1e-45, -1e-45, np.inf, -np.inf, 1e38,
                   -1e-38, 5e-324, -5e-324, 3.0]], np.float32)
 

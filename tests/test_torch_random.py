@@ -6,6 +6,7 @@ with; normals go through erfinv, whose torch and XLA versions differ by a
 few ulps (atol 1e-5)."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -162,9 +163,55 @@ def test_draws_at_indices_never_allocate_the_whole_draw(monkeypatch):
     assert torch.equal(got, tr.uniform(tk, (1 << 20,))[idx])
 
 
-def test_draws_at_indices_refuse_what_bits_refuses():
-    with pytest.raises(NotImplementedError, match="2\\*\\*32"):
-        tr.bits_at(tr.PRNGKey(0), (1 << 16, 1 << 16), torch.arange(3))
+@pytest.mark.parametrize("n", [7, 20, 21, 22])
+def test_draws_at_indices_refuse_what_bits_refuses(monkeypatch, n):
+    """``bits_at`` refuses what ``bits`` refuses, which past one counter
+    run is nothing now: at a block of 7 words (JAX's is 2**32 - 1), both
+    draw it, ``bits`` as the blocks of ``split(key, blocks + 1)``'s keys
+    side by side, the remainder from the last, and ``bits_at`` as
+    ``bits`` at every index (the real block size against JAX:
+    ``test_draws_past_one_counter_run_are_jax_blocks``)."""
+    monkeypatch.setattr(tr, "_BLOCK_WORDS", 7)
+    tk = tr.PRNGKey(n)
+    nblocks, rem = divmod(n, 7)
+    keys = tr.split(tk, nblocks + 1)
+    want = torch.cat([tr._draw_run(keys[j], 7, lambda w: w)
+                      for j in range(nblocks)]
+                     + [tr._draw_run(keys[nblocks], rem, lambda w: w)])
+    whole = tr.bits(tk, (n,))
+    assert torch.equal(whole, want)
+    idx = torch.arange(n - 1, -1, -1)
+    assert torch.equal(tr.bits_at(tk, (n,), idx), whole[idx])
+    assert torch.equal(tr.uniform_at(tk, (n,), idx),
+                       tr.uniform(tk, (n,))[idx])
+
+
+def test_draws_past_one_counter_run_are_jax_blocks():
+    """Words of a draw of 2**32 - 1 + 5 words at the real block size,
+    against JAX's original scheme's pieces: the first block's words from
+    ``threefry_2x32`` of split key 0 at their counter pairs, the
+    remainder's from the last key's run of 5."""
+    from jax._src import prng as jprng
+    block = 2 ** 32 - 1
+    n = block + 5
+    jk, tk = jax.random.PRNGKey(3), tr.PRNGKey(3)
+    jkeys = jprng.threefry_split(jk, (2,))
+    half = (block + 1) // 2
+
+    def pair(i):
+        # word i's counter pair; the odd run's last partner is its zero pad
+        return ([i, i + half if i + half < block else 0] if i < half
+                else [i - half, i])
+
+    first = [int(jprng.threefry_2x32(jkeys[0], jnp.asarray(
+        pair(i), jnp.uint32))[0 if i < half else 1])
+        for i in (0, 5, half - 1, half, block - 1)]
+    last = _np(jprng.threefry_2x32(jkeys[1],
+                                   jnp.arange(5, dtype=jnp.uint32)))
+    idx = torch.tensor([0, 5, half - 1, half, block - 1]
+                       + [block + i for i in range(5)])
+    got = tr.bits_at(tk, (n,), idx).tolist()
+    assert got == first + [int(x) for x in last]
 
 
 @pytest.mark.parametrize("chunk", [1, 5, 64])

@@ -19,6 +19,15 @@ Weiszfeld loops run with ``gmom_tol`` 0, so they stop only at the cap,
 where the dry run's stop also lies (``_device.host_value``); the real
 run's count of stop reads is returned to show it.
 
+A case with ``sweep`` names a cell of the pod sweep
+(``repro_torch.sim.sweep``): a train-step cell runs the group step built
+from its ``PodScenario.robust_config()`` (the stop at the cap only) and
+``build_schedule()``, at the case's reduced config and shape; a
+microcell (the report wire, the staleness merge) runs its rank program
+on the rank's column block of a report of ``d`` coordinates drawn from a
+seed with numpy (``sweep.run_microcell``), and returns its outputs
+beside the counts.
+
 A case with ``fault`` "direct_gather" runs the real step with
 ``core.shard_aggregation.all_gather`` taken back to a direct
 ``dist.all_gather`` on the group (the same bits, outside the mesh's
@@ -29,7 +38,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 import torch.distributed as dist
 from torch.utils.flop_counter import FlopCounterMode
@@ -42,6 +50,7 @@ from repro_torch.launch import dryrun, sharding, steps
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import meshctx
 from repro_torch.models import model as model_lib
+from repro_torch.sim import sweep
 
 OVERRIDES = {"granite-moe-1b-a400m": {"moe_capacity_factor": 8.0}}
 
@@ -99,14 +108,20 @@ def _real(case, mesh, cfg, shape):
             else:
                 gshard = sharding.stacked_grad_shardings(full, mesh, cfg)
                 spec = sharding.grad_shard_spec(mesh, cfg)
+            ps = (sweep.get_pod_scenario(case["sweep"]) if "sweep" in case
+                  else None)
+            schedule = ps.build_schedule() if ps is not None else None
+            rc = sweep.capped_rc(ps) if ps is not None else train_rc(k)
             step = steps.make_group_train_step(
-                cfg, train_rc(k), opt, microbatches=case["microbatches"],
-                grad_shardings=gshard, shard_spec=spec,
-                param_shardings=specs)
+                cfg, rc, opt,
+                microbatches=case["microbatches"], grad_shardings=gshard,
+                shard_spec=spec, param_shardings=specs, schedule=schedule)
             key = prng.PRNGKey(0)
+            extra = (() if schedule is None
+                     else (schedule.init_state(torch.device("cpu")),))
 
             def run():
-                return step(storage, opt_state, batch, key, 0)
+                return step(storage, opt_state, batch, key, 0, *extra)
         elif shape.kind == "prefill":
             batch = sharding.local_batch(
                 {"tokens": _tokens(cfg, shape, (B, T), 12)}, mesh, cfg)
@@ -151,32 +166,60 @@ def _real(case, mesh, cfg, shape):
 _REAL_ALL_GATHER = sa.all_gather
 
 
+def _real_microcell(case, mesh):
+    ps = sweep.get_pod_scenario(case["sweep"])
+    mesh.reset_stats()
+    with meshctx.set_mesh(mesh), FlopCounterMode(display=False) as flops:
+        out = sweep.run_microcell(ps, mesh, case["d"], case["seed"],
+                                  rc=sweep.capped_rc(ps), device="cpu")
+    return (mesh.stats["kinds"], mesh.stats["groups"],
+            flops.get_total_flops(), out)
+
+
 def dry_vs_real(rank, world, shape, axes, cases):
     """Each case of ``cases`` on this rank of the (``shape``, ``axes``)
-    mesh, real and dry -> [{"real": ..., "dry": ..., "reads": n}]."""
+    mesh, real and dry -> [{"real": ..., "dry": ..., "reads": n}] (a
+    microcell's with its ``outputs``)."""
     torch.manual_seed(0)
     mesh = mesh_lib.make_mesh(shape, axes)
     out = []
     for case in cases:
+        if "d" in case:
+            kinds, groups, flops, outputs = _real_microcell(case, mesh)
+            rec = sweep.trace_microcell(
+                sweep.get_pod_scenario(case["sweep"]),
+                mesh=mesh_lib.make_mesh(shape, axes, rank=rank),
+                d_pad=case["d"], device="cpu").record
+            out.append({"real": {"kinds": kinds, "groups": groups,
+                                 "flops": flops},
+                        "dry": _dry_counts(rec), "outputs": outputs,
+                        "seconds": rec.trace_seconds})
+            continue
         cfg = config(case["arch"])
         ishape = InputShape(**case["shape"])
         kinds, groups, flops, reads = _real(case, mesh, cfg, ishape)
         res = {"real": {"kinds": kinds, "groups": groups, "flops": flops},
                "reads": reads}
         if not case.get("fault"):
+            ps = (sweep.get_pod_scenario(case["sweep"]) if "sweep" in case
+                  else None)
             art = dryrun.lower_pair(
                 cfg, ishape, mesh=mesh_lib.make_mesh(shape, axes, rank=rank),
                 num_groups=case.get("k", 4),
                 microbatches=case.get("microbatches", 1),
-                rc=train_rc(case.get("k", 4)),
+                rc=(ps.robust_config() if ps is not None
+                    else train_rc(case.get("k", 4))),
+                schedule=ps.build_schedule() if ps is not None else None,
                 gather_grads=case.get("variant") == "gathered",
                 device="cpu", verbose=False)
-            rec = art.record
-            res["dry"] = {
-                "kinds": rec.collective_breakdown,
-                "groups": {g: v["wire_bytes"]
-                           for g, v in rec.collective_groups.items()},
-                "flops": int(rec.flops_per_device)}
+            res["dry"] = _dry_counts(art.record)
             res["seconds"] = art.trace_seconds
         out.append(res)
     return out
+
+
+def _dry_counts(rec):
+    return {"kinds": rec.collective_breakdown,
+            "groups": {g: v["wire_bytes"]
+                       for g, v in rec.collective_groups.items()},
+            "flops": int(rec.flops_per_device)}
