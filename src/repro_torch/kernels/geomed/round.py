@@ -72,6 +72,10 @@ from repro_torch.kernels.geomed.twin import (block_moves, block_partials,
                                              reduce_partials, sequential,
                                              sqrt_rn)
 
+# repro_torch: bit-stable — the twins replay the kernels bit for bit on
+# their grid (tests/test_torch_round_kernel.py): keep the op sequence, no
+# torch.sum/.mean over the member axis (repro_torch.verify RV101/RV105).
+
 # The largest k the round kernels take (``gmom_round_max_batches``).
 MAX_BATCHES = 64
 SOURCE = Path(__file__).resolve().parent / "csrc" / "round_aggregate.cu"
@@ -214,6 +218,7 @@ def linreg_round_ref(features, targets, theta, grouping: Grouping, *,
     r = -targets.to(torch.float32)
     for t in tiles:
         r = r + x[:, :, t] @ theta_p[t]
+    # repro_torch: ignore[RV105] r and x are float32 (cast above)
     z = torch.cat([(s @ (torch.bmm(r[:, None, :], x[:, :, t])[:, 0, :]
                          * inv_n)) / bsz for t in tiles], dim=1)
     return _trim_weiszfeld(z, d, trim_multiplier=trim_multiplier,
@@ -231,6 +236,7 @@ def linreg_round_fused(features, targets, theta, grouping: Grouping, *,
     x = features.to(torch.float32)
     s, bsz = _membership(grouping, x.device)
     r = x @ theta.to(torch.float32) - targets.to(torch.float32)   # (m, n)
+    # repro_torch: ignore[RV105] r and x are float32 (cast above)
     g = torch.bmm(r[:, None, :], x)[:, 0, :] * (1.0 / n)         # (m, d)
     z = (s @ g) / bsz
     return _trim_weiszfeld(z, d, trim_multiplier=trim_multiplier,

@@ -48,10 +48,16 @@ their bytes and their milliseconds (the staging included), and by kind
 (``KINDS``) their calls, ``result_bytes`` (the collective's result a
 rank, the reference's convention: a psum's is one part) and
 ``wire_bytes`` (what the transport received: a psum gathers its n parts);
-``Mesh.reset_stats`` zeroes it.  ``Mesh.abstract(shape, axes, rank)`` is
-one rank's view of a mesh with no process group: the dry run
-(``launch.dryrun``) traces that rank's program on fake tensors through
-its transport, which moves no bytes and counts as a real one does.
+``Mesh.reset_stats`` zeroes it.  ``Mesh.log_calls`` keeps, while it is
+on, one ``CollectiveCall`` a collective: its kind, axes, received shape
+and dtype, and wire bytes (off unless asked for; ``repro_torch.verify``
+compares a traced rank's log with real ranks').  ``Mesh.abstract(shape,
+axes, rank)`` is one rank's view of a mesh with no process group: the
+dry run (``launch.dryrun``) traces that rank's program on fake tensors
+through its transport, which moves no bytes and counts as a real one
+does; its exchange is the op ``repro_torch::mesh_transfer`` (a fake
+implementation only), so that a traced graph holds each collective with
+the rank's local bytes as its operand.
 
 The mesh also carries the one registry of axis groups:
 ``core.shard_aggregation`` reads an axis's group through
@@ -77,6 +83,7 @@ import mmap
 import os
 import platform
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -146,6 +153,7 @@ class Mesh:
         self.shape = dict(zip(axis_names, shape))
         self.stats = {}
         self.reset_stats()
+        self.log = None
         self.rank = rank
         coords, r = [], self.rank
         for size in reversed(shape):
@@ -171,6 +179,16 @@ class Mesh:
                         group = new_group(ranks)
                     if self.rank in ranks:
                         self._groups[axes] = (group, tuple(ranks))
+
+    @contextlib.contextmanager
+    def log_calls(self):
+        """For a ``with`` block, record every collective of this mesh as a
+        ``CollectiveCall`` in the list it yields, in call order."""
+        self.log = log = []
+        try:
+            yield log
+        finally:
+            self.log = None
 
     def reset_stats(self) -> None:
         """Zero the count of collectives, their bytes and milliseconds,
@@ -218,6 +236,21 @@ class Mesh:
 # the kinds of collective ``Mesh.stats`` counts: a gather, a sum on every
 # rank, a sum scattered, and an exchange of blocks
 KINDS = ("all_gather", "psum", "psum_scatter", "all_to_all")
+
+
+class CollectiveCall(NamedTuple):
+    """One collective of a mesh's log: its kind (``KINDS``), the axes of
+    its group, the shape and dtype of what this rank received (a gather's
+    (n, *part), an exchange's (n, *block)) and the bytes received."""
+    kind: str
+    axes: tuple
+    shape: tuple
+    dtype: str
+    wire_bytes: int
+
+    @property
+    def elements(self) -> int:
+        return math.prod(self.shape)
 
 
 def _check_shape(shape, axis_names):
@@ -425,9 +458,7 @@ def _transfer(x, mesh, axes, exchange: str, kind: str, result_bytes: int):
                                "tensors only (a dry trace); got a real "
                                f"{x.device} tensor")
         local = _as_bytes(x.detach())
-        shape = (n, local.numel()) if exchange == "gather" \
-            else (local.numel(),)
-        out = torch.empty(shape, dtype=torch.uint8, device=x.device)
+        out = torch.ops.repro_torch.mesh_transfer(local, n, exchange)
     else:
         local = _as_bytes(x.detach().cpu() if x.is_cuda else x.detach())
         out = (_gather_bytes if exchange == "gather"
@@ -444,7 +475,28 @@ def _transfer(x, mesh, axes, exchange: str, kind: str, result_bytes: int):
     groups = mesh.stats["groups"]
     key = ",".join(axes)
     groups[key] = groups.get(key, 0) + out.numel()
+    if mesh.log is not None:
+        shape = (n, *x.shape) if exchange == "gather" else tuple(x.shape)
+        mesh.log.append(CollectiveCall(
+            kind, tuple(axes), tuple(int(s) for s in shape),
+            str(x.dtype).removeprefix("torch."), int(out.numel())))
     return out
+
+
+@torch.library.custom_op("repro_torch::mesh_transfer", mutates_args=())
+def _mesh_transfer(local: torch.Tensor, n: int,
+                   exchange: str) -> torch.Tensor:
+    """An abstract mesh's exchange of ``local``'s bytes over ``n`` ranks
+    (``_transfer``): a fake trace's collective, with no real
+    implementation."""
+    raise RuntimeError("repro_torch::mesh_transfer is an abstract mesh's "
+                       "collective: it runs only on fake tensors")
+
+
+@_mesh_transfer.register_fake
+def _(local, n, exchange):
+    return local.new_empty((n, local.numel()) if exchange == "gather"
+                           else (local.numel(),))
 
 
 # the directory of the local transport's files (None: the group's backend)

@@ -36,9 +36,11 @@ from torch.utils.flop_counter import flop_registry
 # metadata queries, which read no tensor data
 _METADATA = {torch.ops.prim.device.default}
 
-# allocations whose result holds nothing yet: no bytes written
+# allocations whose result holds nothing yet: no bytes written; and an
+# abstract mesh's collective (``models.meshctx``), which the mesh's stats
+# count and which moves no bytes of the device
 _NO_WRITE = {"empty", "empty_strided", "empty_like", "new_empty",
-             "new_empty_strided"}
+             "new_empty_strided", "mesh_transfer"}
 
 
 def _round_scratch(args) -> int:
